@@ -1,0 +1,98 @@
+// Shared pieces of the half-band kernels (sym_dia.cu, sym_fused.cu).
+//
+// Storage: data[d, i] = A[i, i + off_d] for the stored offsets off_0 = 0 <
+// off_1 < ... (main + upper diagonals), row-major (ndiag, n), explicit zeros
+// past the matrix edge.  The half-band h is the largest stored offset.
+//
+// Both kernels give each block a tile of kTile rows [i0, i0 + kTile) and one
+// thread per row.  Blocks run in no order, so a block cannot inherit the
+// mirror term data[d, i - off] * v[i - off] from its neighbour (the TPU
+// kernels carry it across a sequential grid in a spill scratch).  Instead
+// every block stages what its rows need in shared memory:
+//   data[:, i0 - h : i0 + kTile)      (ndiag * (kTile + h) values)
+//   v[i0 - h : i0 + kTile + h)        (kTile + 2h values per right-hand side)
+// so the band is read from device memory (1 + h / kTile) times, about once.
+// Rows outside [0, n) are staged as zeros: they contribute nothing, and no
+// load goes out of bounds.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ncgv {
+
+constexpr int kTile = 256;       // rows per block == threads per block
+constexpr int kMaxDiags = 256;   // stored diagonals a launch can take
+
+// The stored offsets, passed by value as a kernel parameter.  Each block
+// copies them to shared memory first (load_offsets), so the loop over the
+// diagonals indexes shared memory, not the parameter block.
+struct Offsets {
+  int off[kMaxDiags];
+};
+
+__device__ __forceinline__ void load_offsets(const Offsets& o, int ndiag,
+                                             int* soff) {
+  for (int d = threadIdx.x; d < ndiag; d += blockDim.x) soff[d] = o.off[d];
+}
+
+// Stage data[:, i0 - h : i0 + kTile) into sdata (row stride kTile + h).
+template <typename T>
+__device__ __forceinline__ void load_band(const T* __restrict__ data,
+                                          int ndiag, int h, long long n,
+                                          long long i0, T* sdata) {
+  const int dw = kTile + h;
+  const int total = ndiag * dw;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int d = idx / dw;
+    const long long g = i0 - h + (idx - d * dw);
+    sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+  }
+}
+
+// Stage v[i0 - h : i0 + kTile + h) into sv.
+template <typename T>
+__device__ __forceinline__ void load_window(const T* __restrict__ v, int h,
+                                            long long n, long long i0,
+                                            T* sv) {
+  const int vw = kTile + 2 * h;
+  for (int j = threadIdx.x; j < vw; j += blockDim.x) {
+    const long long g = i0 - h + j;
+    sv[j] = (g >= 0 && g < n) ? v[g] : T(0);
+  }
+}
+
+// (A v)[i0 + t] from the staged band and window.  Same term order as the
+// plain version (sym_dia.py:_mv_plain): main, then per diagonal the forward
+// term data[d, i] v[i + off] and the mirror term data[d, i - off] v[i - off].
+template <typename T>
+__device__ __forceinline__ T sym_row(const T* sdata, const T* sv, int ndiag,
+                                     int h, const int* soff, int t) {
+  const int dw = kTile + h;
+  const int c = t + h;  // row i0 + t in window coordinates
+  T acc = sdata[c] * sv[c];
+  for (int d = 1; d < ndiag; ++d) {
+    const int off = soff[d];
+    const T* row = sdata + d * dw;
+    acc += row[c] * sv[c + off];
+    acc += row[c - off] * sv[c - off];
+  }
+  return acc;
+}
+
+// Copy the host offsets into the by-value parameter block.
+inline bool fill_offsets(const int* host, int ndiag, Offsets* o) {
+  if (ndiag < 1 || ndiag > kMaxDiags) return false;
+  for (int d = 0; d < ndiag; ++d) o->off[d] = host[d];
+  return true;
+}
+
+// Kernels above 48 KB of dynamic shared memory must opt in first.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
+}
+
+}  // namespace ncgv

@@ -1,0 +1,103 @@
+// Half-band symmetric SpMV, y = A v (1 right-hand side) or (A v, A w) (2).
+//
+// Replaces the TPU kernel new_cg_variants_tpu/ops/sym_dia.py:_sym_kernel
+// (entry points sym_dia_spmv / sym_dia_spmv2).
+//
+// What bounds it on an H100: device-memory bytes.  Per call it must read the
+// band (ndiag * n values) and each right-hand side once and write each result
+// once; at n = 655,360, ndiag = 32, f32 that is 89.1 MB (1 RHS) or 94.4 MB
+// (2 RHS), about 27 / 28 us at 3.35 TB/s.  The arithmetic (4 operations per
+// stored value per RHS) is two orders of magnitude below the f32 peak, and the
+// band is larger than the 50 MB L2, so nothing stays resident between calls.
+//
+// What the design does about it: each block stages its band window and vector
+// window in shared memory once (sym_common.cuh) and every product then reads
+// shared memory, so the band crosses the memory bus (1 + h / 256) times and is
+// shared by both right-hand sides.  One thread per row, 256 rows per block,
+// thousands of blocks in flight hide the load latency.  No wgmma or TMA: a
+// later change may pipeline the staging.
+
+#include "sym_common.cuh"
+
+namespace ncgv {
+
+template <typename T, int NRHS>
+__global__ void __launch_bounds__(kTile)
+    sym_dia_kernel(const T* __restrict__ data, const __grid_constant__ Offsets o,
+                   int ndiag, int h, long long n, const T* __restrict__ v0,
+                   const T* __restrict__ v1, T* __restrict__ y0,
+                   T* __restrict__ y1) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int soff[kMaxDiags];
+  T* sdata = reinterpret_cast<T*>(smem);
+  T* sv0 = sdata + size_t(ndiag) * (kTile + h);
+  T* sv1 = sv0 + (kTile + 2 * h);
+  const long long i0 = (long long)blockIdx.x * kTile;
+
+  load_offsets(o, ndiag, soff);
+  load_band(data, ndiag, h, n, i0, sdata);
+  load_window(v0, h, n, i0, sv0);
+  if (NRHS == 2) load_window(v1, h, n, i0, sv1);
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  const long long i = i0 + t;
+  if (i < n) {
+    y0[i] = sym_row(sdata, sv0, ndiag, h, soff, t);
+    if (NRHS == 2) y1[i] = sym_row(sdata, sv1, ndiag, h, soff, t);
+  }
+}
+
+template <typename T>
+int launch_sym_dia(const void* data, const int* offsets, int ndiag, int h,
+                   long long n, const void* v0, const void* v1, void* y0,
+                   void* y1, int nrhs, int device, void* stream) {
+  Offsets o;
+  if (!fill_offsets(offsets, ndiag, &o) || n <= 0 || h < 0 ||
+      (nrhs != 1 && nrhs != 2))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const size_t smem =
+      (size_t(ndiag) * (kTile + h) + size_t(nrhs) * (kTile + 2 * h)) *
+      sizeof(T);
+  const unsigned grid = unsigned((n + kTile - 1) / kTile);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* d = static_cast<const T*>(data);
+  const T* a = static_cast<const T*>(v0);
+  const T* b = static_cast<const T*>(v1);
+  T* ya = static_cast<T*>(y0);
+  T* yb = static_cast<T*>(y1);
+  if (nrhs == 1) {
+    err = allow_smem(sym_dia_kernel<T, 1>, smem);
+    if (err != cudaSuccess) return int(err);
+    sym_dia_kernel<T, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,
+                                                    ya, yb);
+  } else {
+    err = allow_smem(sym_dia_kernel<T, 2>, smem);
+    if (err != cudaSuccess) return int(err);
+    sym_dia_kernel<T, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,
+                                                    ya, yb);
+  }
+  return int(cudaGetLastError());
+}
+
+}  // namespace ncgv
+
+extern "C" {
+
+int sym_dia_spmv_f32(const void* data, const int* offsets, int ndiag, int h,
+                     long long n, const void* v0, const void* v1, void* y0,
+                     void* y1, int nrhs, int device, void* stream) {
+  return ncgv::launch_sym_dia<float>(data, offsets, ndiag, h, n, v0, v1, y0,
+                                     y1, nrhs, device, stream);
+}
+
+int sym_dia_spmv_f64(const void* data, const int* offsets, int ndiag, int h,
+                     long long n, const void* v0, const void* v1, void* y0,
+                     void* y1, int nrhs, int device, void* stream) {
+  return ncgv::launch_sym_dia<double>(data, offsets, ndiag, h, n, v0, v1, y0,
+                                      y1, nrhs, device, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,76 @@
+"""Solver loops: fixed-length history runs and tolerance solves.
+
+:func:`history_scan` — ``length`` states (row 0 = initial state, rows 1..
+after each step) with probe rows captured as device tensors; nothing is read
+back to the host until the loop has ended.
+
+:func:`tolerance_loop` — iterate until the norm falls below the tolerance or
+``max_iter`` is reached.  It reads the norm back once per iteration (one host
+sync), so it stops at exactly the iteration the JAX ``while_loop`` stops at;
+``norm_type='none'`` runs ``max_iter`` steps with no sync at all.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["history_scan", "tolerance_loop"]
+
+
+def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux):
+    """Run ``length`` states (init + length-1 steps), stacking probe rows.
+
+    Returns ``(final_state, {name: stacked tensor})``.
+    """
+    state = init_fn(ctx, b, x0)
+
+    def probe_row(s):
+        return {name: fn(ctx, s, aux) for name, fn in probe_fns.items()}
+
+    rows = [probe_row(state)]
+    for _ in range(length - 1):
+        state = step_fn(ctx, state)
+        rows.append(probe_row(state))
+    hist = {name: torch.stack([row[name] for row in rows])
+            for name in probe_fns}
+    return state, hist
+
+
+def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
+                   norm_type):
+    """Iterate until ``sqrt(nu)`` falls below tol or max_iter hits.
+
+    For the unpreconditioned variants ported here the three norm types
+    coincide with ``sqrt(nu)`` (there ``nu = r.r``), and the tolerance is
+    ``max(rtol * ||b||, atol)`` (PETSc KSPConvergedDefault semantics).
+
+    Returns ``(state, iterations, norm, tol)`` with ``norm`` and ``tol`` as
+    0-d tensors.
+    """
+    if norm_type not in ("natural", "unpreconditioned", "preconditioned",
+                         "none"):
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    if ctx.has_prec:
+        raise NotImplementedError(
+            "preconditioned solves are not ported yet (ROADMAP.md)")
+
+    def iter_norm(s):
+        if norm_type == "none":
+            return torch.zeros((), dtype=s["nu"].dtype, device=s["nu"].device)
+        return torch.sqrt(torch.abs(s["nu"]))
+
+    state = init_fn(ctx, b, x0)
+    (bb,) = ctx.dots((b, ctx.prec(b)))
+    tol = torch.clamp(rtol * torch.sqrt(torch.abs(bb)), min=atol).to(b.dtype)
+    if norm_type == "none":
+        for _ in range(max_iter):
+            state = step_fn(ctx, state)
+        return state, max(max_iter, 0), iter_norm(state), tol
+    k = 0
+    nrm = iter_norm(state)
+    tol_host = float(tol)
+    while k < max_iter and float(nrm) > tol_host:
+        state = step_fn(ctx, state)
+        k += 1
+        nrm = iter_norm(state)
+    return state, k, nrm, tol

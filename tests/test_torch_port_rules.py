@@ -1,0 +1,152 @@
+"""Rules the PyTorch/CUDA port keeps.
+
+* It imports neither JAX nor anything of the JAX package (whose name is a
+  prefix of the port's own: ``new_cg_variants_tpu`` vs
+  ``new_cg_variants_tpu_torch``).
+* It never drops to the CPU on its own: ``device=None`` means the CUDA card,
+  and without one the entry points raise.
+* Its kernels build for Hopper (``sm_90a``) into a directory git ignores.
+"""
+
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import new_cg_variants_tpu_torch as port
+from new_cg_variants_tpu_torch.ops import _kernels
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_DIR = ROOT / "new_cg_variants_tpu_torch"
+FORBIDDEN = re.compile(r"^(jax|jaxlib|new_cg_variants_tpu)$")
+
+
+def forbidden_imports(source: str) -> list[str]:
+    """Absolute imports of JAX or of the JAX package in ``source``."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            names = [node.args[0].value]
+        else:
+            continue
+        found += [n for n in names if FORBIDDEN.match(n.split(".")[0])]
+    return found
+
+
+def test_forbidden_import_check_minds_the_prefix():
+    assert forbidden_imports("import new_cg_variants_tpu.ops") == [
+        "new_cg_variants_tpu.ops"]
+    assert forbidden_imports("from new_cg_variants_tpu import run")
+    assert forbidden_imports("import jax.numpy as jnp")
+    assert forbidden_imports("importlib.import_module('jax')")
+    assert not forbidden_imports("import new_cg_variants_tpu_torch.ops")
+    assert not forbidden_imports("from new_cg_variants_tpu_torch import run")
+    assert not forbidden_imports("from . import jax_free")
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_port_sources_import_no_jax(path):
+    assert forbidden_imports(path.read_text()) == []
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "before = set(sys.modules)\n"
+        "import new_cg_variants_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'new_cg_variants_tpu'))\n"
+        "print(len(new), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def small_problem():
+    return port.banded_model(256, k=4, kappa=100.0, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["solve", "run", "variant"])
+def test_default_device_without_cuda_raises(no_cuda, small_problem, entry):
+    op, b, _ = small_problem
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "solve":
+            port.solve(op, b, max_iter=3)
+        elif entry == "run":
+            port.run("pipe_pr_cg", op, b, max_iter=3)
+        else:
+            port.pipe_pr_cg(op, b, max_iter=3)
+
+
+def test_problem_and_convert_default_to_cuda(no_cuda):
+    from new_cg_variants_tpu_torch.convert import (
+        operator_from_numpy,
+        state_from_numpy,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.banded_model(64, k=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        operator_from_numpy((0, 1), np.ones((2, 8)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_numpy({"x": np.ones(8)})
+
+
+def test_explicit_cpu_runs_plain_versions(small_problem):
+    op, b, x_true = small_problem
+    res = port.solve(op, b, rtol=1e-10, device="cpu")
+    assert res.converged and res.x.device.type == "cpu"
+    np.testing.assert_allclose(res.x.numpy(), x_true, atol=1e-8)
+
+
+def test_nvcc_command_targets_hopper():
+    cmd = _kernels.nvcc_command("nvcc", "csrc/sym_dia.cu", "libsym_dia.so")
+    assert "compute_90a,code=sm_90a" in " ".join(cmd)
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+    assert cmd[-1] == "csrc/sym_dia.cu"
+
+
+def test_every_kernel_source_is_built_and_notes_what_it_replaces():
+    built = set(_kernels.SOURCES)
+    assert built == {p.name for p in (PORT_DIR / "csrc").glob("*.cu")}
+    for name in built:
+        text = (PORT_DIR / "csrc" / name).read_text()
+        assert "Replaces the TPU kernel" in text
+        assert "What bounds it on an H100" in text
+        assert 'extern "C"' in text
+
+
+def test_gitignore_lists_the_build_directory():
+    lines = (ROOT / ".gitignore").read_text().split()
+    rel = _kernels.BUILD_ROOT.relative_to(ROOT).as_posix()
+    assert rel + "/" in lines or rel in lines
+    assert "chiprun_out/" in lines
