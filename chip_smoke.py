@@ -8,12 +8,15 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
 
 1. ``build``   — seconds spent building the kernels;
 2. ``card``    — the card's name and power limit (``nvidia-smi``);
-3. ``check``   — each kernel against its plain PyTorch version on the card,
-   in float32 and float64, on O(1) random band data at the main path's shape
-   (n = 655,360, k = 32) and at small ragged shapes (k = 8), every value held
-   to its own componentwise scale, with the kernel's time (CUDA events), the
-   plain version's time, the least time the card could take and, for the
-   SpMV, one cuSPARSE CSR product as a yardstick;
+3. ``check``   — each kernel entry against its plain PyTorch version on the
+   card, in float32 and float64, on O(1) random band data at the main path's
+   shape (n = 655,360, k = 32) and at small ragged shapes (k = 8), every value
+   held to its own componentwise scale, with the kernel's time (CUDA events),
+   the plain version's time, the least time the card could take and, for the
+   SpMV, one cuSPARSE CSR product as a yardstick.  The entries: the SpMV
+   (1 and 2 right-hand sides) and the eleven entries of
+   ``csrc/sym_family.cu`` (the pipe step and its Jacobi twin, each with
+   recompute on and off; hs, pr, cgcg, gv and their Jacobi twins);
 4. ``main_f32`` — the main path: pipe-PR-CG, unpreconditioned, float32, on
    the PETSc k-banded model problem (n = 655,360, k = 32) in half-band
    storage, timed as ``bench.py`` times it (2 x 5000 chained iterations per
@@ -24,7 +27,20 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
 5. ``main_f64`` — the same problem in float64 for 25 iterations on the card
    and on the CPU (plain versions); the nu and alpha histories must agree to
    rtol 1e-10;
-6. ``kernels`` — one JSON line over both kernels.
+6. ``variants_f32`` — the other 16 variant names on the same full-width
+   problem through ``solve(norm_type="none")`` for 300 iterations, ``_pcg``
+   names with ``preconditioner="jacobi"``: ms/iter, a finite solution, and
+   launch counters equal to what the family prescribes (its own fused entry
+   once per iteration, the SpMV in init only); and one generic-body run
+   (``pipe_pr_pcg`` with the norm in the dot batch), which must launch the
+   2-right-hand-side SpMV once per iteration and no fused entry;
+7. ``variants_f64`` — card against CPU in float64 over 25 iterations at
+   n = 65,536, one name per family entry: the ``_cg`` names on the model
+   problem, the ``_pcg`` names (Jacobi) on a scaled band on which Jacobi
+   leaves a condition number near 2e3 (on the model problem Jacobi converges
+   within six iterations and the histories past them are rounding noise);
+   nu and alpha histories to rtol 1e-10;
+8. ``kernels`` — one JSON line over all twelve kernel entries.
 
 Every phase prints one JSON line.  Any failed check raises, and the script
 exits nonzero; it also exits nonzero, printing no result, when no CUDA device
@@ -50,6 +66,9 @@ SOLVE_ITERS = 5000
 PROFILE_STEPS = 200
 F64_ITERS = 25
 F64_RTOL = 1e-10
+VARIANT_ITERS = 300
+GENERIC_ITERS = 100
+VARIANTS_F64_N = 65_536
 SMALL_SHAPES = ((4099, 8), (100, 8))
 # Componentwise error bounds, kernel against plain version.  Both sum the
 # same terms in another order (and the kernel contracts multiply-adds into
@@ -126,20 +145,6 @@ def random_band(torch, offsets, n, dtype, rng):
     return torch.as_tensor(data, dtype=dtype, device="cuda")
 
 
-def pipe_step_scales(sd, offsets, data, vecs, a1, beta, recompute):
-    """Componentwise scale of each fused-step output: the step on magnitudes."""
-    x, r, w, u, p, s = (v.abs() for v in vecs)
-    a1, beta, ad = a1.abs(), beta.abs(), data.abs()
-    r2 = r + a1 * s
-    w2 = w + a1 * u
-    s2 = w2 + beta * s
-    p2 = r2 + beta * p
-    x2 = x + a1 * p
-    u2 = sd._mv_plain(offsets, ad, s2)
-    w_out = sd._mv_plain(offsets, ad, r2) if recompute else w2
-    return x2, r2, w_out, p2, s2, u2
-
-
 def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
@@ -158,14 +163,12 @@ def library_csr(torch, offsets, data):
     return coo.coalesce().to_sparse_csr()
 
 
-def check_kernels(torch, card, timings):
-    """Each kernel against its plain version; raises after all checks ran."""
+def check_spmv(torch, card, timings):
+    """The SpMV kernel against its plain version; raises after all checks."""
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
-    from new_cg_variants_tpu_torch.ops import sym_fused as sf
 
     rate = memory_rate(card)
     shapes = ((N, K_BAND),) + SMALL_SHAPES
-    outputs = ("x2", "r2", "w_out", "p2", "s2", "u2")
     failed = []
     for dtype in (torch.float32, torch.float64):
         dn = dtype_name(dtype)
@@ -174,13 +177,10 @@ def check_kernels(torch, card, timings):
             rng = np.random.default_rng(n + k)
             offs = tuple(range(k))  # the stored offsets of banded_model
             data = random_band(torch, offs, n, dtype, rng)
-            vec = [torch.as_tensor(rng.standard_normal(n), dtype=dtype,
-                                   device="cuda") for _ in range(6)]
+            v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                    device="cuda") for _ in range(2))
             main = (n, k) == (N, K_BAND) and dtype == torch.float32
             isz = data.element_size()
-
-            # --- sym_dia_spmv / sym_dia_spmv2
-            v, w = vec[0], vec[1]
             y = sd.sym_dia_spmv(offs, data, v)
             y2, z2 = sd.sym_dia_spmv2(offs, data, v, w)
             yp = sd._mv_plain(offs, data, v)
@@ -213,64 +213,164 @@ def check_kernels(torch, card, timings):
             if not max(errs) <= tol:
                 failed.append(rec)
 
-            # --- fused_sym_pipe_full_step, recompute on and off
-            a1 = torch.tensor(0.37, dtype=dtype, device="cuda")
-            beta = torch.tensor(0.61, dtype=dtype, device="cuda")
-            for recompute in (True, False):
-                got = sf.fused_sym_pipe_full_step(offs, data, *vec, a1, beta,
-                                                  recompute=recompute)
-                want = sf._pipe_step_plain(offs, data, *vec, a1, beta,
-                                           recompute)
-                scales = pipe_step_scales(sd, offs, data, vec, a1, beta,
-                                          recompute)
-                torch.cuda.synchronize()
-                verrs = [cw_err(torch, g, wv, sc)
-                         for g, wv, sc in zip(got[:6], want[:6], scales)]
-                _, r2, _, p2, s2, _, _ = want
-                pairs = ((p2, s2), (r2, s2), (s2, s2), (r2, r2))
-                derrs = [dot_err(torch, g, wv, a, b)
-                         for g, wv, (a, b) in zip(got[6], want[6], pairs)]
-                abs_err = max(float((g - wv).abs().max())
-                              for g, wv in zip(got[:6], want[:6]))
-                rec = dict(kernel="fused_sym_pipe_full_step", dtype=dn, n=n,
-                           k=k, recompute=recompute, max_err=max(verrs),
-                           err_by_output=dict(zip(outputs, verrs)),
-                           max_dot_err=max(derrs), max_abs_err=abs_err,
-                           tol=tol)
-                if main and recompute:
-                    ms = time_ms(torch, lambda: sf.fused_sym_pipe_full_step(
-                        offs, data, *vec, a1, beta, recompute=True), 50)
-                    plain_ms = time_ms(torch, lambda: sf._pipe_step_plain(
-                        offs, data, *vec, a1, beta, True), 5)
-                    b_ms, b_by = bound((k + 12) * n * isz, (8 * k + 18) * n,
-                                       dn, rate)
-                    rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                               bound_ms=b_ms, bound_by=b_by)
-                    timings["fused_sym_pipe_full_step"] = rec
-                emit("check", **rec)
-                if not (max(verrs) <= tol and max(derrs) <= tol):
-                    failed.append(rec)
-            del data, vec
+            del data, v, w
             torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"{len(failed)} kernel checks disagree: {failed}")
+        raise AssertionError(f"{len(failed)} SpMV checks disagree: {failed}")
 
 
-def reset_counts():
+#: The entries of csrc/sym_family.cu.  Per entry: input vectors in
+#: order (d is inv_diag), scalars, outputs in return order, the dots as pairs
+#: of outputs, SpMVs per call, elementwise operations per row, keywords, and
+#: the plain PyTorch version beside the wrapper (timed on the card).
+FAMILY = {
+    "fused_sym_pipe_full_step": (
+        "x r w u p s", "a1 beta", "x2 r2 w_out p2 s2 u2",
+        ("p2 s2", "r2 s2", "s2 s2", "r2 r2"), 2, 18, {"recompute": True},
+        "_pipe_step_plain"),
+    "fused_sym_pipe_full_step/no recompute": (
+        "x r w u p s", "a1 beta", "x2 r2 w_out p2 s2 u2",
+        ("p2 s2", "r2 s2", "s2 s2", "r2 r2"), 1, 18, {"recompute": False},
+        "_pipe_step_plain"),
+    "fused_sym_hs_matvec_phase": (
+        "r p", "beta", "p2 s2", ("p2 s2",), 1, 4, {}, "_hs_phase_plain"),
+    "fused_sym_pr_full_step": (
+        "x r p s", "a1 beta", "x2 r2 p2 s2",
+        ("p2 s2", "r2 s2", "s2 s2", "r2 r2"), 1, 14, {}, "_pr_step_plain"),
+    "fused_sym_cgcg_matvec_phase": (
+        "x r p s", "a1", "x2 r2 w2", ("r2 r2", "w2 r2"), 1, 8, {},
+        "_cgcg_phase_plain"),
+    "fused_sym_gv_matvec_phase": (
+        "x r w u p s", "a1", "x2 r2 w2 t", ("r2 r2", "w2 r2"), 1, 10, {},
+        "_gv_phase_plain"),
+    "fused_sym_pr_full_step_prec": (
+        "d x r p s rt st", "a1 beta", "x2 r2 rt2 p2 s2 st2",
+        ("p2 s2", "r2 st2", "st2 s2", "rt2 r2"), 1, 20, {},
+        "_pr_step_prec_plain"),
+    "fused_sym_cgcg_matvec_phase_prec": (
+        "d x r p s", "a1", "x2 r2 rt2 w2", ("r2 rt2", "w2 rt2"), 1, 12, {},
+        "_cgcg_phase_prec_plain"),
+    "fused_sym_gv_matvec_phase_prec": (
+        "d x r w u p s rt st", "a1", "x2 r2 rt2 w2 wt2 t",
+        ("r2 rt2", "w2 rt2"), 1, 16, {}, "_gv_phase_prec_plain"),
+    "fused_sym_pipe_full_step_prec": (
+        "d x r w u p s rt st wt ut", "a1 beta",
+        "x2 r2 w_out p2 s2 u2 rt2 st2 wt_out ut2",
+        ("p2 s2", "r2 st2", "st2 s2", "rt2 r2"), 2, 32, {"recompute": True},
+        "_pipe_step_prec_plain"),
+    "fused_sym_pipe_full_step_prec/no recompute": (
+        "d x r w u p s rt st wt ut", "a1 beta",
+        "x2 r2 w_out p2 s2 u2 rt2 st2 wt_out ut2",
+        ("p2 s2", "r2 st2", "st2 s2", "rt2 r2"), 1, 32, {"recompute": False},
+        "_pipe_step_prec_plain"),
+}
+SCALAR_VALUES = {"a1": 0.37, "beta": 0.61}
+
+
+def family_scales(torch, fn, offsets, data, names, vecs, scalars, kw):
+    """Componentwise scale of each output: the entry run on magnitudes.
+
+    Every update of the family is ``a + c b`` or ``a - a1 b``; on magnitudes
+    with ``a1`` negated and ``beta`` positive each becomes ``|a| + |c| |b|``,
+    carried through the product with ``|A|`` and the finish with ``d > 0``.
+    Only ``x2 = x + a1 p`` adds ``a1``, so its scale is formed here.
+    """
+    mags = [v.abs().cpu() for v in vecs]
+    sc = {k: v.abs().cpu() for k, v in scalars.items()}
+    if "a1" in sc:
+        sc["a1"] = -sc["a1"]
+    out = list(fn(offsets, data.abs().cpu(), *mags, *sc.values(), **kw)[:-1])
+    if "x" in names:
+        out[0] = mags[names.index("x")] + sc["a1"].abs() * mags[names.index("p")]
+    return [o.to(data.device) for o in out]
+
+
+def check_family(torch, card, timings):
+    """The eleven entries of the family kernel against their plain versions
+    (the wrappers on CPU copies of the same inputs); raises after all checks
+    ran."""
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+
+    rate = memory_rate(card)
+    failed = []
+    for dtype in (torch.float32, torch.float64):
+        dn = dtype_name(dtype)
+        tol = TOL[dn]
+        for n, k in ((N, K_BAND),) + SMALL_SHAPES:
+            rng = np.random.default_rng(7 * n + k)
+            offs = tuple(range(k))
+            data = random_band(torch, offs, n, dtype, rng)
+            data_cpu = data.cpu()
+            main = (n, k) == (N, K_BAND) and dtype == torch.float32
+            for entry, (ins, scs, outs, dots, nmv, ops, kw,
+                        plain_name) in FAMILY.items():
+                fn = getattr(sf, entry.split("/")[0])
+                names, onames = ins.split(), outs.split()
+                vecs = [torch.as_tensor(
+                    rng.uniform(0.5, 2.0, n) if nm == "d"
+                    else rng.standard_normal(n), dtype=dtype, device="cuda")
+                    for nm in names]
+                scalars = {nm: torch.tensor(SCALAR_VALUES[nm], dtype=dtype,
+                                            device="cuda")
+                           for nm in scs.split()}
+                got = fn(offs, data, *vecs, *scalars.values(), **kw)
+                torch.cuda.synchronize()
+                want = fn(offs, data_cpu, *[v.cpu() for v in vecs],
+                          *[v.cpu() for v in scalars.values()], **kw)
+                want = [w.to("cuda") for w in want[:-1]] + [
+                    [w.to("cuda") for w in want[-1]]]
+                scales = family_scales(torch, fn, offs, data, names, vecs,
+                                       scalars, kw)
+                verrs = [cw_err(torch, g, w, sc)
+                         for g, w, sc in zip(got[:-1], want[:-1], scales)]
+                by_name = dict(zip(onames, want[:-1]))
+                derrs = [dot_err(torch, g, w, *[by_name[v] for v in pr.split()])
+                         for g, w, pr in zip(got[-1], want[-1], dots)]
+                abs_err = max(float((g - w).abs().max())
+                              for g, w in zip(got[:-1], want[:-1]))
+                rec = dict(kernel=entry, dtype=dn, n=n, k=k,
+                           max_err=max(verrs),
+                           err_by_output=dict(zip(onames, verrs)),
+                           max_dot_err=max(derrs), max_abs_err=abs_err,
+                           tol=tol)
+                if main:
+                    args = (offs, data, *vecs, *scalars.values())
+                    ms = time_ms(torch, lambda: fn(*args, **kw), 50)
+                    plain = getattr(sf, plain_name)
+                    plain_ms = time_ms(
+                        torch, lambda: plain(*args, *kw.values()), 5)
+                    b_ms, b_by = bound(
+                        (k + len(names) + len(onames)) * n * data.element_size(),
+                        (4 * k * nmv + ops) * n, dn, rate)
+                    rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                               bound_ms=b_ms, bound_by=b_by)
+                    timings[entry] = rec
+                emit("check", **rec)
+                shapes_ok = (len(got) == len(onames) + 1
+                             and len(got[-1]) == len(dots))
+                if not (shapes_ok and max(verrs) <= tol and max(derrs) <= tol):
+                    failed.append(rec)
+                del vecs, got, want, scales, by_name
+            del data, data_cpu
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{len(failed)} family checks disagree: {failed}")
+
+
+def counted_wrappers():
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
     from new_cg_variants_tpu_torch.ops import sym_fused as sf
 
-    for fn in (sd.sym_dia_spmv, sd.sym_dia_spmv2, sf.fused_sym_pipe_full_step):
+    return (sd.sym_dia_spmv, sd.sym_dia_spmv2) + sf.FAMILY_WRAPPERS
+
+
+def reset_counts():
+    for fn in counted_wrappers():
         fn.launches = 0
 
 
 def read_counts():
-    from new_cg_variants_tpu_torch.ops import sym_dia as sd
-    from new_cg_variants_tpu_torch.ops import sym_fused as sf
-
-    return {"sym_dia_spmv": sd.sym_dia_spmv.launches,
-            "sym_dia_spmv2": sd.sym_dia_spmv2.launches,
-            "fused_sym_pipe_full_step": sf.fused_sym_pipe_full_step.launches}
+    return {fn.__name__: fn.launches for fn in counted_wrappers()}
 
 
 def profile_steps(torch, ctx, step_fn, state):
@@ -360,8 +460,8 @@ def main_path_f32(torch, timings):
 
     steps = (ITERS_PER_CHUNK * (1 + REPEATS * len(times)) + 2 * SOLVE_ITERS
              + PROFILE_STEPS)
-    want = {"sym_dia_spmv": 3 * inits, "sym_dia_spmv2": 0,
-            "fused_sym_pipe_full_step": steps}
+    want = dict.fromkeys(counts, 0)
+    want.update(sym_dia_spmv=3 * inits, fused_sym_pipe_full_step=steps)
     x = res.x
     resid = float(torch.linalg.norm(b - op.mv(x)) / torch.linalg.norm(b))
     fwd = float(torch.linalg.norm(x.double().cpu() - torch.from_numpy(x_true))
@@ -404,6 +504,154 @@ def main_path_f64(torch):
         raise AssertionError(f"launch counts {counts}")
 
 
+#: the fused entry each name launches once per iteration, and its SpMV
+#: launches in init
+VARIANT_ENTRY = {
+    "hs_cg": ("fused_sym_hs_matvec_phase", 2),
+    "hs_pcg": ("fused_sym_hs_matvec_phase", 2),
+    "cg_cg": ("fused_sym_cgcg_matvec_phase", 3),
+    "cg_pcg": ("fused_sym_cgcg_matvec_phase_prec", 3),
+    "gv_cg": ("fused_sym_gv_matvec_phase", 3),
+    "gv_pcg": ("fused_sym_gv_matvec_phase_prec", 3),
+    "pr_cg": ("fused_sym_pr_full_step", 2),
+    "pr_pcg": ("fused_sym_pr_full_step_prec", 2),
+    "m_cg": ("fused_sym_pr_full_step", 2),
+    "m_pcg": ("fused_sym_pr_full_step_prec", 2),
+    "pipe_p_pcg": ("fused_sym_pipe_full_step_prec/no recompute", 3),
+    "pipe_pr_pcg": ("fused_sym_pipe_full_step_prec", 3),
+    "pipe_p_m_pcg": ("fused_sym_pipe_full_step_prec/no recompute", 3),
+    "pipe_pr_m_pcg": ("fused_sym_pipe_full_step_prec", 3),
+    "pipe_p_cg": ("fused_sym_pipe_full_step/no recompute", 3),
+    "pipe_p_m_cg": ("fused_sym_pipe_full_step/no recompute", 3),
+    "pipe_pr_m_cg": ("fused_sym_pipe_full_step", 3),
+}
+
+
+def variants_f32(torch):
+    """The 16 names beside the main path's, at full width.  Returns the
+    launches of each kernel entry, summed over the runs."""
+    from new_cg_variants_tpu_torch import banded_model, solve
+
+    op64, b64, x_true = banded_model(N, k=K_BAND, fmt="symdia", device="cpu")
+    op = op64.astype(torch.float32).to("cuda")
+    b = torch.as_tensor(b64, dtype=torch.float32, device="cuda")
+    bnorm = float(torch.linalg.norm(b))
+    xt = torch.as_tensor(x_true, dtype=torch.float32, device="cuda")
+    launches, failed = {}, []
+    for name, (entry, init_spmvs) in VARIANT_ENTRY.items():
+        pre = "jacobi" if name.endswith("pcg") else None
+        kw = dict(variant=name, preconditioner=pre, norm_type="none")
+        solve(op, b, max_iter=5, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(op, b, max_iter=VARIANT_ITERS, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        wrapper = entry.split("/")[0]
+        want = dict.fromkeys(counts, 0)
+        want.update({"sym_dia_spmv": init_spmvs, wrapper: VARIANT_ITERS})
+        launches[entry] = launches.get(entry, 0) + counts[wrapper]
+        r = b - op.mv(res.x)
+        # the true residual's nu = r.M^-1 r (the recurrence's own nu
+        # underflows to 0 once a Jacobi run has converged, and freezes)
+        nu = float(torch.dot(r, r / op.diagonal() if pre else r))
+        rec = dict(variant=name, preconditioner=pre, iterations=res.iterations,
+                   ms_per_iter=seconds / VARIANT_ITERS * 1e3, nu_final=nu,
+                   rel_residual=float(torch.linalg.norm(r)) / bnorm,
+                   rel_forward_error=float(torch.linalg.norm(res.x - xt)
+                                           / torch.linalg.norm(xt)),
+                   launches={k: v for k, v in counts.items() if v},
+                   expected_launches={k: v for k, v in want.items() if v})
+        emit("variants_f32", n=N, k=K_BAND, **rec)
+        ok = (np.isfinite(nu) and nu > 0 and counts == want
+              and res.iterations == VARIANT_ITERS
+              and bool(torch.isfinite(res.x).all()))
+        if not ok:
+            failed.append(rec)
+
+    # the generic body: the norm rides the dot batch, so no fused phase
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(op, b, variant="pipe_pr_pcg", preconditioner="jacobi",
+                norm_type="unpreconditioned", rtol=0.0,
+                max_iter=GENERIC_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(sym_dia_spmv=3, sym_dia_spmv2=res.iterations)
+    rec = dict(variant="pipe_pr_pcg", preconditioner="jacobi",
+               norm_type="unpreconditioned", path="generic",
+               iterations=res.iterations,
+               ms_per_iter=seconds / max(res.iterations, 1) * 1e3,
+               norm=res.norm, launches={k: v for k, v in counts.items() if v},
+               expected_launches={k: v for k, v in want.items() if v})
+    emit("variants_f32", n=N, k=K_BAND, **rec)
+    if not (counts == want and res.iterations == GENERIC_ITERS
+            and np.isfinite(res.norm)):
+        failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} variant runs failed: {failed}")
+    return launches
+
+
+def scaled_band(torch, n, k, seed=0, eps=1e-3):
+    """``D^1/2 T D^1/2`` in half-band storage: ``T`` a diagonally dominant
+    Toeplitz band (condition number near 2 / eps), ``D`` random in
+    [1, 100], so Jacobi leaves ``T`` and no variant converges in 25 steps."""
+    from new_cg_variants_tpu_torch import SymDiaOperator
+
+    rng = np.random.default_rng(seed)
+    c = -rng.uniform(0.5, 1.0, k - 1)
+    dsc = np.sqrt(rng.uniform(1.0, 100.0, n))
+    data = np.zeros((k, n))
+    data[0] = 2.0 * np.abs(c).sum() * (1.0 + eps) * dsc * dsc
+    for d in range(1, k):
+        data[d, : n - d] = c[d - 1] * dsc[: n - d] * dsc[d:]
+    op = SymDiaOperator(tuple(range(k)), torch.from_numpy(data))
+    return op, op.mv(torch.ones(n, dtype=torch.float64)).numpy()
+
+
+def variants_f64(torch):
+    """Card against CPU in float64, one name per family entry."""
+    from new_cg_variants_tpu_torch import banded_model, run
+
+    n = VARIANTS_F64_N
+    model = banded_model(n, k=K_BAND, fmt="symdia", device="cpu")[:2]
+    band = scaled_band(torch, n, K_BAND)
+    failed = []
+    for name in ("hs_cg", "cg_cg", "gv_cg", "pr_cg", "hs_pcg", "pr_pcg",
+                 "cg_pcg", "gv_pcg", "pipe_pr_pcg", "pipe_p_pcg"):
+        prec = name.endswith("pcg")
+        op, b = band if prec else model
+        kw = dict(max_iter=F64_ITERS + 1, probes=("nu", "alpha"),
+                  preconditioner="jacobi" if prec else None,
+                  dtype=torch.float64)
+        reset_counts()
+        gpu = run(name, op, b, device="cuda", **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        cpu = run(name, op, b, device="cpu", **kw)
+        errs = {p: float(np.max(np.abs(gpu[p] - cpu[p]) / np.abs(cpu[p])))
+                for p in ("nu", "alpha")}
+        wrapper, init_spmvs = VARIANT_ENTRY[name]
+        wrapper = wrapper.split("/")[0]
+        want = dict.fromkeys(counts, 0)
+        want.update({"sym_dia_spmv": init_spmvs, wrapper: F64_ITERS})
+        rec = dict(variant=name, problem="scaled_band" if prec else
+                   "banded_model", n=n, k=K_BAND, iterations=F64_ITERS,
+                   max_rel_diff=errs, rtol=F64_RTOL,
+                   nu_last_over_first=float(cpu["nu"][-1] / cpu["nu"][0]),
+                   launches={k: v for k, v in counts.items() if v})
+        emit("variants_f64", **rec)
+        if not (max(errs.values()) <= F64_RTOL and counts == want):
+            failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} f64 comparisons failed: {failed}")
+
+
 def main():
     import torch
 
@@ -419,7 +667,8 @@ def main():
     for p in paths.values():
         log = p.with_suffix(".log").read_text()
         print("\n".join(ln for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln),
+                        if "registers" in ln or "spill" in ln
+                        or "Compiling" in ln),
               file=sys.stderr)
 
     card = subprocess.run(
@@ -429,27 +678,46 @@ def main():
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    timings = {}
-    check_kernels(torch, card, timings)
-    counts = main_path_f32(torch, timings)
-    main_path_f64(torch)
+    timings, launches = {}, {}
 
+    def count(path_launches):
+        for entry, n in path_launches.items():
+            launches[entry] = launches.get(entry, 0) + n
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        emit("seconds", of=name, seconds=time.perf_counter() - t0)
+        return out
+
+    phase("check", check_spmv, torch, card, timings)
+    phase("check_family", check_family, torch, card, timings)
+    count(phase("main_f32", main_path_f32, torch, timings))
+    phase("main_f64", main_path_f64, torch)
+    count(phase("variants_f32", variants_f32, torch))
+    phase("variants_f64", variants_f64, torch)
+
+    sym_fused = "new_cg_variants_tpu/ops/sym_fused.py:184"
     sources = {
         "sym_dia_spmv": ("new_cg_variants_tpu_torch/csrc/sym_dia.cu",
                          "new_cg_variants_tpu/ops/sym_dia.py:47"),
-        "fused_sym_pipe_full_step": (
-            "new_cg_variants_tpu_torch/csrc/sym_fused.cu",
-            "new_cg_variants_tpu/ops/sym_fused.py:184"),
+        **{entry: ("new_cg_variants_tpu_torch/csrc/sym_family.cu", sym_fused)
+           for entry in FAMILY},
     }
-    kernels = []
+    kernels, unlaunched = [], []
     for name, (source, replaces) in sources.items():
         t = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
+            launches=launches[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+        if launches[name] < 1:
+            unlaunched.append(name)
     print(json.dumps({"kernels": kernels}), flush=True)
+    if unlaunched:
+        raise AssertionError(f"no launch on any driven path: {unlaunched}")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

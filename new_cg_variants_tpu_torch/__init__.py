@@ -7,13 +7,17 @@ CUDA kernel under ``csrc/``, built with ``nvcc`` at first use.  Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``, which runs
 the kernels' plain PyTorch versions.
 
-This slice: pipe-P/PR CG (unpreconditioned) on symmetric half-band storage.
+Ported so far: every CG variant of ``VARIANT_NAMES`` (hs, cg, gv, pr, m and
+the four pipe families, each with its preconditioned twin) on symmetric
+half-band storage.
 """
 
 from .matio.problems import banded_model
 from .ops.sym_dia import SymDiaOperator
-from .solvers.api import SolveResult, run, solve
-from .solvers.variants import pipe_p_cg, pipe_p_m_cg, pipe_pr_cg, pipe_pr_m_cg
+from .solvers.api import VARIANT_NAMES, SolveResult, run, solve
+from .solvers.precond import JacobiPreconditioner, make_preconditioner
+from .solvers.variants import *  # noqa: F401,F403 — the public variants
+from .solvers.variants import __all__ as _variant_all
 
 __all__ = [
     "banded_model",
@@ -21,8 +25,7 @@ __all__ = [
     "run",
     "solve",
     "SolveResult",
-    "pipe_p_cg",
-    "pipe_pr_cg",
-    "pipe_p_m_cg",
-    "pipe_pr_m_cg",
-]
+    "VARIANT_NAMES",
+    "JacobiPreconditioner",
+    "make_preconditioner",
+] + list(_variant_all)

@@ -12,8 +12,10 @@ import torch
 
 from ._device import resolve_device
 from .ops.sym_dia import SymDiaOperator
+from .solvers.precond import JacobiPreconditioner
 
-__all__ = ["operator_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["operator_from_numpy", "preconditioner_from_numpy",
+           "state_from_numpy", "state_to_numpy"]
 
 
 def operator_from_numpy(offsets, data, *, dtype=None, device=None):
@@ -23,30 +25,47 @@ def operator_from_numpy(offsets, data, *, dtype=None, device=None):
     return SymDiaOperator(offsets, t.to(device=dev, dtype=dtype))
 
 
+def preconditioner_from_numpy(inv_diag, *, dtype=None, device=None):
+    """A :class:`JacobiPreconditioner` from a numpy inverse diagonal."""
+    dev = resolve_device(device)
+    t = torch.from_numpy(np.ascontiguousarray(inv_diag))
+    return JacobiPreconditioner(t.to(device=dev, dtype=dtype))
+
+
+def _leaf_from_numpy(val, dtype, dev):
+    """A dict (the gv hook's ``wrep`` state) entry by entry; a floating
+    array as a tensor of ``dtype``; an integer or bool one in its own type.
+    """
+    if isinstance(val, dict):
+        return {k: _leaf_from_numpy(v, dtype, dev) for k, v in val.items()}
+    t = torch.from_numpy(np.array(np.asarray(val)))
+    return t.to(device=dev, dtype=dtype if t.is_floating_point() else None)
+
+
 def state_from_numpy(state: dict, *, dtype=None, device=None) -> dict:
     """A solver state dict of numpy arrays as torch tensors on ``device``.
 
-    Vectors and scalars become tensors (scalars 0-d); the iteration counter
-    ``k`` becomes a Python int, as the port's step functions carry it.
+    Vectors (``x r p s w u`` and, for preconditioned runs, ``rt st wt ut``)
+    and scalars (``nu mu eta delta gamma rho a a1 a2 b b1``) become tensors
+    (scalars 0-d); the iteration counter ``k`` becomes a Python int, as the
+    port's step functions carry it; ``wrep``, the state of gv's stateful
+    replacement hook, is carried across entry by entry.
     """
     dev = resolve_device(device)
-    out = {}
-    for key, val in state.items():
-        if key == "k":
-            out[key] = int(np.asarray(val))
-        else:
-            arr = np.asarray(val)
-            out[key] = torch.from_numpy(np.array(arr)).to(device=dev,
-                                                         dtype=dtype)
-    return out
+    return {key: int(np.asarray(val)) if key == "k"
+            else _leaf_from_numpy(val, dtype, dev)
+            for key, val in state.items()}
+
+
+def _leaf_to_numpy(val):
+    if isinstance(val, dict):
+        return {k: _leaf_to_numpy(v) for k, v in val.items()}
+    if isinstance(val, torch.Tensor):
+        return val.detach().cpu().numpy()
+    return np.asarray(val)
 
 
 def state_to_numpy(state: dict) -> dict:
     """The inverse of :func:`state_from_numpy` (``k`` as ``np.int32``)."""
-    out = {}
-    for key, val in state.items():
-        if key == "k":
-            out[key] = np.int32(val)
-        else:
-            out[key] = val.detach().cpu().numpy()
-    return out
+    return {key: np.int32(val) if key == "k" else _leaf_to_numpy(val)
+            for key, val in state.items()}

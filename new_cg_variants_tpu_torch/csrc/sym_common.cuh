@@ -1,10 +1,10 @@
-// Shared pieces of the half-band kernels (sym_dia.cu, sym_fused.cu).
+// Shared pieces of the half-band kernels (sym_dia.cu, sym_family.cu).
 //
 // Storage: data[d, i] = A[i, i + off_d] for the stored offsets off_0 = 0 <
 // off_1 < ... (main + upper diagonals), row-major (ndiag, n), explicit zeros
 // past the matrix edge.  The half-band h is the largest stored offset.
 //
-// Both kernels give each block a tile of kTile rows [i0, i0 + kTile) and one
+// Every kernel gives each block a tile of kTile rows [i0, i0 + kTile) and one
 // thread per row.  Blocks run in no order, so a block cannot inherit the
 // mirror term data[d, i - off] * v[i - off] from its neighbour (the TPU
 // kernels carry it across a sequential grid in a spill scratch).  Instead
@@ -77,6 +77,34 @@ __device__ __forceinline__ T sym_row(const T* sdata, const T* sv, int ndiag,
     acc += row[c - off] * sv[c - off];
   }
   return acc;
+}
+
+constexpr int kWarps = kTile / 32;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_down_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// Sum each of the block's ND per-thread products in a fixed order (warp
+// shuffles, then the warp sums in warp order) and write the ND sums to out.
+// sred holds ND * kWarps values.  Every thread of the block must call it.
+template <typename T, int ND>
+__device__ __forceinline__ void block_dots(const T (&prod)[ND], T* sred,
+                                           T* out) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const T v = warp_sum(prod[d]);
+    if ((t & 31) == 0) sred[d * kWarps + t / 32] = v;
+  }
+  __syncthreads();
+  if (t < ND) {
+    T acc = sred[t * kWarps];
+    for (int k = 1; k < kWarps; ++k) acc += sred[t * kWarps + k];
+    out[t] = acc;
+  }
 }
 
 // Copy the host offsets into the by-value parameter block.

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "build", "library", "nvcc_command"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("sym_dia.cu", "sym_fused.cu")
+SOURCES = ("sym_dia.cu", "sym_family.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP = ctypes.c_void_p
@@ -40,11 +40,11 @@ _SIGNATURES = {
                _INT, _INT, _VP]
         for name in ("sym_dia_spmv_f32", "sym_dia_spmv_f64")
     },
-    "sym_fused.cu": {
-        name: [_VP, _OFFS, _INT, _INT, ctypes.c_longlong,
-               ctypes.POINTER(_VP), _VP, _VP, ctypes.POINTER(_VP), _VP,
-               _INT, _INT, _VP]
-        for name in ("sym_pipe_step_f32", "sym_pipe_step_f64")
+    "sym_family.cu": {
+        name: [_INT, _VP, _OFFS, _INT, _INT, ctypes.c_longlong,
+               ctypes.POINTER(_VP), _INT, ctypes.POINTER(_VP), _INT,
+               ctypes.POINTER(_VP), _INT, _VP, _INT, _VP]
+        for name in ("sym_family_f32", "sym_family_f64")
     },
 }
 

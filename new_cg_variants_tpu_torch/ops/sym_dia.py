@@ -57,14 +57,15 @@ def kernel_smem_bytes(ndiag, h, nvec_buffers, itemsize):
             + 32) * itemsize + 4 * MAX_DIAGS
 
 
-def check_kernel_args(offsets, data, vecs, nvec_buffers):
+def check_kernel_args(offsets, data, vecs, nvec_buffers,
+                      entry="sym_dia_spmv"):
     """Validate what a half-band CUDA kernel takes; return ``(n, h, suffix)``.
 
     ``nvec_buffers`` is the number of length-n work buffers the kernel stages
     in shared memory beside the band (one per right-hand side, or the two
     updated windows of the fused step).  Raises on a wrong device, dtype,
     shape or contiguity, and on a half-band whose window does not fit in one
-    block's shared memory.
+    block's shared memory; that error names ``entry``, the entry point.
     """
     if not data.is_cuda:
         raise ValueError("operator data must lie on the CUDA device")
@@ -93,8 +94,9 @@ def check_kernel_args(offsets, data, vecs, nvec_buffers):
     smem = kernel_smem_bytes(ndiag, h, nvec_buffers, data.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"half-band {h} with {ndiag} diagonals needs {smem} bytes of "
-            f"shared memory per block (> {MAX_SMEM_BYTES}): unsupported")
+            f"{entry}: half-band {h} with {ndiag} diagonals needs {smem} "
+            f"bytes of shared memory per block (> {MAX_SMEM_BYTES}): "
+            "unsupported")
     return n, h, _KERNEL_DTYPES[data.dtype]
 
 

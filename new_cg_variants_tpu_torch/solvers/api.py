@@ -7,10 +7,12 @@
   with norm types natural / unpreconditioned / preconditioned / none
   (``cg_impls/pipeprcg.c:112-136``).
 
-This slice runs the four unpreconditioned pipe variants (``pipe_p_cg``,
-``pipe_pr_cg``, ``pipe_p_m_cg``, ``pipe_pr_m_cg``) on a
-:class:`~..ops.sym_dia.SymDiaOperator`; every other variant name of
-:data:`VARIANT_NAMES`, a preconditioner and ``dtype="f32x2"`` raise
+Every name of :data:`VARIANT_NAMES` (18: nine families, each with its
+``_pcg`` twin) runs on a
+:class:`~..ops.sym_dia.SymDiaOperator`, with ``preconditioner=None |
+"jacobi" | object with .apply | callable`` for the ``_pcg`` names (a ``_cg``
+name ignores it; a ``_pcg`` name without one runs with M = I).  Another
+operator type, ``dtype="f32x2"`` and ``compensated=True`` raise
 ``NotImplementedError``.
 """
 
@@ -26,7 +28,8 @@ from ..ops.sym_dia import SymDiaOperator
 from ..probes.probes import resolve_probes
 from .context import Context
 from .engine import history_scan, tolerance_loop
-from .families import FAMILIES, family_of
+from .families import FAMILIES, family_of, make_gv_step
+from .precond import IdentityPreconditioner, make_preconditioner
 
 __all__ = ["run", "solve", "SolveResult", "VARIANT_NAMES"]
 
@@ -37,15 +40,48 @@ VARIANT_NAMES = tuple(
 )
 
 
-def _resolve(variant, preconditioner):
+def _gv_replace_hooks(key, init_fn, step_fn, w_replace, w_replace_init):
+    """Wire the gv residual-replacement hook into (init_fn, step_fn).
+
+    ``w_replace_init`` selects the stateful protocol: the step carries the
+    hook's own state as the ``wrep`` entry of the solver state (the
+    reference's mutable ``wk_replace_flags`` dict, gv_cg.py:40).
+    """
+    if key != "gv" or w_replace is None:
+        return init_fn, step_fn
+    stateful = w_replace_init is not None
+    step_fn = make_gv_step(w_replace, stateful=stateful)
+    if stateful:
+        base_init = init_fn
+
+        def init_fn(ctx, b, x0):
+            st = base_init(ctx, b, x0)
+            st["wrep"] = w_replace_init
+            return st
+
+    return init_fn, step_fn
+
+
+def _resolve(variant, op, preconditioner, w_replace=None,
+             w_replace_init=None):
+    """``(init_fn, step_fn, precond)`` of a variant name on operator ``op``;
+    the preconditioner in the solve's vector dtype on the operator's device.
+    """
     key, prec_flag = family_of(variant)
-    if key not in FAMILIES or prec_flag:
-        raise NotImplementedError(
-            f"variant {variant!r} is not ported yet; this slice runs "
-            f"{sorted(k + '_cg' for k in FAMILIES)} (ROADMAP.md)")
-    if preconditioner is not None:
-        raise NotImplementedError("preconditioners are not ported yet")
-    return FAMILIES[key]
+    init_fn, step_fn = FAMILIES[key]
+    init_fn, step_fn = _gv_replace_hooks(key, init_fn, step_fn, w_replace,
+                                         w_replace_init)
+    precond = make_preconditioner(preconditioner if prec_flag else None, op)
+    if prec_flag and precond is None:
+        # a *_pcg variant with no preconditioner given degrades to M = I,
+        # like the reference's default `preconditioner=lambda x: x`
+        precond = IdentityPreconditioner()
+    if precond is not None:
+        if hasattr(precond, "astype"):
+            precond = precond.astype(_vector_dtype(op))
+        if hasattr(precond, "to"):
+            precond = precond.to(op.device)
+    return init_fn, step_fn, precond
 
 
 def _torch_dtype(dtype):
@@ -61,7 +97,7 @@ def _torch_dtype(dtype):
 def _operator(A, dtype, device):
     if not isinstance(A, SymDiaOperator):
         raise NotImplementedError(
-            f"operator type {type(A).__name__} is not ported yet; this slice "
+            f"operator type {type(A).__name__} is not ported yet; the port "
             "takes SymDiaOperator (banded_model(fmt='symdia'), "
             "convert.operator_from_numpy)")
     op = A if A.device == device else A.to(device)
@@ -109,8 +145,11 @@ def run(
     preconditioner=None,
     probes=("updated_residual_2_norm",),
     x_true=None,
+    w_replace=None,
+    w_replace_init=None,
     dtype=None,
     compensated=False,
+    print_every=0,
     device=None,
 ):
     """Run ``max_iter`` iterations of a variant, capturing probe histories.
@@ -118,10 +157,15 @@ def run(
     Returns a dict with ``'name'``, ``'max_iter'``, ``'x'`` (the final
     iterate, a tensor on ``device``) and one ``(max_iter,)`` (or
     ``(max_iter, n)`` for vector probes) numpy array per probe.
+
+    ``w_replace`` is the gv residual-replacement hook and ``w_replace_init``
+    switches it to the stateful protocol (:func:`.families.make_gv_step`).
+    ``print_every=K`` prints a progress line every K iterations.
     """
     dev = resolve_device(device)
-    init_fn, step_fn = _resolve(variant, preconditioner)
     op = _operator(A, dtype, dev)
+    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
+                                         w_replace, w_replace_init)
     b, x0 = _vectors(op, b, x0, dev)
     probe_fns = resolve_probes(probes)
     aux = {"b": b}
@@ -129,9 +173,9 @@ def run(
         if x_true is None:
             x_true = _compute_x_true(op, b)
         aux["x_true"] = torch.as_tensor(x_true, dtype=b.dtype, device=dev)
-    ctx = Context(op, compensated=compensated)
+    ctx = Context(op, precond, compensated=compensated)
     final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
-                               max_iter, aux)
+                               max_iter, aux, print_every=print_every)
     output = {"name": variant, "max_iter": max_iter, "x": final["x"]}
     for name in probe_fns:
         output[name] = hist[name].cpu().numpy()
@@ -162,15 +206,18 @@ def solve(
 ):
     """Tolerance-driven solve with early exit (production path).
 
-    ``norm_type='none'`` runs exactly ``max_iter`` iterations with no
+    ``norm_type``: ``'natural'`` tests sqrt(nu) from the iteration scalars;
+    ``'unpreconditioned'`` the recurrence residual ||r||; ``'preconditioned'``
+    ||M^-1 r||; ``'none'`` runs exactly ``max_iter`` iterations with no
     convergence test and no host sync inside the loop (the scaling
-    configuration, ``-ksp_norm_type none``).
+    configuration, ``-ksp_norm_type none``).  For an unpreconditioned
+    variant the first three coincide.
     """
     dev = resolve_device(device)
-    init_fn, step_fn = _resolve(variant, preconditioner)
     op = _operator(A, dtype, dev)
+    init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
     b, x0 = _vectors(op, b, x0, dev)
-    ctx = Context(op, compensated=compensated)
+    ctx = Context(op, precond, compensated=compensated)
     s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter,
                                     rtol, atol, norm_type)
     return SolveResult(

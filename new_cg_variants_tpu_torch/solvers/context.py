@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.sym_fused import fused_sym_pipe_full_step
+from ..ops import sym_fused
+from .precond import JacobiPreconditioner
 
 __all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step"]
 
@@ -20,6 +21,17 @@ class Context:
     """Single-device execution context.
 
     ``compensated=True`` (error-free-transform dots) is not ported yet.
+
+    The fused-phase hooks (``hs_matvec_phase`` ... ``pipe_full_step_prec``)
+    each run one family's whole phase through one kernel of
+    :mod:`..ops.sym_fused`.  The unpreconditioned hooks always apply.  A
+    preconditioned hook returns ``None``, and the family then takes its
+    generic body (``mv`` / ``mv2`` / ``prec`` / ``dots``), unless the
+    preconditioner is a :class:`~.precond.JacobiPreconditioner` (whose
+    ``inv_diag`` the kernel applies) and no extra norm rides the dot batch
+    (:attr:`extra_norm`, set by :func:`~.engine.tolerance_loop`).  That
+    choice reads the configuration only: it is the same on the CPU and on
+    the card.
     """
 
     def __init__(self, op, precond=None, compensated=False):
@@ -30,6 +42,9 @@ class Context:
         self.op = op
         self.precond = precond
         self.compensated = compensated
+        #: ``"r"`` or ``"rt"`` when a preconditioned tolerance solve needs
+        #: ``r.r`` or ``rt.rt`` in each iteration's dot batch, else ``None``
+        self.extra_norm = None
 
     @property
     def has_prec(self) -> bool:
@@ -72,16 +87,89 @@ class Context:
         return generic_pipe_vector_phase(self, x, r, w, u, p, s, a1, beta)
 
     def pipe_full_step(self, s_, a1, beta, recompute):
-        """Whole pipe-P/PR iteration: vector phase, dots and SpMV(s).
-
-        Always the fused one-pass kernel
-        (:func:`..ops.sym_fused.fused_sym_pipe_full_step`) on the half-band
-        operator, the only operator ported.  Returns ``(x2, r2, w_out, p2,
-        s2, u2, (mu, delta, gamma, nu))``.
+        """Whole unpreconditioned pipe-P/PR iteration: vector phase, dots
+        and SpMV(s).  Returns ``(x2, r2, w_out, p2, s2, u2, (mu, delta,
+        gamma, nu))``.
         """
-        return fused_sym_pipe_full_step(
+        return sym_fused.fused_sym_pipe_full_step(
             self.op.offsets, self.op.data,
             s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
+            a1, beta, recompute=recompute,
+        )
+
+    def pr_full_step(self, s_, a1, beta):
+        """Whole unpreconditioned PR/Meurant iteration (beta is predicted,
+        so x, r, p updates, ``s = A p`` and the 4 dots are one pass)."""
+        return sym_fused.fused_sym_pr_full_step(
+            self.op.offsets, self.op.data,
+            s_["x"], s_["r"], s_["p"], s_["s"], a1, beta,
+        )
+
+    def cgcg_matvec_phase(self, s_, a1):
+        """Chronopoulos-Gear phase: x, r updates + ``w = A r`` + nu, eta."""
+        return sym_fused.fused_sym_cgcg_matvec_phase(
+            self.op.offsets, self.op.data,
+            s_["x"], s_["r"], s_["p"], s_["s"], a1,
+        )
+
+    def gv_matvec_phase(self, s_, a1):
+        """GV phase: x, r, w updates + ``t = A w`` + nu, eta."""
+        return sym_fused.fused_sym_gv_matvec_phase(
+            self.op.offsets, self.op.data,
+            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1,
+        )
+
+    def hs_matvec_phase(self, rt, p, beta):
+        """HS second sync phase: p update + ``s = A p`` + mu.
+
+        Takes the (preconditioned) residual directly, so it serves hs_cg
+        (rt = r) and hs_pcg with ANY preconditioner: HS's second phase
+        never touches M.
+        """
+        return sym_fused.fused_sym_hs_matvec_phase(
+            self.op.offsets, self.op.data, rt, p, beta)
+
+    def _jacobi_fused(self) -> bool:
+        return (isinstance(self.precond, JacobiPreconditioner)
+                and self.extra_norm is None)
+
+    def pr_full_step_prec(self, s_, a1, beta):
+        """Whole Jacobi-preconditioned PR/M iteration, PCApply included."""
+        if not self._jacobi_fused():
+            return None
+        return sym_fused.fused_sym_pr_full_step_prec(
+            self.op.offsets, self.op.data, self.precond.inv_diag,
+            s_["x"], s_["r"], s_["p"], s_["s"], s_["rt"], s_["st"], a1, beta,
+        )
+
+    def cgcg_matvec_phase_prec(self, s_, a1):
+        """Jacobi-preconditioned CG matvec phase (PCApply in the pass)."""
+        if not self._jacobi_fused():
+            return None
+        return sym_fused.fused_sym_cgcg_matvec_phase_prec(
+            self.op.offsets, self.op.data, self.precond.inv_diag,
+            s_["x"], s_["r"], s_["p"], s_["s"], a1,
+        )
+
+    def gv_matvec_phase_prec(self, s_, a1):
+        """Jacobi-preconditioned GV matvec phase (PCApply in the pass)."""
+        if not self._jacobi_fused():
+            return None
+        return sym_fused.fused_sym_gv_matvec_phase_prec(
+            self.op.offsets, self.op.data, self.precond.inv_diag,
+            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
+            s_["rt"], s_["st"], a1,
+        )
+
+    def pipe_full_step_prec(self, s_, a1, beta, recompute):
+        """Whole Jacobi-preconditioned pipe-P/PR iteration: vector phase,
+        dots, both SpMVs and both PCApplies in one pass."""
+        if not self._jacobi_fused():
+            return None
+        return sym_fused.fused_sym_pipe_full_step_prec(
+            self.op.offsets, self.op.data, self.precond.inv_diag,
+            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
+            s_["rt"], s_["st"], s_["wt"], s_["ut"],
             a1, beta, recompute=recompute,
         )
 

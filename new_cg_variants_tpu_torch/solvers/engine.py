@@ -17,8 +17,13 @@ import torch
 __all__ = ["history_scan", "tolerance_loop"]
 
 
-def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux):
+def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux,
+                 print_every=0):
     """Run ``length`` states (init + length-1 steps), stacking probe rows.
+
+    ``print_every=K`` prints a progress line every K iterations (the
+    reference's ``print_k`` callback).  Each line reads nu back from the
+    device, one host sync per K iterations; it is off by default.
 
     Returns ``(final_state, {name: stacked tensor})``.
     """
@@ -30,6 +35,9 @@ def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux):
     rows = [probe_row(state)]
     for _ in range(length - 1):
         state = step_fn(ctx, state)
+        if print_every and state["k"] % print_every == 0:
+            print(f"iter {state['k']}: sqrt(nu) = "
+                  f"{float(torch.sqrt(torch.abs(state['nu'])))}")
         rows.append(probe_row(state))
     hist = {name: torch.stack([row[name] for row in rows])
             for name in probe_fns}
@@ -38,11 +46,18 @@ def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux):
 
 def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
                    norm_type):
-    """Iterate until ``sqrt(nu)`` falls below tol or max_iter hits.
+    """Iterate until the chosen norm falls below tol or max_iter hits.
 
-    For the unpreconditioned variants ported here the three norm types
-    coincide with ``sqrt(nu)`` (there ``nu = r.r``), and the tolerance is
-    ``max(rtol * ||b||, atol)`` (PETSc KSPConvergedDefault semantics).
+    For unpreconditioned runs all three norm types coincide with
+    ``sqrt(nu)`` (there ``nu = r.r``).  For preconditioned runs ``natural``
+    is ``sqrt(nu)`` too, and the inner product that ``unpreconditioned``
+    (``r.r``) or ``preconditioned`` (``rt.rt``) needs rides the family's
+    existing dot batch through ``ctx.extra_norm`` (state key ``rho``), as
+    PETSc derives its norms from the same reduction
+    (``cg_impls/pipeprcg.c:112-136``).  The tolerance is ``max(rtol * |b|,
+    atol)`` with ``|b|`` in the same norm flavour (PETSc
+    KSPConvergedDefault): natural -> ``sqrt(b.M^-1 b)``, preconditioned ->
+    ``||M^-1 b||``, unpreconditioned -> ``||b||``.
 
     Returns ``(state, iterations, norm, tol)`` with ``norm`` and ``tol`` as
     0-d tensors.
@@ -50,17 +65,30 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
     if norm_type not in ("natural", "unpreconditioned", "preconditioned",
                          "none"):
         raise ValueError(f"unknown norm_type {norm_type!r}")
-    if ctx.has_prec:
-        raise NotImplementedError(
-            "preconditioned solves are not ported yet (ROADMAP.md)")
+
+    in_batch = (norm_type in ("unpreconditioned", "preconditioned")
+                and ctx.has_prec)
+    if in_batch:
+        ctx.extra_norm = "r" if norm_type == "unpreconditioned" else "rt"
 
     def iter_norm(s):
         if norm_type == "none":
             return torch.zeros((), dtype=s["nu"].dtype, device=s["nu"].device)
-        return torch.sqrt(torch.abs(s["nu"]))
+        return torch.sqrt(torch.abs(s["rho"] if in_batch else s["nu"]))
 
     state = init_fn(ctx, b, x0)
-    (bb,) = ctx.dots((b, ctx.prec(b)))
+    if in_batch:
+        # initial rho: one extra dot outside the loop
+        v = (state["rt"] if ctx.extra_norm == "rt" and "rt" in state
+             else state["r"])
+        (state["rho"],) = ctx.dots((v, v))
+    if norm_type == "natural":
+        (bb,) = ctx.dots((b, ctx.prec(b)))
+    elif norm_type == "preconditioned":
+        bt = ctx.prec(b)
+        (bb,) = ctx.dots((bt, bt))
+    else:
+        (bb,) = ctx.dots((b, b))
     tol = torch.clamp(rtol * torch.sqrt(torch.abs(bb)), min=atol).to(b.dtype)
     if norm_type == "none":
         for _ in range(max_iter):

@@ -94,7 +94,10 @@ def small_problem():
     return port.banded_model(256, k=4, kappa=100.0, device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["solve", "run", "variant"])
+@pytest.mark.parametrize(
+    "entry",
+    ["solve", "run", "variant", "solve-jacobi", "run-jacobi",
+     "run-callable"] + list(port.VARIANT_NAMES))
 def test_default_device_without_cuda_raises(no_cuda, small_problem, entry):
     op, b, _ = small_problem
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -102,13 +105,24 @@ def test_default_device_without_cuda_raises(no_cuda, small_problem, entry):
             port.solve(op, b, max_iter=3)
         elif entry == "run":
             port.run("pipe_pr_cg", op, b, max_iter=3)
-        else:
+        elif entry == "variant":
             port.pipe_pr_cg(op, b, max_iter=3)
+        elif entry == "solve-jacobi":
+            port.solve(op, b, variant="pipe_pr_pcg", preconditioner="jacobi",
+                       max_iter=3)
+        elif entry == "run-jacobi":
+            port.run("pr_pcg", op, b, preconditioner="jacobi", max_iter=3)
+        elif entry == "run-callable":
+            port.run("hs_pcg", op, b, preconditioner=lambda v: v, max_iter=3)
+        else:
+            pre = "jacobi" if entry.endswith("pcg") else None
+            getattr(port, entry)(op, b, max_iter=3, preconditioner=pre)
 
 
 def test_problem_and_convert_default_to_cuda(no_cuda):
     from new_cg_variants_tpu_torch.convert import (
         operator_from_numpy,
+        preconditioner_from_numpy,
         state_from_numpy,
     )
 
@@ -118,6 +132,8 @@ def test_problem_and_convert_default_to_cuda(no_cuda):
         operator_from_numpy((0, 1), np.ones((2, 8)))
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({"x": np.ones(8)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preconditioner_from_numpy(np.ones(8))
 
 
 def test_explicit_cpu_runs_plain_versions(small_problem):
@@ -125,6 +141,21 @@ def test_explicit_cpu_runs_plain_versions(small_problem):
     res = port.solve(op, b, rtol=1e-10, device="cpu")
     assert res.converged and res.x.device.type == "cpu"
     np.testing.assert_allclose(res.x.numpy(), x_true, atol=1e-8)
+
+
+def test_kernel_or_generic_choice_reads_the_configuration_only():
+    """No step asks whether a card is there, and no launch sits in a ``try``:
+    the context picks the fused phase or the generic body from the
+    preconditioner and the norm alone, and a CUDA tensor reaches the kernel
+    or raises."""
+    for rel in ("solvers/context.py", "solvers/families.py",
+                "solvers/engine.py", "ops/sym_fused.py", "ops/sym_dia.py"):
+        tree = ast.parse((PORT_DIR / rel).read_text())
+        for node in ast.walk(tree):
+            assert not isinstance(node, ast.Try), rel
+            if isinstance(node, ast.Attribute):
+                assert node.attr != "is_available", rel
+            assert not (isinstance(node, ast.Name) and node.id == "os"), rel
 
 
 def test_nvcc_command_targets_hopper():
