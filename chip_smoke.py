@@ -40,7 +40,33 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
    leaves a condition number near 2e3 (on the model problem Jacobi converges
    within six iterations and the histories past them are rounding noise);
    nu and alpha histories to rtol 1e-10;
-8. ``kernels`` — one JSON line over all twelve kernel entries.
+8. ``check`` lines of the full-DIA kernels (``check_dia``, run right after
+   the checks of 3): the DIA SpMV of ``csrc/dia_spmv.cu`` (1 and 2 right-hand
+   sides, the halo-extended entries, the staged-window and the direct regime,
+   offsets that are not symmetric), the two vector phases of
+   ``csrc/pipe_vector.cu`` and the eleven entries of ``csrc/dia_family.cu``
+   (as in 3), each against its plain version, at n = 655,360 with 63
+   diagonals and at small and ragged shapes; the SpMV and the vector phases
+   also at the shape of 10 (n = 4,194,304), timed there too;
+9. ``dia_f32`` — the full-DIA path at full width: ``banded_model(655_360,
+   k=32, fmt="dia")`` in float32; pipe-PR-CG under the bench protocol of 4,
+   then the other 17 names for 300 iterations each, with the launch counts
+   of 6 (each name its own entry of the full-DIA family kernel once per
+   iteration, the SpMV in init only); then ``pipe_pr_pcg`` with a
+   preconditioner given as a function, which takes the split formulation
+   (preconditioned vector phase + the 2-right-hand-side SpMV);
+10. ``dia_wide_f32`` — a 5-diagonal grid operator with offsets (-2048, -1, 0,
+    1, 2048) on n = 4,194,304, too wide for the family kernel: ``pipe_pr_cg``
+    and ``pipe_pr_pcg`` take the split formulation (vector-phase kernel, then
+    the 2-right-hand-side SpMV kernel in its direct regime), ``pr_cg`` its
+    generic body (one SpMV launch per iteration), 300 iterations each;
+11. ``dia_f64`` — card against CPU in float64 over 25 iterations at
+    n = 65,536 on full-DIA storage, one name per family entry (the model
+    problem, and the scaled band for the Jacobi runs), and one run on a dense
+    512 x 512 operator;
+12. ``kernels`` — one JSON line over all kernel entries: one record per entry
+    and shape that a driven path gives it, with the entry's launches on the
+    paths of that shape.
 
 Every phase prints one JSON line.  Any failed check raises, and the script
 exits nonzero; it also exits nonzero, printing no result, when no CUDA device
@@ -70,6 +96,9 @@ VARIANT_ITERS = 300
 GENERIC_ITERS = 100
 VARIANTS_F64_N = 65_536
 SMALL_SHAPES = ((4099, 8), (100, 8))
+WIDE_N = 4_194_304
+WIDE_OFFSETS = (-2048, -1, 0, 1, 2048)
+DENSE_N = 512
 # Componentwise error bounds, kernel against plain version.  Both sum the
 # same terms in another order (and the kernel contracts multiply-adds into
 # FMAs), so each value differs by a few units of rounding of its own scale:
@@ -85,6 +114,13 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def memory_rate(name):
@@ -149,11 +185,30 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def library_csr(torch, offsets, data):
-    """The full matrix as a CUDA CSR tensor (yardstick only)."""
+def random_dia(torch, offsets, n, dtype, rng):
+    """O(1) random full-DIA data, explicit zeros outside the matrix."""
+    data = rng.uniform(-1.0, 1.0, (len(offsets), n))
+    for d, off in enumerate(offsets):
+        if off > 0:
+            data[d, max(n - off, 0):] = 0.0
+        elif off < 0:
+            data[d, :min(-off, n)] = 0.0
+    return torch.as_tensor(data, dtype=dtype, device="cuda")
+
+
+def library_csr(torch, offsets, data, mirror=True):
+    """The full matrix as a CUDA CSR tensor (yardstick only).  ``mirror``:
+    ``data`` is half-band storage, whose upper diagonals stand for the lower
+    ones too; else full-DIA storage."""
     n = data.shape[1]
     rows, cols, vals = [], [], []
     for d, off in enumerate(offsets):
+        if not mirror:
+            i = torch.arange(max(0, -off), min(n, n - off), device=data.device)
+            rows.append(i)
+            cols.append(i + off)
+            vals.append(data[d, i])
+            continue
         i = torch.arange(0, n - off, device=data.device)
         rows += [i] if off == 0 else [i, i + off]
         cols += [i] if off == 0 else [i + off, i]
@@ -267,7 +322,50 @@ FAMILY = {
 SCALAR_VALUES = {"a1": 0.37, "beta": 0.61}
 
 
-def family_scales(torch, fn, offsets, data, names, vecs, scalars, kw):
+#: The full-DIA entries, in FAMILY's layout: those of ops/fused_step.py (the
+#: vector phases take no band, 0 SpMVs; the pipe steps are the half-band
+#: entries' programs over the full-DIA product) and of ops/fused_family.py
+#: (the other families: FAMILY's entries and plain-version names without
+#: "sym").
+VECTOR_PHASES = {
+    "fused_pipe_vector_phase": (
+        "x r w u p s", "a1 beta", "x2 r2 w2 p2 s2",
+        ("p2 s2", "r2 s2", "s2 s2", "r2 r2"), 0, 18, {},
+        "_pipe_vector_phase_plain"),
+    "fused_pipe_vector_phase_prec": (
+        "x r w u p s rt st wt ut", "a1 beta", "x2 r2 w2 rt2 wt2 p2 s2 st2",
+        ("p2 s2", "r2 st2", "st2 s2", "rt2 r2"), 0, 28, {},
+        "_pipe_vector_phase_prec_plain"),
+}
+DIA_STEP = {
+    **VECTOR_PHASES,
+    **{entry.replace("fused_sym_", "fused_"):
+       spec[:-1] + (spec[-1].replace("_pipe_step", "_dia_pipe_full_step"),)
+       for entry, spec in FAMILY.items() if "pipe" in entry},
+}
+DIA_FAMILY = {entry.replace("fused_sym_", "fused_"): spec
+              for entry, spec in FAMILY.items() if "pipe" not in entry}
+DIA_MAIN_OFFSETS = tuple(range(-(K_BAND - 1), K_BAND))
+#: (n, label, offsets) of the full-DIA checks: the main path's band, ragged n,
+#: n below one tile, offsets that are not symmetric
+DIA_SHAPES = (
+    (N, K_BAND, DIA_MAIN_OFFSETS),
+    (4099, 8, tuple(range(-7, 8))),
+    (100, 8, tuple(range(-7, 8))),
+    (4099, "nonsym", (-3, -1, 0, 2, 7)),
+)
+#: the shape of the dia_wide_f32 path: what the split formulation's kernels
+#: (vector phases, SpMV) are given there
+WIDE_SHAPE = (WIDE_N, "wide", WIDE_OFFSETS)
+#: suffix of a kernel's record (timings, the kernels line) at WIDE_SHAPE
+WIDE = " (wide band)"
+
+
+def emit_check(rec):
+    emit("check", **rec)
+
+
+def family_scales(torch, call, data, names, vecs, scalars):
     """Componentwise scale of each output: the entry run on magnitudes.
 
     Every update of the family is ``a + c b`` or ``a - a1 b``; on magnitudes
@@ -279,33 +377,42 @@ def family_scales(torch, fn, offsets, data, names, vecs, scalars, kw):
     sc = {k: v.abs().cpu() for k, v in scalars.items()}
     if "a1" in sc:
         sc["a1"] = -sc["a1"]
-    out = list(fn(offsets, data.abs().cpu(), *mags, *sc.values(), **kw)[:-1])
+    out = list(call(data.abs().cpu(), mags, list(sc.values()))[:-1])
     if "x" in names:
         out[0] = mags[names.index("x")] + sc["a1"].abs() * mags[names.index("p")]
     return [o.to(data.device) for o in out]
 
 
-def check_family(torch, card, timings):
-    """The eleven entries of the family kernel against their plain versions
-    (the wrappers on CPU copies of the same inputs); raises after all checks
-    ran."""
-    from new_cg_variants_tpu_torch.ops import sym_fused as sf
-
+def check_entries(torch, card, timings, module, table, shapes, make_band,
+                  terms_per_value, suffix="", report=emit_check):
+    """Each entry of ``table`` (wrappers of ``module``) against its plain
+    version (the wrapper on CPU copies of the same inputs), on each of
+    ``shapes`` = (n, label, offsets) with the band ``make_band`` draws; the
+    first shape in float32 is timed when ``timings`` is a dict, into
+    ``timings[entry + suffix]``.  ``terms_per_value``: operations per stored
+    value and SpMV (4 with a mirror term, 2 without).  ``report`` takes each
+    check's record.  Returns the failed checks."""
     rate = memory_rate(card)
     failed = []
     for dtype in (torch.float32, torch.float64):
         dn = dtype_name(dtype)
         tol = TOL[dn]
-        for n, k in ((N, K_BAND),) + SMALL_SHAPES:
-            rng = np.random.default_rng(7 * n + k)
-            offs = tuple(range(k))
-            data = random_band(torch, offs, n, dtype, rng)
+        for n, k, offs in shapes:
+            rng = np.random.default_rng(7 * n + len(offs))
+            data = make_band(torch, offs, n, dtype, rng)
             data_cpu = data.cpu()
-            main = (n, k) == (N, K_BAND) and dtype == torch.float32
+            main = ((n, k, offs) == shapes[0] and dtype == torch.float32
+                    and timings is not None)
             for entry, (ins, scs, outs, dots, nmv, ops, kw,
-                        plain_name) in FAMILY.items():
-                fn = getattr(sf, entry.split("/")[0])
+                        plain_name) in table.items():
+                fn = getattr(module, entry.split("/")[0])
                 names, onames = ins.split(), outs.split()
+
+                def call(band, vs, scs_, fn=fn, nmv=nmv, kw=kw, offs=offs):
+                    # an entry without a product takes no band
+                    head = (offs, band) if nmv else ()
+                    return fn(*head, *vs, *scs_, **kw)
+
                 vecs = [torch.as_tensor(
                     rng.uniform(0.5, 2.0, n) if nm == "d"
                     else rng.standard_normal(n), dtype=dtype, device="cuda")
@@ -313,14 +420,13 @@ def check_family(torch, card, timings):
                 scalars = {nm: torch.tensor(SCALAR_VALUES[nm], dtype=dtype,
                                             device="cuda")
                            for nm in scs.split()}
-                got = fn(offs, data, *vecs, *scalars.values(), **kw)
+                got = call(data, vecs, list(scalars.values()))
                 torch.cuda.synchronize()
-                want = fn(offs, data_cpu, *[v.cpu() for v in vecs],
-                          *[v.cpu() for v in scalars.values()], **kw)
+                want = call(data_cpu, [v.cpu() for v in vecs],
+                            [v.cpu() for v in scalars.values()])
                 want = [w.to("cuda") for w in want[:-1]] + [
                     [w.to("cuda") for w in want[-1]]]
-                scales = family_scales(torch, fn, offs, data, names, vecs,
-                                       scalars, kw)
+                scales = family_scales(torch, call, data, names, vecs, scalars)
                 verrs = [cw_err(torch, g, w, sc)
                          for g, w, sc in zip(got[:-1], want[:-1], scales)]
                 by_name = dict(zip(onames, want[:-1]))
@@ -334,18 +440,21 @@ def check_family(torch, card, timings):
                            max_dot_err=max(derrs), max_abs_err=abs_err,
                            tol=tol)
                 if main:
-                    args = (offs, data, *vecs, *scalars.values())
+                    head = (offs, data) if nmv else ()
+                    args = (*head, *vecs, *scalars.values())
                     ms = time_ms(torch, lambda: fn(*args, **kw), 50)
-                    plain = getattr(sf, plain_name)
+                    plain = getattr(module, plain_name)
                     plain_ms = time_ms(
                         torch, lambda: plain(*args, *kw.values()), 5)
+                    ndiag = len(offs) if nmv else 0
                     b_ms, b_by = bound(
-                        (k + len(names) + len(onames)) * n * data.element_size(),
-                        (4 * k * nmv + ops) * n, dn, rate)
+                        (ndiag + len(names) + len(onames)) * n
+                        * data.element_size(),
+                        (terms_per_value * ndiag * nmv + ops) * n, dn, rate)
                     rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                                bound_ms=b_ms, bound_by=b_by)
-                    timings[entry] = rec
-                emit("check", **rec)
+                    timings[entry + suffix] = rec
+                report(rec)
                 shapes_ok = (len(got) == len(onames) + 1
                              and len(got[-1]) == len(dots))
                 if not (shapes_ok and max(verrs) <= tol and max(derrs) <= tol):
@@ -353,15 +462,164 @@ def check_family(torch, card, timings):
                 del vecs, got, want, scales, by_name
             del data, data_cpu
             torch.cuda.empty_cache()
+    return failed
+
+
+def check_family(torch, card, timings):
+    """The eleven entries of the family kernel against their plain versions;
+    raises after all checks ran."""
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+
+    shapes = tuple((n, k, tuple(range(k)))
+                   for n, k in ((N, K_BAND),) + SMALL_SHAPES)
+    failed = check_entries(torch, card, timings, sf, FAMILY, shapes,
+                           random_band, 4)
     if failed:
         raise AssertionError(f"{len(failed)} family checks disagree: {failed}")
 
 
+def staged_against_direct(torch, sp, offs, data, v, w):
+    """The SpMV kernel's two forms on a band it would stage: the window in
+    shared memory against reads of ``v`` through the read-only cache, timed
+    in turns (staged, direct, direct, staged), and whether both give the
+    same bits."""
+    out = {}
+    for key, vecs in (("1 rhs", (v,)), ("2 rhs", (v, w))):
+        forms = {
+            "staged": lambda vecs=vecs: sp._launch(offs, data, vecs, False,
+                                                   staged=True),
+            "direct": lambda vecs=vecs: sp._launch(offs, data, vecs, False,
+                                                   staged=False)}
+        same = all(bool(torch.equal(a, b))
+                   for a, b in zip(forms["staged"](), forms["direct"]()))
+        ms = {name: [] for name in forms}
+        for name in ("staged", "direct", "direct", "staged"):
+            ms[name].append(time_ms(torch, forms[name], 50))
+        out[key] = dict(ms=ms, same_bits=same)
+    return {"staged_against_direct": out}
+
+
+def check_dia_spmv(torch, card, timings, report=emit_check):
+    """The DIA SpMV kernel's entries against their plain versions, in both
+    regimes (staged window, direct reads); timed (when ``timings`` is a dict)
+    at the shapes of the two full-DIA paths.  ``report`` takes each check's
+    record.  Returns the failed checks."""
+    from new_cg_variants_tpu_torch.ops import spmv_dia as sp
+
+    rate = memory_rate(card)
+    shapes = DIA_SHAPES + (WIDE_SHAPE, (100_003, "wide", WIDE_OFFSETS),
+                           (1000, "wide", WIDE_OFFSETS))
+    timed = {DIA_SHAPES[0]: "", WIDE_SHAPE: WIDE} if timings is not None else {}
+    failed = []
+    for dtype in (torch.float32, torch.float64):
+        dn = dtype_name(dtype)
+        tol = TOL[dn]
+        for n, k, offs in shapes:
+            rng = np.random.default_rng(n + len(offs))
+            data = random_dia(torch, offs, n, dtype, rng)
+            h = max(abs(o) for o in offs)
+            v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                    device="cuda") for _ in range(2))
+            # halo-extended right-hand sides [h | n | h], halos not zero
+            vx, wx = (torch.as_tensor(rng.standard_normal(n + 2 * h),
+                                      dtype=dtype, device="cuda")
+                      for _ in range(2))
+            got = {"1": sp.dia_spmv(offs, data, v)}
+            got["2a"], got["2b"] = sp.dia_spmv2(offs, data, v, w)
+            # a shard's band: rows of the interior, no zeros at its edges
+            shard = torch.as_tensor(rng.uniform(-1.0, 1.0, (len(offs), n)),
+                                    dtype=dtype, device="cuda")
+            got["ext"] = sp.dia_spmv_ext(offs, shard, vx)
+            got["ext2a"], got["ext2b"] = sp.dia_spmv2_ext(offs, shard, vx, wx)
+            torch.cuda.synchronize()
+            absd = data.abs()
+            want, scale = {}, {}
+            for key, x in (("1", v), ("2b", w)):
+                want[key] = sp._dia_mv_plain(offs, data, x)
+                scale[key] = sp._dia_mv_plain(offs, absd, x.abs())
+            for key, x in (("ext", vx), ("ext2b", wx)):
+                want[key] = sp._dia_mv_ext_plain(offs, shard, x)
+                scale[key] = sp._dia_mv_ext_plain(offs, shard.abs(), x.abs())
+            same = {"2a": "1", "ext2a": "ext"}
+            errs = {key: cw_err(torch, g, want[same.get(key, key)],
+                                scale[same.get(key, key)])
+                    for key, g in got.items()}
+            abs_err = max(float((g - want[same.get(key, key)]).abs().max())
+                          for key, g in got.items())
+            rec = dict(kernel="dia_spmv", dtype=dn, n=n, k=k,
+                       staged=sp.stages_window(offs), max_err=max(errs.values()),
+                       err_by_entry=errs, max_abs_err=abs_err, tol=tol)
+            if (n, k, offs) in timed and dtype == torch.float32:
+                sfx = timed[(n, k, offs)]
+                nd, isz = len(offs), data.element_size()
+                ms = time_ms(torch, lambda: sp.dia_spmv(offs, data, v), 50)
+                ms2 = time_ms(torch, lambda: sp.dia_spmv2(offs, data, v, w), 50)
+                plain_ms = time_ms(torch,
+                                   lambda: sp._dia_mv_plain(offs, data, v), 5)
+                csr = library_csr(torch, offs, data, mirror=False)
+                lib_err = cw_err(torch, csr @ v, want["1"], scale["1"])
+                lib_ms = time_ms(torch, lambda: csr @ v, 50)
+                vw = torch.stack([v, w], dim=1)
+                lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
+                plain2_ms = time_ms(
+                    torch, lambda: (sp._dia_mv_plain(offs, data, v),
+                                    sp._dia_mv_plain(offs, data, w)), 5)
+                del csr, vw
+                if sp.stages_window(offs):
+                    rec.update(staged_against_direct(torch, sp, offs, data,
+                                                     v, w))
+                b_ms, b_by = bound((nd + 2) * n * isz, 2 * nd * n, dn, rate)
+                b2_ms, b2_by = bound((nd + 4) * n * isz, 4 * nd * n, dn, rate)
+                rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_err=lib_err,
+                           bound_ms=b_ms, bound_by=b_by, spmv2_bound_ms=b2_ms)
+                timings["dia_spmv" + sfx] = rec
+                # the 2-RHS entry: two plain products; as a library call one
+                # cuSPARSE product with the (n, 2) matrix [v | w]
+                timings["dia_spmv2" + sfx] = dict(
+                    rec, ms=ms2, plain_ms=plain2_ms, library_ms=lib2_ms,
+                    bound_ms=b2_ms, bound_by=b2_by)
+            report(rec)
+            if not max(errs.values()) <= tol:
+                failed.append(rec)
+            del data, shard, absd, v, w, vx, wx, got, want, scale
+            torch.cuda.empty_cache()
+    return failed
+
+
+def dia_checks(torch, card, timings, report):
+    """The checks of every full-DIA kernel entry, at the shapes of both
+    full-DIA paths; returns the failed ones."""
+    from new_cg_variants_tpu_torch.ops import fused_family as ff
+    from new_cg_variants_tpu_torch.ops import fused_step as fs
+
+    failed = check_dia_spmv(torch, card, timings, report)
+    for module, table, shapes, suffix in (
+            (fs, DIA_STEP, DIA_SHAPES, ""), (ff, DIA_FAMILY, DIA_SHAPES, ""),
+            (fs, VECTOR_PHASES, (WIDE_SHAPE,), WIDE)):
+        failed += check_entries(torch, card, timings, module, table, shapes,
+                                random_dia, 2, suffix, report)
+    return failed
+
+
+def check_dia(torch, card, timings):
+    """Every full-DIA kernel entry against its plain version; raises after
+    all checks ran."""
+    failed = dia_checks(torch, card, timings, emit_check)
+    if failed:
+        raise AssertionError(f"{len(failed)} full-DIA checks disagree: {failed}")
+
+
 def counted_wrappers():
+    from new_cg_variants_tpu_torch.ops import fused_family as ff
+    from new_cg_variants_tpu_torch.ops import fused_step as fs
+    from new_cg_variants_tpu_torch.ops import spmv_dia as sp
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
     from new_cg_variants_tpu_torch.ops import sym_fused as sf
 
-    return (sd.sym_dia_spmv, sd.sym_dia_spmv2) + sf.FAMILY_WRAPPERS
+    return ((sd.sym_dia_spmv, sd.sym_dia_spmv2) + sf.FAMILY_WRAPPERS
+            + sp.DIA_WRAPPERS + fs.FUSED_STEP_WRAPPERS
+            + ff.FUSED_FAMILY_WRAPPERS)
 
 
 def reset_counts():
@@ -411,14 +669,16 @@ def profile_steps(torch, ctx, step_fn, state):
             "top_kernels_us_per_iter": {k[:60]: v / steps for k, v in top}}
 
 
-def main_path_f32(torch, timings):
-    from new_cg_variants_tpu_torch import banded_model, solve
+def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper):
+    """pipe-PR-CG on ``op`` as ``bench.py`` times it, then two timed
+    ``solve(norm_type="none")`` runs and a profiled window.  Returns the
+    measurements and the launch counts next to what they must be: three
+    launches of ``spmv_wrapper`` per init and one of ``fused_wrapper`` per
+    iteration, nothing else."""
+    from new_cg_variants_tpu_torch import solve
     from new_cg_variants_tpu_torch.solvers.context import Context
     from new_cg_variants_tpu_torch.solvers.families import FAMILIES
 
-    op64, b64, x_true = banded_model(N, k=K_BAND, fmt="symdia", device="cpu")
-    op = op64.astype(torch.float32).to("cuda")
-    b = torch.as_tensor(b64, dtype=torch.float32, device="cuda")
     init_fn, step_fn = FAMILIES["pipe_pr"]
     ctx = Context(op)
 
@@ -461,25 +721,51 @@ def main_path_f32(torch, timings):
     steps = (ITERS_PER_CHUNK * (1 + REPEATS * len(times)) + 2 * SOLVE_ITERS
              + PROFILE_STEPS)
     want = dict.fromkeys(counts, 0)
-    want.update(sym_dia_spmv=3 * inits, fused_sym_pipe_full_step=steps)
+    want.update({spmv_wrapper: 3 * inits, fused_wrapper: steps})
     x = res.x
     resid = float(torch.linalg.norm(b - op.mv(x)) / torch.linalg.norm(b))
+    return dict(ms_per_iter=ms_per_iter, trial_seconds=times,
+                solve_ms_per_iter=solve_ms, profile=profile,
+                nu_final=nu_final, rel_residual=resid, x=x, launches=counts,
+                expected_launches=want)
+
+
+def emit_bench(torch, phase, out, x_true, kernel_ms, **fields):
+    """Print a bench_protocol result as a phase line and hold it to its
+    checks."""
+    x = out.pop("x")
     fwd = float(torch.linalg.norm(x.double().cpu() - torch.from_numpy(x_true))
                 / np.linalg.norm(x_true))
-    kernel_ms = timings["fused_sym_pipe_full_step"]["ms"]
-    emit("main_f32", variant="pipe_pr_cg", n=N, k=K_BAND,
-         ms_per_iter=ms_per_iter, trial_seconds=times,
-         solve_ms_per_iter=solve_ms, fused_kernel_ms=kernel_ms,
-         fused_kernel_share_of_step=kernel_ms / ms_per_iter, profile=profile,
-         nu_final=nu_final, rel_residual=resid, rel_forward_error=fwd,
-         launches=counts, expected_launches=want)
+    emit(phase, variant="pipe_pr_cg", n=N, k=K_BAND, fused_kernel_ms=kernel_ms,
+         fused_kernel_share_of_step=kernel_ms / out["ms_per_iter"],
+         rel_forward_error=fwd, **fields, **out)
+    nu_final, counts = out["nu_final"], out["launches"]
     if not (np.isfinite(nu_final) and nu_final > 0):
         raise AssertionError(f"nu at the end is {nu_final}: diverged")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
-    if not (np.isfinite(resid) and bool(torch.isfinite(x).all())):
+    if counts != out["expected_launches"]:
+        raise AssertionError(
+            f"launch counts {counts} != {out['expected_launches']}")
+    if not (np.isfinite(out["rel_residual"]) and bool(torch.isfinite(x).all())):
         raise AssertionError("non-finite solution")
     return counts
+
+
+def model_f32(torch, fmt):
+    """The full-width model problem in float32 on the card."""
+    from new_cg_variants_tpu_torch import banded_model
+
+    op64, b64, x_true = banded_model(N, k=K_BAND, fmt=fmt, device="cpu")
+    op = op64.astype(torch.float32).to("cuda")
+    b = torch.as_tensor(b64, dtype=torch.float32, device="cuda")
+    return op, b, x_true
+
+
+def main_path_f32(torch, timings):
+    op, b, x_true = model_f32(torch, "symdia")
+    out = bench_protocol(torch, op, b, "fused_sym_pipe_full_step",
+                         "sym_dia_spmv")
+    return emit_bench(torch, "main_f32", out, x_true,
+                      timings["fused_sym_pipe_full_step"]["ms"])
 
 
 def main_path_f64(torch):
@@ -527,20 +813,67 @@ VARIANT_ENTRY = {
 }
 
 
-def variants_f32(torch):
-    """The 16 names beside the main path's, at full width.  Returns the
-    launches of each kernel entry, summed over the runs."""
-    from new_cg_variants_tpu_torch import banded_model, solve
+def sym_expected(name, iters):
+    """Launches a name makes on half-band storage: its own fused entry once
+    per iteration, the SpMV in init only.  Returns ``(counts by wrapper,
+    kernel entry)``."""
+    entry, init_spmvs = VARIANT_ENTRY[name]
+    return {"sym_dia_spmv": init_spmvs, entry.split("/")[0]: iters}, entry
 
-    op64, b64, x_true = banded_model(N, k=K_BAND, fmt="symdia", device="cpu")
-    op = op64.astype(torch.float32).to("cuda")
-    b = torch.as_tensor(b64, dtype=torch.float32, device="cuda")
+
+def dia_expected(name, iters):
+    """Launches a name makes on a ``DiaOperator`` whose band the family
+    kernel takes: as on half-band storage, its own fused entry once per
+    iteration and the SpMV in init only."""
+    entry, init_spmvs = VARIANT_ENTRY.get(
+        name, ("fused_sym_pipe_full_step", 3))  # pipe_pr_cg
+    entry = entry.replace("fused_sym_", "fused_")
+    return {"dia_spmv": init_spmvs, entry.split("/")[0]: iters}, entry
+
+
+#: SpMV launches in init of each family's generic body (one per iteration)
+GENERIC_INIT_SPMVS = {"hs": 2, "cg": 3, "gv": 3, "pr": 2, "m": 2}
+
+
+def split_expected(name, iters):
+    """Launches a name makes on a ``DiaOperator`` on which the family kernel
+    does not apply (a wide band; for ``pipe_*_pcg`` also a preconditioner
+    other than Jacobi).  Pipe names take the split formulation: the vector
+    phase (``_pcg``: its preconditioned twin), then one SpMV launch (2
+    right-hand sides with recompute); every other name its generic body, one
+    SpMV per iteration."""
+    base = name.rsplit("_", 1)[0]
+    if base in GENERIC_INIT_SPMVS:
+        return {"dia_spmv": GENERIC_INIT_SPMVS[base] + iters}, "dia_spmv"
+    recompute = base in ("pipe_pr", "pipe_pr_m")
+    phase = ("fused_pipe_vector_phase" if name.endswith("_cg")
+             else "fused_pipe_vector_phase_prec")
+    counts = {"dia_spmv": 3 + (0 if recompute else iters), phase: iters}
+    if recompute:
+        counts["dia_spmv2"] = iters
+    return counts, phase
+
+
+def jacobi_for_pcg(name, op):
+    """The preconditioner of a smoke run: Jacobi for the ``_pcg`` names."""
+    return ("jacobi", "jacobi") if name.endswith("pcg") else (None, None)
+
+
+def solve_names(torch, phase, op, b, x_true, names, expected,
+                precond=jacobi_for_pcg, **fields):
+    """Each name through ``solve(norm_type="none")`` for VARIANT_ITERS
+    iterations, preconditioned by ``precond(name, op)`` = (label, what
+    ``solve`` takes): ms/iter, a finite solution and launch counts equal to
+    ``expected(name, iterations)``.  Returns the launches by wrapper and by
+    kernel entry, summed over the runs, and the failed runs."""
+    from new_cg_variants_tpu_torch import solve
+
     bnorm = float(torch.linalg.norm(b))
-    xt = torch.as_tensor(x_true, dtype=torch.float32, device="cuda")
+    xt = torch.as_tensor(x_true, dtype=b.dtype, device="cuda")
     launches, failed = {}, []
-    for name, (entry, init_spmvs) in VARIANT_ENTRY.items():
-        pre = "jacobi" if name.endswith("pcg") else None
-        kw = dict(variant=name, preconditioner=pre, norm_type="none")
+    for name in names:
+        pre, spec = precond(name, op)
+        kw = dict(variant=name, preconditioner=spec, norm_type="none")
         solve(op, b, max_iter=5, **kw)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
@@ -549,10 +882,13 @@ def variants_f32(torch):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        wrapper = entry.split("/")[0]
         want = dict.fromkeys(counts, 0)
-        want.update({"sym_dia_spmv": init_spmvs, wrapper: VARIANT_ITERS})
-        launches[entry] = launches.get(entry, 0) + counts[wrapper]
+        by_wrapper, entry = expected(name, VARIANT_ITERS)
+        want.update(by_wrapper)
+        for key, val in counts.items():
+            # a wrapper's launches go to the entry of it that this name runs
+            dest = entry if key == entry.split("/")[0] else key
+            launches[dest] = launches.get(dest, 0) + val
         r = b - op.mv(res.x)
         # the true residual's nu = r.M^-1 r (the recurrence's own nu
         # underflows to 0 once a Jacobi run has converged, and freezes)
@@ -564,12 +900,23 @@ def variants_f32(torch):
                                            / torch.linalg.norm(xt)),
                    launches={k: v for k, v in counts.items() if v},
                    expected_launches={k: v for k, v in want.items() if v})
-        emit("variants_f32", n=N, k=K_BAND, **rec)
+        emit(phase, **fields, **rec)
         ok = (np.isfinite(nu) and nu > 0 and counts == want
               and res.iterations == VARIANT_ITERS
               and bool(torch.isfinite(res.x).all()))
         if not ok:
             failed.append(rec)
+    return launches, failed
+
+
+def variants_f32(torch):
+    """The 16 names beside the main path's, at full width.  Returns the
+    launches of each kernel entry, summed over the runs."""
+    from new_cg_variants_tpu_torch import solve
+
+    op, b, x_true = model_f32(torch, "symdia")
+    launches, failed = solve_names(torch, "variants_f32", op, b, x_true,
+                                   VARIANT_ENTRY, sym_expected, n=N, k=K_BAND)
 
     # the generic body: the norm rides the dot batch, so no fused phase
     reset_counts()
@@ -597,6 +944,75 @@ def variants_f32(torch):
     return launches
 
 
+def dia_path_f32(torch, timings):
+    """The full-DIA path at full width: pipe-PR-CG under the bench protocol,
+    then the other 17 names, then one run of the split formulation.  Returns
+    the launches by wrapper and entry."""
+    from new_cg_variants_tpu_torch import VARIANT_NAMES
+
+    op, b, x_true = model_f32(torch, "dia")
+    out = bench_protocol(torch, op, b, "fused_pipe_full_step", "dia_spmv")
+    launches = dict(emit_bench(torch, "dia_f32", out, x_true,
+                               timings["fused_pipe_full_step"]["ms"],
+                               fmt="dia", ndiag=len(op.offsets)))
+    names = [nm for nm in VARIANT_NAMES if nm != "pipe_pr_cg"]
+    more, failed = solve_names(torch, "dia_f32", op, b, x_true, names,
+                               dia_expected, n=N, k=K_BAND, fmt="dia")
+    # a preconditioner the family kernel cannot apply itself (here the
+    # inverse diagonal as a function): the split formulation at this width,
+    # preconditioned vector phase + the 2-right-hand-side SpMV
+    inv = 1.0 / op.diagonal()
+    split, failed2 = solve_names(
+        torch, "dia_f32", op, b, x_true, ("pipe_pr_pcg",), split_expected,
+        lambda name, op: ("inverse diagonal, as a function", lambda v: inv * v),
+        n=N, k=K_BAND, fmt="dia", path="split")
+    failed += failed2
+    for part in (more, split):
+        for key, val in part.items():
+            launches[key] = launches.get(key, 0) + val
+    if failed:
+        raise AssertionError(f"{len(failed)} full-DIA runs failed: {failed}")
+    return launches
+
+
+def grid_operator(torch, dtype):
+    """The 5-point Laplacian of a 2048 x 2048 grid, shifted by 1e-3, as a
+    5-diagonal ``DiaOperator`` on the card: diagonal 4 + 1e-3, couplings -1
+    at distances 1 and 2048, none across a grid row's end."""
+    from new_cg_variants_tpu_torch import DiaOperator
+
+    n, far = WIDE_N, WIDE_OFFSETS[-1]
+    i = torch.arange(n, device="cuda")
+    data = torch.full((5, n), -1.0, dtype=dtype, device="cuda")
+    data[2] = 4.0 + 1e-3
+    data[0, :far] = 0.0                 # A[i, i - far], i >= far
+    data[4, n - far:] = 0.0             # A[i, i + far], i < n - far
+    data[1, i % far == 0] = 0.0         # A[i, i - 1]: none at a row's start
+    data[3, i % far == far - 1] = 0.0   # A[i, i + 1]: none at a row's end
+    return DiaOperator(WIDE_OFFSETS, data)
+
+
+def dia_wide_f32(torch):
+    """A band too wide for the family kernel and for a staged window: the
+    pipe names take the split formulation (vector-phase kernel + direct
+    SpMV), another name its generic body."""
+    from new_cg_variants_tpu_torch.ops import fused_step, spmv_dia
+
+    op = grid_operator(torch, torch.float32)
+    if fused_step.supports_full_step(op.offsets) or \
+            spmv_dia.stages_window(op.offsets):
+        raise AssertionError("the wide band took a narrow-band path")
+    x_true = np.ones(op.n, dtype=np.float32)
+    b = op.mv(torch.ones(op.n, dtype=torch.float32, device="cuda"))
+    launches, failed = solve_names(
+        torch, "dia_wide_f32", op, b, x_true,
+        ("pipe_pr_cg", "pipe_pr_pcg", "pr_cg"), split_expected,
+        n=op.n, offsets=list(op.offsets))
+    if failed:
+        raise AssertionError(f"{len(failed)} wide-band runs failed: {failed}")
+    return launches
+
+
 def scaled_band(torch, n, k, seed=0, eps=1e-3):
     """``D^1/2 T D^1/2`` in half-band storage: ``T`` a diagonally dominant
     Toeplitz band (condition number near 2 / eps), ``D`` random in
@@ -614,18 +1030,15 @@ def scaled_band(torch, n, k, seed=0, eps=1e-3):
     return op, op.mv(torch.ones(n, dtype=torch.float64)).numpy()
 
 
-def variants_f64(torch):
-    """Card against CPU in float64, one name per family entry."""
-    from new_cg_variants_tpu_torch import banded_model, run
+def compare_f64(torch, phase, cases, expected):
+    """Card against CPU in float64 over F64_ITERS iterations: ``cases`` =
+    (name, operator on the CPU, b, problem label); nu and alpha histories to
+    F64_RTOL and launch counts equal to ``expected(name, iterations)``."""
+    from new_cg_variants_tpu_torch import run
 
-    n = VARIANTS_F64_N
-    model = banded_model(n, k=K_BAND, fmt="symdia", device="cpu")[:2]
-    band = scaled_band(torch, n, K_BAND)
     failed = []
-    for name in ("hs_cg", "cg_cg", "gv_cg", "pr_cg", "hs_pcg", "pr_pcg",
-                 "cg_pcg", "gv_pcg", "pipe_pr_pcg", "pipe_p_pcg"):
+    for name, op, b, problem in cases:
         prec = name.endswith("pcg")
-        op, b = band if prec else model
         kw = dict(max_iter=F64_ITERS + 1, probes=("nu", "alpha"),
                   preconditioner="jacobi" if prec else None,
                   dtype=torch.float64)
@@ -636,20 +1049,103 @@ def variants_f64(torch):
         cpu = run(name, op, b, device="cpu", **kw)
         errs = {p: float(np.max(np.abs(gpu[p] - cpu[p]) / np.abs(cpu[p])))
                 for p in ("nu", "alpha")}
-        wrapper, init_spmvs = VARIANT_ENTRY[name]
-        wrapper = wrapper.split("/")[0]
         want = dict.fromkeys(counts, 0)
-        want.update({"sym_dia_spmv": init_spmvs, wrapper: F64_ITERS})
-        rec = dict(variant=name, problem="scaled_band" if prec else
-                   "banded_model", n=n, k=K_BAND, iterations=F64_ITERS,
+        want.update(expected(name, F64_ITERS)[0])
+        rec = dict(variant=name, problem=problem, n=op.n, iterations=F64_ITERS,
                    max_rel_diff=errs, rtol=F64_RTOL,
                    nu_last_over_first=float(cpu["nu"][-1] / cpu["nu"][0]),
                    launches={k: v for k, v in counts.items() if v})
-        emit("variants_f64", **rec)
+        emit(phase, **rec)
         if not (max(errs.values()) <= F64_RTOL and counts == want):
             failed.append(rec)
     if failed:
         raise AssertionError(f"{len(failed)} f64 comparisons failed: {failed}")
+
+
+def variants_f64(torch):
+    """Card against CPU in float64, one name per family entry."""
+    from new_cg_variants_tpu_torch import banded_model
+
+    n = VARIANTS_F64_N
+    model = banded_model(n, k=K_BAND, fmt="symdia", device="cpu")[:2]
+    band = scaled_band(torch, n, K_BAND)
+    names = ("hs_cg", "cg_cg", "gv_cg", "pr_cg", "hs_pcg", "pr_pcg", "cg_pcg",
+             "gv_pcg", "pipe_pr_pcg", "pipe_p_pcg")
+    compare_f64(torch, "variants_f64",
+                [(nm, *(band if nm.endswith("pcg") else model),
+                  "scaled_band" if nm.endswith("pcg") else "banded_model")
+                 for nm in names], sym_expected)
+
+
+def dia_f64(torch):
+    """Card against CPU in float64 on full-DIA storage, and one run on a
+    dense operator (no kernel: the matrix product is torch's)."""
+    from new_cg_variants_tpu_torch import DiaOperator, as_operator, banded_model
+
+    n = VARIANTS_F64_N
+    model = banded_model(n, k=K_BAND, fmt="dia", device="cpu")[:2]
+    sym, b_band = scaled_band(torch, n, K_BAND)
+    offsets, full = sym.todia_host()  # both triangles, exactly
+    band = (DiaOperator(offsets, torch.from_numpy(full)), b_band)
+    cases = [(nm, *model, "banded_model")
+             for nm in ("pipe_pr_cg", "pipe_p_cg", "hs_cg", "cg_cg", "gv_cg",
+                        "pr_cg")]
+    cases += [(nm, *band, "scaled_band")
+              for nm in ("pipe_pr_pcg", "pipe_p_pcg", "hs_pcg", "pr_pcg",
+                         "cg_pcg", "gv_pcg")]
+    compare_f64(torch, "dia_f64", cases, dia_expected)
+
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.standard_normal((DENSE_N, DENSE_N)))
+    a = (q * np.geomspace(1e-4, 1.0, DENSE_N)) @ q.T
+    dense = as_operator((a + a.T) / 2.0, device="cpu")
+    compare_f64(torch, "dia_f64",
+                [("pipe_pr_cg", dense, dense.todense() @ np.ones(DENSE_N),
+                  "dense_spd")], lambda name, iters: ({}, None))
+
+
+def kernel_records(timings, launches):
+    """The ``kernels`` line: one record per kernel entry and shape a driven
+    path gives it, with the entry's launches on the paths of that shape
+    (``launches``: path -> entry -> count)."""
+    jax_ops = "new_cg_variants_tpu/ops/"
+    sym = ("main_f32", "variants_f32")
+    records = {
+        "sym_dia_spmv": ("sym_dia.cu", "sym_dia.py:47", sym),
+        **{entry: ("sym_family.cu", "sym_fused.py:184", sym)
+           for entry in FAMILY},
+    }
+    for sfx, path in (("", "dia_f32"), (WIDE, "dia_wide_f32")):
+        records.update({
+            "dia_spmv" + sfx: ("dia_spmv.cu", "spmv_pallas.py:58", (path,)),
+            "dia_spmv2" + sfx: ("dia_spmv.cu", "spmv_pallas.py:58", (path,)),
+            "fused_pipe_vector_phase_prec" + sfx: (
+                "pipe_vector.cu", "fused_step.py:160", (path,)),
+        })
+    # at the full-width band the unpreconditioned pipe names take the
+    # whole-iteration entry, so this one runs on the wide band only
+    records["fused_pipe_vector_phase" + WIDE] = (
+        "pipe_vector.cu", "fused_step.py:76", ("dia_wide_f32",))
+    for entry in DIA_STEP:
+        if entry not in VECTOR_PHASES:
+            line = "483" if "_prec" in entry else "329"
+            records[entry] = ("dia_family.cu", "fused_step.py:" + line,
+                              ("dia_f32",))
+    records.update({entry: ("dia_family.cu", "fused_family.py:189",
+                            ("dia_f32",)) for entry in DIA_FAMILY})
+    kernels = []
+    for name, (source, replaces, paths) in records.items():
+        t = timings[name]
+        entry = name.removesuffix(WIDE)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="new_cg_variants_tpu_torch/csrc/" + source,
+            replaces=jax_ops + replaces, n=t["n"], paths=list(paths),
+            launches=sum(launches[p].get(entry, 0) for p in paths),
+            max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"]))
+    return kernels
 
 
 def main():
@@ -671,53 +1167,37 @@ def main():
                         or "Compiling" in ln),
               file=sys.stderr)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = card_line()
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
     timings, launches = {}, {}
-
-    def count(path_launches):
-        for entry, n in path_launches.items():
-            launches[entry] = launches.get(entry, 0) + n
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         emit("seconds", of=name, seconds=time.perf_counter() - t0)
+        if isinstance(out, dict):
+            launches[name] = out  # the path's launches by kernel entry
         return out
 
     phase("check", check_spmv, torch, card, timings)
     phase("check_family", check_family, torch, card, timings)
-    count(phase("main_f32", main_path_f32, torch, timings))
+    phase("check_dia", check_dia, torch, card, timings)
+    phase("main_f32", main_path_f32, torch, timings)
     phase("main_f64", main_path_f64, torch)
-    count(phase("variants_f32", variants_f32, torch))
+    phase("variants_f32", variants_f32, torch)
     phase("variants_f64", variants_f64, torch)
+    phase("dia_f32", dia_path_f32, torch, timings)
+    phase("dia_wide_f32", dia_wide_f32, torch)
+    phase("dia_f64", dia_f64, torch)
 
-    sym_fused = "new_cg_variants_tpu/ops/sym_fused.py:184"
-    sources = {
-        "sym_dia_spmv": ("new_cg_variants_tpu_torch/csrc/sym_dia.cu",
-                         "new_cg_variants_tpu/ops/sym_dia.py:47"),
-        **{entry: ("new_cg_variants_tpu_torch/csrc/sym_family.cu", sym_fused)
-           for entry in FAMILY},
-    }
-    kernels, unlaunched = [], []
-    for name, (source, replaces) in sources.items():
-        t = timings[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
-        if launches[name] < 1:
-            unlaunched.append(name)
+    kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
+    unlaunched = [k["name"] for k in kernels if k["launches"] < 1]
     if unlaunched:
-        raise AssertionError(f"no launch on any driven path: {unlaunched}")
+        raise AssertionError(f"no launch on its driven path: {unlaunched}")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,11 @@ the kernels' plain PyTorch versions.
 
 Ported so far: every CG variant of ``VARIANT_NAMES`` (hs, cg, gv, pr, m and
 the four pipe families, each with its preconditioned twin) on symmetric
-half-band storage.
+half-band, full-DIA and dense operators.
 """
 
-from .matio.problems import banded_model
+from .matio.problems import banded_model, model_spectrum
+from .ops.operators import DenseOperator, DiaOperator, as_operator
 from .ops.sym_dia import SymDiaOperator
 from .solvers.api import VARIANT_NAMES, SolveResult, run, solve
 from .solvers.precond import JacobiPreconditioner, make_preconditioner
@@ -21,7 +22,11 @@ from .solvers.variants import __all__ as _variant_all
 
 __all__ = [
     "banded_model",
+    "model_spectrum",
     "SymDiaOperator",
+    "DiaOperator",
+    "DenseOperator",
+    "as_operator",
     "run",
     "solve",
     "SolveResult",

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .ops.operators import DenseOperator, DiaOperator
 from .ops.sym_dia import SymDiaOperator
 from .solvers.precond import JacobiPreconditioner
 
@@ -18,11 +19,20 @@ __all__ = ["operator_from_numpy", "preconditioner_from_numpy",
            "state_from_numpy", "state_to_numpy"]
 
 
-def operator_from_numpy(offsets, data, *, dtype=None, device=None):
-    """A :class:`SymDiaOperator` from stored offsets and ``(ndiag, n)`` data."""
+def operator_from_numpy(offsets, data, *, kind="symdia", dtype=None,
+                        device=None):
+    """The port's operator of the JAX operator's ``kind``: a
+    :class:`SymDiaOperator` (``"symdia"``) or :class:`DiaOperator`
+    (``"dia"``) from stored offsets and ``(ndiag, n)`` data, or a
+    :class:`DenseOperator` (``"dense"``; ``offsets`` is ``None``) from an
+    ``(n, n)`` array."""
     dev = resolve_device(device)
-    t = torch.from_numpy(np.ascontiguousarray(data))
-    return SymDiaOperator(offsets, t.to(device=dev, dtype=dtype))
+    t = torch.from_numpy(np.ascontiguousarray(data)).to(device=dev, dtype=dtype)
+    if kind == "dense":
+        return DenseOperator(t)
+    if kind not in ("symdia", "dia"):
+        raise ValueError(f"unknown operator kind {kind!r}")
+    return (SymDiaOperator if kind == "symdia" else DiaOperator)(offsets, t)
 
 
 def preconditioner_from_numpy(inv_diag, *, dtype=None, device=None):

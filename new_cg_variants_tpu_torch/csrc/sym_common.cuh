@@ -1,6 +1,9 @@
-// Shared pieces of the half-band kernels (sym_dia.cu, sym_family.cu).
+// Shared pieces of the band kernels.  The half-band ones (sym_dia.cu,
+// sym_family.cu) use all of it; the full-DIA ones (dia_spmv.cu, dia_family.cu)
+// and pipe_vector.cu use the tile, the offsets and the reductions.
 //
-// Storage: data[d, i] = A[i, i + off_d] for the stored offsets off_0 = 0 <
+// Half-band storage:
+// data[d, i] = A[i, i + off_d] for the stored offsets off_0 = 0 <
 // off_1 < ... (main + upper diagonals), row-major (ndiag, n), explicit zeros
 // past the matrix edge.  The half-band h is the largest stored offset.
 //
@@ -112,6 +115,17 @@ inline bool fill_offsets(const int* host, int ndiag, Offsets* o) {
   if (ndiag < 1 || ndiag > kMaxDiags) return false;
   for (int d = 0; d < ndiag; ++d) o->off[d] = host[d];
   return true;
+}
+
+// Full-DIA kernels: the rows a row's products reach before it, h_lo =
+// max(-off, 0), and after it, h_hi = max(off, 0), over the stored offsets.
+inline void halo_of(const int* offsets, int ndiag, int* h_lo, int* h_hi) {
+  *h_lo = 0;
+  *h_hi = 0;
+  for (int d = 0; d < ndiag; ++d) {
+    if (-offsets[d] > *h_lo) *h_lo = -offsets[d];
+    if (offsets[d] > *h_hi) *h_hi = offsets[d];
+  }
 }
 
 // Kernels above 48 KB of dynamic shared memory must opt in first.

@@ -14,7 +14,9 @@ which builds what is missing.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,31 +24,99 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "library", "nvcc_command"]
+import torch
+
+__all__ = ["SOURCES", "build", "load", "library", "using", "nvcc_command",
+           "KERNEL_TILE", "MAX_DIAGS", "KERNEL_DTYPES", "offsets_array",
+           "check_band", "check_vectors"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("sym_dia.cu", "sym_family.cu")
+SOURCES = ("sym_dia.cu", "sym_family.cu", "dia_spmv.cu", "pipe_vector.cu",
+           "dia_family.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 _OFFS = ctypes.POINTER(ctypes.c_int)
+_PTRS = ctypes.POINTER(_VP)
 # argument types of each library's C entry points (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "sym_dia.cu": {
-        name: [_VP, _OFFS, _INT, _INT, ctypes.c_longlong, _VP, _VP, _VP, _VP,
-               _INT, _INT, _VP]
+        name: [_VP, _OFFS, _INT, _INT, _LL, _VP, _VP, _VP, _VP, _INT, _INT,
+               _VP]
         for name in ("sym_dia_spmv_f32", "sym_dia_spmv_f64")
     },
     "sym_family.cu": {
-        name: [_INT, _VP, _OFFS, _INT, _INT, ctypes.c_longlong,
-               ctypes.POINTER(_VP), _INT, ctypes.POINTER(_VP), _INT,
-               ctypes.POINTER(_VP), _INT, _VP, _INT, _VP]
+        name: [_INT, _VP, _OFFS, _INT, _INT, _LL, _PTRS, _INT, _PTRS, _INT,
+               _PTRS, _INT, _VP, _INT, _VP]
         for name in ("sym_family_f32", "sym_family_f64")
     },
+    "dia_spmv.cu": {
+        name: [_VP, _OFFS, _INT, _LL, _VP, _VP, _LL, _LL, _VP, _VP, _INT,
+               _INT, _INT, _VP]
+        for name in ("dia_spmv_f32", "dia_spmv_f64")
+    },
+    "pipe_vector.cu": {
+        name: [_INT, _LL, _PTRS, _INT, _PTRS, _INT, _PTRS, _INT, _VP, _INT,
+               _VP]
+        for name in ("pipe_vector_f32", "pipe_vector_f64")
+    },
+    "dia_family.cu": {
+        name: [_INT, _VP, _OFFS, _INT, _LL, _PTRS, _INT, _PTRS, _INT, _PTRS,
+               _INT, _VP, _INT, _VP]
+        for name in ("dia_family_f32", "dia_family_f64")
+    },
 }
+
+#: rows per block of every kernel (csrc/sym_common.cuh:kTile)
+KERNEL_TILE = 256
+#: stored diagonals a launch may take (csrc/sym_common.cuh:kMaxDiags)
+MAX_DIAGS = 256
+#: suffix of the C entry point per element type
+KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+@functools.lru_cache(maxsize=64)
+def offsets_array(offsets: tuple):
+    """The stored offsets as a C ``int`` array."""
+    return (ctypes.c_int * len(offsets))(*offsets)
+
+
+def check_band(offsets, data):
+    """Validate the stored band a CUDA kernel is handed; return ``(n,
+    suffix)``, the dimension and the suffix of the C entry point."""
+    if not data.is_cuda:
+        raise ValueError("operator data must lie on the CUDA device")
+    if data.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"the CUDA band kernels take float32 or float64 data, not "
+            f"{data.dtype} (bf16 storage is not ported yet)")
+    ndiag, n = data.shape
+    if not data.is_contiguous():
+        raise ValueError("operator data must be contiguous (ndiag, n)")
+    if len(offsets) != ndiag:
+        raise ValueError(f"{len(offsets)} offsets for {ndiag} diagonals")
+    if ndiag > MAX_DIAGS:
+        raise ValueError(f"{ndiag} stored diagonals > {MAX_DIAGS}")
+    if n == 0:
+        raise ValueError("empty operator")
+    return n, KERNEL_DTYPES[data.dtype]
+
+
+def check_vectors(ref, vecs, n):
+    """Every vector on ``ref``'s device, of its dtype, contiguous ``(n,)``."""
+    for v in vecs:
+        if v.device != ref.device:
+            raise ValueError(f"vector on {v.device}, expected {ref.device}")
+        if v.dtype != ref.dtype:
+            raise TypeError(f"vector {v.dtype} != {ref.dtype}")
+        if v.shape != (n,) or not v.is_contiguous():
+            raise ValueError(f"vector must be contiguous ({n},), "
+                             f"got {tuple(v.shape)}")
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -70,25 +140,31 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _build_dir() -> Path:
+def _build_dir(csrc: Path, build_root: Path) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(csrc.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return build_root / h.hexdigest()[:16]
 
 
-def build() -> dict[str, Path]:
+def build(csrc=None, build_root=None) -> dict[str, Path]:
     """Build every missing library, all sources at once; return their paths.
+
+    ``csrc`` / ``build_root``: another directory of sources (an edited copy,
+    for a kernel study) and where its libraries go; default the package's
+    own.  Of :data:`SOURCES` those that ``csrc`` holds are built.
 
     Each compile writes to a temporary name and is renamed into place, so a
     concurrent or interrupted build never leaves a half-written library.
     ``nvcc``'s output (with ``-Xptxas -v``: registers, shared memory and
     spills per kernel) goes to ``<lib>.log`` beside the library.
     """
-    out_dir = _build_dir()
-    paths = {src: out_dir / f"lib{Path(src).stem}.so" for src in SOURCES}
+    csrc = Path(csrc or CSRC)
+    out_dir = _build_dir(csrc, Path(build_root or BUILD_ROOT))
+    paths = {src: out_dir / f"lib{Path(src).stem}.so" for src in SOURCES
+             if (csrc / src).exists()}
     todo = {src: p for src, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -99,8 +175,8 @@ def build() -> dict[str, Path]:
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
         log = open(p.with_suffix(".log"), "w")
         procs[src] = (subprocess.Popen(
-            nvcc_command(nvcc, CSRC / src, tmp), stdout=log,
-            stderr=subprocess.STDOUT, cwd=CSRC,
+            nvcc_command(nvcc, csrc / src, tmp), stdout=log,
+            stderr=subprocess.STDOUT, cwd=csrc,
         ), tmp, log)
     failed = []
     for src, (proc, tmp, log) in procs.items():
@@ -117,15 +193,37 @@ def build() -> dict[str, Path]:
     return paths
 
 
+def load(source: str, path) -> ctypes.CDLL:
+    """Load one built library and declare its entry points' types."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of one source, built on first use."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build()[source]))
-            for name, argtypes in _SIGNATURES[source].items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[source] = lib
+            lib = _libs[source] = load(source, build()[source])
         return lib
+
+
+@contextlib.contextmanager
+def using(libs: dict):
+    """Within the block the wrappers launch the kernels of ``libs`` (source ->
+    library from :func:`load`, built from another directory of sources) in
+    place of the package's own: how a kernel study runs an edited kernel
+    through the port's wrappers and checks."""
+    with _lock:
+        saved = dict(_libs)
+        _libs.update(libs)
+    try:
+        yield
+    finally:
+        with _lock:
+            _libs.clear()
+            _libs.update(saved)

@@ -14,23 +14,22 @@ is checked against on the card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
-from .operators import _shift
+from ._kernels import (
+    KERNEL_TILE,
+    MAX_DIAGS,
+    check_band,
+    check_vectors,
+    offsets_array,
+)
+from ._shift import shift
 
 __all__ = ["SymDiaOperator", "sym_dia_spmv", "sym_dia_spmv2"]
 
-#: rows per block of the CUDA kernels (csrc/sym_common.cuh:kTile)
-KERNEL_TILE = 256
 #: shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232_448
-#: stored diagonals a launch may take (csrc/sym_common.cuh:kMaxDiags)
-MAX_DIAGS = 256
-_KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _mv_plain(offsets, data, v):
@@ -38,15 +37,10 @@ def _mv_plain(offsets, data, v):
     y = data[0] * v
     for d in range(1, len(offsets)):
         off = offsets[d]
-        y = y + data[d] * _shift(v, off)
+        y = y + data[d] * shift(v, off)
         # mirror: data[d, i-off] * v[i-off] == shift(data[d]*v, -off)
-        y = y + _shift(data[d] * v, -off)
+        y = y + shift(data[d] * v, -off)
     return y
-
-
-@functools.lru_cache(maxsize=64)
-def _offsets_array(offsets: tuple):
-    return (ctypes.c_int * len(offsets))(*offsets)
 
 
 def kernel_smem_bytes(ndiag, h, nvec_buffers, itemsize):
@@ -67,37 +61,18 @@ def check_kernel_args(offsets, data, vecs, nvec_buffers,
     shape or contiguity, and on a half-band whose window does not fit in one
     block's shared memory; that error names ``entry``, the entry point.
     """
-    if not data.is_cuda:
-        raise ValueError("operator data must lie on the CUDA device")
-    if data.dtype not in _KERNEL_DTYPES:
-        raise TypeError(
-            f"the CUDA half-band kernels take float32 or float64 data, not "
-            f"{data.dtype} (bf16 storage is not ported yet)")
-    ndiag, n = data.shape
-    if not data.is_contiguous():
-        raise ValueError("operator data must be contiguous (ndiag, n)")
-    if len(offsets) != ndiag or offsets[0] != 0 or min(offsets) < 0:
-        raise ValueError(f"bad stored offsets {offsets} for {ndiag} diagonals")
-    if ndiag > MAX_DIAGS:
-        raise ValueError(f"{ndiag} stored diagonals > {MAX_DIAGS}")
-    for v in vecs:
-        if v.device != data.device:
-            raise ValueError(f"vector on {v.device}, operator on {data.device}")
-        if v.dtype != data.dtype:
-            raise TypeError(f"vector {v.dtype} != operator {data.dtype}")
-        if v.shape != (n,) or not v.is_contiguous():
-            raise ValueError(f"vector must be contiguous ({n},), "
-                             f"got {tuple(v.shape)}")
-    if n == 0:
-        raise ValueError("empty operator")
-    h = max(offsets)
+    n, sfx = check_band(offsets, data)
+    if offsets[0] != 0 or min(offsets) < 0:
+        raise ValueError(f"bad stored offsets {offsets} for half-band storage")
+    check_vectors(data, vecs, n)
+    ndiag, h = len(offsets), max(offsets)
     smem = kernel_smem_bytes(ndiag, h, nvec_buffers, data.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{entry}: half-band {h} with {ndiag} diagonals needs {smem} "
             f"bytes of shared memory per block (> {MAX_SMEM_BYTES}): "
             "unsupported")
-    return n, h, _KERNEL_DTYPES[data.dtype]
+    return n, h, sfx
 
 
 def _launch(offsets, data, vecs):
@@ -108,7 +83,7 @@ def _launch(offsets, data, vecs):
     fn = getattr(library("sym_dia.cu"), f"sym_dia_spmv_{sfx}")
     v1 = vecs[1].data_ptr() if len(vecs) == 2 else None
     y1 = ys[1].data_ptr() if len(vecs) == 2 else None
-    rc = fn(data.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h,
+    rc = fn(data.data_ptr(), offsets_array(tuple(offsets)), len(offsets), h,
             n, vecs[0].data_ptr(), v1, ys[0].data_ptr(), y1, len(vecs),
             data.device.index, torch.cuda.current_stream(data.device).cuda_stream)
     if rc != 0:

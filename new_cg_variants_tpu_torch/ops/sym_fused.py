@@ -34,12 +34,8 @@ import ctypes
 
 import torch
 
-from .sym_dia import (
-    KERNEL_TILE,
-    _mv_plain,
-    _offsets_array,
-    check_kernel_args,
-)
+from ._kernels import KERNEL_TILE, offsets_array
+from .sym_dia import _mv_plain, check_kernel_args
 
 __all__ = [
     "fused_sym_pipe_full_step",
@@ -54,17 +50,21 @@ __all__ = [
 ]
 
 
-# The plain PyTorch version of each entry, in the entry's update order.
+# The plain PyTorch version of each entry, in the entry's update order.  ``mv``
+# is the plain product of the band's storage: the half-band one here, the
+# full-DIA one for the same entries on full-DIA storage (ops/fused_step.py,
+# ops/fused_family.py).
 
 
-def _pipe_step_plain(offsets, data, x, r, w, u, p, s, a1, beta, recompute):
+def _pipe_step_plain(offsets, data, x, r, w, u, p, s, a1, beta, recompute,
+                     mv=_mv_plain):
     r2 = r - a1 * s
     w2 = w - a1 * u
     s2 = w2 + beta * s
     p2 = r2 + beta * p
     x2 = x + a1 * p
-    u2 = _mv_plain(offsets, data, s2)
-    w_out = _mv_plain(offsets, data, r2) if recompute else w2
+    u2 = mv(offsets, data, s2)
+    w_out = mv(offsets, data, r2) if recompute else w2
     dots = (torch.dot(p2, s2), torch.dot(r2, s2), torch.dot(s2, s2),
             torch.dot(r2, r2))
     return x2, r2, w_out, p2, s2, u2, dots
@@ -78,69 +78,71 @@ def _scalar(v, like):
     return t.reshape(()).contiguous()
 
 
-def _hs_phase_plain(offsets, data, r, p, beta):
+def _hs_phase_plain(offsets, data, r, p, beta, mv=_mv_plain):
     p2 = r + beta * p
-    s2 = _mv_plain(offsets, data, p2)
+    s2 = mv(offsets, data, p2)
     return p2, s2, (torch.dot(p2, s2),)
 
 
-def _pr_step_plain(offsets, data, x, r, p, s, a1, beta):
+def _pr_step_plain(offsets, data, x, r, p, s, a1, beta, mv=_mv_plain):
     x2 = x + a1 * p
     r2 = r - a1 * s
     p2 = r2 + beta * p
-    s2 = _mv_plain(offsets, data, p2)
+    s2 = mv(offsets, data, p2)
     dots = (torch.dot(p2, s2), torch.dot(r2, s2), torch.dot(s2, s2),
             torch.dot(r2, r2))
     return x2, r2, p2, s2, dots
 
 
-def _cgcg_phase_plain(offsets, data, x, r, p, s, a1):
+def _cgcg_phase_plain(offsets, data, x, r, p, s, a1, mv=_mv_plain):
     x2 = x + a1 * p
     r2 = r - a1 * s
-    w2 = _mv_plain(offsets, data, r2)
+    w2 = mv(offsets, data, r2)
     return x2, r2, w2, (torch.dot(r2, r2), torch.dot(w2, r2))
 
 
-def _gv_phase_plain(offsets, data, x, r, w, u, p, s, a1):
+def _gv_phase_plain(offsets, data, x, r, w, u, p, s, a1, mv=_mv_plain):
     x2 = x + a1 * p
     r2 = r - a1 * s
     w2 = w - a1 * u
-    t = _mv_plain(offsets, data, w2)
+    t = mv(offsets, data, w2)
     return x2, r2, w2, t, (torch.dot(r2, r2), torch.dot(w2, r2))
 
 
-def _pr_step_prec_plain(offsets, data, d, x, r, p, s, rt, st, a1, beta):
+def _pr_step_prec_plain(offsets, data, d, x, r, p, s, rt, st, a1, beta,
+                        mv=_mv_plain):
     x2 = x + a1 * p
     r2 = r - a1 * s
     rt2 = rt - a1 * st
     p2 = rt2 + beta * p
-    s2 = _mv_plain(offsets, data, p2)
+    s2 = mv(offsets, data, p2)
     st2 = d * s2
     dots = (torch.dot(p2, s2), torch.dot(r2, st2), torch.dot(st2, s2),
             torch.dot(rt2, r2))
     return x2, r2, rt2, p2, s2, st2, dots
 
 
-def _cgcg_phase_prec_plain(offsets, data, d, x, r, p, s, a1):
+def _cgcg_phase_prec_plain(offsets, data, d, x, r, p, s, a1, mv=_mv_plain):
     x2 = x + a1 * p
     r2 = r - a1 * s
     rt2 = d * r2
-    w2 = _mv_plain(offsets, data, rt2)
+    w2 = mv(offsets, data, rt2)
     return x2, r2, rt2, w2, (torch.dot(r2, rt2), torch.dot(w2, rt2))
 
 
-def _gv_phase_prec_plain(offsets, data, d, x, r, w, u, p, s, rt, st, a1):
+def _gv_phase_prec_plain(offsets, data, d, x, r, w, u, p, s, rt, st, a1,
+                         mv=_mv_plain):
     x2 = x + a1 * p
     r2 = r - a1 * s
     rt2 = rt - a1 * st
     w2 = w - a1 * u
     wt2 = d * w2
-    t = _mv_plain(offsets, data, wt2)
+    t = mv(offsets, data, wt2)
     return x2, r2, rt2, w2, wt2, t, (torch.dot(r2, rt2), torch.dot(w2, rt2))
 
 
 def _pipe_step_prec_plain(offsets, data, d, x, r, w, u, p, s, rt, st, wt, ut,
-                          a1, beta, recompute):
+                          a1, beta, recompute, mv=_mv_plain):
     r2 = r - a1 * s
     w2 = w - a1 * u
     rt2 = rt - a1 * st
@@ -149,10 +151,10 @@ def _pipe_step_prec_plain(offsets, data, d, x, r, w, u, p, s, rt, st, wt, ut,
     s2 = w2 + beta * s
     st2 = wt2 + beta * st
     x2 = x + a1 * p
-    u2 = _mv_plain(offsets, data, st2)
+    u2 = mv(offsets, data, st2)
     ut2 = d * u2
     if recompute:
-        w_out = _mv_plain(offsets, data, rt2)
+        w_out = mv(offsets, data, rt2)
         wt_out = d * w_out
     else:
         w_out, wt_out = w2, wt2
@@ -197,7 +199,7 @@ def _launch_family(entry, offsets, data, vecs, scalars):
     scp = (ctypes.c_void_p * len(scalars))(*[v.data_ptr() for v in scalars])
     outp = (ctypes.c_void_p * nout)(*[o.data_ptr() for o in outs])
     fn = getattr(library("sym_family.cu"), f"sym_family_{sfx}")
-    rc = fn(index, data.data_ptr(), _offsets_array(tuple(offsets)),
+    rc = fn(index, data.data_ptr(), offsets_array(tuple(offsets)),
             len(offsets), h, n, ins, len(vecs), scp, len(scalars), outp, nout,
             partials.data_ptr(), data.device.index,
             torch.cuda.current_stream(data.device).cuda_stream)

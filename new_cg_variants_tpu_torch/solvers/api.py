@@ -8,12 +8,14 @@
   (``cg_impls/pipeprcg.c:112-136``).
 
 Every name of :data:`VARIANT_NAMES` (18: nine families, each with its
-``_pcg`` twin) runs on a
-:class:`~..ops.sym_dia.SymDiaOperator`, with ``preconditioner=None |
+``_pcg`` twin) runs on a :class:`~..ops.sym_dia.SymDiaOperator`, a
+:class:`~..ops.operators.DiaOperator`, a
+:class:`~..ops.operators.DenseOperator` or a dense array
+(:func:`~..ops.operators.as_operator`), with ``preconditioner=None |
 "jacobi" | object with .apply | callable`` for the ``_pcg`` names (a ``_cg``
-name ignores it; a ``_pcg`` name without one runs with M = I).  Another
-operator type, ``dtype="f32x2"`` and ``compensated=True`` raise
-``NotImplementedError``.
+name ignores it; a ``_pcg`` name without one runs with M = I).  A scipy
+sparse matrix or COO triple, ``dtype="f32x2"`` and ``compensated=True``
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.sym_dia import SymDiaOperator
+from ..ops.operators import as_operator
 from ..probes.probes import resolve_probes
 from .context import Context
 from .engine import history_scan, tolerance_loop
@@ -89,20 +91,13 @@ def _torch_dtype(dtype):
         return dtype
     if dtype == "f32x2":
         raise NotImplementedError(
-            "dtype='f32x2' is not ported yet (ROADMAP.md, 'Compensated dots "
-            "and f32x2')")
+            "dtype='f32x2' is not ported yet (ROADMAP.md, open item 1.6 "
+            "'Compensated dots and f32x2')")
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
 def _operator(A, dtype, device):
-    if not isinstance(A, SymDiaOperator):
-        raise NotImplementedError(
-            f"operator type {type(A).__name__} is not ported yet; the port "
-            "takes SymDiaOperator (banded_model(fmt='symdia'), "
-            "convert.operator_from_numpy)")
-    op = A if A.device == device else A.to(device)
-    dtype = _torch_dtype(dtype)
-    return op if dtype is None or dtype == op.dtype else op.astype(dtype)
+    return as_operator(A, dtype=_torch_dtype(dtype), device=device)
 
 
 def _vector_dtype(op):

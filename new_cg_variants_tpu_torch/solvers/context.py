@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import sym_fused
+from ..ops import fused_family, fused_step, sym_fused
+from ..ops.operators import DiaOperator
+from ..ops.sym_dia import SymDiaOperator
 from .precond import JacobiPreconditioner
 
 __all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step"]
@@ -22,23 +24,34 @@ class Context:
 
     ``compensated=True`` (error-free-transform dots) is not ported yet.
 
-    The fused-phase hooks (``hs_matvec_phase`` ... ``pipe_full_step_prec``)
-    each run one family's whole phase through one kernel of
-    :mod:`..ops.sym_fused`.  The unpreconditioned hooks always apply.  A
-    preconditioned hook returns ``None``, and the family then takes its
-    generic body (``mv`` / ``mv2`` / ``prec`` / ``dots``), unless the
-    preconditioner is a :class:`~.precond.JacobiPreconditioner` (whose
-    ``inv_diag`` the kernel applies) and no extra norm rides the dot batch
-    (:attr:`extra_norm`, set by :func:`~.engine.tolerance_loop`).  That
-    choice reads the configuration only: it is the same on the CPU and on
-    the card.
+    The fused-phase hooks (``hs_matvec_phase`` ... ``pipe_full_step_prec``,
+    ``pipe_vector_phase_prec``) each run one family's phase through one
+    kernel, or return ``None``, and the family then takes its generic body
+    (``mv`` / ``mv2`` / ``prec`` / ``dots``).  Which it is follows from the
+    operator's kind and the run's configuration alone, so it is the same on
+    the CPU and on the card:
+
+    * :class:`~..ops.sym_dia.SymDiaOperator`: every unpreconditioned hook
+      applies (:mod:`..ops.sym_fused`); a preconditioned one when the
+      preconditioner is a :class:`~.precond.JacobiPreconditioner` (whose
+      ``inv_diag`` the kernel applies) and no extra norm rides the dot batch
+      (:attr:`extra_norm`, set by :func:`~.engine.tolerance_loop`).
+    * :class:`~..ops.operators.DiaOperator` whose band qualifies
+      (:func:`~..ops.fused_step.supports_full_step`, a function of the
+      offsets): the same hooks under the same conditions, through the
+      full-DIA kernel (:mod:`..ops.fused_step`, :mod:`..ops.fused_family`).
+      On a wider band they return ``None`` and the pipe families take the
+      split formulation: ``pipe_vector_phase`` (kernel), or
+      ``pipe_vector_phase_prec`` (kernel; any preconditioner, when no norm
+      rides the dot batch), then ``mv2`` / ``mv`` (kernel).
+    * Any other operator (dense): every hook returns ``None``.
     """
 
     def __init__(self, op, precond=None, compensated=False):
         if compensated:
             raise NotImplementedError(
-                "compensated dots are not ported yet (ROADMAP.md, 'Modules "
-                "to port', item 'Compensated dots and f32x2')")
+                "compensated dots are not ported yet (ROADMAP.md, open item "
+                "1.6 'Compensated dots and f32x2')")
         self.op = op
         self.precond = precond
         self.compensated = compensated
@@ -82,42 +95,71 @@ class Context:
         y, z = self.mv2(v, w)
         return y, z, d
 
+    @property
+    def _sym(self) -> bool:
+        return isinstance(self.op, SymDiaOperator)
+
+    @property
+    def _dia(self) -> bool:
+        return isinstance(self.op, DiaOperator)
+
     def pipe_vector_phase(self, x, r, w, u, p, s, a1, beta):
-        """Unpreconditioned pipe vector phase + its 4-dot batch."""
+        """Unpreconditioned pipe vector phase + its 4-dot batch: one kernel
+        pass on full-DIA storage, the generic formulation elsewhere."""
+        if self._dia:
+            return fused_step.fused_pipe_vector_phase(x, r, w, u, p, s, a1,
+                                                      beta)
         return generic_pipe_vector_phase(self, x, r, w, u, p, s, a1, beta)
+
+    def _fused(self, name, jacobi=False):
+        """The one-pass kernel entry ``name`` of the operator's storage, or
+        ``None`` when the operator has none (a dense operator, a full-DIA
+        band wider than :func:`~..ops.fused_step.supports_full_step` admits)
+        or, for a ``jacobi`` entry (which applies ``inv_diag`` itself), when
+        the preconditioner is another or a norm rides the dot batch."""
+        if jacobi and not (isinstance(self.precond, JacobiPreconditioner)
+                           and self.extra_norm is None):
+            return None
+        if self._sym:
+            return getattr(sym_fused, "fused_sym_" + name)
+        if self._dia and fused_step.supports_full_step(self.op.offsets):
+            module = fused_step if name.startswith("pipe_") else fused_family
+            return getattr(module, "fused_" + name)
+        return None
 
     def pipe_full_step(self, s_, a1, beta, recompute):
         """Whole unpreconditioned pipe-P/PR iteration: vector phase, dots
         and SpMV(s).  Returns ``(x2, r2, w_out, p2, s2, u2, (mu, delta,
-        gamma, nu))``.
+        gamma, nu))``, or ``None`` (the caller then takes the split
+        formulation, :func:`split_pipe_full_step`).
         """
-        return sym_fused.fused_sym_pipe_full_step(
+        fn = self._fused("pipe_full_step")
+        return fn and fn(
             self.op.offsets, self.op.data,
-            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
-            a1, beta, recompute=recompute,
-        )
+            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1, beta,
+            recompute=recompute)
 
     def pr_full_step(self, s_, a1, beta):
         """Whole unpreconditioned PR/Meurant iteration (beta is predicted,
         so x, r, p updates, ``s = A p`` and the 4 dots are one pass)."""
-        return sym_fused.fused_sym_pr_full_step(
+        fn = self._fused("pr_full_step")
+        return fn and fn(
             self.op.offsets, self.op.data,
-            s_["x"], s_["r"], s_["p"], s_["s"], a1, beta,
-        )
+            s_["x"], s_["r"], s_["p"], s_["s"], a1, beta)
 
     def cgcg_matvec_phase(self, s_, a1):
         """Chronopoulos-Gear phase: x, r updates + ``w = A r`` + nu, eta."""
-        return sym_fused.fused_sym_cgcg_matvec_phase(
+        fn = self._fused("cgcg_matvec_phase")
+        return fn and fn(
             self.op.offsets, self.op.data,
-            s_["x"], s_["r"], s_["p"], s_["s"], a1,
-        )
+            s_["x"], s_["r"], s_["p"], s_["s"], a1)
 
     def gv_matvec_phase(self, s_, a1):
         """GV phase: x, r, w updates + ``t = A w`` + nu, eta."""
-        return sym_fused.fused_sym_gv_matvec_phase(
+        fn = self._fused("gv_matvec_phase")
+        return fn and fn(
             self.op.offsets, self.op.data,
-            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1,
-        )
+            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1)
 
     def hs_matvec_phase(self, rt, p, beta):
         """HS second sync phase: p update + ``s = A p`` + mu.
@@ -126,52 +168,52 @@ class Context:
         (rt = r) and hs_pcg with ANY preconditioner: HS's second phase
         never touches M.
         """
-        return sym_fused.fused_sym_hs_matvec_phase(
-            self.op.offsets, self.op.data, rt, p, beta)
-
-    def _jacobi_fused(self) -> bool:
-        return (isinstance(self.precond, JacobiPreconditioner)
-                and self.extra_norm is None)
+        fn = self._fused("hs_matvec_phase")
+        return fn and fn(self.op.offsets, self.op.data, rt, p, beta)
 
     def pr_full_step_prec(self, s_, a1, beta):
         """Whole Jacobi-preconditioned PR/M iteration, PCApply included."""
-        if not self._jacobi_fused():
-            return None
-        return sym_fused.fused_sym_pr_full_step_prec(
+        fn = self._fused("pr_full_step_prec", jacobi=True)
+        return fn and fn(
             self.op.offsets, self.op.data, self.precond.inv_diag,
-            s_["x"], s_["r"], s_["p"], s_["s"], s_["rt"], s_["st"], a1, beta,
-        )
+            s_["x"], s_["r"], s_["p"], s_["s"], s_["rt"], s_["st"], a1, beta)
 
     def cgcg_matvec_phase_prec(self, s_, a1):
         """Jacobi-preconditioned CG matvec phase (PCApply in the pass)."""
-        if not self._jacobi_fused():
-            return None
-        return sym_fused.fused_sym_cgcg_matvec_phase_prec(
+        fn = self._fused("cgcg_matvec_phase_prec", jacobi=True)
+        return fn and fn(
             self.op.offsets, self.op.data, self.precond.inv_diag,
-            s_["x"], s_["r"], s_["p"], s_["s"], a1,
-        )
+            s_["x"], s_["r"], s_["p"], s_["s"], a1)
 
     def gv_matvec_phase_prec(self, s_, a1):
         """Jacobi-preconditioned GV matvec phase (PCApply in the pass)."""
-        if not self._jacobi_fused():
-            return None
-        return sym_fused.fused_sym_gv_matvec_phase_prec(
+        fn = self._fused("gv_matvec_phase_prec", jacobi=True)
+        return fn and fn(
             self.op.offsets, self.op.data, self.precond.inv_diag,
             s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
-            s_["rt"], s_["st"], a1,
-        )
+            s_["rt"], s_["st"], a1)
 
     def pipe_full_step_prec(self, s_, a1, beta, recompute):
         """Whole Jacobi-preconditioned pipe-P/PR iteration: vector phase,
         dots, both SpMVs and both PCApplies in one pass."""
-        if not self._jacobi_fused():
-            return None
-        return sym_fused.fused_sym_pipe_full_step_prec(
+        fn = self._fused("pipe_full_step_prec", jacobi=True)
+        return fn and fn(
             self.op.offsets, self.op.data, self.precond.inv_diag,
             s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
             s_["rt"], s_["st"], s_["wt"], s_["ut"],
-            a1, beta, recompute=recompute,
-        )
+            a1, beta, recompute=recompute)
+
+    def pipe_vector_phase_prec(self, s_, a1, beta):
+        """Preconditioned pipe vector phase (8 updates + the 4-dot batch) in
+        one kernel pass on full-DIA storage; the caller follows it with
+        ``mv2`` / ``mv`` and the PCApplies.  The kernel never touches M, so
+        any preconditioner qualifies; ``None`` when a norm rides the dot
+        batch or the operator is of another kind."""
+        if not self._dia or self.extra_norm is not None:
+            return None
+        return fused_step.fused_pipe_vector_phase_prec(
+            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
+            s_["rt"], s_["st"], s_["wt"], s_["ut"], a1, beta)
 
 
 def generic_pipe_vector_phase(ctx, x, r, w, u, p, s, a1, beta):
@@ -187,8 +229,9 @@ def generic_pipe_vector_phase(ctx, x, r, w, u, p, s, a1, beta):
 
 def split_pipe_full_step(ctx, s_, a1, beta, recompute):
     """The pipe iteration as vector phase + ``mv2`` (or ``mv``): the split
-    formulation, with the fused step's return order.  No entry point takes
-    it; it is the reference the fused step is tested against."""
+    formulation, with the fused step's return order.  The pipe step takes it
+    when :meth:`Context.pipe_full_step` declines (a wide full-DIA band, a
+    dense operator), and the fused steps are tested against it."""
     x, r, w, p, s, dots = ctx.pipe_vector_phase(
         s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1, beta,
     )

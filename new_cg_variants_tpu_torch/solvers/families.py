@@ -21,9 +21,10 @@ from the PREDICTED nu, alpha from the recomputed one,
 ``cg_variants/pipe_pr_cg.py:63-76``), so each step keeps it exactly.
 
 Every step first asks the context for its fused phase (one kernel pass,
-:mod:`..ops.sym_fused`) and takes the generic body (``mv`` / ``prec`` /
-``dots``) when the context declines: a preconditioner other than Jacobi, a
-norm riding the dot batch (``ctx.extra_norm``), or gv's replacement hook.
+:mod:`..ops.sym_fused` or :mod:`..ops.fused_step`) and takes the generic body
+(``mv`` / ``prec`` / ``dots``) when the context declines: an operator kind
+without that kernel, a preconditioner other than Jacobi, a norm riding the
+dot batch (``ctx.extra_norm``), or gv's replacement hook.
 
 Scalar state keys: ``a`` (alpha_k), ``a1`` (alpha_{k-1}), ``b`` (beta_k),
 ``b1``, ``nu``; families add their own (``mu``, ``eta``, ``delta``,
@@ -37,6 +38,8 @@ Python int.
 from __future__ import annotations
 
 import torch
+
+from .context import split_pipe_full_step
 
 __all__ = ["FAMILIES", "family_of", "make_gv_step", "make_pipe_step",
            "make_pr_step"]
@@ -114,10 +117,11 @@ def hs_step(ctx, s_):
     out = ctx.dots((r, rt), *extra)  # sync 1
     nu = out[0]
     beta = _safe_div(nu, s_["nu"])
-    if not extra:
-        # second sync phase fused: p update + SpMV + mu in one pass.  The
-        # phase never touches M, so it serves hs_pcg (rt input) too.
-        p, s, (mu,) = ctx.hs_matvec_phase(rt, s_["p"], beta)
+    # second sync phase fused: p update + SpMV + mu in one pass.  The phase
+    # never touches M, so it serves hs_pcg (rt input) too.
+    fused = None if extra else ctx.hs_matvec_phase(rt, s_["p"], beta)
+    if fused is not None:
+        p, s, (mu,) = fused
     else:
         p = rt + beta * s_["p"]
         s = ctx.mv(p)
@@ -156,8 +160,12 @@ def cgcg_step(ctx, s_):
         # fused phase: x, r updates + (PCApply +) w = A rt + the single
         # sync's nu, eta in one pass; only the p, s AXPYs (need beta) stay
         # outside.  Update order identical to the generic body.
-        if not ctx.has_prec:
-            x, r, w, (nu, eta) = ctx.cgcg_matvec_phase(s_, a1)
+        fused = (ctx.cgcg_matvec_phase_prec(s_, a1) if ctx.has_prec
+                 else ctx.cgcg_matvec_phase(s_, a1))
+        if fused is None:
+            pass  # the context has no such kernel: the generic body below
+        elif not ctx.has_prec:
+            x, r, w, (nu, eta) = fused
             beta = _safe_div(nu, s_["nu"])
             p = r + beta * s_["p"]  # rt = r (unpreconditioned)
             s = w + beta * s_["s"]
@@ -165,8 +173,7 @@ def cgcg_step(ctx, s_):
             new = dict(x=x, r=r, w=w, p=p, s=s, nu=nu, eta=eta, mu=mu,
                        a=_safe_div(nu, mu), b=beta)
             return _rotate(s_, new)
-        fused = ctx.cgcg_matvec_phase_prec(s_, a1)
-        if fused is not None:
+        else:
             x, r, rt, w, (nu, eta) = fused
             beta = _safe_div(nu, s_["nu"])
             p = rt + beta * s_["p"]
@@ -248,8 +255,12 @@ def make_gv_step(w_replace=None, stateful=False):
         if w_replace is None and ctx.extra_norm is None:
             # fused phase: x, r, w updates + (PCApply +) t = A wt + nu, eta
             # in one pass; the p, s, u(, st) AXPYs (need beta) stay outside.
-            if not ctx.has_prec:
-                x, r, w, t, (nu, eta) = ctx.gv_matvec_phase(s_, a1)
+            fused = (ctx.gv_matvec_phase_prec(s_, a1) if ctx.has_prec
+                     else ctx.gv_matvec_phase(s_, a1))
+            if fused is None:
+                pass  # no such kernel: the generic body below
+            elif not ctx.has_prec:
+                x, r, w, t, (nu, eta) = fused
                 beta = _safe_div(nu, s_["nu"])
                 p = r + beta * s_["p"]  # rt = r (unpreconditioned)
                 s = w + beta * s_["s"]
@@ -258,8 +269,7 @@ def make_gv_step(w_replace=None, stateful=False):
                 new = dict(x=x, r=r, w=w, p=p, s=s, u=u, nu=nu, eta=eta,
                            mu=mu, a=_safe_div(nu, mu), b=beta)
                 return _rotate(s_, new)
-            fused = ctx.gv_matvec_phase_prec(s_, a1)
-            if fused is not None:
+            else:
                 x, r, rt, w, wt, t, (nu, eta) = fused
                 beta = _safe_div(nu, s_["nu"])
                 p = rt + beta * s_["p"]
@@ -358,14 +368,16 @@ def make_pr_step(meurant: bool):
             # one pass: x, r(, rt) updates + p update + s = A p (+ st =
             # M^-1 s) + all 4 dots (cg_impls/prcg.c:122-137).  Update order
             # identical to the generic body below.
-            if not ctx.has_prec:
-                x, r, p, s, (mu, delta, gamma, nu) = ctx.pr_full_step(
-                    s_, a1, beta_pred)
+            fused = (ctx.pr_full_step_prec(s_, a1, beta_pred) if ctx.has_prec
+                     else ctx.pr_full_step(s_, a1, beta_pred))
+            if fused is None:
+                pass  # no such kernel: the generic body below
+            elif not ctx.has_prec:
+                x, r, p, s, (mu, delta, gamma, nu) = fused
                 new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, delta=delta,
                            gamma=gamma, a=_safe_div(nu, mu), b=beta_pred)
                 return _rotate(s_, new)
-            fused = ctx.pr_full_step_prec(s_, a1, beta_pred)
-            if fused is not None:
+            else:
                 x, r, rt, p, s, st_, (mu, delta, gamma, nu) = fused
                 new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, delta=delta,
                            gamma=gamma, a=_safe_div(nu, mu), b=beta_pred,
@@ -430,19 +442,37 @@ def make_pipe_step(meurant: bool, recompute: bool):
         beta = _safe_div(nu_pred, s_["nu"])
         if not ctx.has_prec:
             # the whole iteration: vector phase + dot batch + SpMV(s) in one
-            # kernel pass (Context.pipe_full_step)
-            x, r, w, p, s, u, (mu, delta, gamma, nu) = ctx.pipe_full_step(
-                s_, a1, beta, recompute)
+            # kernel pass (Context.pipe_full_step) when the context has one,
+            # else the split formulation: vector phase, then mv2 / mv;
+            # identical update order either way
+            fused = ctx.pipe_full_step(s_, a1, beta, recompute)
+            if fused is None:
+                fused = split_pipe_full_step(ctx, s_, a1, beta, recompute)
+            x, r, w, p, s, u, (mu, delta, gamma, nu) = fused
             new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
                        delta=delta, gamma=gamma, a=_safe_div(nu, mu), b=beta)
             return _rotate(s_, new)
         # Preconditioned: the whole iteration with both PCApplies in one
         # pass when the context qualifies (the PETSc overlapped
-        # MatMult + PCApply region, pipeprcg.c:162-170), else the generic
-        # formulation; identical update order in both.
+        # MatMult + PCApply region, pipeprcg.c:162-170), then the fused
+        # vector phase followed by the products and PCApplies, then the
+        # generic formulation; identical update order in all three.
         fused = ctx.pipe_full_step_prec(s_, a1, beta, recompute)
         if fused is not None:
             x, r, w, p, s, u, rt, st_, wt, ut, (mu, delta, gamma, nu) = fused
+            new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
+                       delta=delta, gamma=gamma, a=_safe_div(nu, mu), b=beta,
+                       rt=rt, st=st_, wt=wt, ut=ut)
+            return _rotate(s_, new)
+        vec = ctx.pipe_vector_phase_prec(s_, a1, beta)
+        if vec is not None:
+            x, r, w, rt, wt, p, s, st_, (mu, delta, gamma, nu) = vec
+            if recompute:
+                u, w = ctx.mv2(st_, rt)  # 2-RHS matvec
+                wt = ctx.prec(w)
+            else:
+                u = ctx.mv(st_)
+            ut = ctx.prec(u)
             new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
                        delta=delta, gamma=gamma, a=_safe_div(nu, mu), b=beta,
                        rt=rt, st=st_, wt=wt, ut=ut)

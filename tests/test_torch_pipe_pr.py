@@ -193,18 +193,21 @@ def test_safe_div_freezes_on_zero_denominator():
 @pytest.mark.parametrize("variant,kw,exc", [
     ("pipe_pr_pcg", {"preconditioner": "ilu"}, ValueError),
     ("pipe_pr_pcg", {"preconditioner": 3}, TypeError),
-    ("pipe_pr_cg", {"A": "dense"}, NotImplementedError),
+    ("pipe_pr_cg", {"A": "scipy"}, NotImplementedError),
     ("pipe_pr_cg", {"dtype": "f32x2"}, NotImplementedError),
     ("pipe_pr_cg", {"compensated": True}, NotImplementedError),
     ("bogus_cg", {}, KeyError),
 ])
 def test_unported_options_raise(kappa_100, variant, kw, exc):
-    """What still raises: an unknown preconditioner or variant name, an
-    operator that is not half-band storage, double-word arithmetic and
-    compensated dots.  (The names and the preconditioner that raised before
-    every variant was ported run in test_torch_variants.py.)"""
+    """What still raises: an unknown preconditioner or variant name, a scipy
+    sparse matrix (it needs the format policy of ``from_coo``), double-word
+    arithmetic and compensated dots.  (The names and the preconditioner that
+    raised before every variant was ported run in test_torch_variants.py;
+    dense and full-DIA operators in test_torch_dia_variants.py.)"""
+    import scipy.sparse as sp
+
     _, top, b, _ = kappa_100
     kw = dict(kw)
-    A = np.eye(8) if kw.pop("A", None) == "dense" else top
+    A = sp.eye(b.shape[0], format="csr") if kw.pop("A", None) == "scipy" else top
     with pytest.raises(exc):
         solve(A, b, variant=variant, max_iter=2, device="cpu", **kw)

@@ -59,7 +59,8 @@ def test_forbidden_import_check_minds_the_prefix():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "chip_study.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_port_sources_import_no_jax(path):
@@ -119,6 +120,30 @@ def test_default_device_without_cuda_raises(no_cuda, small_problem, entry):
             getattr(port, entry)(op, b, max_iter=3, preconditioner=pre)
 
 
+@pytest.mark.parametrize("kind", ["dia", "dense", "array", "spectrum"])
+@pytest.mark.parametrize("entry", ["solve", "run", "pipe_pr_cg", "pipe_pr_pcg",
+                                   "hs_pcg"])
+def test_default_device_without_cuda_raises_on_each_operator_kind(
+        no_cuda, kind, entry):
+    if kind == "dia":
+        op, b, _ = port.banded_model(256, k=4, kappa=100.0, fmt="dia",
+                                     device="cpu")
+    elif kind == "spectrum":
+        op, b, _ = port.model_spectrum(256, kappa=100.0, device="cpu")
+    else:
+        a = np.diag(np.arange(1.0, 9.0))
+        op = a if kind == "array" else port.as_operator(a, device="cpu")
+        b = np.ones(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "solve":
+            port.solve(op, b, max_iter=3)
+        elif entry == "run":
+            port.run("pr_cg", op, b, max_iter=3)
+        else:
+            pre = "jacobi" if entry.endswith("pcg") else None
+            getattr(port, entry)(op, b, max_iter=3, preconditioner=pre)
+
+
 def test_problem_and_convert_default_to_cuda(no_cuda):
     from new_cg_variants_tpu_torch.convert import (
         operator_from_numpy,
@@ -128,6 +153,15 @@ def test_problem_and_convert_default_to_cuda(no_cuda):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         port.banded_model(64, k=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.banded_model(64, k=2, fmt="dia")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.model_spectrum(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.as_operator(np.eye(4))
+    for kind, offsets in (("dia", (-1, 0)), ("dense", None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            operator_from_numpy(offsets, np.ones((2, 2)), kind=kind)
     with pytest.raises(RuntimeError, match="CUDA"):
         operator_from_numpy((0, 1), np.ones((2, 8)))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -149,7 +183,9 @@ def test_kernel_or_generic_choice_reads_the_configuration_only():
     preconditioner and the norm alone, and a CUDA tensor reaches the kernel
     or raises."""
     for rel in ("solvers/context.py", "solvers/families.py",
-                "solvers/engine.py", "ops/sym_fused.py", "ops/sym_dia.py"):
+                "solvers/engine.py", "ops/sym_fused.py", "ops/sym_dia.py",
+                "ops/operators.py", "ops/spmv_dia.py", "ops/fused_step.py",
+                "ops/fused_family.py"):
         tree = ast.parse((PORT_DIR / rel).read_text())
         for node in ast.walk(tree):
             assert not isinstance(node, ast.Try), rel
@@ -169,11 +205,27 @@ def test_nvcc_command_targets_hopper():
 def test_every_kernel_source_is_built_and_notes_what_it_replaces():
     built = set(_kernels.SOURCES)
     assert built == {p.name for p in (PORT_DIR / "csrc").glob("*.cu")}
+    assert built == set(_kernels._SIGNATURES)
+    assert {"dia_spmv.cu", "pipe_vector.cu", "dia_family.cu"} <= built
     for name in built:
         text = (PORT_DIR / "csrc" / name).read_text()
         assert "Replaces the TPU kernel" in text
         assert "What bounds it on an H100" in text
         assert 'extern "C"' in text
+
+
+def test_every_study_edit_applies_to_the_kernel_sources():
+    """``chip_study.py`` builds edited copies of the sources; each edit's
+    text stands exactly once in the source it names, so a study fails here
+    and not on the card when a kernel is rewritten."""
+    import chip_study
+
+    edits = list(chip_study.MUTANTS.values()) + list(chip_study.LAUNCH_BOUNDS)
+    assert len(edits) >= 12
+    for source, text, replacement in edits:
+        body = (PORT_DIR / "csrc" / source).read_text()
+        assert body.count(text) == 1, (source, text)
+        assert replacement != text
 
 
 def test_gitignore_lists_the_build_directory():

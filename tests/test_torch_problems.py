@@ -25,7 +25,19 @@ def test_model_spectrum_and_diagonal_bit_identical():
                                   jp.banded_model_diagonal(777, kappa=1e4))
 
 
-@pytest.mark.parametrize("fmt", ["dia", "stencil"])
-def test_unported_formats_raise(fmt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("fmt,error,match", [
+    ("stencil", NotImplementedError, "ROADMAP"),
+    ("csr", ValueError, "unknown fmt"),
+])
+def test_unported_formats_raise(fmt, error, match):
+    """``stencil`` still raises and names its ROADMAP item; a name that is no
+    format at all is a ``ValueError``."""
+    with pytest.raises(error, match=match):
         tp.banded_model(64, k=2, fmt=fmt, device="cpu")
+
+
+def test_dia_format_is_ported():
+    """``fmt="dia"`` builds a ``DiaOperator`` (compared with the JAX package
+    in test_torch_operators.py)."""
+    op, b, _ = tp.banded_model(64, k=2, fmt="dia", device="cpu")
+    assert op.offsets == (-1, 0, 1) and b.shape == (64,)
