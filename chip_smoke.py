@@ -64,7 +64,35 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     n = 65,536 on full-DIA storage, one name per family entry (the model
     problem, and the scaled band for the Jacobi runs), and one run on a dense
     512 x 512 operator;
-12. ``kernels`` — one JSON line over all kernel entries: one record per entry
+12. ``check`` lines of the double-word kernels (``check_df``, run after
+    ``check_dia``): the DIA product of ``csrc/df_spmv.cu`` (1 and 2
+    right-hand sides; 63 diagonals at n = 655,360, the wide grid band, small,
+    ragged and non-symmetric bands), its dense product (n = 4096, 8192 and
+    small n, also below the 256 threads of a row) and the vector phase of
+    ``csrc/df_pipe.cu`` (at 2560 block partials, 16,384, and 1, 3, 5, 6, 7),
+    each against its plain version on the same O(1) random three-word and
+    double-word data: every product and vector word equal (max |difference|
+    0), the four dots within 1e-12 of float64 in units of sum |a_i b_i|.
+    Timed at the paths' shapes, with the bounds from bytes and from float32
+    operations counted without fused multiply-adds, and the float64
+    counterpart of each (a different function, labelled so);
+13. ``df_f32x2`` — the double-word path at full width: pipe-PR-CG with
+    ``dtype="f32x2"`` on the model problem of 4 built in float64 (expanded to
+    63 diagonals and split exactly, 495 MB of words), 300 iterations of
+    ``solve(norm_type="none")`` with rows 9 (2 right-hand sides) and 11 once
+    per iteration, the profiler's launches per iteration; the other 17 names
+    for 20 iterations (generic bodies: row 9 once per product); plain-float64
+    pipe-PR-CG on the same problem beside it;
+14. ``df_dense_f32x2`` — pipe-PR-CG in f32x2 on a dense SPD operator (n =
+    4096): row 10 (2 right-hand sides) and row 11 once per iteration;
+15. ``df_card_vs_cpu`` — f32x2 on the card against the CPU on the same words,
+    25 iterations (n = 65,536 full-DIA, and a dense 512 x 512): collapsed nu
+    and alpha to rtol 1e-10; and the one-shot check that the error words
+    survive, on the card;
+16. ``df_accuracy`` — the outcome of the mode: on the diagonal model spectrum
+    at kappa = 1e6 (n = 65,536) float32 stalls near 1e-5 relative A-norm
+    error and f32x2 reaches 1e-10 within 300 iterations;
+17. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
     paths of that shape.
 
@@ -611,6 +639,7 @@ def check_dia(torch, card, timings):
 
 
 def counted_wrappers():
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
     from new_cg_variants_tpu_torch.ops import fused_family as ff
     from new_cg_variants_tpu_torch.ops import fused_step as fs
     from new_cg_variants_tpu_torch.ops import spmv_dia as sp
@@ -619,7 +648,7 @@ def counted_wrappers():
 
     return ((sd.sym_dia_spmv, sd.sym_dia_spmv2) + sf.FAMILY_WRAPPERS
             + sp.DIA_WRAPPERS + fs.FUSED_STEP_WRAPPERS
-            + ff.FUSED_FAMILY_WRAPPERS)
+            + ff.FUSED_FAMILY_WRAPPERS + ds.DF_WRAPPERS)
 
 
 def reset_counts():
@@ -860,41 +889,45 @@ def jacobi_for_pcg(name, op):
 
 
 def solve_names(torch, phase, op, b, x_true, names, expected,
-                precond=jacobi_for_pcg, **fields):
-    """Each name through ``solve(norm_type="none")`` for VARIANT_ITERS
-    iterations, preconditioned by ``precond(name, op)`` = (label, what
-    ``solve`` takes): ms/iter, a finite solution and launch counts equal to
-    ``expected(name, iterations)``.  Returns the launches by wrapper and by
-    kernel entry, summed over the runs, and the failed runs."""
+                precond=jacobi_for_pcg, iters=VARIANT_ITERS, dtype=None,
+                plain_op=None, **fields):
+    """Each name through ``solve(norm_type="none")`` for ``iters``
+    iterations (in ``dtype``), preconditioned by ``precond(name, op)`` =
+    (label, what ``solve`` takes): ms/iter, a finite solution and launch
+    counts equal to ``expected(name, iterations)``; the residual is formed
+    with ``plain_op`` (default ``op``).  Returns the launches by wrapper and
+    by kernel entry, summed over the runs, and the failed runs."""
     from new_cg_variants_tpu_torch import solve
 
+    plain_op = op if plain_op is None else plain_op
     bnorm = float(torch.linalg.norm(b))
     xt = torch.as_tensor(x_true, dtype=b.dtype, device="cuda")
     launches, failed = {}, []
     for name in names:
         pre, spec = precond(name, op)
-        kw = dict(variant=name, preconditioner=spec, norm_type="none")
+        kw = dict(variant=name, preconditioner=spec, norm_type="none",
+                  dtype=dtype)
         solve(op, b, max_iter=5, **kw)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        res = solve(op, b, max_iter=VARIANT_ITERS, **kw)
+        res = solve(op, b, max_iter=iters, **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
         want = dict.fromkeys(counts, 0)
-        by_wrapper, entry = expected(name, VARIANT_ITERS)
+        by_wrapper, entry = expected(name, iters)
         want.update(by_wrapper)
         for key, val in counts.items():
             # a wrapper's launches go to the entry of it that this name runs
             dest = entry if key == entry.split("/")[0] else key
             launches[dest] = launches.get(dest, 0) + val
-        r = b - op.mv(res.x)
+        r = b - plain_op.mv(res.x)
         # the true residual's nu = r.M^-1 r (the recurrence's own nu
         # underflows to 0 once a Jacobi run has converged, and freezes)
-        nu = float(torch.dot(r, r / op.diagonal() if pre else r))
+        nu = float(torch.dot(r, r / plain_op.diagonal() if pre else r))
         rec = dict(variant=name, preconditioner=pre, iterations=res.iterations,
-                   ms_per_iter=seconds / VARIANT_ITERS * 1e3, nu_final=nu,
+                   ms_per_iter=seconds / iters * 1e3, nu_final=nu,
                    rel_residual=float(torch.linalg.norm(r)) / bnorm,
                    rel_forward_error=float(torch.linalg.norm(res.x - xt)
                                            / torch.linalg.norm(xt)),
@@ -902,7 +935,7 @@ def solve_names(torch, phase, op, b, x_true, names, expected,
                    expected_launches={k: v for k, v in want.items() if v})
         emit(phase, **fields, **rec)
         ok = (np.isfinite(nu) and nu > 0 and counts == want
-              and res.iterations == VARIANT_ITERS
+              and res.iterations == iters
               and bool(torch.isfinite(res.x).all()))
         if not ok:
             failed.append(rec)
@@ -1030,10 +1063,11 @@ def scaled_band(torch, n, k, seed=0, eps=1e-3):
     return op, op.mv(torch.ones(n, dtype=torch.float64)).numpy()
 
 
-def compare_f64(torch, phase, cases, expected):
-    """Card against CPU in float64 over F64_ITERS iterations: ``cases`` =
-    (name, operator on the CPU, b, problem label); nu and alpha histories to
-    F64_RTOL and launch counts equal to ``expected(name, iterations)``."""
+def compare_f64(torch, phase, cases, expected, dtype="float64"):
+    """Card against CPU in float64 (or ``dtype="f32x2"``) over F64_ITERS
+    iterations: ``cases`` = (name, operator on the CPU, b, problem label); nu
+    and alpha histories to F64_RTOL and launch counts equal to
+    ``expected(name, iterations)``."""
     from new_cg_variants_tpu_torch import run
 
     failed = []
@@ -1041,7 +1075,7 @@ def compare_f64(torch, phase, cases, expected):
         prec = name.endswith("pcg")
         kw = dict(max_iter=F64_ITERS + 1, probes=("nu", "alpha"),
                   preconditioner="jacobi" if prec else None,
-                  dtype=torch.float64)
+                  dtype=torch.float64 if dtype == "float64" else dtype)
         reset_counts()
         gpu = run(name, op, b, device="cuda", **kw)
         torch.cuda.synchronize()
@@ -1051,8 +1085,8 @@ def compare_f64(torch, phase, cases, expected):
                 for p in ("nu", "alpha")}
         want = dict.fromkeys(counts, 0)
         want.update(expected(name, F64_ITERS)[0])
-        rec = dict(variant=name, problem=problem, n=op.n, iterations=F64_ITERS,
-                   max_rel_diff=errs, rtol=F64_RTOL,
+        rec = dict(variant=name, problem=problem, n=op.n, dtype=dtype,
+                   iterations=F64_ITERS, max_rel_diff=errs, rtol=F64_RTOL,
                    nu_last_over_first=float(cpu["nu"][-1] / cpu["nu"][0]),
                    launches={k: v for k, v in counts.items() if v})
         emit(phase, **rec)
@@ -1095,13 +1129,414 @@ def dia_f64(torch):
                          "cg_pcg", "gv_pcg")]
     compare_f64(torch, "dia_f64", cases, dia_expected)
 
-    rng = np.random.default_rng(0)
-    q, _ = np.linalg.qr(rng.standard_normal((DENSE_N, DENSE_N)))
-    a = (q * np.geomspace(1e-4, 1.0, DENSE_N)) @ q.T
-    dense = as_operator((a + a.T) / 2.0, device="cpu")
+    dense = as_operator(dense_spd(torch, DENSE_N), device="cpu")
     compare_f64(torch, "dia_f64",
                 [("pipe_pr_cg", dense, dense.todense() @ np.ones(DENSE_N),
                   "dense_spd")], lambda name, iters: ({}, None))
+
+
+def dense_spd(torch, n, seed=0, device="cpu"):
+    """A dense SPD matrix (float64 numpy) with eigenvalues spread
+    geometrically over [1e-4, 1]: Q diag(l) Q^T, Q from the QR of a random
+    matrix made with numpy (factored on ``device``)."""
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal((n, n)))
+    q, _ = torch.linalg.qr(g.to(device))
+    lam = torch.logspace(-4, 0, n, dtype=torch.float64, device=device)
+    a = (q * lam) @ q.T
+    return ((a + a.T) / 2.0).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The double-word mode (dtype="f32x2"): kernel rows 9-11
+# ---------------------------------------------------------------------------
+
+#: float32 operations per second outside the tensor cores counting no fused
+#: multiply-add (the double-word kernels may use none): 132 SMs x 128 lanes x
+#: 1.98 GHz
+PEAK_F32_NO_FMA = 132 * 128 * 1.98e9
+#: float32 operations per stored value and right-hand side: row 9 (error-free
+#: product 25, renormalisation 3, double-word addition 20), row 10 (product
+#: 25, one tree addition 20); per row of the vector phase (5 products of 26,
+#: 5 additions of 20, 2 negations, 4 dot terms of 23, 4 tree additions of 20)
+DF_OPS = {"dia": 48, "dense": 45, "pipe": 5 * 26 + 5 * 20 + 4 + 4 * 23 + 80}
+#: (n, label, offsets) of the double-word DIA checks: the path's band, the
+#: wide grid band, ragged n, n below one tile, offsets not symmetric
+DF_DIA_SHAPES = (DIA_SHAPES[0], WIDE_SHAPE) + DIA_SHAPES[1:]
+#: dense checks: the dense path's n, n = 8192 (timed too), ragged n, n below
+#: the 256 threads of a row
+DF_DENSE_NS = (4096, 8192, 1000, 300, 5, 1)
+DF_DENSE_N = 4096
+#: vector-phase checks: n = 655,360 gives 2560 block partials (not a power
+#: of two), 4,194,304 gives 16,384; then 3, 5, 6, 7 and 1 partials, and the
+#: dense path's n (16)
+DF_PIPE_NS = (N, WIDE_N, 3 * 256, 5 * 256 - 7, 6 * 256, 7 * 256 - 1, 100,
+              DF_DENSE_N)
+#: suffix of the records at the dense path's shape
+DENSE = " (dense path)"
+DF_DOT_TOL = 1e-12
+DF_OTHER_ITERS = 20
+DF_DENSE_ITERS = 100
+DF_CPU_N = 65_536
+DF_ACCURACY_N = 65_536
+DF_ACCURACY_ITERS = 300
+
+
+def df_vec(torch, rng, n):
+    """A random double-word vector on the card, as a word pair."""
+    from new_cg_variants_tpu_torch import df_split
+
+    v = df_split(rng.standard_normal(n), device="cuda")
+    return v.hi, v.lo
+
+
+def df_scalar(x):
+    from new_cg_variants_tpu_torch import df_split
+
+    v = df_split(np.float64(x), device="cuda")
+    return v.hi, v.lo
+
+
+def bitwise_err(pairs_got, pairs_want):
+    """Largest |difference| over all words, and whether all are equal."""
+    errs = [float((g - w).abs().max()) for gp, wp in zip(pairs_got, pairs_want)
+            for g, w in zip(gp, wp)]
+    return max(errs), all(e == 0.0 for e in errs)
+
+
+def df_bound(nbytes, ops, rate):
+    t_bytes = nbytes / rate * 1e3
+    t_ops = ops / PEAK_F32_NO_FMA * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+
+
+def check_df_dia(torch, card, timings, report):
+    """Row 9 against its plain version: every word equal."""
+    from new_cg_variants_tpu_torch import df_split3
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+    from new_cg_variants_tpu_torch.ops import spmv_dia as sp
+
+    rate = memory_rate(card)
+    failed = []
+    for n, k, offs in DF_DIA_SHAPES:
+        rng = np.random.default_rng(3 * n + len(offs))
+        data = random_dia(torch, offs, n, torch.float64, rng)
+        band = df_split3(data.cpu().numpy(), device="cuda")
+        v, w = df_vec(torch, rng, n), df_vec(torch, rng, n)
+        got1 = ds.df_dia_spmv(offs, *band, v)
+        got2 = ds.df_dia_spmv2(offs, *band, v, w)
+        torch.cuda.synchronize()
+        want = [ds._df_dia_mv_plain(offs, *band, *x) for x in (v, w)]
+        err, same = bitwise_err([got1, *got2], [want[0], *want])
+        rec = dict(kernel="df_dia_spmv", n=n, k=k, ndiag=len(offs),
+                   staged=sp.stages_window(offs), max_abs_err=err,
+                   bitwise=same, tol=0.0)
+        if timings is not None and (n, k, offs) == DF_DIA_SHAPES[0]:
+            nd = len(offs)
+            ms = time_ms(torch, lambda: ds.df_dia_spmv(offs, *band, v), 20)
+            ms2 = time_ms(torch, lambda: ds.df_dia_spmv2(offs, *band, v, w),
+                          20)
+            plain_ms = time_ms(
+                torch, lambda: ds._df_dia_mv_plain(offs, *band, *v), 3)
+            plain2_ms = time_ms(torch, lambda: [
+                ds._df_dia_mv_plain(offs, *band, *x) for x in (v, w)], 3)
+            v64, w64 = (torch.randn(n, dtype=torch.float64, device="cuda")
+                        for _ in range(2))
+            f64_ms = time_ms(torch, lambda: sp.dia_spmv(offs, data, v64), 20)
+            f64_2_ms = time_ms(
+                torch, lambda: sp.dia_spmv2(offs, data, v64, w64), 20)
+            common = dict(n=n, k=k, max_abs_err=err, library_ms=None,
+                          f64_counterpart="dia_spmv / dia_spmv2 on the "
+                          "float64 band (not the same function)")
+            timings["df_dia_spmv"] = dict(
+                common, ms=ms, plain_ms=plain_ms, f64_counterpart_ms=f64_ms,
+                **df_bound((3 * nd + 4) * n * 4, DF_OPS["dia"] * nd * n,
+                           rate))
+            timings["df_dia_spmv2"] = dict(
+                common, ms=ms2, plain_ms=plain2_ms,
+                f64_counterpart_ms=f64_2_ms,
+                **df_bound((3 * nd + 8) * n * 4, DF_OPS["dia"] * nd * 2 * n,
+                           rate))
+            rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
+                       plain2_ms=plain2_ms, f64_ms=f64_ms, f64_2_ms=f64_2_ms,
+                       **{key: timings["df_dia_spmv2"][key] for key in (
+                           "bound_ms", "bound_by", "bound_bytes_ms",
+                           "bound_ops_ms")})
+            del v64, w64
+        report(rec)
+        if not same:
+            failed.append(rec)
+        del data, band, v, w, got1, got2, want
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_df_dense(torch, card, timings, report):
+    """Row 10 against its plain version: every word equal."""
+    from new_cg_variants_tpu_torch import df_split3
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+
+    rate = memory_rate(card)
+    failed = []
+    for n in DF_DENSE_NS:
+        rng = np.random.default_rng(n)
+        a64 = rng.uniform(-1.0, 1.0, (n, n))
+        mats = df_split3(a64, device="cuda")
+        v, w = df_vec(torch, rng, n), df_vec(torch, rng, n)
+        got1 = ds.df_dense_spmv(*mats, v)
+        got2 = ds.df_dense_spmv2(*mats, v, w)
+        torch.cuda.synchronize()
+        want = [ds._df_dense_mv_plain(*mats, *x) for x in (v, w)]
+        err, same = bitwise_err([got1, *got2], [want[0], *want])
+        rec = dict(kernel="df_dense_spmv", n=n, max_abs_err=err, bitwise=same,
+                   tol=0.0)
+        if timings is not None and n in (4096, 8192):
+            ms = time_ms(torch, lambda: ds.df_dense_spmv(*mats, v), 20)
+            ms2 = time_ms(torch, lambda: ds.df_dense_spmv2(*mats, v, w), 20)
+            plain_ms = time_ms(torch,
+                               lambda: ds._df_dense_mv_plain(*mats, *v), 3)
+            plain2_ms = time_ms(torch, lambda: [
+                ds._df_dense_mv_plain(*mats, *x) for x in (v, w)], 3)
+            a_dev = torch.from_numpy(a64).cuda()
+            x64 = torch.randn(n, dtype=torch.float64, device="cuda")
+            f64_ms = time_ms(torch, lambda: torch.mv(a_dev, x64), 20)
+            x2 = torch.randn(n, 2, dtype=torch.float64, device="cuda")
+            f64_2_ms = time_ms(torch, lambda: a_dev @ x2, 20)
+            del a_dev
+            b1 = df_bound((3 * n * n + 4 * n) * 4, DF_OPS["dense"] * n * n,
+                          rate)
+            b2 = df_bound((3 * n * n + 8 * n) * 4,
+                          DF_OPS["dense"] * 2 * n * n, rate)
+            rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
+                       plain2_ms=plain2_ms, f64_mv_ms=f64_ms,
+                       f64_mm2_ms=f64_2_ms, bound=b1, spmv2_bound=b2)
+            if n == DF_DENSE_N:
+                common = dict(n=n, max_abs_err=err, library_ms=None,
+                              f64_counterpart="torch.mv / torch.matmul on "
+                              "the float64 matrix (not the same function)")
+                timings["df_dense_spmv"] = dict(
+                    common, ms=ms, plain_ms=plain_ms,
+                    f64_counterpart_ms=f64_ms, **b1)
+                timings["df_dense_spmv2"] = dict(
+                    common, ms=ms2, plain_ms=plain2_ms,
+                    f64_counterpart_ms=f64_2_ms, **b2)
+        report(rec)
+        if not same:
+            failed.append(rec)
+        del mats, v, w, got1, got2, want
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_df_pipe(torch, card, timings, report):
+    """Row 11 against its plain version: the ten vector words equal, the four
+    dots within DF_DOT_TOL of float64 (in units of sum |a_i b_i|)."""
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+    from new_cg_variants_tpu_torch.ops import fused_step as fs
+
+    rate = memory_rate(card)
+    failed = []
+    a1, beta = df_scalar(0.3712345678901234), df_scalar(0.1298765432109876)
+    for n in DF_PIPE_NS:
+        rng = np.random.default_rng(n + 11)
+        vecs = [df_vec(torch, rng, n) for _ in range(6)]
+        got = ds.df_pipe_vector_phase(*vecs, a1, beta)
+        torch.cuda.synchronize()
+        want = ds._df_pipe_vector_phase_plain(*vecs, a1, beta)
+        err, same = bitwise_err(got[:5], want[:5])
+        v64 = [hi.double() + lo.double() for hi, lo in got[:5]]
+        _, r2, _, p2, s2 = v64
+        dot_errs = []
+        for (gh, gl), (a, b) in zip(got[5], ((p2, s2), (r2, s2), (s2, s2),
+                                             (r2, r2))):
+            exact = torch.dot(a, b)
+            dot_errs.append(float((gh.double() + gl.double() - exact).abs()
+                                  / torch.dot(a.abs(), b.abs())))
+        rec = dict(kernel="df_pipe_vector_phase", n=n,
+                   partials=-(-n // 256), max_abs_err=err, bitwise=same,
+                   max_dot_err=max(dot_errs), tol=0.0, dot_tol=DF_DOT_TOL)
+        key = {N: "df_pipe_vector_phase",
+               DF_DENSE_N: "df_pipe_vector_phase" + DENSE}.get(n)
+        if timings is not None and key:
+            ms = time_ms(torch, lambda: ds.df_pipe_vector_phase(*vecs, a1,
+                                                                beta), 50)
+            plain_ms = time_ms(torch, lambda: ds._df_pipe_vector_phase_plain(
+                *vecs, a1, beta), 3)
+            x64 = [torch.randn(n, dtype=torch.float64, device="cuda")
+                   for _ in range(6)]
+            c64 = [torch.tensor(c, dtype=torch.float64, device="cuda")
+                   for c in (0.37, 0.13)]
+            f64_ms = time_ms(
+                torch, lambda: fs.fused_pipe_vector_phase(*x64, *c64), 50)
+            timings[key] = dict(
+                n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=None, f64_counterpart_ms=f64_ms,
+                f64_counterpart="fused_pipe_vector_phase in float64 (not the "
+                "same function)",
+                **df_bound(22 * n * 4, DF_OPS["pipe"] * n, rate))
+            rec.update(ms=ms, plain_ms=plain_ms, f64_ms=f64_ms,
+                       bound=timings[key]["bound_ms"])
+            del x64
+        report(rec)
+        if not (same and max(dot_errs) <= DF_DOT_TOL):
+            failed.append(rec)
+        del vecs, got, want, v64
+        torch.cuda.empty_cache()
+    return failed
+
+
+def df_checks(torch, card, timings, report):
+    """Every double-word kernel entry against its plain version; returns the
+    failed checks."""
+    return (check_df_dia(torch, card, timings, report)
+            + check_df_dense(torch, card, timings, report)
+            + check_df_pipe(torch, card, timings, report))
+
+
+def check_df(torch, card, timings):
+    failed = df_checks(torch, card, timings, emit_check)
+    if failed:
+        raise AssertionError(
+            f"{len(failed)} double-word checks disagree: {failed}")
+
+
+def df_expected(name, iters, product="df_dia_spmv"):
+    """Launches a name makes in the double-word mode: every fused phase
+    declines, so the generic bodies' products (``product``, and its 2-RHS
+    entry for the pipe names that recompute), and the vector-phase kernel
+    for the unpreconditioned pipe names."""
+    base = name.rsplit("_", 1)[0]
+    counts = {product: GENERIC_INIT_SPMVS.get(base, 3)}
+    if base in ("pipe_pr", "pipe_pr_m"):
+        counts[product + "2"] = iters
+    else:
+        counts[product] += iters
+    if base.startswith("pipe") and name.endswith("_cg"):
+        counts["df_pipe_vector_phase"] = iters
+    return counts, product
+
+
+def df_f32x2(torch):
+    """The double-word path at full width: pipe-PR-CG in f32x2 on the model
+    problem built in float64 (expanded to 63 diagonals, split exactly), 300
+    iterations, launches asserted, the profiler's launches per iteration;
+    the other 17 names for DF_OTHER_ITERS iterations; plain-float64
+    pipe-PR-CG on the same problem beside it."""
+    from new_cg_variants_tpu_torch import (
+        VARIANT_NAMES,
+        DiaOperator,
+        banded_model,
+        df_operator,
+    )
+    from new_cg_variants_tpu_torch.ops.doublefloat import (
+        DoubleFloatContext,
+        df_split,
+    )
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+
+    sym, b64, x_true = banded_model(N, k=K_BAND, device="cpu")  # float64
+    t0 = time.perf_counter()
+    dop = df_operator(sym, device="cuda")
+    split_s = time.perf_counter() - t0
+    offsets, full = sym.todia_host()
+    op64 = DiaOperator(offsets, torch.from_numpy(full).cuda())
+    del full
+    b = torch.from_numpy(b64).cuda()
+    emit("df_f32x2", n=N, ndiag=len(dop.inner.offsets), split_seconds=split_s,
+         word_bytes=3 * dop.inner.data.numel() * 4)
+    launches, failed = solve_names(
+        torch, "df_f32x2", dop, b, x_true, ("pipe_pr_cg",), df_expected,
+        iters=VARIANT_ITERS, dtype="f32x2", plain_op=op64, n=N, k=K_BAND)
+    init_fn, step_fn = FAMILIES["pipe_pr"]
+    ctx = DoubleFloatContext(dop)
+    state = init_fn(ctx, df_split(b64, device="cuda"),
+                    df_split(np.zeros(N), device="cuda"))
+    emit("df_f32x2", variant="pipe_pr_cg", profile=profile_steps(
+        torch, ctx, step_fn, state))
+    del state, ctx
+    names = [nm for nm in VARIANT_NAMES if nm != "pipe_pr_cg"]
+    more, failed2 = solve_names(
+        torch, "df_f32x2", dop, b, x_true, names, df_expected,
+        iters=DF_OTHER_ITERS, dtype="f32x2", plain_op=op64, n=N, k=K_BAND)
+    f64, failed3 = solve_names(
+        torch, "df_f32x2", op64, b, x_true, ("pipe_pr_cg",), dia_expected,
+        n=N, k=K_BAND, dtype=torch.float64, path="plain float64, beside")
+    failed += failed2 + failed3
+    for key, val in more.items():
+        launches[key] = launches.get(key, 0) + val
+    if failed:
+        raise AssertionError(f"{len(failed)} f32x2 runs failed: {failed}")
+    return launches
+
+
+def df_dense_f32x2(torch):
+    """pipe-PR-CG in f32x2 on a dense SPD operator (n = 4096): row 10 (2
+    right-hand sides) and row 11 once per iteration."""
+    from new_cg_variants_tpu_torch import DenseOperator, df_operator
+
+    a = dense_spd(torch, DF_DENSE_N, device="cuda")
+    dop = df_operator(a, device="cuda")
+    op64 = DenseOperator(torch.from_numpy(a).cuda())
+    x_true = np.ones(DF_DENSE_N)
+    b = op64.mv(torch.ones(DF_DENSE_N, dtype=torch.float64, device="cuda"))
+    launches, failed = solve_names(
+        torch, "df_dense_f32x2", dop, b, x_true, ("pipe_pr_cg",),
+        lambda name, iters: df_expected(name, iters, "df_dense_spmv"),
+        iters=DF_DENSE_ITERS, dtype="f32x2", plain_op=op64, n=DF_DENSE_N)
+    if failed:
+        raise AssertionError(f"dense f32x2 run failed: {failed}")
+    return launches
+
+
+def df_card_vs_cpu(torch):
+    """f32x2 on the card (kernels) against the CPU (plain versions) on the
+    same words, 25 iterations: collapsed nu and alpha to rtol 1e-10; and the
+    one-shot check that the error words survive, on the card."""
+    from new_cg_variants_tpu_torch import as_operator, banded_model
+    from new_cg_variants_tpu_torch.solvers import api
+
+    api._DF_CHECKED.discard("cuda")
+    api._df_selfcheck(torch.device("cuda"))
+    emit("df_card_vs_cpu", selfcheck="passed on the card")
+    sym, b64, _ = banded_model(DF_CPU_N, k=K_BAND, device="cpu")
+    band = scaled_band(torch, DF_CPU_N, K_BAND)
+    cases = [(nm, sym, b64, "banded_model")
+             for nm in ("pipe_pr_cg", "pipe_p_cg", "pr_cg", "gv_cg")]
+    cases += [(nm, *band, "scaled_band") for nm in ("pipe_pr_pcg", "hs_pcg")]
+    compare_f64(torch, "df_card_vs_cpu", cases, df_expected, dtype="f32x2")
+    dense = as_operator(dense_spd(torch, DENSE_N), device="cpu")
+    compare_f64(torch, "df_card_vs_cpu",
+                [("pipe_pr_cg", dense, dense.todense() @ np.ones(DENSE_N),
+                  "dense_spd")],
+                lambda name, iters: df_expected(name, iters, "df_dense_spmv"),
+                dtype="f32x2")
+
+
+def df_accuracy(torch):
+    """The outcome the mode exists for: on the diagonal model spectrum at
+    kappa = 1e6 (n = 65,536, rho = 0.5) float32 stalls near 1e-5 relative
+    A-norm error, f32x2 reaches 1e-10."""
+    from new_cg_variants_tpu_torch import model_spectrum, run
+
+    op, b, x_true = model_spectrum(DF_ACCURACY_N, kappa=1e6, rho=0.5,
+                                   device="cpu")
+    kw = dict(max_iter=DF_ACCURACY_ITERS, probes=("error_A_norm",),
+              x_true=x_true, device="cuda")
+    best = {}
+    for label, o, dt in (("float32", op.astype(torch.float32), None),
+                         ("f32x2", op, "f32x2"), ("float64", op, None)):
+        t0 = time.perf_counter()
+        out = run("pipe_pr_cg", o, b, dtype=dt, **kw)
+        rel = out["error_A_norm"] / out["error_A_norm"][0]
+        best[label] = dict(best_rel_A_err=float(np.nanmin(rel)),
+                           at_iteration=int(np.nanargmin(rel)),
+                           seconds=time.perf_counter() - t0)
+    emit("df_accuracy", n=DF_ACCURACY_N, kappa=1e6, iterations=DF_ACCURACY_ITERS,
+         **best)
+    if not (best["f32x2"]["best_rel_A_err"] <= 1e-10
+            and best["float32"]["best_rel_A_err"] >= 1e-7):
+        raise AssertionError(f"f32x2 accuracy outcome not met: {best}")
 
 
 def kernel_records(timings, launches):
@@ -1133,10 +1568,25 @@ def kernel_records(timings, launches):
                               ("dia_f32",))
     records.update({entry: ("dia_family.cu", "fused_family.py:189",
                             ("dia_f32",)) for entry in DIA_FAMILY})
+    records.update({
+        "df_dia_spmv": ("df_spmv.cu", "df_spmv.py:43", ("df_f32x2",)),
+        "df_dia_spmv2": ("df_spmv.cu", "df_spmv.py:43", ("df_f32x2",)),
+        "df_pipe_vector_phase": ("df_pipe.cu", "df_spmv.py:326",
+                                 ("df_f32x2",)),
+        "df_dense_spmv": ("df_spmv.cu", "df_spmv.py:192",
+                          ("df_dense_f32x2",)),
+        "df_dense_spmv2": ("df_spmv.cu", "df_spmv.py:192",
+                           ("df_dense_f32x2",)),
+        "df_pipe_vector_phase" + DENSE: ("df_pipe.cu", "df_spmv.py:326",
+                                         ("df_dense_f32x2",)),
+    })
     kernels = []
     for name, (source, replaces, paths) in records.items():
         t = timings[name]
-        entry = name.removesuffix(WIDE)
+        entry = name.removesuffix(WIDE).removesuffix(DENSE)
+        extra = {key: t[key] for key in ("f64_counterpart_ms",
+                                         "f64_counterpart", "bound_bytes_ms",
+                                         "bound_ops_ms") if key in t}
         kernels.append(dict(
             name=name, route="cuda",
             source="new_cg_variants_tpu_torch/csrc/" + source,
@@ -1144,7 +1594,7 @@ def kernel_records(timings, launches):
             launches=sum(launches[p].get(entry, 0) for p in paths),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"]))
+            library_ms=t["library_ms"], **extra))
     return kernels
 
 
@@ -1185,6 +1635,7 @@ def main():
     phase("check", check_spmv, torch, card, timings)
     phase("check_family", check_family, torch, card, timings)
     phase("check_dia", check_dia, torch, card, timings)
+    phase("check_df", check_df, torch, card, timings)
     phase("main_f32", main_path_f32, torch, timings)
     phase("main_f64", main_path_f64, torch)
     phase("variants_f32", variants_f32, torch)
@@ -1192,6 +1643,10 @@ def main():
     phase("dia_f32", dia_path_f32, torch, timings)
     phase("dia_wide_f32", dia_wide_f32, torch)
     phase("dia_f64", dia_f64, torch)
+    phase("df_f32x2", df_f32x2, torch)
+    phase("df_dense_f32x2", df_dense_f32x2, torch)
+    phase("df_card_vs_cpu", df_card_vs_cpu, torch)
+    phase("df_accuracy", df_accuracy, torch)
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)

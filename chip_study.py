@@ -2,6 +2,7 @@
 """Studies of the port's CUDA kernels on one NVIDIA GPU, beside chip_smoke.py.
 
     python3 chip_study.py check     # build, registers per kernel, check_dia
+    python3 chip_study.py dfcheck   # build, registers, the double-word checks
     python3 chip_study.py mutants   # do the checks catch a faulty kernel?
     python3 chip_study.py bounds    # launch bounds, timed in turns
     python3 chip_study.py halo      # whole-iteration kernel against the split
@@ -66,6 +67,40 @@ MUTANTS = {
         "const T wt2 = __ldg(a.in[2] + i) - a1 * __ldg(a.in[9] + i);"),
 }
 
+#: faults of the double-word kernels (rows 9-11), held to chip_smoke.py's
+#: double-word checks
+DF_MUTANTS = {
+    "contraction on: plain operators for the intrinsics (all three rows)": (
+        "df_common.cuh",
+        "__device__ __forceinline__ float rn_add(float a, float b) "
+        "{ return __fadd_rn(a, b); }\n"
+        "__device__ __forceinline__ float rn_sub(float a, float b) "
+        "{ return __fsub_rn(a, b); }\n"
+        "__device__ __forceinline__ float rn_mul(float a, float b) "
+        "{ return __fmul_rn(a, b); }",
+        "__device__ __forceinline__ float rn_add(float a, float b) "
+        "{ return a + b; }\n"
+        "__device__ __forceinline__ float rn_sub(float a, float b) "
+        "{ return a - b; }\n"
+        "__device__ __forceinline__ float rn_mul(float a, float b) "
+        "{ return a * b; }"),
+    "lo2 vh dropped (products)": (
+        "df_common.cuh", "      rn_mul(al2, vh));", "      0.0f);"),
+    "v.lo ignored (products)": (
+        "df_common.cuh",
+        "rn_add(rn_mul(a, vl), rn_mul(al, vh)), rn_mul(al, vl))",
+        "rn_add(0.0f, rn_mul(al, vh)), 0.0f)"),
+    "sloppy df_add, one 2Sum (all three rows)": (
+        "df_common.cuh",
+        "  const Pair t = two_sum(a.lo, b.lo);\n"
+        "  const Pair u = fast_two_sum(s.hi, rn_add(s.lo, t.hi));\n"
+        "  return fast_two_sum(u.hi, rn_add(u.lo, t.lo));",
+        "  return fast_two_sum(s.hi, rn_add(s.lo, rn_add(a.lo, b.lo)));"),
+    "power-of-two-only combine (vector phase)": (
+        "df_pipe.cu", "const long long width = pow2_ceil(nb);",
+        "const long long width = nb;"),
+}
+
 
 #: the minimum-blocks launch bound of the half-band SpMV, the DIA SpMV and the
 #: full-DIA family kernel: (source, text, replacement taking the bound)
@@ -124,6 +159,18 @@ def dia_checks(torch, card):
                 passed_err_max=max(honest, default=None))
 
 
+def df_checks(torch, card):
+    """check_df's checks, counted instead of raised and not timed."""
+    lines = []
+    failed = cs.df_checks(torch, card, None, lines.append)
+    return dict(checks=len(lines), failed=len(failed),
+                failed_checks=sorted({r["kernel"] for r in failed}),
+                passed_checks=[(r["kernel"], r["n"]) for r in lines
+                               if r not in failed],
+                passed_abs_err_max=max((r["max_abs_err"] for r in lines
+                                        if r not in failed), default=None))
+
+
 def study_check(torch, card):
     from new_cg_variants_tpu_torch.ops import _kernels
 
@@ -136,15 +183,34 @@ def study_check(torch, card):
     emit("check", ok=True)
 
 
+def study_dfcheck(torch, card):
+    """The quick first call after touching a double-word kernel: build,
+    registers, the double-word checks (timed)."""
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    with contextlib.ExitStack() as stack:
+        libs, logs = build_edited(stack, [])
+        for src in ("df_spmv.cu", "df_pipe.cu"):
+            emit("dfcheck", source=src, ptxas=logs[src])
+        with _kernels.using(libs):
+            cs.check_df(torch, card, {})
+    emit("dfcheck", ok=True)
+
+
 def study_mutants(torch, card):
     from new_cg_variants_tpu_torch.ops import _kernels
 
-    for what, edit in {"as committed": None, **MUTANTS}.items():
+    runs = [(what, edit, dia_checks) for what, edit in
+            {"as committed": None, **MUTANTS}.items()]
+    runs += [(what, edit, df_checks) for what, edit in
+             {"as committed (double-word checks)": None,
+              **DF_MUTANTS}.items()]
+    for what, edit, checks in runs:
         with contextlib.ExitStack() as stack:
             libs, _ = build_edited(stack, [edit] if edit else [])
             with _kernels.using(libs):
                 emit("mutants", mutant=what, source=edit and edit[0],
-                     **dia_checks(torch, card))
+                     **checks(torch, card))
 
 
 def timed_in_turns(torch, variants, cases, rounds=2):
@@ -282,7 +348,8 @@ def study_halo(torch, card):
 def main(argv):
     import torch
 
-    studies = {"check": study_check, "mutants": study_mutants,
+    studies = {"check": study_check, "dfcheck": study_dfcheck,
+               "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo}
     if len(argv) != 2 or argv[1] not in studies:
         print(__doc__, file=sys.stderr)

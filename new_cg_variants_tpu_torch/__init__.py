@@ -9,10 +9,21 @@ the kernels' plain PyTorch versions.
 
 Ported so far: every CG variant of ``VARIANT_NAMES`` (hs, cg, gv, pr, m and
 the four pipe families, each with its preconditioned twin) on symmetric
-half-band, full-DIA and dense operators.
+half-band, full-DIA and dense operators, with compensated dots
+(``compensated=True``) and in the double-word mode (``dtype="f32x2"``).
 """
 
 from .matio.problems import banded_model, model_spectrum
+from .ops.compensated import comp_dot
+from .ops.doublefloat import (
+    DF,
+    DFJacobi,
+    DFOperator,
+    DoubleFloatContext,
+    df_operator,
+    df_split,
+    df_split3,
+)
 from .ops.operators import DenseOperator, DiaOperator, as_operator
 from .ops.sym_dia import SymDiaOperator
 from .solvers.api import VARIANT_NAMES, SolveResult, run, solve
@@ -33,4 +44,12 @@ __all__ = [
     "VARIANT_NAMES",
     "JacobiPreconditioner",
     "make_preconditioner",
+    "DF",
+    "df_split",
+    "df_split3",
+    "df_operator",
+    "DFOperator",
+    "DFJacobi",
+    "DoubleFloatContext",
+    "comp_dot",
 ] + list(_variant_all)

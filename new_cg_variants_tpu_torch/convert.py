@@ -2,7 +2,9 @@
 
 The JAX package's operators and solver state dicts convert to numpy arrays
 (``np.asarray``); these helpers rebuild them as the port's objects on a torch
-device and back, so that both packages can start from the same inputs.
+device and back, so that both packages can start from the same inputs.  A double-word value
+(``dtype="f32x2"``) crosses as the pair ``(hi, lo)`` of its word arrays, a
+double-word operator as its offsets and three word arrays.
 """
 
 from __future__ import annotations
@@ -11,12 +13,13 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .ops.doublefloat import DF, DFOperator
 from .ops.operators import DenseOperator, DiaOperator
 from .ops.sym_dia import SymDiaOperator
 from .solvers.precond import JacobiPreconditioner
 
-__all__ = ["operator_from_numpy", "preconditioner_from_numpy",
-           "state_from_numpy", "state_to_numpy"]
+__all__ = ["operator_from_numpy", "df_operator_from_numpy",
+           "preconditioner_from_numpy", "state_from_numpy", "state_to_numpy"]
 
 
 def operator_from_numpy(offsets, data, *, kind="symdia", dtype=None,
@@ -35,6 +38,18 @@ def operator_from_numpy(offsets, data, *, kind="symdia", dtype=None,
     return (SymDiaOperator if kind == "symdia" else DiaOperator)(offsets, t)
 
 
+def df_operator_from_numpy(offsets, hi, lo, lo2, *, device=None):
+    """A :class:`~.ops.doublefloat.DFOperator` from its three word arrays:
+    DIA (``(ndiag, n)`` words at ``offsets``) or, with ``offsets`` ``None``,
+    dense (``(n, n)`` words), such as the JAX ``DFOperator``'s ``inner``
+    data, ``lo_data`` and ``lo2_data``."""
+    kind = "dense" if offsets is None else "dia"
+    inner = operator_from_numpy(offsets, hi, kind=kind, device=device)
+    lo, lo2 = (torch.from_numpy(np.ascontiguousarray(w)).to(inner.device)
+               for w in (lo, lo2))
+    return DFOperator(inner, lo, lo2)
+
+
 def preconditioner_from_numpy(inv_diag, *, dtype=None, device=None):
     """A :class:`JacobiPreconditioner` from a numpy inverse diagonal."""
     dev = resolve_device(device)
@@ -43,11 +58,14 @@ def preconditioner_from_numpy(inv_diag, *, dtype=None, device=None):
 
 
 def _leaf_from_numpy(val, dtype, dev):
-    """A dict (the gv hook's ``wrep`` state) entry by entry; a floating
-    array as a tensor of ``dtype``; an integer or bool one in its own type.
+    """A dict (the gv hook's ``wrep`` state) entry by entry; a pair ``(hi,
+    lo)`` as a :class:`~.ops.doublefloat.DF`; a floating array as a tensor of
+    ``dtype``; an integer or bool one in its own type.
     """
     if isinstance(val, dict):
         return {k: _leaf_from_numpy(v, dtype, dev) for k, v in val.items()}
+    if isinstance(val, tuple):
+        return DF(*(_leaf_from_numpy(w, dtype, dev) for w in val))
     t = torch.from_numpy(np.array(np.asarray(val)))
     return t.to(device=dev, dtype=dtype if t.is_floating_point() else None)
 
@@ -57,7 +75,8 @@ def state_from_numpy(state: dict, *, dtype=None, device=None) -> dict:
 
     Vectors (``x r p s w u`` and, for preconditioned runs, ``rt st wt ut``)
     and scalars (``nu mu eta delta gamma rho a a1 a2 b b1``) become tensors
-    (scalars 0-d); the iteration counter ``k`` becomes a Python int, as the
+    (scalars 0-d), or double-word values where they arrive as ``(hi, lo)``
+    pairs; the iteration counter ``k`` becomes a Python int, as the
     port's step functions carry it; ``wrep``, the state of gv's stateful
     replacement hook, is carried across entry by entry.
     """
@@ -70,6 +89,8 @@ def state_from_numpy(state: dict, *, dtype=None, device=None) -> dict:
 def _leaf_to_numpy(val):
     if isinstance(val, dict):
         return {k: _leaf_to_numpy(v) for k, v in val.items()}
+    if isinstance(val, DF):
+        return (_leaf_to_numpy(val.hi), _leaf_to_numpy(val.lo))
     if isinstance(val, torch.Tensor):
         return val.detach().cpu().numpy()
     return np.asarray(val)

@@ -1,0 +1,193 @@
+// Double-word (f32x2) arithmetic for the kernels of df_spmv.cu and df_pipe.cu:
+// a value is the unevaluated sum hi + lo of two floats.  These are the
+// functions of ops/compensated.py, step for step and in the same order, so a
+// kernel and its plain PyTorch version round at the same places and give the
+// same bits.
+//
+// The fault to design against is contraction: nvcc fuses a * b + c into one
+// fused multiply-add by default (--fmad=true), which rounds once where the
+// transforms below need two roundings.  Dekker's split t = c a; hi = t - (t -
+// a) then stops being a split, the error word of every product changes, and
+// double-word results collapse toward single precision while still looking
+// plausible.  So every step goes through rn_add / rn_sub / rn_mul, whose
+// intrinsics round once each and are never fused.  No other float arithmetic
+// may appear in a double-word computation.
+#pragma once
+
+#include "sym_common.cuh"
+
+namespace ncgv {
+
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+
+struct Pair {
+  float hi, lo;
+};
+
+// Knuth 2Sum: a + b = s + e exactly.
+__device__ __forceinline__ Pair two_sum(float a, float b) {
+  const float s = rn_add(a, b);
+  const float bb = rn_sub(s, a);
+  return {s, rn_add(rn_sub(a, rn_sub(s, bb)), rn_sub(b, bb))};
+}
+
+// Dekker fast 2Sum; needs |a| >= |b|.
+__device__ __forceinline__ Pair fast_two_sum(float a, float b) {
+  const float s = rn_add(a, b);
+  return {s, rn_sub(b, rn_sub(s, a))};
+}
+
+// Dekker split against 2^12 + 1.
+__device__ __forceinline__ Pair split(float a) {
+  const float t = rn_mul(4097.0f, a);
+  const float hi = rn_sub(t, rn_sub(t, a));
+  return {hi, rn_sub(a, hi)};
+}
+
+// Dekker 2Prod: a b = p + e exactly;
+// e = ((ah bh - p) + ah bl + al bh) + al bl.
+__device__ __forceinline__ Pair two_prod(float a, float b) {
+  const float p = rn_mul(a, b);
+  const Pair x = split(a), y = split(b);
+  float e = rn_sub(rn_mul(x.hi, y.hi), p);
+  e = rn_add(e, rn_mul(x.hi, y.lo));
+  e = rn_add(e, rn_mul(x.lo, y.hi));
+  return {p, rn_add(e, rn_mul(x.lo, y.lo))};
+}
+
+// Accurate double-word addition (compensated.py:df_add): two 2Sums, two
+// renormalisations.
+__device__ __forceinline__ Pair df_add(Pair a, Pair b) {
+  const Pair s = two_sum(a.hi, b.hi);
+  const Pair t = two_sum(a.lo, b.lo);
+  const Pair u = fast_two_sum(s.hi, rn_add(s.lo, t.hi));
+  return fast_two_sum(u.hi, rn_add(u.lo, t.lo));
+}
+
+__device__ __forceinline__ Pair df_neg(Pair a) { return {-a.hi, -a.lo}; }
+
+// Double-word product (compensated.py:df_mul).
+__device__ __forceinline__ Pair df_mul(Pair a, Pair b) {
+  const Pair p = two_prod(a.hi, b.hi);
+  const float x = rn_add(rn_add(rn_mul(a.hi, b.lo), rn_mul(a.lo, b.hi)),
+                         rn_mul(a.lo, b.lo));
+  return fast_two_sum(p.hi, rn_add(p.lo, x));
+}
+
+// One product of a three-word matrix value a + al + al2 (exact for an f64
+// source) and a double-word vector value vh + vl, not yet renormalised:
+// (p, e) with p + e = a vh exactly and the cross terms in e, summed
+// ((a vl + al vh) + al vl) + al2 vh as the plain versions sum them.
+__device__ __forceinline__ Pair df_term(float a, float al, float al2, float vh,
+                                        float vl) {
+  const Pair p = two_prod(a, vh);
+  const float x = rn_add(
+      rn_add(rn_add(rn_mul(a, vl), rn_mul(al, vh)), rn_mul(al, vl)),
+      rn_mul(al2, vh));
+  return {p.hi, rn_add(p.lo, x)};
+}
+
+// One term of a double-word dot product (compensated.py:df_dot_words), not
+// yet renormalised: a.hi b.hi exactly, the cross terms in the error word.
+__device__ __forceinline__ Pair dot_term(Pair a, Pair b) {
+  const Pair p = two_prod(a.hi, b.hi);
+  const float x = rn_add(rn_add(rn_mul(a.hi, b.lo), rn_mul(a.lo, b.hi)),
+                         rn_mul(a.lo, b.lo));
+  return {p.hi, rn_add(p.lo, x)};
+}
+
+// The halving tree over the block's threads: NR sums of one pair per thread
+// (blockDim.x of them, a power of two).  Level w adds element j + w/2 to
+// element j, w = blockDim.x, ..., 2.  sred holds NR * blockDim.x pairs; every
+// thread of the block must call it, and thread 0 gets the sums.
+template <int NR>
+__device__ __forceinline__ void block_tree_sum(const Pair (&v)[NR], int width,
+                                               Pair* sred, Pair (&out)[NR]) {
+  const int t = threadIdx.x;
+  const int bd = blockDim.x;
+  if (t < width) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) sred[r * bd + t] = v[r];
+  }
+  __syncthreads();
+  for (int w = width; w > 1; w >>= 1) {
+    const int half = w >> 1;
+    if (t < half) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        sred[r * bd + t] = df_add(sred[r * bd + t], sred[r * bd + t + half]);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) out[r] = sred[r * bd];
+  }
+}
+
+// Deepest in-thread tree tree_sum takes: width <= blockDim.x << 10.
+constexpr int kMaxTreeDepth = 10;
+
+// NR sums of the pairs leaf(c) over the columns c in [0, width), width a
+// power of two (leaf gives (0, 0) past the data: the plain versions pad with
+// zero pairs), by the halving tree of the plain versions
+// (compensated.py:_df_tree_sum, _df_sum_axis1): element j + w/2 is added to
+// element j for w = width, width / 2, ..., 2.
+//
+// Thread t (of teff = min(width, blockDim.x) that take part) owns the columns
+// t + k teff, k < count = width / teff.  The levels w > teff pair k with
+// k + count/2, ..., so they stay inside the thread; they form an adjacent-
+// pairs tree over k taken in bit-reversed order, which the thread walks
+// leaf by leaf, keeping one partial sum per level like a binary counter (the
+// trailing ones of m say how many levels a leaf completes).  The last
+// log2(teff) levels run in shared memory (block_tree_sum).  leaf(c, vals)
+// fills vals[r] for each of the NR sums.
+template <int NR, typename Leaf>
+__device__ __forceinline__ void tree_sum(int width, const Leaf& leaf,
+                                         Pair* sred, Pair (&out)[NR]) {
+  const int t = threadIdx.x;
+  const int teff = width < int(blockDim.x) ? width : int(blockDim.x);
+  const int count = width / teff;
+  const int depth = 31 - __clz(count);
+  Pair total[NR];
+  if (t < teff) {
+    Pair slot[NR][kMaxTreeDepth + 1];
+    for (int m = 0; m < count; ++m) {
+      const int k = depth ? int(__brev(unsigned(m)) >> (32 - depth)) : 0;
+      const int tz = __ffs(~m) - 1;
+      Pair vals[NR];
+      leaf(t + k * teff, vals);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        Pair carry = vals[r];
+#pragma unroll
+        for (int l = 0; l <= kMaxTreeDepth; ++l) {
+          if (l < tz) {
+            carry = df_add(slot[r][l], carry);
+          } else if (l == tz) {
+            slot[r][l] = carry;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l <= kMaxTreeDepth; ++l) {
+      if (l == depth) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r) total[r] = slot[r][l];
+      }
+    }
+  }
+  block_tree_sum<NR>(total, teff, sred, out);
+}
+
+// The smallest power of two >= x (x >= 1).
+__host__ __device__ inline long long pow2_ceil(long long x) {
+  long long m = 1;
+  while (m < x) m <<= 1;
+  return m;
+}
+
+}  // namespace ncgv

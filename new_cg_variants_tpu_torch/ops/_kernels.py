@@ -34,7 +34,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("sym_dia.cu", "sym_family.cu", "dia_spmv.cu", "pipe_vector.cu",
-           "dia_family.cu")
+           "dia_family.cu", "df_spmv.cu", "df_pipe.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP = ctypes.c_void_p
@@ -68,6 +68,16 @@ _SIGNATURES = {
         name: [_INT, _VP, _OFFS, _INT, _LL, _PTRS, _INT, _PTRS, _INT, _PTRS,
                _INT, _VP, _INT, _VP]
         for name in ("dia_family_f32", "dia_family_f64")
+    },
+    "df_spmv.cu": {
+        "df_dia_spmv_f32": [_VP, _VP, _VP, _OFFS, _INT, _LL, _PTRS, _PTRS,
+                            _INT, _INT, _INT, _VP],
+        "df_dense_spmv_f32": [_VP, _VP, _VP, _LL, _PTRS, _PTRS, _INT, _INT,
+                              _VP],
+    },
+    "df_pipe.cu": {
+        "df_pipe_f32": [_LL, _PTRS, _INT, _PTRS, _INT, _PTRS, _INT, _VP, _VP,
+                        _INT, _VP],
     },
 }
 

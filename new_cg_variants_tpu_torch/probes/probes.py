@@ -3,12 +3,16 @@
 Each probe is a function ``probe(ctx, state, aux) -> tensor`` evaluated
 after every step; :func:`..solvers.engine.history_scan` stacks the rows.
 Names match the JAX package (and the reference's ``callbacks/``);
-``aux`` carries run-constant data (``b``, ``x_true``).
+``aux`` carries run-constant data (``b``, ``x_true``).  Rows are single-word
+in every mode: a double-word value (``dtype="f32x2"``) is collapsed
+(:func:`~..ops.doublefloat.collapse`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.doublefloat import collapse
 
 __all__ = ["PROBES", "resolve_probes", "DEFAULT_PROBES"]
 
@@ -16,40 +20,40 @@ __all__ = ["PROBES", "resolve_probes", "DEFAULT_PROBES"]
 def error_A_norm(ctx, state, aux):
     e = state["x"] - aux["x_true"]
     (eae,) = ctx.dots((e, ctx.mv(e)))
-    return torch.sqrt(torch.abs(eae))
+    return torch.sqrt(torch.abs(collapse(eae)))
 
 
 def error_2_norm(ctx, state, aux):
     e = state["x"] - aux["x_true"]
     (ee,) = ctx.dots((e, e))
-    return torch.sqrt(torch.abs(ee))
+    return torch.sqrt(torch.abs(collapse(ee)))
 
 
 def residual_2_norm(ctx, state, aux):
     r_true = aux["b"] - ctx.mv(state["x"])
     (rr,) = ctx.dots((r_true, r_true))
-    return torch.sqrt(torch.abs(rr))
+    return torch.sqrt(torch.abs(collapse(rr)))
 
 
 def updated_residual_2_norm(ctx, state, aux):
     r = state["r"]
     (rr,) = ctx.dots((r, r))
-    return torch.sqrt(torch.abs(rr))
+    return torch.sqrt(torch.abs(collapse(rr)))
 
 
 def _scalar(key):
     def probe(ctx, state, aux):
-        return state[key]
+        return collapse(state[key])
 
     return probe
 
 
 def save_x(ctx, state, aux):
-    return state["x"]
+    return collapse(state["x"])
 
 
 def save_r(ctx, state, aux):
-    return state["r"]
+    return collapse(state["r"])
 
 
 PROBES = {

@@ -13,9 +13,11 @@ Every name of :data:`VARIANT_NAMES` (18: nine families, each with its
 :class:`~..ops.operators.DenseOperator` or a dense array
 (:func:`~..ops.operators.as_operator`), with ``preconditioner=None |
 "jacobi" | object with .apply | callable`` for the ``_pcg`` names (a ``_cg``
-name ignores it; a ``_pcg`` name without one runs with M = I).  A scipy
-sparse matrix or COO triple, ``dtype="f32x2"`` and ``compensated=True``
-raise ``NotImplementedError``.
+name ignores it; a ``_pcg`` name without one runs with M = I).
+``compensated=True`` makes every inner product an error-free-transform dot;
+``dtype="f32x2"`` runs the whole solve in double words
+(:mod:`..ops.doublefloat`).  A scipy sparse matrix or COO triple raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops import df_spmv
+from ..ops.doublefloat import (
+    DFJacobi,
+    DoubleFloatContext,
+    _host64,
+    df_operator,
+    df_split,
+    df_split3,
+)
 from ..ops.operators import as_operator
 from ..probes.probes import resolve_probes
 from .context import Context
@@ -89,10 +100,6 @@ def _resolve(variant, op, preconditioner, w_replace=None,
 def _torch_dtype(dtype):
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
-    if dtype == "f32x2":
-        raise NotImplementedError(
-            "dtype='f32x2' is not ported yet (ROADMAP.md, open item 1.6 "
-            "'Compensated dots and f32x2')")
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
@@ -156,8 +163,15 @@ def run(
     ``w_replace`` is the gv residual-replacement hook and ``w_replace_init``
     switches it to the stateful protocol (:func:`.families.make_gv_step`).
     ``print_every=K`` prints a progress line every K iterations.
+
+    ``dtype="f32x2"`` runs the whole solve in double-word arithmetic
+    (:mod:`..ops.doublefloat`): ~48 significant bits from float32 words.
+    Probe rows come back single-word; ``'x'`` is ``hi + lo`` in float64.
     """
     dev = resolve_device(device)
+    if isinstance(dtype, str) and dtype == "f32x2":
+        return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
+                       x_true, print_every, w_replace, w_replace_init, dev)
     op = _operator(A, dtype, dev)
     init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
                                          w_replace, w_replace_init)
@@ -172,6 +186,96 @@ def run(
     final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
                                max_iter, aux, print_every=print_every)
     output = {"name": variant, "max_iter": max_iter, "x": final["x"]}
+    for name in probe_fns:
+        output[name] = hist[name].cpu().numpy()
+    return output
+
+
+def _df_pieces(variant, A, b, x0, preconditioner, dev, w_replace=None,
+               w_replace_init=None):
+    """The double-word mode's operator, right-hand side, initial guess,
+    family functions and preconditioner on ``dev``.
+
+    A ``_pcg`` name takes ``None`` or ``"identity"`` (M = I), ``"jacobi"``
+    (a :class:`~..ops.doublefloat.DFJacobi` of the operator's diagonal), a
+    ``DFJacobi``, an object with ``.apply`` or a callable; the last two map
+    double-word vectors to double-word vectors and are used as they are.
+    """
+    _df_selfcheck(dev)
+    op = df_operator(A, device=dev)
+    b_df = df_split(_host64(b), device=dev)
+    x0_df = df_split(np.zeros(op.n) if x0 is None else _host64(x0),
+                     device=dev)
+    key, prec_flag = family_of(variant)
+    init_fn, step_fn = FAMILIES[key]
+    # the replacement hook's view holds double-word values here: a policy
+    # that looks at magnitudes collapses them with .value()
+    init_fn, step_fn = _gv_replace_hooks(key, init_fn, step_fn, w_replace,
+                                         w_replace_init)
+    precond = None
+    if prec_flag:
+        spec = preconditioner
+        if spec is None or (isinstance(spec, str) and spec == "identity"):
+            precond = IdentityPreconditioner()
+        elif isinstance(spec, str) and spec == "jacobi":
+            precond = DFJacobi.from_operator(op)
+        elif isinstance(spec, DFJacobi):
+            precond = spec.to(dev)
+        else:
+            precond = make_preconditioner(spec, op)
+    return op, b_df, x0_df, init_fn, step_fn, precond
+
+
+#: devices on which the double-word transforms have passed _df_selfcheck
+_DF_CHECKED = set()
+
+
+def _df_selfcheck(dev):
+    """Once per device: the error words of a double-word product survive.
+
+    A tiny three-word DIA product through the path every double-word product
+    takes on ``dev`` (the kernel of ``csrc/df_spmv.cu`` on the card, the
+    plain version on the CPU) whose exact results need both words: row 0
+    needs 2Sum's error word (1 + 2^-30 (1 + 2^-12)), row 1 2Prod's ((1 +
+    2^-12)^2 = 1 + 2^-11 + 2^-24).  Arithmetic that contracts a multiply and
+    an add, or flushes a word, loses one of them; the mode would then run at
+    single precision while looking plausible, so this raises.
+    """
+    if str(dev) in _DF_CHECKED:
+        return
+    c = 1.0 + 2.0 ** -12
+    band = df_split3(np.array([[1.0, c], [2.0 ** -30, 0.0]]), device=dev)
+    v = df_split(np.array([1.0, c]), device=dev)
+    yh, yl = df_spmv.df_dia_spmv((0, 1), *band, (v.hi, v.lo))
+    got = (yh.double() + yl.double()).cpu().numpy()
+    want = np.array([1.0 + 2.0 ** -30 * c, c * c])
+    if not (np.array_equal(got, want) and bool((yl != 0).all())):
+        raise RuntimeError(
+            f"the double-word error words did not survive on {dev}: got "
+            f"{got.tolist()} (low words {yl.tolist()}), expected "
+            f"{want.tolist()}; dtype='f32x2' would collapse to single "
+            "precision")
+    _DF_CHECKED.add(str(dev))
+
+
+def _run_df(variant, A, b, x0, max_iter, preconditioner, probes, x_true,
+            print_every, w_replace, w_replace_init, dev):
+    """Fixed-iteration history run in double-word arithmetic."""
+    op, b_df, x0_df, init_fn, step_fn, precond = _df_pieces(
+        variant, A, b, x0, preconditioner, dev, w_replace, w_replace_init)
+    probe_fns = resolve_probes(probes)
+    aux = {"b": b_df}
+    if _needs_x_true(probe_fns):
+        if x_true is None:
+            x_true = _compute_x_true(op, _host64(b))
+        # split too, so the error probes subtract in double words (a
+        # single-word x_true would floor the error at float32 rounding)
+        aux["x_true"] = df_split(_host64(x_true), device=dev)
+    ctx = DoubleFloatContext(op, precond)
+    final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b_df, x0_df,
+                               max_iter, aux, print_every=print_every)
+    output = {"name": variant, "max_iter": max_iter,
+              "x": final["x"].value64()}
     for name in probe_fns:
         output[name] = hist[name].cpu().numpy()
     return output
@@ -206,9 +310,19 @@ def solve(
     ||M^-1 r||; ``'none'`` runs exactly ``max_iter`` iterations with no
     convergence test and no host sync inside the loop (the scaling
     configuration, ``-ksp_norm_type none``).  For an unpreconditioned
-    variant the first three coincide.
+    variant the first three coincide.  ``dtype="f32x2"`` solves in double
+    words (:func:`run`); ``x`` is then ``hi + lo`` in float64.
     """
     dev = resolve_device(device)
+    if isinstance(dtype, str) and dtype == "f32x2":
+        op, b, x0, init_fn, step_fn, precond = _df_pieces(
+            variant, A, b, x0, preconditioner, dev)
+        ctx = DoubleFloatContext(op, precond)
+        s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0,
+                                        max_iter, rtol, atol, norm_type)
+        return SolveResult(
+            x=s["x"].value64(), iterations=int(k), norm=float(nrm),
+            converged=bool(norm_type == "none" or float(nrm) <= float(tol)))
     op = _operator(A, dtype, dev)
     init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
     b, x0 = _vectors(op, b, x0, dev)

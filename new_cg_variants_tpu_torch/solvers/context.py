@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import fused_family, fused_step, sym_fused
+from ..ops.compensated import comp_dot
 from ..ops.operators import DiaOperator
 from ..ops.sym_dia import SymDiaOperator
 from .precond import JacobiPreconditioner
@@ -22,7 +23,10 @@ __all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step"]
 class Context:
     """Single-device execution context.
 
-    ``compensated=True`` (error-free-transform dots) is not ported yet.
+    ``compensated=True`` makes every inner product the error-free-transform
+    dot (:func:`~..ops.compensated.comp_dot`, roughly twice the working
+    precision) and every fused hook decline: the kernels' dots are plain
+    sums.
 
     The fused-phase hooks (``hs_matvec_phase`` ... ``pipe_full_step_prec``,
     ``pipe_vector_phase_prec``) each run one family's phase through one
@@ -48,10 +52,6 @@ class Context:
     """
 
     def __init__(self, op, precond=None, compensated=False):
-        if compensated:
-            raise NotImplementedError(
-                "compensated dots are not ported yet (ROADMAP.md, open item "
-                "1.6 'Compensated dots and f32x2')")
         self.op = op
         self.precond = precond
         self.compensated = compensated
@@ -78,7 +78,8 @@ class Context:
         Returns one 0-d tensor per ``(a, b)`` pair; nothing is read back to
         the host.
         """
-        return tuple(torch.dot(a, b) for (a, b) in pairs)
+        dot = comp_dot if self.compensated else torch.dot
+        return tuple(dot(a, b) for (a, b) in pairs)
 
     def norm(self, v):
         (sq,) = self.dots((v, v))
@@ -105,8 +106,9 @@ class Context:
 
     def pipe_vector_phase(self, x, r, w, u, p, s, a1, beta):
         """Unpreconditioned pipe vector phase + its 4-dot batch: one kernel
-        pass on full-DIA storage, the generic formulation elsewhere."""
-        if self._dia:
+        pass on full-DIA storage, the generic formulation elsewhere (and with
+        compensated dots)."""
+        if self._dia and not self.compensated:
             return fused_step.fused_pipe_vector_phase(x, r, w, u, p, s, a1,
                                                       beta)
         return generic_pipe_vector_phase(self, x, r, w, u, p, s, a1, beta)
@@ -114,9 +116,12 @@ class Context:
     def _fused(self, name, jacobi=False):
         """The one-pass kernel entry ``name`` of the operator's storage, or
         ``None`` when the operator has none (a dense operator, a full-DIA
-        band wider than :func:`~..ops.fused_step.supports_full_step` admits)
-        or, for a ``jacobi`` entry (which applies ``inv_diag`` itself), when
-        the preconditioner is another or a norm rides the dot batch."""
+        band wider than :func:`~..ops.fused_step.supports_full_step` admits),
+        with compensated dots, or, for a ``jacobi`` entry (which applies
+        ``inv_diag`` itself), when the preconditioner is another or a norm
+        rides the dot batch."""
+        if self.compensated:
+            return None
         if jacobi and not (isinstance(self.precond, JacobiPreconditioner)
                            and self.extra_norm is None):
             return None
@@ -208,8 +213,9 @@ class Context:
         one kernel pass on full-DIA storage; the caller follows it with
         ``mv2`` / ``mv`` and the PCApplies.  The kernel never touches M, so
         any preconditioner qualifies; ``None`` when a norm rides the dot
-        batch or the operator is of another kind."""
-        if not self._dia or self.extra_norm is not None:
+        batch, the dots are compensated or the operator is of another
+        kind."""
+        if not self._dia or self.compensated or self.extra_norm is not None:
             return None
         return fused_step.fused_pipe_vector_phase_prec(
             s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],

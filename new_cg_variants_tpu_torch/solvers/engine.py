@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.doublefloat import collapse
+
 __all__ = ["history_scan", "tolerance_loop"]
 
 
@@ -37,7 +39,7 @@ def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux,
         state = step_fn(ctx, state)
         if print_every and state["k"] % print_every == 0:
             print(f"iter {state['k']}: sqrt(nu) = "
-                  f"{float(torch.sqrt(torch.abs(state['nu'])))}")
+                  f"{float(torch.sqrt(torch.abs(collapse(state['nu']))))}")
         rows.append(probe_row(state))
     hist = {name: torch.stack([row[name] for row in rows])
             for name in probe_fns}
@@ -60,7 +62,8 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
     ``||M^-1 b||``, unpreconditioned -> ``||b||``.
 
     Returns ``(state, iterations, norm, tol)`` with ``norm`` and ``tol`` as
-    0-d tensors.
+    0-d tensors (single-word in the double-word mode: every norm, tolerance
+    and progress line reads a collapsed value).
     """
     if norm_type not in ("natural", "unpreconditioned", "preconditioned",
                          "none"):
@@ -74,7 +77,8 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
     def iter_norm(s):
         if norm_type == "none":
             return torch.zeros((), dtype=s["nu"].dtype, device=s["nu"].device)
-        return torch.sqrt(torch.abs(s["rho"] if in_batch else s["nu"]))
+        return torch.sqrt(torch.abs(collapse(s["rho"] if in_batch
+                                             else s["nu"])))
 
     state = init_fn(ctx, b, x0)
     if in_batch:
@@ -89,7 +93,8 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
         (bb,) = ctx.dots((bt, bt))
     else:
         (bb,) = ctx.dots((b, b))
-    tol = torch.clamp(rtol * torch.sqrt(torch.abs(bb)), min=atol).to(b.dtype)
+    tol = torch.clamp(rtol * torch.sqrt(torch.abs(collapse(bb))),
+                      min=atol).to(b.dtype)
     if norm_type == "none":
         for _ in range(max_iter):
             state = step_fn(ctx, state)

@@ -28,7 +28,9 @@ dot batch (``ctx.extra_norm``), or gv's replacement hook.
 
 Scalar state keys: ``a`` (alpha_k), ``a1`` (alpha_{k-1}), ``b`` (beta_k),
 ``b1``, ``nu``; families add their own (``mu``, ``eta``, ``delta``,
-``gamma``).  Preconditioned runs carry the tilde vectors (``rt``, ``st``,
+``gamma``).  In the double-word mode (``dtype="f32x2"``) every vector and
+scalar is a :class:`~..ops.doublefloat.DF` and the same bodies run on its
+overloads.  Preconditioned runs carry the tilde vectors (``rt``, ``st``,
 ...); unpreconditioned runs omit them.  Scalars stay 0-d tensors on the
 vectors' device: nothing in a step reads a value back to the host, so the
 card never waits for the Python loop.  The iteration counter ``k`` is a
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.doublefloat import DF, df_safe_div, df_where
 from .context import split_pipe_full_step
 
 __all__ = ["FAMILIES", "family_of", "make_gv_step", "make_pipe_step",
@@ -53,13 +56,25 @@ def _safe_div(num, den):
     next ``beta = 0/0`` would poison the state with NaN.  With every
     alpha/beta formed here an exact zero denominator yields 0 and the
     iterate freezes, finite.  For nonzero denominators the quotient is the
-    plain division, bit for bit.
+    plain division, bit for bit.  Double-word values take
+    :func:`~..ops.doublefloat.df_safe_div`.
     """
+    if isinstance(num, DF) or isinstance(den, DF):
+        return df_safe_div(num, den)
     return torch.where(den != 0, num / den, 0.0)
 
 
+def _select(cond, a, b):
+    """``torch.where`` for plain or double-word vectors."""
+    if isinstance(a, DF):
+        return df_where(cond, a, b)
+    return torch.where(cond, a, b)
+
+
 def _common_scalars(nu, mu):
-    zero = torch.zeros_like(nu)
+    # zeros built like nu, a tensor or a double-word value
+    zero = (DF(torch.zeros_like(nu.hi), torch.zeros_like(nu.lo))
+            if isinstance(nu, DF) else torch.zeros_like(nu))
     return dict(nu=nu, mu=mu, a=_safe_div(nu, mu), a1=zero, a2=zero, b=zero,
                 b1=zero, k=0)
 
@@ -297,7 +312,7 @@ def make_gv_step(w_replace=None, stateful=False):
             else:
                 do_rep = w_replace(s_["k"] + 1, view)
             if isinstance(do_rep, torch.Tensor):
-                w = torch.where(do_rep, ctx.mv(rt), w)
+                w = _select(do_rep, ctx.mv(rt), w)
             elif do_rep:
                 w = ctx.mv(rt)
         wt = ctx.prec(w) if ctx.has_prec else w

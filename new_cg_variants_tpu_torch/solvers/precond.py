@@ -6,7 +6,10 @@ The reference uses exactly one preconditioner in its experiments — Jacobi,
 ``apply(v)``; :class:`FunctionPreconditioner` wraps a raw callable.
 ``astype`` and ``to`` carry a preconditioner to the solve's vector dtype and
 device (the identity and a wrapped callable hold no tensors and return
-themselves).
+themselves).  In the double-word mode a wrapped callable or an object with
+``apply`` maps :class:`~..ops.doublefloat.DF` vectors as they come (neither
+is cast or moved there), and Jacobi is
+:class:`~..ops.doublefloat.DFJacobi`.
 """
 
 from __future__ import annotations

@@ -185,7 +185,8 @@ def test_kernel_or_generic_choice_reads_the_configuration_only():
     for rel in ("solvers/context.py", "solvers/families.py",
                 "solvers/engine.py", "ops/sym_fused.py", "ops/sym_dia.py",
                 "ops/operators.py", "ops/spmv_dia.py", "ops/fused_step.py",
-                "ops/fused_family.py"):
+                "ops/fused_family.py", "ops/compensated.py",
+                "ops/doublefloat.py", "ops/df_spmv.py", "solvers/api.py"):
         tree = ast.parse((PORT_DIR / rel).read_text())
         for node in ast.walk(tree):
             assert not isinstance(node, ast.Try), rel
@@ -206,12 +207,31 @@ def test_every_kernel_source_is_built_and_notes_what_it_replaces():
     built = set(_kernels.SOURCES)
     assert built == {p.name for p in (PORT_DIR / "csrc").glob("*.cu")}
     assert built == set(_kernels._SIGNATURES)
-    assert {"dia_spmv.cu", "pipe_vector.cu", "dia_family.cu"} <= built
+    assert {"dia_spmv.cu", "pipe_vector.cu", "dia_family.cu", "df_spmv.cu",
+            "df_pipe.cu"} <= built
     for name in built:
         text = (PORT_DIR / "csrc" / name).read_text()
         assert "Replaces the TPU kernel" in text
         assert "What bounds it on an H100" in text
         assert 'extern "C"' in text
+
+
+def test_double_word_sources_round_every_step_once():
+    """The double-word kernels rest on error-free transforms, which a fused
+    multiply-add breaks: no build flag may allow fast math or flush
+    subnormals, and the double-word arithmetic of ``csrc/df_common.cuh`` is
+    written in intrinsics that are never contracted (the study of
+    ``chip_study.py`` that puts plain operators back must fail the checks)."""
+    cmd = " ".join(_kernels.nvcc_command("nvcc", "csrc/df_spmv.cu", "x.so"))
+    for flag in ("fast_math", "ftz=true", "fmad=true", "prec-div=false"):
+        assert flag not in cmd
+    common = (PORT_DIR / "csrc" / "df_common.cuh").read_text()
+    for intrinsic in ("__fadd_rn", "__fsub_rn", "__fmul_rn"):
+        assert common.count(intrinsic) == 1
+    for name in ("df_spmv.cu", "df_pipe.cu"):
+        text = (PORT_DIR / "csrc" / name).read_text()
+        assert '#include "df_common.cuh"' in text
+        assert "fma" not in text.replace("fmad", "")
 
 
 def test_every_study_edit_applies_to_the_kernel_sources():
@@ -220,8 +240,10 @@ def test_every_study_edit_applies_to_the_kernel_sources():
     and not on the card when a kernel is rewritten."""
     import chip_study
 
-    edits = list(chip_study.MUTANTS.values()) + list(chip_study.LAUNCH_BOUNDS)
-    assert len(edits) >= 12
+    edits = (list(chip_study.MUTANTS.values())
+             + list(chip_study.DF_MUTANTS.values())
+             + list(chip_study.LAUNCH_BOUNDS))
+    assert len(edits) >= 17
     for source, text, replacement in edits:
         body = (PORT_DIR / "csrc" / source).read_text()
         assert body.count(text) == 1, (source, text)
