@@ -92,7 +92,31 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
 16. ``df_accuracy`` — the outcome of the mode: on the diagonal model spectrum
     at kappa = 1e6 (n = 65,536) float32 stalls near 1e-5 relative A-norm
     error and f32x2 reaches 1e-10 within 300 iterations;
-17. ``kernels`` — one JSON line over all kernel entries: one record per entry
+17. ``check`` lines of the ELL kernel (``check_ell``): ``ell_spmv`` and
+    ``ell_spmv2`` of ``csrc/ell_spmv.cu`` (kernel row 12) against their plain
+    versions in float32 and float64 on O(1) random values, every value in
+    units of its own scale (|A| |v|)_i: HPCG's 27-point pattern at n =
+    104^3 = 1,124,864 (L = 27) in natural order and under a random symmetric
+    permutation (timed in float32, with the plain versions, cuSPARSE CSR
+    through torch and the bound), a ragged pattern (n = 4099, rows of 0..9
+    entries), n = 100 and L = 1;
+18. ``ell_f32`` — general sparse input through the auto route: HPCG's
+    operator (27-point, 104^3; diagonal 26, -1 to each neighbour) under a
+    random symmetric permutation, handed over as scipy CSR in float32; the
+    route must pick ELL and warn; pipe-PR-CG for 300 iterations (launches,
+    the profiler's kernels per iteration and busy share), the other 17 names
+    for 100 (row 12 once per product of each generic body), one solve to
+    rtol 1e-6 that converges; the host seconds of the operator's build;
+19. ``formats_f32`` — the model problem of 4 as scipy CSR: permuted, the
+    auto route must pick the block-banded packing (bs = 128); unpermuted,
+    the stencil (and ``banded_model(fmt="stencil")``); pipe-PR-CG for 300
+    iterations on each, no kernel launched, the block-banded residual (in
+    the original order) within 10x of the half-band path's;
+20. ``sparse_f64`` — card against CPU in float64 over 25 iterations on ELL
+    (the permuted 27-point operator on 32^3), block-banded (the permuted
+    model problem, n = 65,536) and stencil operators, one name per family
+    and a Jacobi ``_pcg`` name on each; pipe-PR-CG in f32x2 on an ELL inner;
+21. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
     paths of that shape.
 
@@ -640,6 +664,7 @@ def check_dia(torch, card, timings):
 
 def counted_wrappers():
     from new_cg_variants_tpu_torch.ops import df_spmv as ds
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
     from new_cg_variants_tpu_torch.ops import fused_family as ff
     from new_cg_variants_tpu_torch.ops import fused_step as fs
     from new_cg_variants_tpu_torch.ops import spmv_dia as sp
@@ -648,7 +673,7 @@ def counted_wrappers():
 
     return ((sd.sym_dia_spmv, sd.sym_dia_spmv2) + sf.FAMILY_WRAPPERS
             + sp.DIA_WRAPPERS + fs.FUSED_STEP_WRAPPERS
-            + ff.FUSED_FAMILY_WRAPPERS + ds.DF_WRAPPERS)
+            + ff.FUSED_FAMILY_WRAPPERS + ds.DF_WRAPPERS + es.ELL_WRAPPERS)
 
 
 def reset_counts():
@@ -1539,6 +1564,415 @@ def df_accuracy(torch):
         raise AssertionError(f"f32x2 accuracy outcome not met: {best}")
 
 
+# ---------------------------------------------------------------------------
+# General sparse input: kernel row 12 and the format layer
+# ---------------------------------------------------------------------------
+
+#: HPCG's standard local grid: the 27-point operator on 104^3 points
+HPCG_GRID = 104
+#: the 27-point operator of sparse_f64 (small enough for the CPU side)
+HPCG_SMALL_GRID = 32
+#: seed of the symmetric permutation that stands in for an unstructured
+#: mesh's numbering
+PERM_SEED = 2024
+ELL_ITERS = 300
+ELL_RTOL = 1e-6
+ELL_MAX_ITER = 3000
+FORMATS_ITERS = 300
+SPARSE_F64_N = 65_536
+#: (label, n, row lengths) of the small ELL checks: ragged rows of 0..9
+#: entries (rows of padding only among them), n below one block, L = 1
+ELL_SMALL = (("ragged", 4099, (0, 10)), ("n=100", 100, (1, 6)),
+             ("L=1", 1000, (1, 2)))
+#: suffix of the timings at HPCG's pattern in natural order (the path's
+#: shape is the permuted one)
+NATURAL = " (natural order)"
+
+
+def stencil27(grid, perm_seed=None):
+    """HPCG's operator as scipy CSR (float64): the 27-point stencil on a
+    grid^3, diagonal 26, -1 to every neighbour, Dirichlet boundary.
+    ``perm_seed``: rows and columns under one seeded random permutation."""
+    import scipy.sparse as sp
+
+    t = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(grid, grid),
+                 format="csr")
+    a = (27.0 * sp.eye(grid ** 3, format="csr")
+         - sp.kron(sp.kron(t, t), t, format="csr")).tocsr()
+    return permuted(a, perm_seed)
+
+
+def permuted(a, perm_seed):
+    """``P A P^T`` for a seeded random permutation (``None``: ``a``), CSR
+    with sorted indices."""
+    if perm_seed is not None:
+        p = np.random.default_rng(perm_seed).permutation(a.shape[0])
+        a = a[p][:, p].tocsr()
+    a.sort_indices()
+    return a
+
+
+def model_csr(n, perm_seed=None):
+    """The PETSc model problem (k = 32) as scipy CSR, float64, permuted or
+    not; with ``b = A 1`` in the same order."""
+    from new_cg_variants_tpu_torch import banded_model
+
+    op, _, _ = banded_model(n, k=K_BAND, fmt="dia", device="cpu")
+    a = permuted(op.tocsr(), perm_seed)
+    return a, a @ np.ones(n)
+
+
+def ell_arrays(torch, a, rng, dtype):
+    """The padded-ELL arrays of ``a``'s pattern with O(1) random values on
+    its entries (padding stays 0), on the card: ``(val, idx)`` as ``(n, L)``
+    views of slot-major storage, and the same matrix as a CUDA CSR tensor
+    (the library's yardstick)."""
+    from new_cg_variants_tpu_torch.ops.operators import build_ell, coo_from_scipy
+
+    val, idx, _ = build_ell(coo_from_scipy(a))
+    real = val.T != 0.0
+    val_t = np.zeros(val.T.shape)
+    val_t[real] = rng.uniform(-1.0, 1.0, int(real.sum()))
+    vt = torch.from_numpy(val_t).to(device="cuda", dtype=dtype)
+    it = torch.from_numpy(np.ascontiguousarray(idx.T)).cuda()
+    rows = np.broadcast_to(np.arange(a.shape[0]), val_t.shape)[real]
+    order = np.lexsort((idx.T[real], rows))
+    counts = np.bincount(rows, minlength=a.shape[0])
+    crow = np.concatenate([[0], np.cumsum(counts)])
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).cuda(),
+        torch.from_numpy(idx.T[real][order].astype(np.int64)).cuda(),
+        torch.from_numpy(val_t[real][order]).to(device="cuda", dtype=dtype),
+        size=a.shape)
+    return vt.T, it.T, csr
+
+
+def small_pattern(n, lens, rng):
+    """A random pattern of ``n`` rows with lengths in ``range(*lens)``, as
+    scipy CSR (the values are replaced by ell_arrays)."""
+    import scipy.sparse as sp
+
+    counts = rng.integers(lens[0], lens[1], n)
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(0, n, counts.sum())
+    return sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+
+
+def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report):
+    """Both ELL entries against their plain versions on one pattern; timed
+    (with the plain versions, cuSPARSE and the bound) when ``timings``."""
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+
+    val, idx, csr = ell_arrays(torch, a, rng, dtype)
+    n, L = val.shape
+    v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                            device="cuda") for _ in range(2))
+    y = es.ell_spmv(val, idx, v)
+    y2, z2 = es.ell_spmv2(val, idx, v, w)
+    yp, zp = (es._ell_mv_plain(val, idx, x) for x in (v, w))
+    ys, zs = (es._ell_mv_plain(val.abs(), idx, x.abs()) for x in (v, w))
+    torch.cuda.synchronize()
+    errs = [cw_err(torch, y, yp, ys), cw_err(torch, y2, yp, ys),
+            cw_err(torch, z2, zp, zs)]
+    abs_err = max(float((g - want).abs().max())
+                  for g, want in ((y, yp), (y2, yp), (z2, zp)))
+    dn = dtype_name(dtype)
+    rec = dict(kernel="ell_spmv", shape=label, dtype=dn, n=n, L=L,
+               nnz=int(csr.values().numel()), max_err=max(errs),
+               max_abs_err=abs_err, tol=TOL[dn])
+    if timings is not None:
+        isz = val.element_size()
+        ms = time_ms(torch, lambda: es.ell_spmv(val, idx, v), 50)
+        ms2 = time_ms(torch, lambda: es.ell_spmv2(val, idx, v, w), 50)
+        plain_ms = time_ms(torch, lambda: es._ell_mv_plain(val, idx, v), 5)
+        plain2_ms = time_ms(torch,
+                            lambda: es._ell_mv2_plain(val, idx, v, w), 5)
+        vw = torch.stack([v, w], dim=1)
+        lib_err = cw_err(torch, csr @ v, yp, ys)
+        lib_ms = time_ms(torch, lambda: csr @ v, 50)
+        lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
+        b_ms, b_by = bound(n * L * (isz + 4) + 2 * n * isz, 2 * n * L, dn,
+                           rate)
+        b2_ms, b2_by = bound(n * L * (isz + 4) + 4 * n * isz, 4 * n * L, dn,
+                             rate)
+        rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
+                   plain2_ms=plain2_ms, library_ms=lib_ms,
+                   library2_ms=lib2_ms, library_err=lib_err, bound_ms=b_ms,
+                   bound_by=b_by, spmv2_bound_ms=b2_ms)
+        common = dict(n=n, L=L, max_abs_err=abs_err,
+                      library="cuSPARSE CSR through torch (csr @ v, "
+                      "csr @ [v w])")
+        sfx = "" if "permuted" in label else NATURAL
+        timings["ell_spmv" + sfx] = dict(
+            common, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by)
+        timings["ell_spmv2" + sfx] = dict(
+            common, ms=ms2, plain_ms=plain2_ms, library_ms=lib2_ms,
+            bound_ms=b2_ms, bound_by=b2_by)
+        del vw
+    report(rec)
+    del val, idx, csr, v, w
+    torch.cuda.empty_cache()
+    return [] if max(errs) <= TOL[dn] else [rec]
+
+
+def ell_checks(torch, card, timings, report):
+    """Row 12 (``ell_spmv``, ``ell_spmv2``) against its plain version on the
+    card in float32 and float64, every value in units of its own scale
+    ``(|A| |v|)_i``: HPCG's pattern at full size in natural order and
+    permuted (timed in float32), then the small shapes.  Returns the failed
+    checks."""
+    rate = memory_rate(card)
+    failed = []
+    grid = f"27-point {HPCG_GRID}^3"
+    for label, seed in ((grid, None), (grid + " permuted", PERM_SEED)):
+        a = stencil27(HPCG_GRID, seed)
+        for dtype in (torch.float32, torch.float64):
+            failed += check_ell_shape(
+                torch, label, a, np.random.default_rng(12), dtype, rate,
+                timings if timings is not None and dtype == torch.float32
+                else None, report)
+        del a
+    for label, n, lens in ELL_SMALL:
+        rng = np.random.default_rng(n)
+        a = small_pattern(n, lens, rng)
+        for dtype in (torch.float32, torch.float64):
+            failed += check_ell_shape(torch, label, a, rng, dtype, rate, None,
+                                      report)
+    return failed
+
+
+def check_ell(torch, card, timings):
+    failed = ell_checks(torch, card, timings, emit_check)
+    if failed:
+        raise AssertionError(f"{len(failed)} ELL checks disagree: {failed}")
+
+
+def ell_expected(name, iters):
+    """Launches a name makes on an ``EllOperator``: every fused phase
+    declines, so the generic body: ``ell_spmv2`` once per iteration for the
+    pipe names that recompute, else ``ell_spmv`` once per product (and the
+    products of init)."""
+    split, _ = split_expected(name, iters)
+    counts = {"ell_spmv": split["dia_spmv"]}
+    if "dia_spmv2" in split:
+        counts["ell_spmv2"] = split["dia_spmv2"]
+    return counts, "ell_spmv"
+
+
+def ell_f32(torch):
+    """HPCG's operator (27-point, 104^3) under a random symmetric
+    permutation, handed over as scipy CSR in float32: the auto route must
+    pick ELL (with its warning); all 18 names on the one operator, each
+    product one row-12 launch; one solve that converges."""
+    import warnings
+
+    from new_cg_variants_tpu_torch import (
+        VARIANT_NAMES,
+        EllOperator,
+        as_operator,
+        solve,
+    )
+    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+
+    t0 = time.perf_counter()
+    a = stencil27(HPCG_GRID, PERM_SEED).astype(np.float32)
+    matrix_s = time.perf_counter() - t0
+    n = a.shape[0]
+    x_true = np.ones(n, dtype=np.float32)
+    b = torch.from_numpy(a @ x_true).cuda()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        op = as_operator(a, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warned = any("gather-ELL" in str(c.message) for c in caught)
+    emit("ell_f32", n=n, nnz=int(a.nnz), operator=type(op).__name__,
+         L=int(op.val.shape[1]) if isinstance(op, EllOperator) else None,
+         warned=warned, matrix_host_seconds=matrix_s,
+         build_host_seconds=build_s)
+    if not (isinstance(op, EllOperator) and warned):
+        raise AssertionError(f"auto route gave {type(op).__name__}, "
+                             f"warned={warned}: expected ELL with a warning")
+    launches, failed = solve_names(
+        torch, "ell_f32", op, b, x_true, ("pipe_pr_cg",), ell_expected,
+        iters=ELL_ITERS, n=n)
+    init_fn, step_fn = FAMILIES["pipe_pr"]
+    ctx = Context(op)
+    emit("ell_f32", variant="pipe_pr_cg", profile=profile_steps(
+        torch, ctx, step_fn, init_fn(ctx, b, torch.zeros_like(b))))
+    names = [nm for nm in VARIANT_NAMES if nm != "pipe_pr_cg"]
+    more, failed2 = solve_names(torch, "ell_f32", op, b, x_true, names,
+                                ell_expected, iters=GENERIC_ITERS, n=n)
+    failed += failed2
+    for key, val in more.items():
+        launches[key] = launches.get(key, 0) + val
+    t0 = time.perf_counter()
+    res = solve(op, b, variant="pipe_pr_cg", rtol=ELL_RTOL,
+                max_iter=ELL_MAX_ITER)
+    torch.cuda.synchronize()
+    xt = torch.from_numpy(x_true).cuda()
+    rec = dict(variant="pipe_pr_cg", rtol=ELL_RTOL, converged=res.converged,
+               iterations=res.iterations, norm=res.norm,
+               seconds=time.perf_counter() - t0,
+               rel_forward_error=float(torch.linalg.norm(res.x - xt)
+                                       / torch.linalg.norm(xt)),
+               rel_residual=float(torch.linalg.norm(b - op.mv(res.x))
+                                  / torch.linalg.norm(b)))
+    emit("ell_f32", **rec)
+    if not (res.converged and np.isfinite(rec["rel_forward_error"])):
+        failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} ELL runs failed: {failed}")
+    return launches
+
+
+def host_residual(a, b, x):
+    """||b - A x|| / ||b|| on the host in float64 (scipy)."""
+    x64 = x.double().cpu().numpy()
+    return float(np.linalg.norm(b - a @ x64) / np.linalg.norm(b))
+
+
+def no_kernel(name, iters):
+    return {}, None
+
+
+def formats_f32(torch):
+    """(a) The PETSc model problem as scipy CSR under a random symmetric
+    permutation: the auto route must pick the block-banded packing (RCM
+    recovers the band); pipe-PR-CG for 300 iterations, ``x`` back in the
+    original order, its residual within 10x of the half-band path's on the
+    unpermuted problem.  (b) The same problem unpermuted: the auto route must
+    pick the stencil; it and ``banded_model(fmt="stencil")`` for 300
+    iterations.  No path here reaches a kernel."""
+    from new_cg_variants_tpu_torch import (
+        BandedStencilOperator,
+        as_operator,
+        banded_model,
+        solve,
+    )
+    from new_cg_variants_tpu_torch.ops.block_banded import (
+        PermutedBlockBandedOperator,
+    )
+
+    failed = []
+
+    def timed(op, b, label, a_host, b_host, kernels=False, **fields):
+        """pipe-PR-CG for FORMATS_ITERS iterations; without ``kernels`` no
+        kernel may launch."""
+        reset_counts()
+        solve(op, b, variant="pipe_pr_cg", max_iter=5, norm_type="none")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(op, b, variant="pipe_pr_cg", max_iter=FORMATS_ITERS,
+                    norm_type="none")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        rec = dict(variant="pipe_pr_cg", operator=label, n=op.n,
+                   iterations=res.iterations,
+                   ms_per_iter=seconds / FORMATS_ITERS * 1e3,
+                   rel_residual=host_residual(a_host, b_host, res.x),
+                   launches=counts, **fields)
+        emit("formats_f32", **rec)
+        if (counts and not kernels) or not np.isfinite(rec["rel_residual"]):
+            failed.append(rec)
+        return rec
+
+    a, b64 = model_csr(N)
+    sym, _, _ = model_f32(torch, "symdia")
+    b = torch.from_numpy(b64).to(device="cuda", dtype=torch.float32)
+    half = timed(sym, b, "SymDiaOperator (unpermuted, the main path)", a,
+                 b64, kernels=True)
+    del sym
+
+    t0 = time.perf_counter()
+    op = as_operator(a, dtype=torch.float32, device="cuda")
+    build_s = time.perf_counter() - t0
+    if not isinstance(op, BandedStencilOperator):
+        failed.append(dict(operator=type(op).__name__, expected="stencil"))
+    timed(op, b, "auto route, unpermuted scipy CSR", a, b64,
+          built=type(op).__name__, build_host_seconds=build_s)
+    st, _, _ = banded_model(N, k=K_BAND, fmt="stencil", device="cpu")
+    timed(st.astype(torch.float32).to("cuda"), b,
+          "banded_model(fmt='stencil')", a, b64)
+    del op, st
+
+    ap, bp64 = model_csr(N, PERM_SEED)
+    bp = torch.from_numpy(bp64).to(device="cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    op = as_operator(ap, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not (isinstance(op, PermutedBlockBandedOperator)
+            and op.inner.bs == 128):
+        failed.append(dict(operator=type(op).__name__,
+                           expected="block_banded, bs = 128"))
+    else:
+        rec = timed(op, bp, "auto route, permuted scipy CSR", ap, bp64,
+                    built=type(op).__name__, bs=op.inner.bs,
+                    block_bytes=op.inner.a_blk.numel() * 4,
+                    build_host_seconds=build_s,
+                    half_band_rel_residual=half["rel_residual"])
+        if not rec["rel_residual"] <= 10 * half["rel_residual"]:
+            failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} format runs failed: {failed}")
+
+
+def sparse_f64(torch):
+    """Card against CPU in float64 over 25 iterations on the three new
+    operator kinds (one name per family and a Jacobi ``_pcg`` name on
+    each), and pipe-PR-CG in f32x2 on an ELL inner."""
+    from new_cg_variants_tpu_torch import (
+        DiaOperator,
+        as_operator,
+        banded_model,
+        df_operator,
+        from_coo,
+    )
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
+
+    names = ("hs_cg", "cg_cg", "gv_cg", "pr_cg", "pipe_pr_cg", "pipe_p_cg")
+    a27 = stencil27(HPCG_SMALL_GRID, PERM_SEED)
+    b27 = a27 @ np.ones(a27.shape[0])
+    ell = from_coo(coo_from_scipy(a27), fmt="ell", device="cpu")
+    compare_f64(torch, "sparse_f64",
+                [(nm, ell, b27, "27-point 32^3 permuted, ELL")
+                 for nm in names + ("pipe_pr_pcg",)], ell_expected)
+
+    n = SPARSE_F64_N
+    bb = as_operator(model_csr(n, PERM_SEED)[0], device="cpu")
+    band, _ = scaled_band(torch, n, K_BAND)
+    offsets, full = band.todia_host()
+    band_csr = permuted(DiaOperator(offsets, torch.from_numpy(full)).tocsr(),
+                        PERM_SEED)
+    bb_pcg = as_operator(band_csr, device="cpu")
+    _, bp = model_csr(n, PERM_SEED)
+    cases = [(nm, bb, bp, "model problem permuted, block-banded")
+             for nm in names]
+    cases.append(("pipe_pr_pcg", bb_pcg, band_csr @ np.ones(n),
+                  "scaled band permuted, block-banded"))
+    st, b_st, _ = banded_model(n, k=K_BAND, fmt="stencil", device="cpu")
+    # Jacobi leaves kappa near 100 here (1 + 62 c = 0.008, diagonal >= 1);
+    # on the model problem it converges in six iterations
+    st_j, b_j, _ = banded_model(n, k=K_BAND, off_value=-0.016, kappa=10.0,
+                                fmt="stencil", device="cpu")
+    cases += [(nm, st, b_st, "model problem, stencil") for nm in names]
+    cases.append(("pipe_pr_pcg", st_j, b_j,
+                  "band of -0.016, stencil"))
+    compare_f64(torch, "sparse_f64", cases, no_kernel)
+
+    dell = df_operator(coo_from_scipy(a27), fmt="ell", device="cpu")
+    compare_f64(torch, "sparse_f64",
+                [("pipe_pr_cg", dell, b27, "27-point 32^3 permuted, "
+                  "f32x2 on an ELL inner")],
+                lambda name, iters: ({"df_pipe_vector_phase": iters}, None),
+                dtype="f32x2")
+
+
 def kernel_records(timings, launches):
     """The ``kernels`` line: one record per kernel entry and shape a driven
     path gives it, with the entry's launches on the paths of that shape
@@ -1579,6 +2013,8 @@ def kernel_records(timings, launches):
                            ("df_dense_f32x2",)),
         "df_pipe_vector_phase" + DENSE: ("df_pipe.cu", "df_spmv.py:326",
                                          ("df_dense_f32x2",)),
+        "ell_spmv": ("ell_spmv.cu", "ell_pallas.py:44", ("ell_f32",)),
+        "ell_spmv2": ("ell_spmv.cu", "ell_pallas.py:44", ("ell_f32",)),
     })
     kernels = []
     for name, (source, replaces, paths) in records.items():
@@ -1586,7 +2022,12 @@ def kernel_records(timings, launches):
         entry = name.removesuffix(WIDE).removesuffix(DENSE)
         extra = {key: t[key] for key in ("f64_counterpart_ms",
                                          "f64_counterpart", "bound_bytes_ms",
-                                         "bound_ops_ms") if key in t}
+                                         "bound_ops_ms", "L", "library")
+                 if key in t}
+        if name + NATURAL in timings:
+            extra["natural_order"] = {
+                key: timings[name + NATURAL][key]
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append(dict(
             name=name, route="cuda",
             source="new_cg_variants_tpu_torch/csrc/" + source,
@@ -1647,6 +2088,10 @@ def main():
     phase("df_dense_f32x2", df_dense_f32x2, torch)
     phase("df_card_vs_cpu", df_card_vs_cpu, torch)
     phase("df_accuracy", df_accuracy, torch)
+    phase("check_ell", check_ell, torch, card, timings)
+    phase("ell_f32", ell_f32, torch)
+    phase("formats_f32", formats_f32, torch)
+    phase("sparse_f64", sparse_f64, torch)
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)

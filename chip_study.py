@@ -3,6 +3,7 @@
 
     python3 chip_study.py check     # build, registers per kernel, check_dia
     python3 chip_study.py dfcheck   # build, registers, the double-word checks
+    python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
     python3 chip_study.py mutants   # do the checks catch a faulty kernel?
     python3 chip_study.py bounds    # launch bounds, timed in turns
     python3 chip_study.py halo      # whole-iteration kernel against the split
@@ -101,6 +102,15 @@ DF_MUTANTS = {
         "const long long width = nb;"),
 }
 
+#: faults of the ELL kernel (row 12), held to chip_smoke.py's check_ell
+ELL_MUTANTS = {
+    "last slot dropped (ELL)": (
+        "ell_spmv.cu", "for (int l = 0; l < L; ++l) {",
+        "for (int l = 0; l < L - 1; ++l) {"),
+    "v[i] read in place of v[idx] (ELL)": (
+        "ell_spmv.cu", "const int j = __ldg(c + o);", "const int j = (int)i;"),
+}
+
 
 #: the minimum-blocks launch bound of the half-band SpMV, the DIA SpMV and the
 #: full-DIA family kernel: (source, text, replacement taking the bound)
@@ -171,6 +181,20 @@ def df_checks(torch, card):
                                         if r not in failed), default=None))
 
 
+def ell_checks(torch, card):
+    """check_ell's checks, counted instead of raised and not timed."""
+    lines = []
+    failed = cs.ell_checks(torch, card, None, lines.append)
+    errs = [r["max_err"] for r in failed]
+    return dict(checks=len(lines), failed=len(failed),
+                failed_err_min=min(errs, default=None),
+                failed_err_max=max(errs, default=None),
+                passed_checks=[(r["shape"], r["dtype"]) for r in lines
+                               if r not in failed],
+                passed_err_max=max((r["max_err"] for r in lines
+                                    if r not in failed), default=None))
+
+
 def study_check(torch, card):
     from new_cg_variants_tpu_torch.ops import _kernels
 
@@ -197,6 +221,21 @@ def study_dfcheck(torch, card):
     emit("dfcheck", ok=True)
 
 
+def study_ellcheck(torch, card):
+    """The first call after touching the ELL kernel: build, registers,
+    check_ell (timed).  Its mutants run in ``mutants``."""
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    with contextlib.ExitStack() as stack:
+        libs, logs = build_edited(stack, [])
+        emit("ellcheck", source="ell_spmv.cu", ptxas=logs["ell_spmv.cu"])
+        with _kernels.using(libs):
+            timings = {}
+            cs.check_ell(torch, card, timings)
+            emit("ellcheck", timings=timings)
+    emit("ellcheck", ok=True)
+
+
 def study_mutants(torch, card):
     from new_cg_variants_tpu_torch.ops import _kernels
 
@@ -205,6 +244,8 @@ def study_mutants(torch, card):
     runs += [(what, edit, df_checks) for what, edit in
              {"as committed (double-word checks)": None,
               **DF_MUTANTS}.items()]
+    runs += [(what, edit, ell_checks) for what, edit in
+             {"as committed (ELL checks)": None, **ELL_MUTANTS}.items()]
     for what, edit, checks in runs:
         with contextlib.ExitStack() as stack:
             libs, _ = build_edited(stack, [edit] if edit else [])
@@ -349,7 +390,7 @@ def main(argv):
     import torch
 
     studies = {"check": study_check, "dfcheck": study_dfcheck,
-               "mutants": study_mutants,
+               "ellcheck": study_ellcheck, "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo}
     if len(argv) != 2 or argv[1] not in studies:
         print(__doc__, file=sys.stderr)

@@ -9,10 +9,14 @@ the kernels' plain PyTorch versions.
 
 Ported so far: every CG variant of ``VARIANT_NAMES`` (hs, cg, gv, pr, m and
 the four pipe families, each with its preconditioned twin) on symmetric
-half-band, full-DIA and dense operators, with compensated dots
-(``compensated=True``) and in the double-word mode (``dtype="f32x2"``).
+half-band, full-DIA, dense, padded-ELL, constant-band stencil and
+block-banded operators, with compensated dots (``compensated=True``) and in
+the double-word mode (``dtype="f32x2"``).  General sparse input (a scipy
+sparse matrix, a :class:`CooMatrix` or a ``.mtx`` file) takes the JAX
+package's auto format policy (:func:`from_coo`).
 """
 
+from .matio.matrix_market import CooMatrix, load_matrix, read_mtx, write_mtx
 from .matio.problems import banded_model, model_spectrum
 from .ops.compensated import comp_dot
 from .ops.doublefloat import (
@@ -24,7 +28,14 @@ from .ops.doublefloat import (
     df_split,
     df_split3,
 )
-from .ops.operators import DenseOperator, DiaOperator, as_operator
+from .ops.operators import (
+    DenseOperator,
+    DiaOperator,
+    EllOperator,
+    as_operator,
+    from_coo,
+)
+from .ops.stencil import BandedStencilOperator
 from .ops.sym_dia import SymDiaOperator
 from .solvers.api import VARIANT_NAMES, SolveResult, run, solve
 from .solvers.precond import JacobiPreconditioner, make_preconditioner
@@ -37,7 +48,14 @@ __all__ = [
     "SymDiaOperator",
     "DiaOperator",
     "DenseOperator",
+    "EllOperator",
+    "BandedStencilOperator",
     "as_operator",
+    "from_coo",
+    "CooMatrix",
+    "read_mtx",
+    "write_mtx",
+    "load_matrix",
     "run",
     "solve",
     "SolveResult",

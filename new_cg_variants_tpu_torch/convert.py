@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .ops.block_banded import BlockBandedOperator, PermutedBlockBandedOperator
 from .ops.doublefloat import DF, DFOperator
-from .ops.operators import DenseOperator, DiaOperator
+from .ops.operators import DenseOperator, DiaOperator, EllOperator
+from .ops.stencil import BandedStencilOperator
 from .ops.sym_dia import SymDiaOperator
 from .solvers.precond import JacobiPreconditioner
 
@@ -22,15 +24,51 @@ __all__ = ["operator_from_numpy", "df_operator_from_numpy",
            "preconditioner_from_numpy", "state_from_numpy", "state_to_numpy"]
 
 
-def operator_from_numpy(offsets, data, *, kind="symdia", dtype=None,
-                        device=None):
-    """The port's operator of the JAX operator's ``kind``: a
-    :class:`SymDiaOperator` (``"symdia"``) or :class:`DiaOperator`
-    (``"dia"``) from stored offsets and ``(ndiag, n)`` data, or a
-    :class:`DenseOperator` (``"dense"``; ``offsets`` is ``None``) from an
-    ``(n, n)`` array."""
+def _tensor(a, dtype, dev):
+    # a copy: arrays that JAX hands out are read-only
+    return torch.from_numpy(np.array(a, order="C")).to(device=dev,
+                                                       dtype=dtype)
+
+
+def operator_from_numpy(offsets=None, data=None, *, kind="symdia",
+                        dtype=None, device=None, **arrays):
+    """The port's operator of the JAX operator's ``kind``, from its numpy
+    arrays:
+
+    * ``"symdia"`` / ``"dia"``: :class:`SymDiaOperator` /
+      :class:`DiaOperator` from stored ``offsets`` and ``(ndiag, n)``
+      ``data``;
+    * ``"dense"``: :class:`DenseOperator` from an ``(n, n)`` ``data``
+      (``offsets`` is ``None``);
+    * ``"ell"``: :class:`EllOperator` from ``val`` and ``idx`` (``(n, L)``)
+      and ``nnz``;
+    * ``"stencil"``: :class:`BandedStencilOperator` from ``diag``,
+      ``off_value`` and ``k``;
+    * ``"block_banded"``: :class:`BlockBandedOperator` from ``a_blk``,
+      ``n_orig`` and ``nnz``, wrapped in a
+      :class:`PermutedBlockBandedOperator` when ``perm`` is given.
+    """
     dev = resolve_device(device)
-    t = torch.from_numpy(np.ascontiguousarray(data)).to(device=dev, dtype=dtype)
+    if kind == "ell":
+        val = _tensor(np.asarray(arrays["val"]).T, dtype, dev).T
+        idx = _tensor(np.asarray(arrays["idx"], dtype=np.int32).T, None,
+                      dev).T
+        return EllOperator(val, idx, int(arrays["nnz"]))
+    if kind == "stencil":
+        diag = _tensor(arrays["diag"], dtype, dev)
+        return BandedStencilOperator(
+            diag, np.asarray(arrays["off_value"]), int(arrays["k"]))
+    if kind == "block_banded":
+        op = BlockBandedOperator(_tensor(arrays["a_blk"], dtype, dev),
+                                 int(arrays["n_orig"]), int(arrays["nnz"]))
+        perm = arrays.get("perm")
+        if perm is None:
+            return op
+        return PermutedBlockBandedOperator(
+            op, _tensor(np.asarray(perm, dtype=np.int64), None, dev))
+    if arrays:
+        raise TypeError(f"unexpected arrays {sorted(arrays)} for {kind!r}")
+    t = _tensor(data, dtype, dev)
     if kind == "dense":
         return DenseOperator(t)
     if kind not in ("symdia", "dia"):
@@ -38,15 +76,20 @@ def operator_from_numpy(offsets, data, *, kind="symdia", dtype=None,
     return (SymDiaOperator if kind == "symdia" else DiaOperator)(offsets, t)
 
 
-def df_operator_from_numpy(offsets, hi, lo, lo2, *, device=None):
+def df_operator_from_numpy(offsets, hi, lo, lo2, *, idx=None, nnz=0,
+                           device=None):
     """A :class:`~.ops.doublefloat.DFOperator` from its three word arrays:
-    DIA (``(ndiag, n)`` words at ``offsets``) or, with ``offsets`` ``None``,
-    dense (``(n, n)`` words), such as the JAX ``DFOperator``'s ``inner``
-    data, ``lo_data`` and ``lo2_data``."""
-    kind = "dense" if offsets is None else "dia"
-    inner = operator_from_numpy(offsets, hi, kind=kind, device=device)
-    lo, lo2 = (torch.from_numpy(np.ascontiguousarray(w)).to(inner.device)
-               for w in (lo, lo2))
+    DIA (``(ndiag, n)`` words at ``offsets``), ELL (``(n, L)`` words with
+    ``idx`` and ``nnz``; ``offsets`` is ``None``) or, with ``offsets`` and
+    ``idx`` ``None``, dense (``(n, n)`` words), such as the JAX
+    ``DFOperator``'s ``inner`` data, ``lo_data`` and ``lo2_data``."""
+    if idx is not None:
+        inner = operator_from_numpy(kind="ell", val=hi, idx=idx, nnz=nnz,
+                                    device=device)
+    else:
+        kind = "dense" if offsets is None else "dia"
+        inner = operator_from_numpy(offsets, hi, kind=kind, device=device)
+    lo, lo2 = (_tensor(w, None, inner.device) for w in (lo, lo2))
     return DFOperator(inner, lo, lo2)
 
 

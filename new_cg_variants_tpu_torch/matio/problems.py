@@ -86,24 +86,29 @@ def banded_model(
     matrix traffic); ``fmt='dia'`` the general
     :class:`~..ops.operators.DiaOperator` with offsets ``-(k-1) .. k-1``.
     The default here is ``'symdia'``, the storage of the port's main path;
-    the JAX package defaults to ``'dia'``.  ``fmt='stencil'`` (the
-    matrix-free operator) is not ported yet.
+    the JAX package defaults to ``'dia'``.  ``fmt='stencil'`` gives the
+    matrix-free :class:`~..ops.stencil.BandedStencilOperator` (O(n) product,
+    no matrix storage).
 
     Returns ``(op, b, x_true)`` with ``x_true = 1`` and ``b = A @ x_true`` as
     numpy arrays, and the operator's data on ``device`` (default: the CUDA
     card).
     """
-    if fmt == "stencil":
-        raise NotImplementedError(
-            "fmt='stencil' is not ported yet (ROADMAP.md, open item 1.5 "
-            "'Operators and formats')")
-    if fmt not in ("symdia", "dia"):
+    if fmt not in ("symdia", "dia", "stencil"):
         raise ValueError(f"unknown fmt {fmt!r}")
     from ..ops.operators import DiaOperator
+    from ..ops.stencil import BandedStencilOperator
     from ..ops.sym_dia import SymDiaOperator
 
     dev = resolve_device(device)
     diag = banded_model_diagonal(n, kappa, rho, dtype)
+    counts = np.minimum(np.arange(n), k - 1) + np.minimum(
+        n - 1 - np.arange(n), k - 1
+    )
+    if fmt == "stencil":
+        op = BandedStencilOperator(torch.from_numpy(diag).to(dev),
+                                   np.asarray(off_value, dtype=diag.dtype), k)
+        return op, diag + off_value * counts, np.ones(n, dtype=dtype)
     if fmt == "dia":
         offsets = tuple(range(-(k - 1), k))
         data = np.full((len(offsets), n), off_value, dtype=dtype)
@@ -126,8 +131,5 @@ def banded_model(
         data[d, n - d :] = 0.0
     op = SymDiaOperator(offsets, torch.from_numpy(data).to(dev))
     x_true = np.ones(n, dtype=dtype)
-    counts = np.minimum(np.arange(n), k - 1) + np.minimum(
-        n - 1 - np.arange(n), k - 1
-    )
     b = diag + off_value * counts
     return op, b, x_true

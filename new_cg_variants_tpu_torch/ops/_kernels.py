@@ -28,13 +28,13 @@ import torch
 
 __all__ = ["SOURCES", "build", "load", "library", "using", "nvcc_command",
            "KERNEL_TILE", "MAX_DIAGS", "KERNEL_DTYPES", "offsets_array",
-           "check_band", "check_vectors"]
+           "check_band", "check_ell", "check_vectors"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("sym_dia.cu", "sym_family.cu", "dia_spmv.cu", "pipe_vector.cu",
-           "dia_family.cu", "df_spmv.cu", "df_pipe.cu")
+           "dia_family.cu", "df_spmv.cu", "df_pipe.cu", "ell_spmv.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP = ctypes.c_void_p
@@ -79,6 +79,10 @@ _SIGNATURES = {
         "df_pipe_f32": [_LL, _PTRS, _INT, _PTRS, _INT, _PTRS, _INT, _VP, _VP,
                         _INT, _VP],
     },
+    "ell_spmv.cu": {
+        name: [_VP, _VP, _INT, _LL, _VP, _VP, _VP, _VP, _INT, _INT, _VP]
+        for name in ("ell_spmv_f32", "ell_spmv_f64")
+    },
 }
 
 #: rows per block of every kernel (csrc/sym_common.cuh:kTile)
@@ -114,6 +118,30 @@ def check_band(offsets, data):
     if n == 0:
         raise ValueError("empty operator")
     return n, KERNEL_DTYPES[data.dtype]
+
+
+def check_ell(val, idx):
+    """Validate the padded-ELL arrays a CUDA kernel is handed: ``(n, L)``
+    views of slot-major storage (``val.T`` / ``idx.T`` contiguous), values
+    float32 or float64, indices int32.  Return ``(n, L, suffix)``."""
+    if not (val.is_cuda and idx.device == val.device):
+        raise ValueError("ELL values and indices must lie on one CUDA device")
+    if val.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"the CUDA ELL kernel takes float32 or float64 values, not "
+            f"{val.dtype} (bf16 storage is not ported yet)")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"ELL indices must be int32, not {idx.dtype}")
+    if val.ndim != 2 or idx.shape != val.shape:
+        raise ValueError(f"ELL arrays of shapes {tuple(val.shape)} and "
+                         f"{tuple(idx.shape)}, expected one (n, L)")
+    if not (val.T.is_contiguous() and idx.T.is_contiguous()):
+        raise ValueError("ELL arrays must be (n, L) views of contiguous "
+                         "slot-major (L, n) storage")
+    n, L = val.shape
+    if n == 0 or L == 0 or n >= 2 ** 31:
+        raise ValueError(f"ELL shape ({n}, {L}) out of range")
+    return n, L, KERNEL_DTYPES[val.dtype]
 
 
 def check_vectors(ref, vecs, n):

@@ -12,10 +12,13 @@ package has it, and its results are compared with float64 runs.
   family step bodies (:mod:`..solvers.families`) run unchanged in double
   words: ``x + a1 * p`` is :func:`~.compensated.df_mul` then
   :func:`~.compensated.df_add`.  A plain dataclass, not a tensor subclass.
-* :class:`DFOperator` — a :class:`~.operators.DiaOperator` or
-  :class:`~.operators.DenseOperator` holding the high words, with the two
-  lower words beside it; ``mv`` / ``mv2`` go through :mod:`.df_spmv` (the
-  kernel on the card, the plain version on the CPU).
+* :class:`DFOperator` — a :class:`~.operators.DiaOperator`,
+  :class:`~.operators.DenseOperator` or :class:`~.operators.EllOperator`
+  holding the high words, with the two lower words beside it; ``mv`` /
+  ``mv2`` go through :mod:`.df_spmv` for DIA and dense (the kernel on the
+  card, the plain version on the CPU).  An ELL inner takes the JAX
+  package's gathered formulation in plain PyTorch on either device (the
+  JAX package has no double-word ELL kernel).
 * :func:`df_dot` — the double-word inner product.
 * :class:`DFJacobi` and :class:`DoubleFloatContext` — the Jacobi
   preconditioner and the execution context of the mode, built by
@@ -31,8 +34,18 @@ import torch
 
 from .._device import resolve_device
 from . import df_spmv
+from ..matio.matrix_market import CooMatrix
 from .compensated import df_add, df_div, df_dot_words, df_mul
-from .operators import DenseOperator, DiaOperator
+from .operators import (
+    DenseOperator,
+    DiaOperator,
+    EllOperator,
+    build_dense,
+    build_dia,
+    build_ell,
+    choose_format,
+    coo_from_scipy,
+)
 from .sym_dia import SymDiaOperator
 
 __all__ = ["DF", "DFOperator", "DFJacobi", "DoubleFloatContext", "collapse",
@@ -187,27 +200,28 @@ def df_dot(x: DF, y: DF) -> DF:
     return DF(*df_dot_words(x.hi, x.lo, y.hi, y.lo))
 
 
-def _unported(kind):
-    return NotImplementedError(
-        f"{kind} input to the double-word mode needs the ELL format and "
-        "from_coo / choose_format, which are not ported yet (ROADMAP.md, "
-        "open item 1.5 'Operators and formats'); pass a DiaOperator, a "
-        "SymDiaOperator, a DenseOperator or a dense array")
+#: Largest dimension at which the auto route of :func:`df_operator` turns a
+#: block-banded choice into a dense operator (larger: ELL).  The JAX
+#: package's routing rule (``supports_df_dense``, ``df_spmv.py:188``); the
+#: dense kernel here takes any n.
+DF_DENSE_ROUTE_MAX_N = 8192
 
 
 class DFOperator:
     """Operator whose matrix is the exact three-word split ``(hi, lo, lo2)``
     of float64 data (:func:`df_split3`).
 
-    ``inner`` is a :class:`~.operators.DiaOperator` or
-    :class:`~.operators.DenseOperator` holding the high words; ``lo_data``
-    and ``lo2_data`` are the lower words in the same layout.  ``mv`` is
+    ``inner`` is a :class:`~.operators.DiaOperator`,
+    :class:`~.operators.DenseOperator` or :class:`~.operators.EllOperator`
+    holding the high words; ``lo_data`` and ``lo2_data`` are the lower words
+    in the same layout (for ELL: ``(n, L)``, as ``inner.val``).  ``mv`` is
     accurate to ~eps_df^2 of the float64 matrix.
     """
 
     def __init__(self, inner, lo_data: torch.Tensor, lo2_data: torch.Tensor):
-        if not isinstance(inner, (DiaOperator, DenseOperator)):
-            raise _unported(type(inner).__name__)
+        if not isinstance(inner, (DiaOperator, DenseOperator, EllOperator)):
+            raise TypeError(f"a double-word operator holds a DIA, dense or "
+                            f"ELL inner operator, not {type(inner).__name__}")
         self.inner = inner
         self.lo_data = lo_data
         self.lo2_data = lo2_data
@@ -230,21 +244,33 @@ class DFOperator:
 
     @property
     def _words(self):
-        if isinstance(self.inner, DiaOperator):
-            return self.inner.data, self.lo_data, self.lo2_data
-        return self.inner.a, self.lo_data, self.lo2_data
+        inner = self.inner
+        hi = (inner.data if isinstance(inner, DiaOperator)
+              else inner.val if isinstance(inner, EllOperator) else inner.a)
+        return hi, self.lo_data, self.lo2_data
 
     def diagonal(self) -> DF:
         hi, lo, lo2 = self._words
         if isinstance(self.inner, DiaOperator):
             d = self.inner.offsets.index(0)
             return DF(hi[d], lo[d] + lo2[d])
+        if isinstance(self.inner, EllOperator):
+            rows = torch.arange(self.n, device=hi.device)[:, None]
+            hit = self.inner.idx == rows
+            return DF(torch.where(hit, hi, 0.0).sum(1),
+                      torch.where(hit, lo + lo2, 0.0).sum(1))
         return DF(torch.diagonal(hi), torch.diagonal(lo) + torch.diagonal(lo2))
 
     def mv(self, v: DF) -> DF:
         if isinstance(self.inner, DiaOperator):
             y = df_spmv.df_dia_spmv(self.inner.offsets, *self._words,
                                     (v.hi, v.lo))
+        elif isinstance(self.inner, EllOperator):
+            # the JAX package's gathered formulation: the dense plain
+            # version's steps on the gathered vector words
+            idx = self.inner.idx
+            y = df_spmv._df_dense_mv_plain(*self._words, v.hi[idx],
+                                           v.lo[idx])
         else:
             y = df_spmv.df_dense_spmv(*self._words, (v.hi, v.lo))
         return DF(*y)
@@ -254,6 +280,8 @@ class DFOperator:
         if isinstance(self.inner, DiaOperator):
             y, z = df_spmv.df_dia_spmv2(self.inner.offsets, *self._words,
                                         *pairs)
+        elif isinstance(self.inner, EllOperator):
+            return self.mv(v), self.mv(w)
         else:
             y, z = df_spmv.df_dense_spmv2(*self._words, *pairs)
         return DF(*y), DF(*z)
@@ -268,24 +296,33 @@ class DFOperator:
         error probes' direct solve)."""
         low = (self.lo_data.detach().cpu().double()
                + self.lo2_data.detach().cpu().double())
-        if isinstance(self.inner, DiaOperator):
-            lower = DiaOperator(self.inner.offsets, low)
+        inner = self.inner
+        if isinstance(inner, DiaOperator):
+            lower = DiaOperator(inner.offsets, low)
+        elif isinstance(inner, EllOperator):
+            lower = EllOperator(low, inner.idx.cpu(), inner.nnz)
         else:
             lower = DenseOperator(low)
-        return (self.inner.tocsr() + lower.tocsr()).tocsr()
+        return (inner.tocsr() + lower.tocsr()).tocsr()
 
     def todense(self):
         return self.tocsr().toarray()
 
 
-def df_operator(A, device=None) -> DFOperator:
-    """A :class:`DFOperator` on ``device`` (default: the CUDA card) from a
-    :class:`~.sym_dia.SymDiaOperator` (its full two-triangle band), a
-    :class:`~.operators.DiaOperator`, a :class:`~.operators.DenseOperator` or
-    a dense array, with the float64 data split on the host, exactly
-    (:func:`df_split3`).  The half-band is expanded on the host before the
-    split, so float64 data splits exactly; float32 data splits with zero low
-    words.  ELL, COO and scipy input raise ``NotImplementedError``."""
+def df_operator(A, fmt: str = "auto", device=None) -> DFOperator:
+    """A :class:`DFOperator` on ``device`` (default: the CUDA card), its
+    float64 data split on the host, exactly (:func:`df_split3`).
+
+    Takes a :class:`~.sym_dia.SymDiaOperator` (its full two-triangle band,
+    expanded on the host), a :class:`~.operators.DiaOperator`,
+    :class:`~.operators.DenseOperator` or :class:`~.operators.EllOperator`,
+    a scipy sparse matrix or :class:`~..matio.matrix_market.CooMatrix`, or
+    a dense array.  Float32 data splits with zero low words.  Sparse input
+    is built in ``fmt`` (``'dense' | 'dia' | 'ell' | 'auto'``); ``'auto'``
+    follows :func:`~.operators.choose_format` with the JAX package's
+    rewrites for the mode: ``block_banded`` becomes ``dense`` up to
+    :data:`DF_DENSE_ROUTE_MAX_N` and ``ell`` above it, ``symdia`` and
+    ``stencil`` become ``dia`` (the mode carries the full band)."""
     dev = resolve_device(device)
     if isinstance(A, DFOperator):
         return A.to(dev)
@@ -294,18 +331,46 @@ def df_operator(A, device=None) -> DFOperator:
                          else (A.offsets, A.data))
         hi, lo, lo2 = df_split3(data, device=dev)
         return DFOperator(DiaOperator(offsets, hi), lo, lo2)
+    if isinstance(A, EllOperator):
+        return _df_ell(A.val, A.idx_t, A.nnz, dev)
     if isinstance(A, DenseOperator):
         A = A.a
     if hasattr(A, "tocoo") and not isinstance(A, np.ndarray):
-        raise _unported(f"scipy sparse ({type(A).__name__})")
-    if all(hasattr(A, k) for k in ("row", "col", "val")):
-        raise _unported("COO")
-    if all(hasattr(A, k) for k in ("val", "idx")):
-        raise _unported("ELL")
+        A = coo_from_scipy(A)
+    if isinstance(A, CooMatrix):
+        return _df_from_coo(A, fmt, dev)
     if isinstance(A, (np.ndarray, torch.Tensor)) or hasattr(A, "__array__"):
         hi, lo, lo2 = df_split3(A, device=dev)
         return DFOperator(DenseOperator(hi), lo, lo2)
     raise TypeError(f"cannot build a double-word operator from {type(A)}")
+
+
+def _df_ell(val, idx_t, nnz, dev) -> DFOperator:
+    """The double-word ELL operator of ``(n, L)`` values and slot-major
+    ``(L, n)`` indices; every word array is split and kept slot-major."""
+    hi, lo, lo2 = df_split3(val.T, device=dev)
+    return DFOperator(EllOperator(hi.T, torch.as_tensor(idx_t).to(dev).T,
+                                  nnz), lo.T, lo2.T)
+
+
+def _df_from_coo(coo, fmt, dev) -> DFOperator:
+    if fmt == "auto":
+        fmt = choose_format(coo)
+        if fmt == "block_banded":
+            fmt = "dense" if coo.shape[0] <= DF_DENSE_ROUTE_MAX_N else "ell"
+        elif fmt in ("symdia", "stencil"):
+            fmt = "dia"
+    if fmt == "dense":
+        hi, lo, lo2 = df_split3(build_dense(coo), device=dev)
+        return DFOperator(DenseOperator(hi), lo, lo2)
+    if fmt == "dia":
+        offsets, data = build_dia(coo)
+        hi, lo, lo2 = df_split3(data, device=dev)
+        return DFOperator(DiaOperator(offsets, hi), lo, lo2)
+    if fmt == "ell":
+        val, idx, nnz = build_ell(coo)
+        return _df_ell(val, idx.T, nnz, dev)
+    raise ValueError(f"unknown format {fmt!r}")
 
 
 class DFJacobi:

@@ -1,4 +1,4 @@
-"""Linear operators: dense and diagonal (DIA) storage.
+"""Linear operators and the format policy for general sparse input.
 
 * :class:`DenseOperator` — a plain 2-D tensor; ``mv`` is one matrix product
   (``torch.matmul``: the JAX package leaves it to XLA too, no kernel of its
@@ -7,16 +7,26 @@
   A[i, i + offsets[d]]`` with explicit zeros where the position falls outside
   the matrix.  ``mv`` / ``mv2`` go through :mod:`.spmv_dia`: the hand-written
   kernel on the card, the plain shift formulation on the CPU.
-* :class:`~.sym_dia.SymDiaOperator` (its own module) — the symmetric
-  half-band form.
+* :class:`EllOperator` — padded ELL for general sparse matrices: ``(n, L)``
+  values and int32 column indices, kept slot-major.  ``mv`` / ``mv2`` go
+  through :mod:`.ell_spmv` (the kernel on the card, the plain gather on the
+  CPU).
+* :class:`~.sym_dia.SymDiaOperator`, :class:`~.stencil.BandedStencilOperator`
+  and :class:`~.block_banded.PermutedBlockBandedOperator` (their own
+  modules) — symmetric half-band storage, the matrix-free constant band and
+  the reordered block-tridiagonal packing.
 
 All expose ``n``, ``nnz``, ``dtype``, ``device``, ``mv(v)``, ``mv2(v, w)``
 (one pass over A for both), ``diagonal()``, ``astype(dtype)``,
 ``to(device)``, ``todense()`` and ``tocsr()`` (host, float64).
 
-The ELL format, the ``build_*`` constructors, ``choose_format`` and
-``from_coo`` of the JAX package are not ported yet (ROADMAP.md, open item
-1.5), so :func:`as_operator` takes operators and arrays only.
+:func:`from_coo` builds any of them from a
+:class:`~..matio.matrix_market.CooMatrix`; with ``fmt="auto"`` it follows
+:func:`choose_format`, the JAX package's policy with its thresholds, so both
+packages pick the same format for the same matrix.  :func:`as_operator`
+takes operators, arrays, scipy sparse matrices and ``CooMatrix``.  The
+``build_*`` functions make the host arrays (float64 values), bit for bit
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,9 +35,19 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import spmv_dia
+from ..matio.matrix_market import CooMatrix
+from . import ell_spmv, spmv_dia
 
-__all__ = ["DenseOperator", "DiaOperator", "as_operator"]
+__all__ = ["DenseOperator", "DiaOperator", "EllOperator", "from_coo",
+           "as_operator", "build_dense", "build_dia", "build_sym_dia",
+           "build_ell", "choose_format", "coo_from_scipy", "torch_dtype"]
+
+
+def torch_dtype(dtype):
+    """A torch dtype for a torch or numpy dtype (``None`` stays ``None``)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
 class DenseOperator:
@@ -148,26 +168,379 @@ class DiaOperator:
         return self.tocsr().toarray()
 
 
-def as_operator(a, dtype=None, device=None):
-    """Coerce an operator, a numpy array or a tensor into an operator on
-    ``device`` (default: the CUDA card) in ``dtype`` (default: its own).
+class EllOperator:
+    """Padded-ELL operator for general sparse matrices.
 
-    Anything exposing the operator protocol (``mv`` / ``diagonal``) passes
-    through; an array becomes a :class:`DenseOperator`.  A scipy sparse
-    matrix or a COO triple needs the format policy of the JAX package's
-    ``from_coo``, which is not ported yet.
+    ``val[i, l]`` / ``idx[i, l]`` are the l-th stored entry of row i; padding
+    slots hold value 0 and index i (so every gather stays in bounds), and a
+    duplicate ``(row, col)`` takes a slot of its own.  ``nnz_stored`` counts
+    the stored entries, padding excluded.
+
+    The operator keeps one slot-major copy, ``val_t`` / ``idx_t`` of shape
+    ``(L, n)``, contiguous (int32 indices); ``val`` / ``idx`` are their
+    ``(n, L)`` views, the JAX package's layout, with no second copy.  On the
+    card slot l of neighbouring rows is then one coalesced read
+    (``csrc/ell_spmv.cu``).
+    """
+
+    def __init__(self, val: torch.Tensor, idx: torch.Tensor,
+                 nnz_stored: int = 0):
+        if val.ndim != 2 or idx.shape != val.shape:
+            raise ValueError(f"ELL arrays of shapes {tuple(val.shape)} and "
+                             f"{tuple(idx.shape)}, expected one (n, L)")
+        if idx.device != val.device:
+            raise ValueError(f"indices on {idx.device}, values on "
+                             f"{val.device}")
+        ell_spmv.check_index(idx, val.shape[0])
+        self.val_t = val.T.contiguous()
+        self.idx_t = idx.T.to(torch.int32).contiguous()
+        self.nnz_stored = int(nnz_stored)
+
+    @property
+    def val(self):
+        return self.val_t.T
+
+    @property
+    def idx(self):
+        return self.idx_t.T
+
+    @property
+    def n(self) -> int:
+        return self.val_t.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return self.nnz_stored
+
+    @property
+    def dtype(self):
+        return self.val_t.dtype
+
+    @property
+    def device(self):
+        return self.val_t.device
+
+    def mv(self, v):
+        return ell_spmv.ell_spmv(self.val, self.idx, v)
+
+    def mv2(self, v, w):
+        return ell_spmv.ell_spmv2(self.val, self.idx, v, w)
+
+    def diagonal(self):
+        rows = torch.arange(self.n, device=self.device)[:, None]
+        hit = self.idx == rows
+        return torch.where(hit, self.val, 0.0).sum(1)
+
+    def astype(self, dtype):
+        return EllOperator(self.val_t.to(dtype).T, self.idx, self.nnz_stored)
+
+    def to(self, device):
+        return EllOperator(self.val_t.to(device).T, self.idx_t.to(device).T,
+                           self.nnz_stored)
+
+    def _host(self):
+        return (self.val.detach().cpu().to(torch.float64).numpy(),
+                self.idx.detach().cpu().numpy())
+
+    def todense(self):
+        val, idx = self._host()
+        n, L = val.shape
+        a = np.zeros((n, n))
+        for slot in range(L):
+            np.add.at(a, (np.arange(n), idx[:, slot]), val[:, slot])
+        return a
+
+    def tocsr(self):
+        import scipy.sparse as sp
+
+        val, idx = self._host()
+        n, L = val.shape
+        # padding slots hold 0 at (i, i): summed duplicates change nothing
+        # and no stored entry is dropped, so the structure stays exact
+        return sp.csr_matrix(
+            (val.ravel(), (np.repeat(np.arange(n), L), idx.ravel())),
+            shape=(n, n))
+
+
+def build_dense(coo) -> np.ndarray:
+    """Host float64 dense array from COO (duplicates summed)."""
+    n = coo.shape[0]
+    a = np.zeros((n, n), dtype=np.float64)
+    np.add.at(a, (np.asarray(coo.row), np.asarray(coo.col)),
+              np.asarray(coo.val, dtype=np.float64))
+    return a
+
+
+def _diagonal_index(offs, offsets):
+    """Position of each entry's offset in the sorted tuple ``offsets``."""
+    return np.searchsorted(np.asarray(offsets, dtype=np.int64), offs)
+
+
+def build_dia(coo) -> tuple:
+    """Host float64 DIA layout ``(offsets, data)`` from COO: every occupied
+    diagonal in increasing order, duplicates summed."""
+    n = coo.shape[0]
+    row = np.asarray(coo.row)
+    col = np.asarray(coo.col)
+    val = np.asarray(coo.val, dtype=np.float64)
+    offs = col - row
+    offsets = tuple(int(o) for o in np.unique(offs))
+    data = np.zeros((len(offsets), n), dtype=np.float64)
+    np.add.at(data, (_diagonal_index(offs, offsets), row), val)
+    return offsets, data
+
+
+def build_sym_dia(coo) -> tuple:
+    """Host float64 symmetric half-band layout ``(offsets, data)``: the main
+    and upper diagonals (offset 0 first), ``data[d, i] = A[i, i +
+    offsets[d]]``, explicit zeros past the matrix edge.
+
+    The lower triangle is DROPPED, which is lossless only for symmetric
+    input: :func:`from_coo` checks symmetry before it calls this.
+    """
+    n = coo.shape[0]
+    row = np.asarray(coo.row)
+    col = np.asarray(coo.col)
+    val = np.asarray(coo.val, dtype=np.float64)
+    upper = col >= row
+    offs = (col - row)[upper]
+    offsets = (0,) + tuple(int(o) for o in np.unique(offs) if o != 0)
+    data = np.zeros((len(offsets), n), dtype=np.float64)
+    d_idx = np.where(offs == 0, 0, _diagonal_index(offs, offsets[1:]) + 1)
+    np.add.at(data, (d_idx, row[upper]), val[upper])
+    return offsets, data
+
+
+def build_ell(coo) -> tuple:
+    """Host padded-ELL layout ``(val, idx, nnz)`` from COO, vectorised.
+
+    ``val`` (float64) and ``idx`` (int32) are ``(n, L)`` views of slot-major
+    ``(L, n)`` arrays; ``L = max(1, longest row)``.  Entries take their
+    row's slots in ``(row, col)`` order (stable); a duplicate takes a slot
+    of its own; padding holds value 0 and index i.  ``nnz`` counts every
+    entry given.  The values are those of the JAX package's loop, which adds
+    each into a zero slot (so ``-0.0`` is stored as ``0.0`` there too).
+    """
+    n = coo.shape[0]
+    row = np.asarray(coo.row).astype(np.int64, copy=False)
+    col = np.asarray(coo.col)
+    val = np.asarray(coo.val, dtype=np.float64)
+    counts = np.bincount(row, minlength=n)
+    L = max(1, int(counts.max()) if counts.size else 0)
+    # The stable np.lexsort((col, row)) order, as one stable sort of a
+    # single int64 key (linear on entries already in order, as a CSR's are).
+    order = np.argsort(row * coo.shape[1] + col, kind="stable")
+    r = row[order]
+    start = np.cumsum(counts) - counts  # first sorted position of each row
+    slot = np.arange(len(r)) - start[r]
+    val_t = np.zeros((L, n), dtype=np.float64)
+    idx_t = np.tile(np.arange(n, dtype=np.int32), (L, 1))
+    val_t[slot, r] = 0.0 + val[order]
+    idx_t[slot, r] = col[order]
+    return val_t.T, idx_t.T, int(len(val))
+
+
+#: Block-banded admission of the auto policy: padded values stored (3 bs
+#: n_pad), in float32 values, scaled by the stored type's size.  The JAX
+#: package's number (512M float32 values, 2 GB), kept so that both packages
+#: pick the same format; it was set for a TPU's memory, not measured here.
+_BLOCK_BANDED_MAX_PADDED = 512_000_000
+
+#: Largest half-band the symmetric half-band route takes: the JAX package's
+#: TPU kernel limit, kept for the same reason (the CUDA kernels take any).
+_SYMDIA_MAX_HALF_BAND = 128
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).element_size()
+    return np.dtype(dtype).itemsize
+
+
+def _is_symmetric(coo) -> bool:
+    """Exact (bitwise) symmetry, O(nnz) on the host: CG takes SPD systems,
+    and a symmetric ``.mtx`` file expands both triangles from the same
+    values, so no tolerance (none routes near-symmetric input wrongly)."""
+    c = coo.tocsr()
+    c.sum_duplicates()
+    d = c - c.T.tocsr()
+    return d.nnz == 0 or float(np.abs(d.data).max()) == 0.0
+
+
+def _stencil_probe(coo):
+    """``(diag, off_value, k)`` when the matrix is a diagonal plus one
+    constant, full, hollow band at ``|i - j| < k`` (the PETSc model problem,
+    ``ex2a.c:86-90``), else ``None``.  Exact equality per diagonal."""
+    n = coo.shape[0]
+    row = np.asarray(coo.row)
+    col = np.asarray(coo.col)
+    val = np.asarray(coo.val, dtype=np.float64)
+    offs = col - row
+    uoffs = np.unique(offs)
+    nonzero_offs = uoffs[uoffs != 0]
+    if len(nonzero_offs) == 0:
+        return None  # a diagonal alone: DIA is one stream already
+    k = int(nonzero_offs.max()) + 1
+    want = np.concatenate([np.arange(-(k - 1), 0), np.arange(1, k)])
+    if len(nonzero_offs) != len(want) or not np.array_equal(
+            np.sort(nonzero_offs), want):
+        return None
+    off_mask = offs != 0
+    off_vals = val[off_mask]
+    c = off_vals[0]
+    if not (off_vals == c).all() or c == 0.0:
+        return None
+    # every off-diagonal FULL (a missing entry is an implicit zero)
+    counts = np.bincount(np.abs(offs[off_mask]), minlength=k)
+    expected = 2 * (n - np.arange(k))
+    if not np.array_equal(counts[1:k], expected[1:k]):
+        return None
+    if 0 not in uoffs:
+        return None
+    diag = np.zeros(n, dtype=np.float64)
+    np.add.at(diag, row[~off_mask], val[~off_mask])
+    return diag, float(c), k
+
+
+def choose_format(coo, dia_max_diags: int = 256,
+                  max_padded_values: int = _BLOCK_BANDED_MAX_PADDED,
+                  dtype=None) -> str:
+    """The auto policy of the JAX package, with its thresholds.
+
+    ``"dense"`` for n <= 512; for at most ``dia_max_diags`` occupied
+    diagonals ``"stencil"`` (symmetric, half-band < 128, one constant
+    off-band), ``"symdia"`` (symmetric, half-band < 128) or ``"dia"``; else
+    the bandwidth after RCM decides: ``"block_banded"`` when its packing
+    (``3 bs n_pad`` values of ``dtype``, float32 if ``None``) fits
+    ``max_padded_values`` float32 values, else ``"ell"`` with a warning.
+    The admission is computed in Python integers.
+    """
+    n = int(coo.shape[0])
+    if n <= 512:
+        return "dense"
+    diags = np.unique(np.asarray(coo.col) - np.asarray(coo.row))
+    if len(diags) <= dia_max_diags:
+        half_band = int(np.abs(diags).max()) if len(diags) else 0
+        if 0 < half_band < _SYMDIA_MAX_HALF_BAND and _is_symmetric(coo):
+            if _stencil_probe(coo) is not None:
+                return "stencil"
+            return "symdia"
+        return "dia"
+    from .block_banded import rcm_band_probe
+
+    bw = int(rcm_band_probe(coo))
+    bs = max(128, -(-max(bw, 1) // 128) * 128)
+    n_pad = -(-n // bs) * bs
+    itemsize = _itemsize(dtype) if dtype is not None else 4
+    if 3 * bs * n_pad * itemsize <= int(max_padded_values) * 4:
+        return "block_banded"
+    import warnings
+
+    warnings.warn(
+        f"matrix (n={n}, nnz={len(coo.val)}) is not bandwidth-reducible "
+        f"(RCM band {bw}); falling back to the gather-ELL formulation. "
+        "Expect lower SpMV throughput than the block-banded/DIA paths; "
+        "consider a coarser partitioning or fmt='ell' with small row "
+        "counts per dispatch.",
+        stacklevel=3,
+    )
+    return "ell"
+
+
+def from_coo(coo, fmt: str = "auto", dtype=torch.float64,
+             dia_max_diags: int = 256, device=None):
+    """An operator on ``device`` (default: the CUDA card) in ``dtype``
+    (default float64, as the JAX package) from a
+    :class:`~..matio.matrix_market.CooMatrix`.
+
+    ``fmt``: ``'dense' | 'dia' | 'symdia' | 'stencil' | 'ell' |
+    'block_banded' | 'auto'``; ``'auto'`` follows :func:`choose_format`,
+    whose block-banded admission scales by ``dtype``, the type stored.
+    ``'symdia'`` raises ``ValueError`` on input that is not exactly
+    symmetric (its lower triangle would be dropped), ``'stencil'`` on input
+    that is no constant band.  ``'block_banded'`` returns a
+    :class:`~.block_banded.PermutedBlockBandedOperator` (original
+    coordinates outside, the reordered band inside).
     """
     dev = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    if fmt == "auto":
+        fmt = choose_format(coo, dia_max_diags, dtype=dtype)
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    if fmt == "symdia":
+        from .sym_dia import SymDiaOperator
+
+        if not _is_symmetric(coo):
+            raise ValueError("fmt='symdia' needs an exactly symmetric "
+                             "matrix: its lower triangle is not stored")
+        offsets, data = build_sym_dia(coo)
+        return SymDiaOperator(offsets, tensor(data))
+    if fmt == "stencil":
+        from .stencil import BandedStencilOperator
+
+        probe = _stencil_probe(coo)
+        if probe is None:
+            raise ValueError("matrix is not diag + constant hollow band; "
+                             "fmt='stencil' does not apply")
+        diag, off_value, k = probe
+        return BandedStencilOperator(tensor(diag), tensor(off_value), k)
+    if fmt == "block_banded":
+        from .block_banded import (
+            PermutedBlockBandedOperator,
+            block_banded_from_coo,
+        )
+
+        op, perm = block_banded_from_coo(coo, dtype=dtype, device=dev)
+        return PermutedBlockBandedOperator(
+            op, torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(dev))
+    if fmt == "dense":
+        return DenseOperator(tensor(build_dense(coo)))
+    if fmt == "dia":
+        offsets, data = build_dia(coo)
+        return DiaOperator(offsets, tensor(data))
+    if fmt == "ell":
+        val, idx, nnz = build_ell(coo)
+        return EllOperator(tensor(val.T).T,
+                           torch.from_numpy(idx.T).to(dev).T, nnz)
+    raise ValueError(f"unknown format {fmt!r}")
+
+
+def coo_from_scipy(a) -> CooMatrix:
+    """A scipy sparse matrix (any format) as a
+    :class:`~..matio.matrix_market.CooMatrix` (int64 indices, float64
+    values)."""
+    c = a.tocoo()
+    return CooMatrix(shape=tuple(c.shape),
+                     row=np.asarray(c.row, dtype=np.int64),
+                     col=np.asarray(c.col, dtype=np.int64),
+                     val=np.asarray(c.data, dtype=np.float64))
+
+
+def as_operator(a, dtype=None, device=None):
+    """Coerce an operator, a scipy sparse matrix, a
+    :class:`~..matio.matrix_market.CooMatrix`, a numpy array or a tensor
+    into an operator on ``device`` (default: the CUDA card).
+
+    Anything exposing the operator protocol (``mv`` / ``diagonal``) passes
+    through, moved and cast as asked.  A scipy sparse matrix (the reference
+    solvers' own input, ``cg_variants/hs_cg.py:9``) or a ``CooMatrix`` goes
+    through :func:`from_coo` with ``fmt="auto"`` in ``dtype`` (default
+    float64); an array becomes a :class:`DenseOperator` in ``dtype``
+    (default its own).
+    """
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype)
     # (a tensor has ``mv`` and ``diagonal`` too, and is an array here)
     if (hasattr(a, "mv") and hasattr(a, "diagonal")
             and not isinstance(a, torch.Tensor)):
         op = a if a.device == dev else a.to(dev)
         return op if dtype is None or dtype == op.dtype else op.astype(dtype)
-    if (hasattr(a, "tocoo") and not isinstance(a, np.ndarray)) or all(
-            hasattr(a, k) for k in ("row", "col", "val")):
-        raise NotImplementedError(
-            f"{type(a).__name__} input needs from_coo / choose_format, which "
-            "are not ported yet (ROADMAP.md, open item 1.5 'Operators and "
-            "formats'); pass a DiaOperator, a SymDiaOperator or a dense array")
+    if hasattr(a, "tocoo") and not isinstance(a, np.ndarray):
+        a = coo_from_scipy(a)
+    if isinstance(a, CooMatrix):
+        return from_coo(a, dtype=dtype or torch.float64, device=dev)
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
     return DenseOperator(t.to(device=dev, dtype=dtype))

@@ -8,16 +8,21 @@
   (``cg_impls/pipeprcg.c:112-136``).
 
 Every name of :data:`VARIANT_NAMES` (18: nine families, each with its
-``_pcg`` twin) runs on a :class:`~..ops.sym_dia.SymDiaOperator`, a
-:class:`~..ops.operators.DiaOperator`, a
-:class:`~..ops.operators.DenseOperator` or a dense array
-(:func:`~..ops.operators.as_operator`), with ``preconditioner=None |
-"jacobi" | object with .apply | callable`` for the ``_pcg`` names (a ``_cg``
-name ignores it; a ``_pcg`` name without one runs with M = I).
+``_pcg`` twin) runs on any operator of the port (half-band, full-DIA, dense,
+ELL, stencil, block-banded) and on what
+:func:`~..ops.operators.as_operator` turns into one: a dense array, a scipy
+sparse matrix or a :class:`~..matio.matrix_market.CooMatrix` (routed by the
+auto format policy, :func:`~..ops.operators.choose_format`).  ``_pcg`` names
+take ``preconditioner=None | "jacobi" | object with .apply | callable`` (a
+``_cg`` name ignores it; a ``_pcg`` name without one runs with M = I).
 ``compensated=True`` makes every inner product an error-free-transform dot;
 ``dtype="f32x2"`` runs the whole solve in double words
-(:mod:`..ops.doublefloat`).  A scipy sparse matrix or COO triple raises
-``NotImplementedError``.
+(:mod:`..ops.doublefloat`).
+
+A block-banded operator holds the reordered system ``P A P^T``; both entry
+points solve in that basis (:func:`~..ops.block_banded.solver_basis`):
+``b``, ``x0`` and ``x_true`` are permuted once per solve, and ``x`` and the
+vector probe rows come back in the original order and dimension.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from ..ops.doublefloat import (
     df_split,
     df_split3,
 )
-from ..ops.operators import as_operator
+from ..ops.block_banded import solver_basis
+from ..ops.operators import as_operator, torch_dtype
 from ..probes.probes import resolve_probes
 from .context import Context
 from .engine import history_scan, tolerance_loop
@@ -97,18 +103,13 @@ def _resolve(variant, op, preconditioner, w_replace=None,
     return init_fn, step_fn, precond
 
 
-def _torch_dtype(dtype):
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
-
-
 def _operator(A, dtype, device):
-    return as_operator(A, dtype=_torch_dtype(dtype), device=device)
+    return as_operator(A, dtype=torch_dtype(dtype), device=device)
 
 
 def _vector_dtype(op):
-    """Solve-vector dtype: bf16 is a storage-only tier, vectors stay f32."""
+    """Solve-vector dtype of any operator (every one has ``dtype``): bf16 is
+    a storage-only tier, vectors stay f32."""
     return torch.float32 if op.dtype == torch.bfloat16 else op.dtype
 
 
@@ -173,21 +174,29 @@ def run(
         return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
                        x_true, print_every, w_replace, w_replace_init, dev)
     op = _operator(A, dtype, dev)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
-                                         w_replace, w_replace_init)
     b, x0 = _vectors(op, b, x0, dev)
     probe_fns = resolve_probes(probes)
+    if _needs_x_true(probe_fns) and x_true is None:
+        x_true = _compute_x_true(op, b)
+    # a block-banded operator: solve in its reordered basis
+    op, to_basis, from_basis = solver_basis(op)
+    b, x0 = to_basis(b), to_basis(x0)
+    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
+                                         w_replace, w_replace_init)
     aux = {"b": b}
     if _needs_x_true(probe_fns):
-        if x_true is None:
-            x_true = _compute_x_true(op, b)
-        aux["x_true"] = torch.as_tensor(x_true, dtype=b.dtype, device=dev)
+        aux["x_true"] = to_basis(
+            torch.as_tensor(x_true, dtype=b.dtype, device=dev))
     ctx = Context(op, precond, compensated=compensated)
     final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
                                max_iter, aux, print_every=print_every)
-    output = {"name": variant, "max_iter": max_iter, "x": final["x"]}
+    output = {"name": variant, "max_iter": max_iter,
+              "x": from_basis(final["x"])}
     for name in probe_fns:
-        output[name] = hist[name].cpu().numpy()
+        h = hist[name]
+        if h.ndim == 2 and h.shape[1] == op.n:
+            h = from_basis(h.T).T  # vector probe rows, original order
+        output[name] = h.cpu().numpy()
     return output
 
 
@@ -324,13 +333,16 @@ def solve(
             x=s["x"].value64(), iterations=int(k), norm=float(nrm),
             converged=bool(norm_type == "none" or float(nrm) <= float(tol)))
     op = _operator(A, dtype, dev)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
     b, x0 = _vectors(op, b, x0, dev)
+    # a block-banded operator: solve in its reordered basis
+    op, to_basis, from_basis = solver_basis(op)
+    init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
     ctx = Context(op, precond, compensated=compensated)
-    s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter,
-                                    rtol, atol, norm_type)
+    s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, to_basis(b),
+                                    to_basis(x0), max_iter, rtol, atol,
+                                    norm_type)
     return SolveResult(
-        x=s["x"],
+        x=from_basis(s["x"]),
         iterations=int(k),
         norm=float(nrm),
         converged=bool(norm_type == "none" or float(nrm) <= float(tol)),

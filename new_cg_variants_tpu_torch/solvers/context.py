@@ -48,7 +48,10 @@ class Context:
       split formulation: ``pipe_vector_phase`` (kernel), or
       ``pipe_vector_phase_prec`` (kernel; any preconditioner, when no norm
       rides the dot batch), then ``mv2`` / ``mv`` (kernel).
-    * Any other operator (dense): every hook returns ``None``.
+    * Any other operator (dense, ELL, stencil, block-banded): every hook
+      returns ``None`` and ``pipe_vector_phase`` takes the generic
+      formulation, so every name runs its generic body over ``mv`` /
+      ``mv2`` (on ELL one launch of ``csrc/ell_spmv.cu`` per product).
     """
 
     def __init__(self, op, precond=None, compensated=False):

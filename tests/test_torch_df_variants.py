@@ -15,16 +15,13 @@ with numpy:
   agree bit for bit, both packages taking the same roundings);
 * the accuracy outcomes of the JAX package's own f32x2 tests, the gv
   replacement hook (stateless, stateful, and a tensor answer), user
-  preconditioners, the four norm types, the probes, and the inputs that
-  still raise.
+  preconditioners, the four norm types, the probes, and scipy, ``CooMatrix``
+  and ELL input.
 """
-
-import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 from conftest import make_spd
 
@@ -265,18 +262,28 @@ def test_print_every_reads_collapsed_values(dia_problems, capsys):
 @pytest.mark.parametrize("what", ["scipy", "coo", "ell"])
 @pytest.mark.parametrize("entry", ["run", "solve"])
 def test_unported_inputs_raise(what, entry):
-    n = 16
-    A = {"scipy": sp.eye(n, format="csr"),
-         "coo": types.SimpleNamespace(row=np.arange(n), col=np.arange(n),
-                                      val=np.ones(n)),
-         "ell": types.SimpleNamespace(val=np.ones((n, 1)),
-                                      idx=np.arange(n)[:, None])}[what]
-    with pytest.raises(NotImplementedError, match="1.5"):
-        if entry == "run":
-            port.run("pipe_pr_cg", A, np.ones(n), max_iter=2, dtype="f32x2",
-                     device="cpu")
-        else:
-            port.solve(A, np.ones(n), max_iter=2, dtype="f32x2", device="cpu")
+    """scipy, ``CooMatrix`` and ELL input, which raised naming ROADMAP item
+    1.5 before the format layer was ported, now run in double words as the
+    JAX package runs them: equal histories (``run``), equal iterates
+    (``solve``)."""
+    from test_torch_doublefloat import both_coo, sparse_spd
+
+    from new_cg_variants_tpu.ops import operators as jo
+
+    a = sparse_spd(n=300)
+    b = a @ np.ones(a.shape[0])
+    jc, tc = both_coo(a)
+    jA, tA = {"scipy": (a, a), "coo": (jc, tc),
+              "ell": (jo.from_coo(jc, fmt="ell"),
+                      port.from_coo(tc, fmt="ell", device="cpu"))}[what]
+    if entry == "run":
+        want, got = _histories(jA, tA, b, "pipe_pr_cg")
+        _assert_same_history(want, got)
+    else:
+        kw = dict(max_iter=12, dtype="f32x2", norm_type="none")
+        got = port.solve(tA, b, device="cpu", **kw)
+        want = cgt.solve(jA, b, **kw)
+        np.testing.assert_array_equal(got.x.numpy(), np.asarray(want.x))
 
 
 def test_f32x2_beats_float32_where_float32_stalls():

@@ -121,8 +121,30 @@ def test_df_zeros_where_collapse():
     assert a.device.type == "cpu" and a.value().dtype == torch.float32
 
 
+def sparse_spd(n=600, per_row=5, seed=0):
+    """A random symmetric, diagonally dominant sparse matrix (scipy CSR, no
+    band an RCM order can make narrow), made with numpy."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(n, n, density=per_row / n, random_state=rng,
+                  data_rvs=lambda k: rng.uniform(-1.0, 1.0, k))
+    a = (a + a.T).tocsr()
+    return (a + sp.diags(np.abs(a).sum(axis=1).A1 + 1.0)).tocsr()
+
+
+def both_coo(a):
+    """The same scipy matrix as the JAX package's and the port's CooMatrix."""
+    from new_cg_variants_tpu.ops.operators import coo_from_scipy
+
+    return coo_from_scipy(a), port.ops.operators.coo_from_scipy(a)
+
+
 def _operators(kind):
     """(JAX DF operator, port DF operator, float64 matrix) of one kind."""
+    if kind == "ell":
+        a = sparse_spd()
+        jc, tc = both_coo(a)
+        return (jdf.df_operator(jc, fmt="ell"),
+                tdf.df_operator(tc, fmt="ell", device="cpu"), a.toarray())
     if kind == "dense":
         a = make_spd(64, cond=1e4)
         return jdf.df_operator(a), tdf.df_operator(a, device="cpu"), a
@@ -138,11 +160,12 @@ def _operators(kind):
     return jdf.df_operator(jop), tdf.df_operator(top, device="cpu"), dense
 
 
-@pytest.mark.parametrize("kind", ["dia", "symdia", "dense"])
+@pytest.mark.parametrize("kind", ["dia", "symdia", "dense", "ell"])
 def test_df_operator_mv_matches_jax_and_float64(kind):
     jop, top, a64 = _operators(kind)
-    assert isinstance(top.inner, port.DenseOperator if kind == "dense"
-                      else port.DiaOperator)
+    assert isinstance(top.inner, {"dense": port.DenseOperator,
+                                  "ell": port.EllOperator}.get(
+                                      kind, port.DiaOperator))
     assert float(top.lo_data.abs().max()) > 0  # a float64 split, not f32
     rng = np.random.default_rng(2)
     (jv, tv), (jw, tw) = (both_split(rng.standard_normal(top.n))
@@ -159,11 +182,11 @@ def test_df_operator_mv_matches_jax_and_float64(kind):
         assert err.max() < 1e-11, f"{kind}: {err.max():.2e}"
 
 
-@pytest.mark.parametrize("kind", ["dia", "symdia", "dense"])
+@pytest.mark.parametrize("kind", ["dia", "symdia", "dense", "ell"])
 def test_df_operator_words_diagonal_and_csr(kind):
     jop, top, a64 = _operators(kind)
-    jinner = jop.inner.a if kind == "dense" else jop.inner.data
-    tinner = top.inner.a if kind == "dense" else top.inner.data
+    field = {"dense": "a", "ell": "val"}.get(kind, "data")
+    jinner, tinner = getattr(jop.inner, field), getattr(top.inner, field)
     for j, t in ((jinner, tinner), (jop.lo_data, top.lo_data),
                  (jop.lo2_data, top.lo2_data)):
         np.testing.assert_array_equal(np.asarray(j), t.numpy())
@@ -196,22 +219,33 @@ def test_df_operator_of_float32_data_has_zero_low_words():
 
 @pytest.mark.parametrize("what", ["scipy", "coo", "ell", "ell inner"])
 def test_unported_formats_raise_naming_the_roadmap_item(what):
-    n = 8
-    with pytest.raises(NotImplementedError, match="1.5"):
-        if what == "scipy":
-            tdf.df_operator(sp.eye(n, format="csr"), device="cpu")
-        elif what == "coo":
-            tdf.df_operator(types.SimpleNamespace(row=[0], col=[0], val=[1.0]),
-                            device="cpu")
-        elif what == "ell":
-            tdf.df_operator(types.SimpleNamespace(val=np.ones((n, 1)),
-                                                  idx=np.zeros((n, 1), int)),
-                            device="cpu")
-        else:
-            tdf.DFOperator(types.SimpleNamespace(n=n), torch.zeros(n),
-                           torch.zeros(n))
-    with pytest.raises(TypeError):
-        tdf.df_operator(object(), device="cpu")
+    """Sparse input, which raised naming ROADMAP item 1.5 before the format
+    layer was ported, now builds the JAX package's double-word operator word
+    for word (scipy and ``CooMatrix`` through the auto route and its
+    rewrites, an ``EllOperator`` split as it stands); an inner operator of
+    another kind still raises, as does an object that is no matrix."""
+    from new_cg_variants_tpu.ops import operators as jo
+
+    a = sparse_spd()
+    jc, tc = both_coo(a)
+    if what == "ell inner":
+        with pytest.raises(TypeError, match="ELL"):
+            tdf.DFOperator(types.SimpleNamespace(n=8), torch.zeros(8),
+                           torch.zeros(8))
+        with pytest.raises(TypeError):
+            tdf.df_operator(object(), device="cpu")
+        return
+    if what == "ell":
+        jgiven = jo.from_coo(jc, fmt="ell")
+        given = port.from_coo(tc, fmt="ell", device="cpu")
+    else:
+        jgiven, given = (a, a) if what == "scipy" else (jc, tc)
+    jop, top = jdf.df_operator(jgiven), tdf.df_operator(given, device="cpu")
+    assert type(top.inner).__name__ == type(jop.inner).__name__
+    field = "val" if what == "ell" else "a"
+    for j, t in ((getattr(jop.inner, field), getattr(top.inner, field)),
+                 (jop.lo_data, top.lo_data), (jop.lo2_data, top.lo2_data)):
+        np.testing.assert_array_equal(np.asarray(j), t.numpy())
 
 
 @pytest.mark.parametrize("kind", ["dia", "dense"])
@@ -287,6 +321,17 @@ def test_convert_carries_double_word_operators_and_states():
                                    np.asarray(jd.lo_data),
                                    np.asarray(jd.lo2_data), device="cpu")
     assert isinstance(dense.inner, port.DenseOperator)
+    je, te, _ = _operators("ell")
+    ell = df_operator_from_numpy(None, np.asarray(je.inner.val),
+                                 np.asarray(je.lo_data),
+                                 np.asarray(je.lo2_data),
+                                 idx=np.asarray(je.inner.idx),
+                                 nnz=je.inner.nnz, device="cpu")
+    assert isinstance(ell.inner, port.EllOperator) and ell.nnz == te.nnz
+    v = tdf.df_split(np.random.default_rng(5).standard_normal(ell.n),
+                     device="cpu")
+    y, want = ell.mv(v), te.mv(v)
+    assert torch.equal(y.hi, want.hi) and torch.equal(y.lo, want.lo)
     jv = jdf.df_split(np.arange(5.0) / 7.0)
     state = {"x": (np.asarray(jv.hi), np.asarray(jv.lo)), "k": np.int32(3),
              "nu": (np.float32(1.5), np.float32(2.0 ** -30))}

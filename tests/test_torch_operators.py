@@ -15,6 +15,7 @@ import scipy.sparse as sp
 import torch
 from conftest import make_spd
 
+import new_cg_variants_tpu as cgt
 from new_cg_variants_tpu.matio import problems as jp
 from new_cg_variants_tpu.ops import operators as jo
 import new_cg_variants_tpu_torch as port
@@ -133,17 +134,27 @@ def test_as_operator_makes_arrays_dense(kind):
 
 @pytest.mark.parametrize("kind", ["csr", "coo", "triple"])
 def test_as_operator_sparse_input_names_its_roadmap_item(kind):
-    a = sp.random(16, 16, density=0.2, random_state=0)
+    """Sparse input, which raised naming ROADMAP item 1.5 before the format
+    layer was ported, now takes the auto policy as in the JAX package (at
+    n = 16: dense), and solves as the JAX package solves."""
+    a = make_spd(16) * (sp.random(16, 16, density=0.3, random_state=0)
+                        .toarray() != 0)
+    a = sp.csr_matrix(a + a.T + 16 * np.eye(16))
     if kind == "triple":
-        from new_cg_variants_tpu.ops.operators import coo_from_scipy
-
-        given = coo_from_scipy(a)
+        given, jgiven = to.coo_from_scipy(a), jo.coo_from_scipy(a)
     else:
-        given = a.asformat(kind)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*1\.5"):
-        to.as_operator(given, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.solve(given, np.ones(16), max_iter=2, device="cpu")
+        given = jgiven = a.asformat(kind)
+    op = to.as_operator(given, device="cpu")
+    want = jo.as_operator(jgiven)
+    assert isinstance(op, to.DenseOperator) and isinstance(want,
+                                                           jo.DenseOperator)
+    assert op.dtype == torch.float64
+    np.testing.assert_array_equal(op.a.numpy(), np.asarray(want.a))
+    b = a @ np.ones(16)
+    got = port.solve(given, b, rtol=1e-12, device="cpu")
+    ref = cgt.solve(jgiven, b, rtol=1e-12, dtype=np.float64)
+    assert got.converged and got.iterations == ref.iterations
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-10)
 
 
 @pytest.mark.parametrize("n,k", [(64, 2), (1000, 8), (4096, 32), (4099, 17)])

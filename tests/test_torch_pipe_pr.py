@@ -193,30 +193,32 @@ def test_safe_div_freezes_on_zero_denominator():
 @pytest.mark.parametrize("variant,kw,exc", [
     ("pipe_pr_pcg", {"preconditioner": "ilu"}, ValueError),
     ("pipe_pr_pcg", {"preconditioner": 3}, TypeError),
-    ("pipe_pr_cg", {"A": "scipy"}, NotImplementedError),
-    ("pipe_pr_cg", {"dtype": "f32x2", "A": "scipy"}, NotImplementedError),
-    ("pipe_pr_cg", {"dtype": "f32x2", "A": "ell"}, NotImplementedError),
+    ("pipe_pr_cg", {"A": "triple"}, TypeError),
+    ("pipe_pr_cg", {"dtype": "f32x2", "A": "triple"}, TypeError),
+    ("pipe_pr_cg", {"dtype": "f32x2", "A": "ell"}, TypeError),
     ("bogus_cg", {}, KeyError),
 ])
 def test_unported_options_raise(kappa_100, variant, kw, exc):
-    """What still raises: an unknown preconditioner or variant name, a scipy
-    sparse matrix (it needs the format policy of ``from_coo``), and in the
-    double-word mode a scipy matrix or ELL storage too.  (The names and the
+    """What still raises: an unknown preconditioner or variant name, and a
+    matrix that is neither an operator, an array, a scipy sparse matrix nor
+    a ``CooMatrix`` (a bare object with ``row``/``col``/``val`` or
+    ``val``/``idx``), as in the JAX package.  (The names and the
     preconditioner that raised before every variant was ported run in
     test_torch_variants.py; dense and full-DIA operators in
     test_torch_dia_variants.py; double-word arithmetic and compensated dots,
     which raised before they were ported, in test_torch_df_variants.py and
-    test_torch_compensated.py.)"""
+    test_torch_compensated.py; scipy, ``CooMatrix`` and ELL input, which
+    raised before the format layer was ported, in
+    test_torch_sparse_variants.py.)"""
     import types
-
-    import scipy.sparse as sp
 
     _, top, b, _ = kappa_100
     kw = dict(kw)
-    A = {"scipy": sp.eye(b.shape[0], format="csr"),
-         "ell": types.SimpleNamespace(val=np.ones((b.shape[0], 1)),
-                                      idx=np.zeros((b.shape[0], 1), int)),
+    n = b.shape[0]
+    A = {"triple": types.SimpleNamespace(row=np.arange(n), col=np.arange(n),
+                                         val=np.ones(n)),
+         "ell": types.SimpleNamespace(val=np.ones((n, 1)),
+                                      idx=np.zeros((n, 1), int)),
          }.get(kw.pop("A", None), top)
-    with pytest.raises(exc, match=None if exc is not NotImplementedError
-                       else "1.5"):
+    with pytest.raises(exc):
         solve(A, b, variant=variant, max_iter=2, device="cpu", **kw)

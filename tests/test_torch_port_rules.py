@@ -186,13 +186,68 @@ def test_kernel_or_generic_choice_reads_the_configuration_only():
                 "solvers/engine.py", "ops/sym_fused.py", "ops/sym_dia.py",
                 "ops/operators.py", "ops/spmv_dia.py", "ops/fused_step.py",
                 "ops/fused_family.py", "ops/compensated.py",
-                "ops/doublefloat.py", "ops/df_spmv.py", "solvers/api.py"):
+                "ops/doublefloat.py", "ops/df_spmv.py", "solvers/api.py",
+                "ops/ell_spmv.py", "ops/stencil.py", "ops/block_banded.py"):
         tree = ast.parse((PORT_DIR / rel).read_text())
         for node in ast.walk(tree):
             assert not isinstance(node, ast.Try), rel
             if isinstance(node, ast.Attribute):
                 assert node.attr != "is_available", rel
             assert not (isinstance(node, ast.Name) and node.id == "os"), rel
+
+
+@pytest.mark.parametrize("entry", [
+    "from_coo", "as_operator-scipy", "solve-scipy", "run-coo",
+    "block_banded_from_coo", "banded_model-stencil", "convert-ell",
+    "convert-stencil", "convert-block_banded", "df_operator-coo"])
+def test_sparse_entry_points_default_to_cuda(no_cuda, entry):
+    import scipy.sparse as sp
+
+    from new_cg_variants_tpu_torch.convert import operator_from_numpy
+    from new_cg_variants_tpu_torch.ops.block_banded import (
+        block_banded_from_coo,
+    )
+
+    a = (sp.random(600, 600, density=0.01, random_state=0)
+         + 10 * sp.eye(600)).tocsr()
+    coo = port.ops.operators.coo_from_scipy(a + a.T)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "from_coo":
+            port.from_coo(coo)
+        elif entry == "as_operator-scipy":
+            port.as_operator(a)
+        elif entry == "solve-scipy":
+            port.solve(a, np.ones(600), max_iter=2)
+        elif entry == "run-coo":
+            port.run("pr_pcg", coo, np.ones(600), preconditioner="jacobi",
+                     max_iter=2)
+        elif entry == "block_banded_from_coo":
+            block_banded_from_coo(coo)
+        elif entry == "banded_model-stencil":
+            port.banded_model(64, k=2, fmt="stencil")
+        elif entry == "convert-ell":
+            operator_from_numpy(kind="ell", val=np.ones((4, 1)),
+                                idx=np.arange(4)[:, None], nnz=4)
+        elif entry == "convert-stencil":
+            operator_from_numpy(kind="stencil", diag=np.ones(4),
+                                off_value=0.5, k=2)
+        elif entry == "convert-block_banded":
+            operator_from_numpy(kind="block_banded",
+                                a_blk=np.ones((1, 128, 384)), n_orig=100,
+                                nnz=10)
+        else:
+            port.df_operator(coo)
+
+
+def test_ell_kernel_source_calls_no_library():
+    """Row 12 is written by hand: no cuSPARSE, cuBLAS, Thrust or CUB, and no
+    header beyond the CUDA runtime's."""
+    text = (PORT_DIR / "csrc" / "ell_spmv.cu").read_text()
+    includes = re.findall(r"#include\s*[<\"]([^>\"]+)", text)
+    assert includes == ["cuda_runtime.h"]
+    for name in ("cusparse", "cublas", "thrust", "cub::", "cutlass"):
+        assert name not in text.lower()
+    assert "__global__" in text and "ell_spmv_kernel" in text
 
 
 def test_nvcc_command_targets_hopper():
@@ -208,7 +263,7 @@ def test_every_kernel_source_is_built_and_notes_what_it_replaces():
     assert built == {p.name for p in (PORT_DIR / "csrc").glob("*.cu")}
     assert built == set(_kernels._SIGNATURES)
     assert {"dia_spmv.cu", "pipe_vector.cu", "dia_family.cu", "df_spmv.cu",
-            "df_pipe.cu"} <= built
+            "df_pipe.cu", "ell_spmv.cu"} <= built
     for name in built:
         text = (PORT_DIR / "csrc" / name).read_text()
         assert "Replaces the TPU kernel" in text
@@ -242,8 +297,9 @@ def test_every_study_edit_applies_to_the_kernel_sources():
 
     edits = (list(chip_study.MUTANTS.values())
              + list(chip_study.DF_MUTANTS.values())
+             + list(chip_study.ELL_MUTANTS.values())
              + list(chip_study.LAUNCH_BOUNDS))
-    assert len(edits) >= 17
+    assert len(edits) >= 19
     for source, text, replacement in edits:
         body = (PORT_DIR / "csrc" / source).read_text()
         assert body.count(text) == 1, (source, text)

@@ -26,12 +26,13 @@ def test_model_spectrum_and_diagonal_bit_identical():
 
 
 @pytest.mark.parametrize("fmt,error,match", [
-    ("stencil", NotImplementedError, "ROADMAP"),
     ("csr", ValueError, "unknown fmt"),
+    ("ell", ValueError, "unknown fmt"),
 ])
 def test_unported_formats_raise(fmt, error, match):
-    """``stencil`` still raises and names its ROADMAP item; a name that is no
-    format at all is a ``ValueError``."""
+    """A name that is no format of ``banded_model`` is a ``ValueError`` (as in
+    the JAX package, it builds ``dia``, ``symdia`` and ``stencil``; the
+    stencil is compared with the JAX package in test_torch_stencil.py)."""
     with pytest.raises(error, match=match):
         tp.banded_model(64, k=2, fmt=fmt, device="cpu")
 
