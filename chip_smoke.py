@@ -97,16 +97,22 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     versions in float32 and float64 on O(1) random values, every value in
     units of its own scale (|A| |v|)_i: HPCG's 27-point pattern at n =
     104^3 = 1,124,864 (L = 27) in natural order and under a random symmetric
-    permutation (timed in float32, with the plain versions, cuSPARSE CSR
-    through torch and the bound), a ragged pattern (n = 4099, rows of 0..9
-    entries), n = 100 and L = 1;
+    permutation, a ragged pattern (n = 4099, rows of 0..9 entries), n = 100
+    and L = 1; each in the given order and, where the operator would keep
+    one (the permuted pattern's RCM order; a random order for the small
+    shapes where RCM does not narrow the band), in a locality order: storage
+    reordered, the gather in (``ell_gather``), the product scattering out,
+    whose results must equal the given order's bit for bit.  Timed in
+    float32 at HPCG's pattern, with the plain versions, cuSPARSE CSR through
+    torch, ``torch.index_select`` beside the gather and the bound;
 18. ``ell_f32`` — general sparse input through the auto route: HPCG's
     operator (27-point, 104^3; diagonal 26, -1 to each neighbour) under a
     random symmetric permutation, handed over as scipy CSR in float32; the
-    route must pick ELL and warn; pipe-PR-CG for 300 iterations (launches,
-    the profiler's kernels per iteration and busy share), the other 17 names
-    for 100 (row 12 once per product of each generic body), one solve to
-    rtol 1e-6 that converges; the host seconds of the operator's build;
+    route must pick ELL in the RCM order and warn; pipe-PR-CG for 300
+    iterations (launches, the profiler's kernels per iteration and busy
+    share), the other 17 names for 100 (row 12 once per product of each
+    generic body, each after one gather in), one solve to rtol 1e-6 that
+    converges; the host seconds of the operator's build;
 19. ``formats_f32`` — the model problem of 4 as scipy CSR: permuted, the
     auto route must pick the block-banded packing (bs = 128); unpermuted,
     the stencil (and ``banded_model(fmt="stencil")``); pipe-PR-CG for 300
@@ -1658,9 +1664,23 @@ def small_pattern(n, lens, rng):
     return sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
 
 
-def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report):
-    """Both ELL entries against their plain versions on one pattern; timed
-    (with the plain versions, cuSPARSE and the bound) when ``timings``."""
+def locality_order(a):
+    """The order an ``EllOperator`` keeps for ``a`` (``from_coo``'s rule:
+    RCM where it narrows the band), or ``None`` for the given order."""
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy, ell_order
+
+    perm = ell_order(coo_from_scipy(a))
+    return None if perm is None else np.asarray(perm)
+
+
+def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
+                    perm=None):
+    """Both ELL entries against their plain versions on one pattern, in the
+    given order and, with ``perm``, in that locality order (storage
+    reordered, gather in, scatter out): the locality order's products must
+    equal the given order's bit for bit, and its gather in ``v[perm]``.
+    Timed (with the plain versions, cuSPARSE and the bound) when
+    ``timings``."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
 
     val, idx, csr = ell_arrays(torch, a, rng, dtype)
@@ -1671,19 +1691,39 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report):
     y2, z2 = es.ell_spmv2(val, idx, v, w)
     yp, zp = (es._ell_mv_plain(val, idx, x) for x in (v, w))
     ys, zs = (es._ell_mv_plain(val.abs(), idx, x.abs()) for x in (v, w))
-    torch.cuda.synchronize()
-    errs = [cw_err(torch, y, yp, ys), cw_err(torch, y2, yp, ys),
-            cw_err(torch, z2, zp, zs)]
-    abs_err = max(float((g - want).abs().max())
-                  for g, want in ((y, yp), (y2, yp), (z2, zp)))
+    got = [(y, yp, ys), (y2, yp, ys), (z2, zp, zs)]
     dn = dtype_name(dtype)
     rec = dict(kernel="ell_spmv", shape=label, dtype=dn, n=n, L=L,
-               nnz=int(csr.values().numel()), max_err=max(errs),
-               max_abs_err=abs_err, tol=TOL[dn])
+               nnz=int(csr.values().numel()), orders=["given"])
+    ok = True
+    if perm is not None:
+        p = es.check_perm(torch.from_numpy(perm).cuda(), n)
+        bval_t, bidx_t = es.reorder(val.T, idx.T, p)
+        bval, bidx = bval_t.T, bidx_t.T
+        ry = es.ell_spmv(bval, bidx, v, p)
+        ry2, rz2 = es.ell_spmv2(bval, bidx, v, w, p)
+        gathered, gather_want = es.ell_gather(p, [v]), v[p.long()]
+        got += [(ry, yp, ys), (ry2, yp, ys), (rz2, zp, zs)]
+        same = all(bool(torch.equal(g, want)) for g, want in (
+            (ry, y), (ry2, y2), (rz2, z2)))
+        gather_err = float((gathered - gather_want).abs().max())
+        gather_same = bool(torch.equal(gathered, gather_want))
+        rec.update(orders=["given", "locality"], same_bits_as_given=same,
+                   gather_bitwise=gather_same)
+        ok = same and gather_same
+    torch.cuda.synchronize()
+    errs = [cw_err(torch, g, want, sc) for g, want, sc in got]
+    abs_err = max(float((g - want).abs().max()) for g, want, _ in got)
+    rec.update(max_err=max(errs), max_abs_err=abs_err, tol=TOL[dn])
     if timings is not None:
         isz = val.element_size()
-        ms = time_ms(torch, lambda: es.ell_spmv(val, idx, v), 50)
-        ms2 = time_ms(torch, lambda: es.ell_spmv2(val, idx, v, w), 50)
+        b_ms, b_by = bound(n * L * (isz + 4) + 2 * n * isz, 2 * n * L, dn,
+                           rate)
+        b2_ms, b2_by = bound(n * L * (isz + 4) + 4 * n * isz, 4 * n * L, dn,
+                             rate)
+        given = dict(
+            ms=time_ms(torch, lambda: es.ell_spmv(val, idx, v), 50),
+            spmv2_ms=time_ms(torch, lambda: es.ell_spmv2(val, idx, v, w), 50))
         plain_ms = time_ms(torch, lambda: es._ell_mv_plain(val, idx, v), 5)
         plain2_ms = time_ms(torch,
                             lambda: es._ell_mv2_plain(val, idx, v, w), 5)
@@ -1691,17 +1731,40 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report):
         lib_err = cw_err(torch, csr @ v, yp, ys)
         lib_ms = time_ms(torch, lambda: csr @ v, 50)
         lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
-        b_ms, b_by = bound(n * L * (isz + 4) + 2 * n * isz, 2 * n * L, dn,
-                           rate)
-        b2_ms, b2_by = bound(n * L * (isz + 4) + 4 * n * isz, 4 * n * L, dn,
-                             rate)
-        rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
-                   plain2_ms=plain2_ms, library_ms=lib_ms,
-                   library2_ms=lib2_ms, library_err=lib_err, bound_ms=b_ms,
-                   bound_by=b_by, spmv2_bound_ms=b2_ms)
         common = dict(n=n, L=L, max_abs_err=abs_err,
                       library="cuSPARSE CSR through torch (csr @ v, "
                       "csr @ [v w])")
+        rec.update(given_order_ms=given["ms"],
+                   given_order_spmv2_ms=given["spmv2_ms"], plain_ms=plain_ms,
+                   plain2_ms=plain2_ms, library_ms=lib_ms,
+                   library2_ms=lib2_ms, library_err=lib_err, bound_ms=b_ms,
+                   bound_by=b_by, spmv2_bound_ms=b2_ms)
+        if perm is None:
+            ms, ms2 = given["ms"], given["spmv2_ms"]
+        else:
+            ms = time_ms(torch, lambda: es.ell_spmv(bval, bidx, v, p), 50)
+            ms2 = time_ms(torch, lambda: es.ell_spmv2(bval, bidx, v, w, p),
+                          50)
+            plain_ms = time_ms(
+                torch, lambda: es._ell_reordered_plain(bval, bidx, p, [v]), 5)
+            plain2_ms = time_ms(torch, lambda: es._ell_reordered_plain(
+                bval, bidx, p, [v, w]), 5)
+            g_ms = time_ms(torch, lambda: es.ell_gather(p, [v]), 50)
+            g2_ms = time_ms(torch, lambda: es.ell_gather(p, [v, w]), 50)
+            g_plain_ms = time_ms(torch, lambda: es._ell_gather_plain(p, [v]),
+                                 50)
+            g_lib_ms = time_ms(torch, lambda: torch.index_select(v, 0, p), 50)
+            g_ms_bound, g_by = bound(n * (4 + 2 * isz), 0, dn, rate)
+            rec.update(ms=ms, spmv2_ms=ms2, locality_plain_ms=plain_ms,
+                       locality_plain2_ms=plain2_ms, gather_ms=g_ms,
+                       gather2_ms=g2_ms)
+            timings["ell_gather"] = dict(
+                n=n, max_abs_err=gather_err,
+                ms=g_ms, ms_2rhs=g2_ms, plain_ms=g_plain_ms,
+                library_ms=g_lib_ms, library="torch.index_select(v, 0, perm)",
+                bound_ms=g_ms_bound, bound_by=g_by)
+            common["given_order"] = given
+            del bval, bidx, p
         sfx = "" if "permuted" in label else NATURAL
         timings["ell_spmv" + sfx] = dict(
             common, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1713,32 +1776,38 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report):
     report(rec)
     del val, idx, csr, v, w
     torch.cuda.empty_cache()
-    return [] if max(errs) <= TOL[dn] else [rec]
+    return [] if ok and max(errs) <= TOL[dn] else [rec]
 
 
 def ell_checks(torch, card, timings, report):
-    """Row 12 (``ell_spmv``, ``ell_spmv2``) against its plain version on the
-    card in float32 and float64, every value in units of its own scale
-    ``(|A| |v|)_i``: HPCG's pattern at full size in natural order and
-    permuted (timed in float32), then the small shapes.  Returns the failed
-    checks."""
+    """Row 12 (``ell_spmv``, ``ell_spmv2`` and the gather in) against its
+    plain version on the card in float32 and float64, every value in units
+    of its own scale ``(|A| |v|)_i``: HPCG's pattern at full size in natural
+    order (which the operator keeps) and permuted (in the RCM order the
+    operator takes, and in the given one: timed in float32), then the small
+    shapes in the given order and in a locality order (RCM, or a random one
+    where RCM does not narrow the band).  Returns the failed checks."""
     rate = memory_rate(card)
     failed = []
     grid = f"27-point {HPCG_GRID}^3"
     for label, seed in ((grid, None), (grid + " permuted", PERM_SEED)):
         a = stencil27(HPCG_GRID, seed)
+        perm = locality_order(a)
         for dtype in (torch.float32, torch.float64):
             failed += check_ell_shape(
                 torch, label, a, np.random.default_rng(12), dtype, rate,
                 timings if timings is not None and dtype == torch.float32
-                else None, report)
+                else None, report, perm)
         del a
     for label, n, lens in ELL_SMALL:
         rng = np.random.default_rng(n)
         a = small_pattern(n, lens, rng)
+        perm = locality_order(a)
+        if perm is None:
+            perm = rng.permutation(n)
         for dtype in (torch.float32, torch.float64):
             failed += check_ell_shape(torch, label, a, rng, dtype, rate, None,
-                                      report)
+                                      report, perm)
     return failed
 
 
@@ -1749,14 +1818,16 @@ def check_ell(torch, card, timings):
 
 
 def ell_expected(name, iters):
-    """Launches a name makes on an ``EllOperator``: every fused phase
-    declines, so the generic body: ``ell_spmv2`` once per iteration for the
-    pipe names that recompute, else ``ell_spmv`` once per product (and the
-    products of init)."""
+    """Launches a name makes on an ``EllOperator`` in a locality order (as
+    both ELL phases build it): every fused phase declines, so the generic
+    body: ``ell_spmv2`` once per iteration for the pipe names that
+    recompute, else ``ell_spmv`` once per product (and the products of
+    init), each after one gather in (``ell_gather``)."""
     split, _ = split_expected(name, iters)
     counts = {"ell_spmv": split["dia_spmv"]}
     if "dia_spmv2" in split:
         counts["ell_spmv2"] = split["dia_spmv2"]
+    counts["ell_gather"] = sum(counts.values())
     return counts, "ell_spmv"
 
 
@@ -1789,13 +1860,16 @@ def ell_f32(torch):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warned = any("gather-ELL" in str(c.message) for c in caught)
+    is_ell = isinstance(op, EllOperator)
+    reordered = is_ell and op.perm is not None
     emit("ell_f32", n=n, nnz=int(a.nnz), operator=type(op).__name__,
-         L=int(op.val.shape[1]) if isinstance(op, EllOperator) else None,
-         warned=warned, matrix_host_seconds=matrix_s,
+         L=int(op.val_t.shape[0]) if is_ell else None, warned=warned,
+         locality_order=reordered, matrix_host_seconds=matrix_s,
          build_host_seconds=build_s)
-    if not (isinstance(op, EllOperator) and warned):
+    if not (reordered and warned):
         raise AssertionError(f"auto route gave {type(op).__name__}, "
-                             f"warned={warned}: expected ELL with a warning")
+                             f"warned={warned}, reordered={reordered}: "
+                             "expected ELL in RCM order with a warning")
     launches, failed = solve_names(
         torch, "ell_f32", op, b, x_true, ("pipe_pr_cg",), ell_expected,
         iters=ELL_ITERS, n=n)
@@ -1938,7 +2012,11 @@ def sparse_f64(torch):
     names = ("hs_cg", "cg_cg", "gv_cg", "pr_cg", "pipe_pr_cg", "pipe_p_cg")
     a27 = stencil27(HPCG_SMALL_GRID, PERM_SEED)
     b27 = a27 @ np.ones(a27.shape[0])
+    t0 = time.perf_counter()
     ell = from_coo(coo_from_scipy(a27), fmt="ell", device="cpu")
+    emit("sparse_f64", operator="EllOperator", n=ell.n,
+         locality_order=ell.perm is not None,
+         build_host_seconds=time.perf_counter() - t0)
     compare_f64(torch, "sparse_f64",
                 [(nm, ell, b27, "27-point 32^3 permuted, ELL")
                  for nm in names + ("pipe_pr_pcg",)], ell_expected)
@@ -2015,6 +2093,8 @@ def kernel_records(timings, launches):
                                          ("df_dense_f32x2",)),
         "ell_spmv": ("ell_spmv.cu", "ell_pallas.py:44", ("ell_f32",)),
         "ell_spmv2": ("ell_spmv.cu", "ell_pallas.py:44", ("ell_f32",)),
+        # the gather in of a product in a locality order (part of row 12)
+        "ell_gather": ("ell_spmv.cu", "ell_pallas.py:44", ("ell_f32",)),
     })
     kernels = []
     for name, (source, replaces, paths) in records.items():
@@ -2022,7 +2102,8 @@ def kernel_records(timings, launches):
         entry = name.removesuffix(WIDE).removesuffix(DENSE)
         extra = {key: t[key] for key in ("f64_counterpart_ms",
                                          "f64_counterpart", "bound_bytes_ms",
-                                         "bound_ops_ms", "L", "library")
+                                         "bound_ops_ms", "L", "library",
+                                         "given_order", "ms_2rhs")
                  if key in t}
         if name + NATURAL in timings:
             extra["natural_order"] = {

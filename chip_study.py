@@ -4,6 +4,8 @@
     python3 chip_study.py check     # build, registers per kernel, check_dia
     python3 chip_study.py dfcheck   # build, registers, the double-word checks
     python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
+    python3 chip_study.py ellopts   # row 12's design options, timed in turns
+    python3 chip_study.py denseopts # row 10's dense design options, the same
     python3 chip_study.py mutants   # do the checks catch a faulty kernel?
     python3 chip_study.py bounds    # launch bounds, timed in turns
     python3 chip_study.py halo      # whole-iteration kernel against the split
@@ -20,6 +22,7 @@ nonzero without them.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import shutil
@@ -100,6 +103,9 @@ DF_MUTANTS = {
     "power-of-two-only combine (vector phase)": (
         "df_pipe.cu", "const long long width = pow2_ceil(nb);",
         "const long long width = nb;"),
+    "dense tree pairs neighbours instead of halves (dense)": (
+        "df_common.cuh", "for (int off = lanes >> 1; off > 0; off >>= 1) {",
+        "for (int off = 1; off < lanes; off <<= 1) {"),
 }
 
 #: faults of the ELL kernel (row 12), held to chip_smoke.py's check_ell
@@ -108,7 +114,288 @@ ELL_MUTANTS = {
         "ell_spmv.cu", "for (int l = 0; l < L; ++l) {",
         "for (int l = 0; l < L - 1; ++l) {"),
     "v[i] read in place of v[idx] (ELL)": (
-        "ell_spmv.cu", "const int j = __ldg(c + o);", "const int j = (int)i;"),
+        "ell_spmv.cu", "const int j = stream(c + o);", "const int j = (int)i;"),
+    "scatter-out skips the permutation (ELL)": (
+        "ell_spmv.cu",
+        "const long long out = PERM ? (long long)stream(perm + i) : i;",
+        "const long long out = i;"),
+}
+
+#: design options of row 12, each timed against the committed source in
+#: turns (``ellopts``): what -> edits
+ELL_OPTIONS = {
+    "val / idx / perm through __ldg (no evict-first)": [
+        ("ell_spmv.cu", "  return __ldcs(p);", "  return __ldg(p);")],
+    "2 RHS in a locality order gathered interleaved (one load of both)": [
+        ("ell_spmv.cu",
+         "    acc0 = fma(x, __ldg(v0 + j), acc0);\n"
+         "    if constexpr (NRHS == 2) acc1 = fma(x, __ldg(v1 + j), acc1);\n",
+         "    if constexpr (PERM && NRHS == 2) {\n"
+         "      if constexpr (sizeof(T) == 4) {\n"
+         "        const float2 g = __ldg(reinterpret_cast<const float2*>(v0) + j);\n"
+         "        acc0 = fma(x, T(g.x), acc0);\n"
+         "        acc1 = fma(x, T(g.y), acc1);\n"
+         "      } else {\n"
+         "        const double2 g =\n"
+         "            __ldg(reinterpret_cast<const double2*>(v0) + j);\n"
+         "        acc0 = fma(x, T(g.x), acc0);\n"
+         "        acc1 = fma(x, T(g.y), acc1);\n"
+         "      }\n"
+         "    } else {\n"
+         "      acc0 = fma(x, __ldg(v0 + j), acc0);\n"
+         "      if constexpr (NRHS == 2) acc1 = fma(x, __ldg(v1 + j), acc1);\n"
+         "    }\n"),
+        ("ell_spmv.cu",
+         "  xs[i] = __ldg(v0 + p);\n"
+         "  if constexpr (NRHS == 2) xs[n + i] = __ldg(v1 + p);\n",
+         "  if constexpr (NRHS == 2) {\n"
+         "    xs[2 * i] = __ldg(v0 + p);\n"
+         "    xs[2 * i + 1] = __ldg(v1 + p);\n"
+         "  } else {\n"
+         "    xs[i] = __ldg(v0 + p);\n"
+         "  }\n"),
+        ("ell_spmv.cu",
+         "  const T* x1 = p ? x0 + n : static_cast<const T*>(v1);",
+         "  const T* x1 = p ? nullptr : static_cast<const T*>(v1);")],
+    "128 rows per block": [
+        ("ell_spmv.cu", "constexpr int kEllThreads = 256;",
+         "constexpr int kEllThreads = 128;")],
+    "512 rows per block": [
+        ("ell_spmv.cu", "constexpr int kEllThreads = 256;",
+         "constexpr int kEllThreads = 512;")],
+}
+
+#: design options of row 10's dense product (``denseopts``)
+_DENSE_KNOBS = {
+    "warps": ("df_spmv.cu", "constexpr int kDenseWarps = 32;",
+              "constexpr int kDenseWarps = {};"),
+    "lg": ("df_spmv.cu", "constexpr int kDenseLG = 2;",
+           "constexpr int kDenseLG = {};"),
+    "maxd": ("df_spmv.cu", "constexpr int kDenseMaxD = 12;",
+             "constexpr int kDenseMaxD = {};"),
+}
+
+
+def dense_knobs(**knobs):
+    """Edits that set the dense product's design constants."""
+    return [(src, text, repl.format(v)) for k, v in knobs.items()
+            for src, text, repl in [_DENSE_KNOBS[k]]]
+
+
+#: the vector through L1 at every n (no staged copy, not persistent)
+DENSE_UNSTAGED = [
+    ("df_spmv.cu",
+     "  const bool stage =\n"
+     "      size_t(2 * NRHS) * size_t(n) * sizeof(float) <= kMaxBlockSmem;\n",
+     "  const bool stage = false;\n")]
+
+
+def dense_ring(stages=4, stage=True):
+    """Edits that bring the matrix words of the dense product in by bulk
+    copies (cp.async.bulk, completion counted on an mbarrier) through a ring
+    of ``stages`` shared-memory stages per warp, one group of leaves a
+    stage: lane 3 j + w copies word w of the group's leaf j (a 128-byte
+    chunk; the chunks of a group lie width / 4 columns apart).  Rows must
+    start on 16-byte boundaries (n a multiple of 4), else the lanes load as
+    committed; the blocks are persistent and each warp's ring runs on over
+    its rows.  ``stage``: the vector staged where it fits beside the
+    rings."""
+    helpers = r"""
+namespace ncgv {
+
+constexpr int kRingStages = STAGES;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ unsigned chunk_bytes(long long c0, long long n) {
+  return c0 < n ? unsigned(4 * (n - c0 < 32 ? n - c0 : 32)) : 0u;
+}
+
+}  // namespace ncgv
+""".replace("STAGES", str(stages))
+    setup = r"""    __syncthreads();
+  }
+  __shared__ unsigned long long sbar[WARPS * kRingStages];
+  const int warp = threadIdx.x >> 5;
+  const int count = width < 32 ? 1 : width / 32;
+  const int depth = 31 - __clz(count);
+  const int groups = count >> LG;
+  float* ring = swin + (STAGE_V ? 2 * NRHS * n : 0) +
+                warp * kRingStages * ((3 * 32) << LG);
+  unsigned long long* bar = sbar + warp * kRingStages;
+  const bool ring_ok =
+      LG > 0 && n % 4 == 0 &&
+      ((reinterpret_cast<size_t>(hi) | reinterpret_cast<size_t>(lo) |
+        reinterpret_cast<size_t>(lo2)) & 15) == 0;
+  if (ring_ok && lane == 0) {
+    for (int st = 0; st < kRingStages; ++st) mbar_init(bar + st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](long long s) {
+    if (s >= rows * groups) return;
+    const long long row = first + (s / groups) * stride;
+    const int g = int(s % groups);
+    const int st = int(s % kRingStages);
+    if (lane == 0) {
+      unsigned total = 0;
+      for (int j = 0; j < G; ++j)
+        total += chunk_bytes(32LL * leaf_chunk((g << LG) + j, depth), n);
+      mbar_expect_tx(bar + st, 3 * total);
+    }
+    if (lane < 3 * G) {
+      const int j = lane / 3, w = lane % 3;
+      const long long c0 = 32LL * leaf_chunk((g << LG) + j, depth);
+      const unsigned bytes = chunk_bytes(c0, n);
+      const float* src = w == 0 ? hi : w == 1 ? lo : lo2;
+      if (bytes)
+        bulk_copy(ring + st * ((3 * 32) << LG) + (3 * j + w) * 32,
+                  src + row * n + c0, bytes, bar + st);
+    }
+  };
+  if (ring_ok) {
+    for (int s = 0; s < kRingStages; ++s) issue(s);
+  }
+"""
+    fetch = r"""    auto fetch = [&](int g, const int (&cols)[G],
+                     DenseWords (&cur)[G]) {
+      if (ring_ok) {
+        const long long s = ri * groups + g;
+        const int st = int(s % kRingStages);
+        mbar_wait(bar + st, unsigned(s / kRingStages) & 1u);
+        const float* src = ring + st * ((3 * 32) << LG) + lane;
+        for (int j = 0; j < G; ++j)
+          cur[j] = DenseWords{src[(3 * j) * 32], src[(3 * j + 1) * 32],
+                              src[(3 * j + 2) * 32]};
+        __syncwarp();
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(s + kRingStages);
+        return;
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+"""
+    ring_bytes = ("(LG > 0 ? size_t(WARPS) * kRingStages * ((3 * 32) << LG)"
+                  " * sizeof(float) : 0)")
+    return [
+        ("df_spmv.cu", '#include "df_common.cuh"\n',
+         '#include "df_common.cuh"\n' + helpers),
+        ("df_common.cuh", "    fetch(cols, cur);\n",
+         "    fetch(g, cols, cur);\n"),
+        ("df_spmv.cu", "    __syncthreads();\n  }\n\n  for (long long ri = 0;",
+         setup + "\n  for (long long ri = 0;"),
+        ("df_spmv.cu",
+         "    auto fetch = [&](const int (&cols)[G], DenseWords (&cur)[G]) {\n"
+         "#pragma unroll\n"
+         "      for (int j = 0; j < G; ++j) {\n", fetch),
+        ("df_spmv.cu",
+         "  const size_t smem = STAGE_V ? size_t(2 * NRHS) * size_t(n) * "
+         "sizeof(float)\n                              : 0;\n",
+         "  const size_t smem =\n      (STAGE_V ? size_t(2 * NRHS) * "
+         "size_t(n) * sizeof(float) : 0) +\n      " + ring_bytes + ";\n"),
+        ("df_spmv.cu", DENSE_UNSTAGED[0][1],
+         "  const bool stage =\n"
+         "      size_t(2 * NRHS) * size_t(n) * sizeof(float) +\n"
+         "          size_t(W) * kRingStages * ((3 * 32) << LG) *\n"
+         "              sizeof(float) <=\n"
+         "      kMaxBlockSmem;\n") if stage else DENSE_UNSTAGED[0],
+    ]
+
+
+DENSE_OPTIONS = {
+    "vector through L1, not staged, 4 rows per block (not persistent)":
+        DENSE_UNSTAGED + dense_knobs(warps=4),
+    "vector through L1, not staged, 32 rows per block (not persistent)":
+        DENSE_UNSTAGED,
+    "vector staged, 16 rows per block": dense_knobs(warps=16),
+    "vector staged, 8 rows per block": dense_knobs(warps=8),
+    "matrix words through a ring of 4 bulk-copy stages per warp, 8 rows "
+    "per block": dense_ring() + dense_knobs(warps=8),
+    "ring of 2 stages, 8 rows per block": dense_ring(2) + dense_knobs(warps=8),
+    "ring, vector not staged, 4 rows per block": (
+        dense_ring(stage=False) + dense_knobs(warps=4)),
+    "the next group's loads issued ahead of this group's arithmetic": [
+        ("df_common.cuh",
+         "  Pair slot[NR][MAXD];\n"
+         "  for (int g = 0; g < groups; ++g) {\n"
+         "    int cols[G];\n"
+         "#pragma unroll\n"
+         "    for (int j = 0; j < G; ++j)\n"
+         "      cols[j] = lane + 32 * leaf_chunk((g << LG) + j, depth);\n"
+         "    Words cur[G];\n"
+         "    fetch(cols, cur);\n",
+         "  Pair slot[NR][MAXD];\n"
+         "  Words next[G];\n"
+         "  {\n"
+         "    int cols[G];\n"
+         "#pragma unroll\n"
+         "    for (int j = 0; j < G; ++j)\n"
+         "      cols[j] = lane + 32 * leaf_chunk(j, depth);\n"
+         "    fetch(cols, next);\n"
+         "  }\n"
+         "  for (int g = 0; g < groups; ++g) {\n"
+         "    int cols[G], ncols[G];\n"
+         "#pragma unroll\n"
+         "    for (int j = 0; j < G; ++j) {\n"
+         "      cols[j] = lane + 32 * leaf_chunk((g << LG) + j, depth);\n"
+         "      ncols[j] = lane + 32 * leaf_chunk(((g + 1) << LG) + j, depth);\n"
+         "    }\n"
+         "    Words cur[G];\n"
+         "#pragma unroll\n"
+         "    for (int j = 0; j < G; ++j) cur[j] = next[j];\n"
+         "    if (g + 1 < groups) fetch(ncols, next);\n")],
+    "group counter as a predicated chain (no branch)": [
+        ("df_common.cuh",
+         "#pragma unroll 1\n"
+         "      for (int l = 0; l < tz; ++l) carry = df_add(slot[r][l], carry);\n"
+         "      slot[r][tz] = carry;\n",
+         "#pragma unroll\n"
+         "      for (int l = 0; l < MAXD; ++l) {\n"
+         "        if (l < tz) {\n"
+         "          carry = df_add(slot[r][l], carry);\n"
+         "        } else if (l == tz) {\n"
+         "          slot[r][l] = carry;\n"
+         "        }\n"
+         "      }\n")],
+    "matrix words through __ldg (no evict-first)": [
+        ("df_spmv.cu", f"__ldcs({w} + base + c)", f"__ldg({w} + base + c)")
+        for w in ("hi", "lo", "lo2")],
+    "at least 2 blocks of 32 rows per SM (32 registers)": [
+        ("df_spmv.cu",
+         "__global__ void __launch_bounds__(WARPS * 32) df_dense_kernel(",
+         "__global__ void __launch_bounds__(WARPS * 32, 2) "
+         "df_dense_kernel(")],
+    "groups of 2 leaves": dense_knobs(lg=1, maxd=13),
+    "groups of 8 leaves": dense_knobs(lg=3),
 }
 
 
@@ -130,16 +417,19 @@ def emit(study, **fields):
     print(json.dumps({"study": study, **fields}), flush=True)
 
 
-def build_edited(stack, edits):
+def build_edited(stack, edits, only=None):
     """Build a copy of the kernel sources with ``edits`` = [(source, text,
     replacement)] applied, in a temporary directory that lives as long as
-    ``stack``.  Returns the loaded libraries by source (for
-    ``_kernels.using``) and the build logs' register lines."""
+    ``stack``; ``only``: the ``.cu`` sources to build (default all).
+    Returns the loaded libraries by source (for ``_kernels.using``) and the
+    build logs' register lines."""
     from new_cg_variants_tpu_torch.ops import _kernels
 
     tmp = Path(stack.enter_context(
         tempfile.TemporaryDirectory(prefix="ncgv_study_")))
-    shutil.copytree(CSRC, tmp / "csrc")
+    shutil.copytree(CSRC, tmp / "csrc", ignore=None if only is None else (
+        lambda d, names: [f for f in names
+                          if f.endswith(".cu") and f not in only]))
     for source, text, replacement in edits:
         path = tmp / "csrc" / source
         body = path.read_text()
@@ -182,13 +472,19 @@ def df_checks(torch, card):
 
 
 def ell_checks(torch, card):
-    """check_ell's checks, counted instead of raised and not timed."""
+    """check_ell's checks, counted instead of raised and not timed; the
+    lines that check a locality order counted apart."""
     lines = []
     failed = cs.ell_checks(torch, card, None, lines.append)
     errs = [r["max_err"] for r in failed]
+    local = [r for r in lines if "locality" in r["orders"]]
     return dict(checks=len(lines), failed=len(failed),
+                locality_checks=len(local),
+                locality_failed=sum(r in failed for r in local),
                 failed_err_min=min(errs, default=None),
                 failed_err_max=max(errs, default=None),
+                failed_not_same_bits=sum(
+                    not r.get("same_bits_as_given", True) for r in failed),
                 passed_checks=[(r["shape"], r["dtype"]) for r in lines
                                if r not in failed],
                 passed_err_max=max((r["max_err"] for r in lines
@@ -236,6 +532,79 @@ def study_ellcheck(torch, card):
     emit("ellcheck", ok=True)
 
 
+def study_ellopts(torch, card):
+    """Row 12's design options against the committed source, timed in turns
+    at HPCG's pattern (f32): permuted in its RCM order (the path's shape)
+    and in natural order; every option must give the committed bits."""
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+
+    rng = np.random.default_rng(12)
+    cases = {}
+    for label, seed in (("RCM order", cs.PERM_SEED), ("natural order", None)):
+        a = cs.stencil27(cs.HPCG_GRID, seed)
+        perm = cs.locality_order(a)
+        val, idx, _ = cs.ell_arrays(torch, a, rng, torch.float32)
+        n = val.shape[0]
+        v, w = (torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                                device="cuda") for _ in range(2))
+        p = None
+        if perm is not None:
+            p = es.check_perm(torch.from_numpy(perm).cuda(), n)
+            bval_t, bidx_t = es.reorder(val.T, idx.T, p)
+            val, idx = bval_t.T, bidx_t.T
+        cases[f"ell_spmv, {label}"] = (
+            lambda val=val, idx=idx, v=v, p=p: [es.ell_spmv(val, idx, v, p)])
+        cases[f"ell_spmv2, {label}"] = (
+            lambda val=val, idx=idx, v=v, w=w, p=p:
+            list(es.ell_spmv2(val, idx, v, w, p)))
+    variants = {"as committed": [], **ELL_OPTIONS}
+    times, same, logs, _ = timed_in_turns(torch, variants, cases,
+                                       only=("ell_spmv.cu",))
+    for name, by_src in logs.items():
+        emit("ellopts", variant=name, ptxas=by_src["ell_spmv.cu"])
+    for c in cases:
+        emit("ellopts", case=c, card=card,
+             ms={v: [round(t, 5) for t in ts] for v, ts in times[c].items()},
+             same_bits_as_committed=same[c])
+
+
+def study_denseopts(torch, card):
+    """Row 10's dense design options against the committed source, timed in
+    turns at n = 4096 and 8192; every option must give the committed bits
+    there and pass check_df_dense (n = 4096, 8192, 1000, 300, 5, 1)."""
+    from new_cg_variants_tpu_torch import df_split3
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+
+    cases = {}
+    for n in (cs.DF_DENSE_N, 8192):
+        rng = np.random.default_rng(n)
+        mats = df_split3(rng.uniform(-1.0, 1.0, (n, n)), device="cuda")
+        v, w = cs.df_vec(torch, rng, n), cs.df_vec(torch, rng, n)
+        cases[f"df_dense_spmv, n = {n}"] = (
+            lambda mats=mats, v=v: flat(ds.df_dense_spmv(*mats, v)))
+        cases[f"df_dense_spmv2, n = {n}"] = (
+            lambda mats=mats, v=v, w=w: flat(ds.df_dense_spmv2(*mats, v, w)))
+
+    def check():
+        lines = []
+        failed = cs.check_df_dense(torch, card, None, lines.append)
+        return dict(checks=len(lines), failed=len(failed))
+
+    variants = {"as committed": [], **DENSE_OPTIONS}
+    times, same, logs, checked = timed_in_turns(
+        torch, variants, cases, rounds=5, iters=200, only=("df_spmv.cu",),
+        check=check)
+    for name, by_src in logs.items():
+        emit("denseopts", variant=name, ptxas=by_src["df_spmv.cu"],
+             check_df_dense=checked[name])
+    for c in cases:
+        emit("denseopts", case=c, card=card,
+             ms={v: [round(t, 5) for t in ts] for v, ts in times[c].items()},
+             median_ms={v: round(float(np.median(ts)), 5)
+                        for v, ts in times[c].items()},
+             same_bits_as_committed=same[c])
+
+
 def study_mutants(torch, card):
     from new_cg_variants_tpu_torch.ops import _kernels
 
@@ -254,19 +623,29 @@ def study_mutants(torch, card):
                      **checks(torch, card))
 
 
-def timed_in_turns(torch, variants, cases, rounds=2):
+def timed_in_turns(torch, variants, cases, rounds=2, iters=50, only=None,
+                   check=None):
     """``variants``: name -> edits; ``cases``: name -> callable returning
     tensors.  Times every case under every variant in turns (A B .. B A per
-    round) and compares each case's outputs with the first variant's bit for
-    bit.  Returns {case: {variant: [ms, ...]}}, {case: {variant: same}} and
-    the build logs by variant."""
+    round, ``iters`` calls a time) and compares each case's outputs with the
+    first variant's bit for bit.  Returns {case: {variant: [ms, ...]}},
+    {case: {variant: same}}, the build logs by variant and, with ``check``,
+    {variant: check()} run under each variant."""
     from new_cg_variants_tpu_torch.ops import _kernels
 
     with contextlib.ExitStack() as stack:
-        libs, logs = {}, {}
-        for name, edits in variants.items():
-            libs[name], logs[name] = build_edited(stack, edits)
+        # one nvcc a variant, eight at a time
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            built = {name: pool.submit(build_edited, stack, edits, only)
+                     for name, edits in variants.items()}
+        libs = {name: f.result()[0] for name, f in built.items()}
+        logs = {name: f.result()[1] for name, f in built.items()}
         names = list(variants)
+        checked = {}
+        if check is not None:
+            for v in names:
+                with _kernels.using(libs[v]):
+                    checked[v] = check()
         times = {c: {v: [] for v in names} for c in cases}
         same = {c: {} for c in cases}
         for c, fn in cases.items():
@@ -281,8 +660,8 @@ def timed_in_turns(torch, variants, cases, rounds=2):
             for _ in range(rounds):
                 for v in names + names[::-1]:
                     with _kernels.using(libs[v]):
-                        times[c][v].append(cs.time_ms(torch, fn, 50))
-        return times, same, logs
+                        times[c][v].append(cs.time_ms(torch, fn, iters))
+        return times, same, logs, checked
 
 
 def flat(out):
@@ -338,7 +717,7 @@ def study_bounds(torch, card):
                 "min blocks 5": variant(5, 5, 5),
                 "min blocks 6": variant(5, 6, 6),
                 "min blocks 8": variant(5, 8, 8)}
-    times, same, logs = timed_in_turns(torch, variants, cases)
+    times, same, logs, _ = timed_in_turns(torch, variants, cases)
     for name, by_src in logs.items():
         for src in ("sym_dia.cu", "dia_spmv.cu", "dia_family.cu"):
             emit("bounds", variant=name, source=src, ptxas=by_src[src])
@@ -390,7 +769,8 @@ def main(argv):
     import torch
 
     studies = {"check": study_check, "dfcheck": study_dfcheck,
-               "ellcheck": study_ellcheck, "mutants": study_mutants,
+               "ellcheck": study_ellcheck, "ellopts": study_ellopts,
+               "denseopts": study_denseopts, "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo}
     if len(argv) != 2 or argv[1] not in studies:
         print(__doc__, file=sys.stderr)

@@ -183,6 +183,87 @@ __device__ __forceinline__ void tree_sum(int width, const Leaf& leaf,
   block_tree_sum<NR>(total, teff, sred, out);
 }
 
+// Chunk of leaf m of a lane's in-lane tree of 2^depth leaves: the leaves
+// are taken in bit-reversed order, so that the tree pairs neighbours.
+__device__ __forceinline__ int leaf_chunk(int m, int depth) {
+  return depth ? int(__brev(unsigned(m)) >> (32 - depth)) : 0;
+}
+
+// NR sums of the pairs term(words, c, vals) over the columns c in
+// [0, width) of one row, width a power of two, on one warp, by the same
+// halving tree as tree_sum: element j + w/2 is added to element j for
+// w = width, ..., 2.
+//
+// Lane l owns the columns l + 32 k, k < count = width / 32 (for width < 32,
+// lanes l < width own column l, count = 1).  The levels w > 32 pair k with
+// k + count/2, ..., so they stay in the lane, an adjacent-pairs tree over k
+// taken in bit-reversed order (leaf_chunk): groups of G = 2^LG consecutive
+// leaves are summed by a fixed tree, and the group sums enter a binary
+// counter of MAXD levels (count <= G << (MAXD - 1)).  fetch(cols, words)
+// fills the words (of type Words) that the group's G leaves stream from
+// device memory, at the columns cols[j] of this lane.  The last
+// log2(min(width, 32)) levels pair lane l with lane l + w/2 through
+// __shfl_down_sync: no shared memory, no block barrier.  Every lane of the
+// warp must call it (with one width); lane 0 gets the sums.
+template <int NR, int LG, int MAXD, typename Words, typename Fetch,
+          typename Term>
+__device__ __forceinline__ void warp_tree_sum(int width, const Fetch& fetch,
+                                              const Term& term,
+                                              Pair (&out)[NR]) {
+  constexpr int G = 1 << LG;
+  const int lane = threadIdx.x & 31;
+  const int lanes = width < 32 ? width : 32;
+  const int count = width / lanes;
+  const int depth = 31 - __clz(count);
+  const int groups = count >> LG;
+  Pair slot[NR][MAXD];
+  for (int g = 0; g < groups; ++g) {
+    int cols[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      cols[j] = lane + 32 * leaf_chunk((g << LG) + j, depth);
+    Words cur[G];
+    fetch(cols, cur);
+    Pair t[NR][G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      Pair vals[NR];
+      term(cur[j], cols[j], vals);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) t[r][j] = vals[r];
+    }
+#pragma unroll
+    for (int s = 1; s < G; s <<= 1) {
+#pragma unroll
+      for (int j = 0; j < G; j += 2 * s) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r) t[r][j] = df_add(t[r][j], t[r][j + s]);
+      }
+    }
+    // the counter: the trailing ones of g say how many levels this group
+    // sum completes; a loop that branches (g is the same on every lane), so
+    // that no predicated-off addition is issued
+    const int tz = __ffs(~g) - 1;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      Pair carry = t[r][0];
+#pragma unroll 1
+      for (int l = 0; l < tz; ++l) carry = df_add(slot[r][l], carry);
+      slot[r][tz] = carry;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) out[r] = slot[r][depth - LG];
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const Pair o = {__shfl_down_sync(0xffffffffu, out[r].hi, off),
+                      __shfl_down_sync(0xffffffffu, out[r].lo, off)};
+      out[r] = df_add(out[r], o);
+    }
+  }
+}
+
 // The smallest power of two >= x (x >= 1).
 __host__ __device__ inline long long pow2_ceil(long long x) {
   long long m = 1;

@@ -80,8 +80,10 @@ _SIGNATURES = {
                         _INT, _VP],
     },
     "ell_spmv.cu": {
-        name: [_VP, _VP, _INT, _LL, _VP, _VP, _VP, _VP, _INT, _INT, _VP]
-        for name in ("ell_spmv_f32", "ell_spmv_f64")
+        **{name: [_VP, _VP, _INT, _LL, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                  _VP] for name in ("ell_spmv_f32", "ell_spmv_f64")},
+        **{name: [_VP, _LL, _VP, _VP, _VP, _INT, _INT, _VP]
+           for name in ("ell_gather_f32", "ell_gather_f64")},
     },
 }
 

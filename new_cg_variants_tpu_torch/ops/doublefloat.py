@@ -332,7 +332,10 @@ def df_operator(A, fmt: str = "auto", device=None) -> DFOperator:
         hi, lo, lo2 = df_split3(data, device=dev)
         return DFOperator(DiaOperator(offsets, hi), lo, lo2)
     if isinstance(A, EllOperator):
-        return _df_ell(A.val, A.idx_t, A.nnz, dev)
+        # in the original numbering (one restore of a locality order's
+        # storage): the double-word ELL product has no kernel of its own
+        val_t, idx_t = A._given()
+        return _df_ell(val_t.T, idx_t, A.nnz, dev)
     if isinstance(A, DenseOperator):
         A = A.a
     if hasattr(A, "tocoo") and not isinstance(A, np.ndarray):

@@ -8,9 +8,9 @@
   the matrix.  ``mv`` / ``mv2`` go through :mod:`.spmv_dia`: the hand-written
   kernel on the card, the plain shift formulation on the CPU.
 * :class:`EllOperator` — padded ELL for general sparse matrices: ``(n, L)``
-  values and int32 column indices, kept slot-major.  ``mv`` / ``mv2`` go
-  through :mod:`.ell_spmv` (the kernel on the card, the plain gather on the
-  CPU).
+  values and int32 column indices, kept slot-major, in a locality order
+  where :func:`from_coo` finds one.  ``mv`` / ``mv2`` go through
+  :mod:`.ell_spmv` (the kernels on the card, the plain gather on the CPU).
 * :class:`~.sym_dia.SymDiaOperator`, :class:`~.stencil.BandedStencilOperator`
   and :class:`~.block_banded.PermutedBlockBandedOperator` (their own
   modules) — symmetric half-band storage, the matrix-free constant band and
@@ -40,7 +40,8 @@ from . import ell_spmv, spmv_dia
 
 __all__ = ["DenseOperator", "DiaOperator", "EllOperator", "from_coo",
            "as_operator", "build_dense", "build_dia", "build_sym_dia",
-           "build_ell", "choose_format", "coo_from_scipy", "torch_dtype"]
+           "build_ell", "choose_format", "coo_from_scipy", "ell_order",
+           "torch_dtype"]
 
 
 def torch_dtype(dtype):
@@ -177,14 +178,21 @@ class EllOperator:
     the stored entries, padding excluded.
 
     The operator keeps one slot-major copy, ``val_t`` / ``idx_t`` of shape
-    ``(L, n)``, contiguous (int32 indices); ``val`` / ``idx`` are their
-    ``(n, L)`` views, the JAX package's layout, with no second copy.  On the
-    card slot l of neighbouring rows is then one coalesced read
-    (``csrc/ell_spmv.cu``).
+    ``(L, n)``, contiguous (int32 indices).  On the card slot l of
+    neighbouring rows is then one coalesced read (``csrc/ell_spmv.cu``).
+    With ``perm`` (a permutation of ``range(n)``) that copy holds the rows in
+    this locality order instead, ``B = P A P^T`` (:func:`.ell_spmv.reorder`),
+    and every product gathers in and scatters out through ``perm``: the same
+    terms in the same order, so the same bits as the given order.
+    :func:`from_coo` passes the reverse Cuthill-McKee order when it narrows
+    the band.  ``val`` / ``idx`` are the JAX package's ``(n, L)`` layout in
+    the original numbering: views of the copy in the given order, rebuilt
+    from it on each call in a locality order (for host-side uses:
+    ``todense``, ``tocsr``, the double-word split).
     """
 
     def __init__(self, val: torch.Tensor, idx: torch.Tensor,
-                 nnz_stored: int = 0):
+                 nnz_stored: int = 0, perm=None):
         if val.ndim != 2 or idx.shape != val.shape:
             raise ValueError(f"ELL arrays of shapes {tuple(val.shape)} and "
                              f"{tuple(idx.shape)}, expected one (n, L)")
@@ -195,14 +203,34 @@ class EllOperator:
         self.val_t = val.T.contiguous()
         self.idx_t = idx.T.to(torch.int32).contiguous()
         self.nnz_stored = int(nnz_stored)
+        self.perm = None
+        if perm is not None:
+            self.perm = ell_spmv.check_perm(
+                torch.as_tensor(perm).to(val.device), val.shape[0])
+            self.val_t, self.idx_t = ell_spmv.reorder(self.val_t, self.idx_t,
+                                                      self.perm)
+
+    @classmethod
+    def _stored(cls, val_t, idx_t, nnz_stored, perm):
+        """An operator on storage already in the order ``perm``."""
+        op = cls.__new__(cls)
+        op.val_t, op.idx_t, op.nnz_stored, op.perm = (val_t, idx_t,
+                                                      nnz_stored, perm)
+        return op
+
+    def _given(self):
+        """Slot-major ``(L, n)`` arrays in the original numbering."""
+        if self.perm is None:
+            return self.val_t, self.idx_t
+        return ell_spmv.restore(self.val_t, self.idx_t, self.perm)
 
     @property
     def val(self):
-        return self.val_t.T
+        return self._given()[0].T
 
     @property
     def idx(self):
-        return self.idx_t.T
+        return self._given()[1].T
 
     @property
     def n(self) -> int:
@@ -221,26 +249,34 @@ class EllOperator:
         return self.val_t.device
 
     def mv(self, v):
-        return ell_spmv.ell_spmv(self.val, self.idx, v)
+        return ell_spmv.ell_spmv(self.val_t.T, self.idx_t.T, v, self.perm)
 
     def mv2(self, v, w):
-        return ell_spmv.ell_spmv2(self.val, self.idx, v, w)
+        return ell_spmv.ell_spmv2(self.val_t.T, self.idx_t.T, v, w, self.perm)
 
     def diagonal(self):
         rows = torch.arange(self.n, device=self.device)[:, None]
-        hit = self.idx == rows
-        return torch.where(hit, self.val, 0.0).sum(1)
+        hit = self.idx_t.T == rows
+        d = torch.where(hit, self.val_t.T, 0.0).sum(1)
+        if self.perm is None:
+            return d
+        out = torch.empty_like(d)
+        out[self.perm.long()] = d
+        return out
 
     def astype(self, dtype):
-        return EllOperator(self.val_t.to(dtype).T, self.idx, self.nnz_stored)
+        return EllOperator._stored(self.val_t.to(dtype), self.idx_t,
+                                   self.nnz_stored, self.perm)
 
     def to(self, device):
-        return EllOperator(self.val_t.to(device).T, self.idx_t.to(device).T,
-                           self.nnz_stored)
+        return EllOperator._stored(
+            self.val_t.to(device), self.idx_t.to(device), self.nnz_stored,
+            None if self.perm is None else self.perm.to(device))
 
     def _host(self):
-        return (self.val.detach().cpu().to(torch.float64).numpy(),
-                self.idx.detach().cpu().numpy())
+        val_t, idx_t = self._given()
+        return (val_t.T.detach().cpu().to(torch.float64).numpy(),
+                idx_t.T.detach().cpu().numpy())
 
     def todense(self):
         val, idx = self._host()
@@ -460,7 +496,8 @@ def from_coo(coo, fmt: str = "auto", dtype=torch.float64,
     symmetric (its lower triangle would be dropped), ``'stencil'`` on input
     that is no constant band.  ``'block_banded'`` returns a
     :class:`~.block_banded.PermutedBlockBandedOperator` (original
-    coordinates outside, the reordered band inside).
+    coordinates outside, the reordered band inside); ``'ell'`` an
+    :class:`EllOperator` that keeps its rows in :func:`ell_order`.
     """
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
@@ -504,8 +541,21 @@ def from_coo(coo, fmt: str = "auto", dtype=torch.float64,
     if fmt == "ell":
         val, idx, nnz = build_ell(coo)
         return EllOperator(tensor(val.T).T,
-                           torch.from_numpy(idx.T).to(dev).T, nnz)
+                           torch.from_numpy(idx.T).to(dev).T, nnz,
+                           perm=ell_order(coo))
     raise ValueError(f"unknown format {fmt!r}")
+
+
+def ell_order(coo):
+    """The locality order an ELL operator keeps: the reverse Cuthill-McKee
+    order of the format policy's probe (memoised on ``coo``, so the auto
+    route computed it already) when it narrows the band, as
+    :func:`~.block_banded.block_banded_from_coo` takes it; else ``None``,
+    the given order."""
+    from .block_banded import _rcm_probe_full
+
+    _, bw_natural, bw_rcm, perm = _rcm_probe_full(coo)
+    return perm if bw_rcm < bw_natural else None
 
 
 def coo_from_scipy(a) -> CooMatrix:

@@ -298,8 +298,11 @@ def test_every_study_edit_applies_to_the_kernel_sources():
     edits = (list(chip_study.MUTANTS.values())
              + list(chip_study.DF_MUTANTS.values())
              + list(chip_study.ELL_MUTANTS.values())
-             + list(chip_study.LAUNCH_BOUNDS))
-    assert len(edits) >= 19
+             + list(chip_study.LAUNCH_BOUNDS)
+             + [e for opt in (chip_study.ELL_OPTIONS,
+                              chip_study.DENSE_OPTIONS)
+                for edits in opt.values() for e in edits])
+    assert len(edits) >= 30
     for source, text, replacement in edits:
         body = (PORT_DIR / "csrc" / source).read_text()
         assert body.count(text) == 1, (source, text)
