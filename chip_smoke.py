@@ -8,9 +8,11 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
 
 1. ``build``   — seconds spent building the kernels;
 2. ``card``    — the card's name and power limit (``nvidia-smi``);
-3. ``check``   — each kernel entry against its plain PyTorch version on the
-   card, in float32 and float64, on O(1) random band data at the main path's
-   shape (n = 655,360, k = 32) and at small ragged shapes (k = 8), every value
+3. ``check``   — (``check_sym``) each kernel entry against its plain PyTorch
+   version on the card, in float32 and float64, on O(1) random band data at
+   the main path's shape (n = 655,360, k = 32), at small ragged shapes
+   (k = 8), at the widest band the auto route stores half-band (n = 65,536,
+   k = 128) and at a band wider than the matrix (n = 100, k = 128), every value
    held to its own componentwise scale, with the kernel's time (CUDA events),
    the plain version's time, the least time the card could take and, for the
    SpMV, one cuSPARSE CSR product as a yardstick.  The entries: the SpMV
@@ -154,6 +156,11 @@ VARIANT_ITERS = 300
 GENERIC_ITERS = 100
 VARIANTS_F64_N = 65_536
 SMALL_SHAPES = ((4099, 8), (100, 8))
+#: (n, k) of the half-band checks beside the main path's and SMALL_SHAPES:
+#: the widest band the auto route stores half-band (h = 127,
+#: ops/operators.py:_SYMDIA_MAX_HALF_BAND) and a band wider than the matrix
+SYM_WIDE_SHAPES = ((65_536, 128), (100, 128))
+SYM_SHAPES = ((N, K_BAND),) + SMALL_SHAPES + SYM_WIDE_SHAPES
 WIDE_N = 4_194_304
 WIDE_OFFSETS = (-2048, -1, 0, 1, 2048)
 DENSE_N = 512
@@ -172,6 +179,10 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def emit_check(rec):
+    emit("check", **rec)
 
 
 def card_line():
@@ -276,23 +287,25 @@ def library_csr(torch, offsets, data, mirror=True):
     return coo.coalesce().to_sparse_csr()
 
 
-def check_spmv(torch, card, timings):
-    """The SpMV kernel against its plain version; raises after all checks."""
+def check_spmv(torch, card, timings, report=emit_check):
+    """The half-band SpMV kernel against its plain version at SYM_SHAPES,
+    timed (when ``timings`` is a dict) at the main path's shape.  ``report``
+    takes each check's record.  Returns the failed checks."""
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
 
     rate = memory_rate(card)
-    shapes = ((N, K_BAND),) + SMALL_SHAPES
     failed = []
     for dtype in (torch.float32, torch.float64):
         dn = dtype_name(dtype)
         tol = TOL[dn]
-        for n, k in shapes:
+        for n, k in SYM_SHAPES:
             rng = np.random.default_rng(n + k)
             offs = tuple(range(k))  # the stored offsets of banded_model
             data = random_band(torch, offs, n, dtype, rng)
             v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
                                     device="cuda") for _ in range(2))
-            main = (n, k) == (N, K_BAND) and dtype == torch.float32
+            main = ((n, k) == (N, K_BAND) and dtype == torch.float32
+                    and timings is not None)
             isz = data.element_size()
             y = sd.sym_dia_spmv(offs, data, v)
             y2, z2 = sd.sym_dia_spmv2(offs, data, v, w)
@@ -322,14 +335,13 @@ def check_spmv(torch, card, timings):
                            library_ms=lib_ms, library_err=lib_err,
                            bound_ms=b_ms, bound_by=b_by, spmv2_bound_ms=b2_ms)
                 timings["sym_dia_spmv"] = rec
-            emit("check", **rec)
+            report(rec)
             if not max(errs) <= tol:
                 failed.append(rec)
 
             del data, v, w
             torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"{len(failed)} SpMV checks disagree: {failed}")
+    return failed
 
 
 #: The entries of csrc/sym_family.cu.  Per entry: input vectors in
@@ -417,10 +429,6 @@ DIA_SHAPES = (
 WIDE_SHAPE = (WIDE_N, "wide", WIDE_OFFSETS)
 #: suffix of a kernel's record (timings, the kernels line) at WIDE_SHAPE
 WIDE = " (wide band)"
-
-
-def emit_check(rec):
-    emit("check", **rec)
 
 
 def family_scales(torch, call, data, names, vecs, scalars):
@@ -523,17 +531,29 @@ def check_entries(torch, card, timings, module, table, shapes, make_band,
     return failed
 
 
-def check_family(torch, card, timings):
-    """The eleven entries of the family kernel against their plain versions;
-    raises after all checks ran."""
+def check_family(torch, card, timings, report=emit_check):
+    """The eleven entries of the family kernel against their plain versions
+    at SYM_SHAPES; returns the failed checks."""
     from new_cg_variants_tpu_torch.ops import sym_fused as sf
 
-    shapes = tuple((n, k, tuple(range(k)))
-                   for n, k in ((N, K_BAND),) + SMALL_SHAPES)
-    failed = check_entries(torch, card, timings, sf, FAMILY, shapes,
-                           random_band, 4)
+    shapes = tuple((n, k, tuple(range(k))) for n, k in SYM_SHAPES)
+    return check_entries(torch, card, timings, sf, FAMILY, shapes,
+                         random_band, 4, report=report)
+
+
+def sym_checks(torch, card, timings, report):
+    """The checks of both half-band kernels; returns the failed ones."""
+    return (check_spmv(torch, card, timings, report)
+            + check_family(torch, card, timings, report))
+
+
+def check_sym(torch, card, timings):
+    """Every half-band kernel entry against its plain version; raises after
+    all checks ran."""
+    failed = sym_checks(torch, card, timings, emit_check)
     if failed:
-        raise AssertionError(f"{len(failed)} family checks disagree: {failed}")
+        raise AssertionError(f"{len(failed)} half-band checks disagree: "
+                             f"{failed}")
 
 
 def staged_against_direct(torch, sp, offs, data, v, w):
@@ -2154,8 +2174,7 @@ def main():
             launches[name] = out  # the path's launches by kernel entry
         return out
 
-    phase("check", check_spmv, torch, card, timings)
-    phase("check_family", check_family, torch, card, timings)
+    phase("check_sym", check_sym, torch, card, timings)
     phase("check_dia", check_dia, torch, card, timings)
     phase("check_df", check_df, torch, card, timings)
     phase("main_f32", main_path_f32, torch, timings)

@@ -3,6 +3,8 @@
 
     python3 chip_study.py check     # build, registers per kernel, check_dia
     python3 chip_study.py dfcheck   # build, registers, the double-word checks
+    python3 chip_study.py symcheck  # build, registers, the half-band checks
+    python3 chip_study.py symopts   # rows 1 and 2's design options in turns
     python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
     python3 chip_study.py ellopts   # row 12's design options, timed in turns
     python3 chip_study.py denseopts # row 10's dense design options, the same
@@ -69,6 +71,25 @@ MUTANTS = {
         "pipe_vector.cu",
         "const T wt2 = __ldg(a.in[8] + i) - a1 * __ldg(a.in[9] + i);",
         "const T wt2 = __ldg(a.in[2] + i) - a1 * __ldg(a.in[9] + i);"),
+}
+
+#: faults of the half-band kernels (rows 1, 2 and 2b), held to chip_smoke.py's
+#: half-band checks
+SYM_MUTANTS = {
+    "mirror term dropped (half-band)": (
+        "sym_common.cuh", "        acc[r][k] += am * smv[k * vw + c - off];\n",
+        "        (void)am;\n"),
+    "mirror term read at row i + off (half-band)": (
+        "sym_common.cuh",
+        "const T am = (i < n && i >= off) ? __ldg(row + i - off) : T(0);",
+        "const T am = (i + off < n) ? __ldg(row + i + off) : T(0);"),
+    "diagonal d read at the offset of d - 1 (half-band)": (
+        "sym_common.cuh", "    const int off = soff[d];\n    const T* row",
+        "    const int off = soff[d - 1];\n    const T* row"),
+    "halo rows of the SpMV input left zero (half-band step)": (
+        "sym_family.cu",
+        "if (g >= 0 && g < n) S::update(a, sc, g, owned, kept, mv);",
+        "if (g >= 0 && g < n && owned) S::update(a, sc, g, owned, kept, mv);"),
 }
 
 #: faults of the double-word kernels (rows 9-11), held to chip_smoke.py's
@@ -399,12 +420,485 @@ DENSE_OPTIONS = {
 }
 
 
+#: the earlier staged band (``load_band``, ``sym_row``) as edits of the
+#: direct design: the band window staged in shared memory by 4-byte loads
+STAGED_HELPERS = r"""// Stage data[:, i0 - h : i0 + kTile) into sdata (row stride kTile + h).
+template <typename T>
+__device__ __forceinline__ void load_band(const T* __restrict__ data,
+                                          int ndiag, int h, long long n,
+                                          long long i0, T* sdata) {
+  const int dw = kTile + h;
+  const int total = ndiag * dw;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int d = idx / dw;
+    const long long g = i0 - h + (idx - d * dw);
+    sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+  }
+}
+
+template <typename T>
+__host__ __device__ inline int band_pad(int h) {
+  return h;
+}
+
+// (A v)[i0 + t] from the staged band and window.
+template <typename T>
+__device__ __forceinline__ T sym_row(const T* sdata, const T* sv, int ndiag,
+                                     int h, const int* soff, int t) {
+  const int dw = kTile + h;
+  const int c = t + h;  // row i0 + t in window coordinates
+  T acc = sdata[c] * sv[c];
+  for (int d = 1; d < ndiag; ++d) {
+    const int off = soff[d];
+    const T* row = sdata + d * dw;
+    acc += row[c] * sv[c + off];
+    acc += row[c - off] * sv[c - off];
+  }
+  return acc;
+}
+
+"""
+
+#: the staged band brought in by 16-byte asynchronous copies (cp.async.cg),
+#: all issued before the first wait: rows of the window start on 16-byte
+#: boundaries (h padded to hp), rows wholly outside [0, n) stored as zeros;
+#: plain loads where n leaves the band's rows unaligned
+ASYNC_HELPERS = r"""template <typename T>
+__host__ __device__ inline int band_pad(int h) {
+  constexpr int V = 16 / sizeof(T);
+  return (h + V - 1) / V * V;
+}
+
+// Stage data[:, i0 - hp : i0 + kTile) into sdata (row stride kTile + hp).
+template <typename T>
+__device__ __forceinline__ void load_band(const T* __restrict__ data,
+                                          int ndiag, int h, long long n,
+                                          long long i0, T* sdata) {
+  constexpr int V = 16 / sizeof(T);
+  const int hp = band_pad<T>(h);
+  const int dw = kTile + hp;
+  if (n % V == 0) {
+    const int nch = dw / V;
+    const int total = ndiag * nch;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int d = idx / nch;
+      const int m = idx - d * nch;
+      const long long g = i0 - hp + m * V;
+      T* dst = sdata + d * dw + m * V;
+      if (g >= 0 && g < n) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                     "l"(data + (long long)d * n + g)
+                     : "memory");
+      } else {
+        for (int e = 0; e < V; ++e) dst[e] = T(0);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    const int total = ndiag * dw;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int d = idx / dw;
+      const long long g = i0 - hp + (idx - d * dw);
+      sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+    }
+  }
+}
+
+// (A v)[i0 + t] from the staged band (row t + hp) and window (row t + h).
+template <typename T>
+__device__ __forceinline__ T sym_row(const T* sdata, const T* sv, int ndiag,
+                                     int h, const int* soff, int t) {
+  const int hp = band_pad<T>(h);
+  const int dw = kTile + hp;
+  const int cb = t + hp;
+  const int c = t + h;
+  T acc = sdata[cb] * sv[c];
+  for (int d = 1; d < ndiag; ++d) {
+    const int off = soff[d];
+    const T* row = sdata + d * dw;
+    acc += row[cb] * sv[c + off];
+    acc += row[cb - off] * sv[c - off];
+  }
+  return acc;
+}
+
+"""
+
+
+#: the staged band in a persistent block with two stages: while a block
+#: computes one 256-row tile from one stage, the 16-byte asynchronous copies
+#: (cp.async.cg, one commit group a tile) of its next tile's band land in the
+#: other; the vector windows are staged per tile as before
+RING_HELPERS = r"""template <typename T>
+__host__ __device__ inline int band_pad(int h) {
+  constexpr int V = 16 / sizeof(T);
+  return (h + V - 1) / V * V;
+}
+
+// Issue the copies of data[:, i0 - hp : i0 + kTile) into sdata (row stride
+// kTile + hp) as one commit group; plain loads where n leaves the band's
+// rows unaligned.
+template <typename T>
+__device__ __forceinline__ void issue_band(const T* __restrict__ data,
+                                           int ndiag, int h, long long n,
+                                           long long i0, T* sdata) {
+  constexpr int V = 16 / sizeof(T);
+  const int hp = band_pad<T>(h);
+  const int dw = kTile + hp;
+  if (n % V == 0) {
+    const int nch = dw / V;
+    const int total = ndiag * nch;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int d = idx / nch;
+      const int m = idx - d * nch;
+      const long long g = i0 - hp + m * V;
+      T* dst = sdata + d * dw + m * V;
+      if (g >= 0 && g < n) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                     "l"(data + (long long)d * n + g)
+                     : "memory");
+      } else {
+        for (int e = 0; e < V; ++e) dst[e] = T(0);
+      }
+    }
+  } else {
+    const int total = ndiag * dw;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int d = idx / dw;
+      const long long g = i0 - hp + (idx - d * dw);
+      sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// (A v)[i0 + t] from the staged band (row t + hp) and window (row t + h).
+template <typename T>
+__device__ __forceinline__ T sym_row(const T* sdata, const T* sv, int ndiag,
+                                     int h, const int* soff, int t) {
+  const int hp = band_pad<T>(h);
+  const int dw = kTile + hp;
+  const int cb = t + hp;
+  const int c = t + h;
+  T acc = sdata[cb] * sv[c];
+  for (int d = 1; d < ndiag; ++d) {
+    const int off = soff[d];
+    const T* row = sdata + d * dw;
+    acc += row[cb] * sv[c + off];
+    acc += row[cb - off] * sv[c - off];
+  }
+  return acc;
+}
+
+// Blocks a launch of a persistent kernel holds: as many as fit on the card.
+template <typename K>
+inline unsigned persistent_grid(K kernel, size_t smem, long long ntiles) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kTile, smem);
+  const long long g = (long long)(occ > 0 ? occ : 1) * sms;
+  return unsigned(g < ntiles ? g : ntiles);
+}
+
+"""
+
+RING_SPMV = r"""template <typename T, int NRHS>
+__global__ void __launch_bounds__(kTile) sym_dia_ring_kernel(
+    const T* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
+    int h, long long n, const T* __restrict__ v0, const T* __restrict__ v1,
+    T* __restrict__ y0, T* __restrict__ y1) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int soff[kMaxDiags];
+  const size_t bw = size_t(ndiag) * (kTile + band_pad<T>(h));
+  const int vw = kTile + 2 * h;
+  T* sdata = reinterpret_cast<T*>(smem);  // two stages of bw
+  T* sv = sdata + 2 * bw;                 // NRHS windows of vw
+  const long long ntiles = (n + kTile - 1) / kTile;
+  load_offsets(o, ndiag, soff);
+  long long tile = blockIdx.x;
+  issue_band(data, ndiag, h, n, tile * kTile, sdata);
+  for (int s = 0; tile < ntiles; tile += gridDim.x, s ^= 1) {
+    const long long i0 = tile * kTile;
+    if (tile + gridDim.x < ntiles) {
+      issue_band(data, ndiag, h, n, (tile + gridDim.x) * kTile,
+                 sdata + (s ^ 1) * bw);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    load_window(v0, h, n, i0, vw, sv);
+    if (NRHS == 2) load_window(v1, h, n, i0, vw, sv + vw);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const long long i = i0 + threadIdx.x;
+    const T* cur = sdata + s * bw;
+    if (i < n) {
+      y0[i] = sym_row(cur, sv, ndiag, h, soff, threadIdx.x);
+      if (NRHS == 2) y1[i] = sym_row(cur, sv + vw, ndiag, h, soff, threadIdx.x);
+    }
+    __syncthreads();
+  }
+}
+
+"""
+
+RING_FAMILY = r"""template <typename T, typename S>
+__global__ void __launch_bounds__(kTile) sym_family_ring_kernel(
+    const T* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
+    int h, long long n, const __grid_constant__ FamilyArgs<T> a,
+    T* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int soff[kMaxDiags];
+  const size_t bw = size_t(ndiag) * (kTile + band_pad<T>(h));
+  const int vw = kTile + 2 * h;
+  T* sdata = reinterpret_cast<T*>(smem);  // two stages of bw
+  T* smv = sdata + 2 * bw;                // S::kMv windows of vw
+  T* sred = smv + size_t(S::kMv) * vw;    // S::kDots * kWarps
+  const int t = threadIdx.x;
+  const long long ntiles = (n + kTile - 1) / kTile;
+  T sc[2];
+  sc[0] = *a.sc[0];
+  sc[1] = S::kSc > 1 ? *a.sc[1] : T(0);
+  load_offsets(o, ndiag, soff);
+  long long tile = blockIdx.x;
+  issue_band(data, ndiag, h, n, tile * kTile, sdata);
+  for (int s = 0; tile < ntiles; tile += gridDim.x, s ^= 1) {
+    const long long i0 = tile * kTile;
+    if (tile + gridDim.x < ntiles) {
+      issue_band(data, ndiag, h, n, (tile + gridDim.x) * kTile,
+                 sdata + (s ^ 1) * bw);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    T keep[kFamilyRows][S::kKeep];
+    sym_window<T, S>(a, sc, n, i0, h, vw, keep, smv);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const long long i = i0 + t;
+    T prod[S::kDots];
+#pragma unroll
+    for (int k = 0; k < S::kDots; ++k) prod[k] = T(0);
+    if (i < n) {
+      T mv[S::kMv], acc[S::kMv];
+#pragma unroll
+      for (int k = 0; k < S::kMv; ++k) {
+        mv[k] = smv[k * vw + t + h];
+        acc[k] = sym_row(sdata + s * bw, smv + k * vw, ndiag, h, soff, t);
+      }
+      S::finish(a, i, keep[0], mv, acc, prod);
+    }
+    block_dots(prod, sred, partials + size_t(tile) * S::kDots);
+    __syncthreads();
+  }
+}
+
+"""
+
+#: the persistent two-stage ring as edits: new kernels beside the committed
+#: ones, launched in their place, one row a thread
+SYM_RING = [
+    ("sym_common.cuh", "constexpr int kWarps = kTile / 32;\n",
+     "constexpr int kWarps = kTile / 32;\n\n" + RING_HELPERS),
+    ("sym_dia.cu", "template <typename T>\nint launch_sym_dia(",
+     RING_SPMV + "template <typename T>\nint launch_sym_dia("),
+    ("sym_dia.cu",
+     "  if (nrhs == 1) {\n"
+     "    err = allow_smem(sym_dia_kernel<T, 1>, smem);\n"
+     "    if (err != cudaSuccess) return int(err);\n"
+     "    sym_dia_kernel<T, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "                                                    ya, yb);\n"
+     "  } else {\n"
+     "    err = allow_smem(sym_dia_kernel<T, 2>, smem);\n"
+     "    if (err != cudaSuccess) return int(err);\n"
+     "    sym_dia_kernel<T, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "                                                    ya, yb);\n"
+     "  }\n",
+     "  (void)grid;\n"
+     "  const long long ntiles = (n + kTile - 1) / kTile;\n"
+     "  const size_t ring =\n"
+     "      (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
+     "       size_t(nrhs) * (kTile + 2 * h)) * sizeof(T);\n"
+     "  if (nrhs == 1) {\n"
+     "    err = allow_smem(sym_dia_ring_kernel<T, 1>, ring);\n"
+     "    if (err != cudaSuccess) return int(err);\n"
+     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, 1>, ring, ntiles);\n"
+     "    sym_dia_ring_kernel<T, 1><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "                                                      ya, yb);\n"
+     "  } else {\n"
+     "    err = allow_smem(sym_dia_ring_kernel<T, 2>, ring);\n"
+     "    if (err != cudaSuccess) return int(err);\n"
+     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, 2>, ring, ntiles);\n"
+     "    sym_dia_ring_kernel<T, 2><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "                                                      ya, yb);\n"
+     "  }\n"),
+    ("sym_family.cu", "constexpr int kFamilyRows = 2;",
+     "constexpr int kFamilyRows = 1;"),
+    ("sym_family.cu", "template <typename T, typename S>\nint launch_spec(",
+     RING_FAMILY + "template <typename T, typename S>\nint launch_spec("),
+    ("sym_family.cu",
+     "  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);\n"
+     "  if (err != cudaSuccess) return int(err);\n"
+     "  const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);\n"
+     "  sym_family_kernel<T, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n, a,\n"
+     "                                                    partials);\n",
+     "  (void)smem;\n"
+     "  const long long ntiles = (n + kTile - 1) / kTile;\n"
+     "  const size_t ring = (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
+     "                       size_t(S::kMv) * (kTile + 2 * h) +\n"
+     "                       S::kDots * kWarps) * sizeof(T);\n"
+     "  cudaError_t err = allow_smem(sym_family_ring_kernel<T, S>, ring);\n"
+     "  if (err != cudaSuccess) return int(err);\n"
+     "  const unsigned g = persistent_grid(sym_family_ring_kernel<T, S>, ring, ntiles);\n"
+     "  sym_family_ring_kernel<T, S><<<g, kTile, ring, st>>>(data, o, ndiag, h, n,\n"
+     "                                                      a, partials);\n"),
+]
+
+
+def staged_band(helpers):
+    """Edits that stage each block's band window in shared memory (the
+    earlier design) with the staging of ``helpers``; both kernels then own
+    one row a thread and compute their row products from shared memory
+    (sym_row), under the earlier design's launch bounds."""
+    return [
+        ("sym_common.cuh", "constexpr int kWarps = kTile / 32;\n",
+         helpers + "constexpr int kWarps = kTile / 32;\n"),
+        ("sym_dia.cu", "  T* sv = reinterpret_cast<T*>(smem);  // NRHS windows of vw",
+         "  T* sdata = reinterpret_cast<T*>(smem);\n"
+         "  T* sv = sdata + size_t(ndiag) * (kTile + band_pad<T>(h));"),
+        ("sym_dia.cu", "  load_window(v0, h, n, i0, vw, sv);",
+         "  load_band(data, ndiag, h, n, i0, sdata);\n"
+         "  load_window(v0, h, n, i0, vw, sv);"),
+        ("sym_dia.cu",
+         "  sym_rows<T, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h, "
+         "acc);",
+         "  acc[0][0] = sym_row(sdata, sv, ndiag, h, soff, threadIdx.x);\n"
+         "  if (NRHS == 2)\n"
+         "    acc[0][NRHS - 1] = sym_row(sdata, sv + vw, ndiag, h, soff,\n"
+         "                               threadIdx.x);"),
+        ("sym_dia.cu", "__launch_bounds__(kTile, kSymDiaMinBlocks<T>)",
+         "__launch_bounds__(kTile)"),
+        ("sym_dia.cu",
+         "  const size_t smem = size_t(nrhs) * (kSymDiaTile + 2 * h) * "
+         "sizeof(T);",
+         "  const size_t smem = (size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
+         "                       size_t(nrhs) * (kSymDiaTile + 2 * h)) *\n"
+         "                      sizeof(T);"),
+        ("sym_family.cu", "constexpr int kFamilyRows = 2;",
+         "constexpr int kFamilyRows = 1;"),
+        ("sym_family.cu",
+         "  T* smv = reinterpret_cast<T*>(smem);   // S::kMv windows of vw",
+         "  T* sdata = reinterpret_cast<T*>(smem);\n"
+         "  T* smv = sdata + size_t(ndiag) * (kTile + band_pad<T>(h));"),
+        ("sym_family.cu",
+         "  load_offsets(o, ndiag, soff);\n  T keep[kFamilyRows][S::kKeep];",
+         "  load_offsets(o, ndiag, soff);\n"
+         "  load_band(data, ndiag, h, n, i0, sdata);\n"
+         "  T keep[kFamilyRows][S::kKeep];"),
+        ("sym_family.cu",
+         "  sym_rows<T, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,"
+         "\n                                   acc);",
+         "#pragma unroll\n"
+         "  for (int k = 0; k < S::kMv; ++k)\n"
+         "    acc[0][k] = sym_row(sdata, smv + k * vw, ndiag, h, soff, t);"),
+        ("sym_family.cu",
+         "constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 3;",
+         "constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 2;"),
+        ("sym_family.cu",
+         "  const size_t smem = (size_t(S::kMv) * (kFamilyTile + 2 * h) +",
+         "  const size_t smem = (size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
+         "                       size_t(S::kMv) * (kFamilyTile + 2 * h) +"),
+    ]
+
+
+#: the staged design the direct band replaced, as it was committed
+SYM_STAGED = staged_band(STAGED_HELPERS)
+
+
+def sym_bounds(family=None, spmv=None):
+    """Edits that set the minimum-blocks launch bounds of the half-band
+    family kernel and SpMV: (f32, f64) each, None to keep."""
+    edits = []
+    if family:
+        edits.append(("sym_family.cu",
+                      "constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 3;",
+                      "constexpr int kMinBlocks = sizeof(T) == 4 ? {} : {};"
+                      .format(*family)))
+    if spmv:
+        edits.append(("sym_dia.cu", "constexpr int kSymDiaMinBlocks = 8;",
+                      "constexpr int kSymDiaMinBlocks = sizeof(T) == 4 ? {} : "
+                      "{};".format(*spmv)))
+    return edits
+
+
+def rows_per_thread(family=None, spmv=None):
+    """Edits that set the rows a thread owns in each half-band kernel."""
+    edits = []
+    if family:
+        edits.append(("sym_family.cu", "constexpr int kFamilyRows = 2;",
+                      f"constexpr int kFamilyRows = {family};"))
+    if spmv:
+        edits.append(("sym_dia.cu", "constexpr int kSymDiaRows = 1;",
+                      f"constexpr int kSymDiaRows = {spmv};"))
+    return edits
+
+
+#: design options of rows 1, 2 and 2b, each timed against the committed
+#: source in turns (``symopts``): what -> edits
+SYM_OPTIONS = {
+    "(a) staged band, the earlier design": SYM_STAGED,
+    "(b) f32 forward band loads plain (no hint)": [
+        ("sym_common.cuh", "    return __ldcs(p);", "    return *p;")],
+    "(b) f32 forward band loads read-only (__ldg)": [
+        ("sym_common.cuh", "    return __ldcs(p);", "    return __ldg(p);")],
+    "(b) f64 forward band loads read-only (__ldg)": [
+        ("sym_common.cuh", "    return *p;", "    return __ldg(p);")],
+    "(b) f64 forward band loads evict-first (__ldcs)": [
+        ("sym_common.cuh", "    return *p;", "    return __ldcs(p);")],
+    "(c) staged band by 16-byte cp.async": staged_band(ASYNC_HELPERS),
+    "(c) staged band by 16-byte cp.async, persistent blocks, two stages":
+        SYM_RING,
+    "(d) family kernel: 1 row per thread (256-row tiles)":
+        rows_per_thread(family=1),
+    "(d) family kernel: 4 rows per thread (1024-row tiles)":
+        rows_per_thread(family=4),
+    "(d) SpMV: 2 rows per thread (512-row tiles)": rows_per_thread(spmv=2),
+    "(e) family kernel: launch bound 4 blocks": sym_bounds(family=(4, 4)),
+    "(e) family kernel: launch bound 6 blocks": sym_bounds(family=(6, 6)),
+    "(e) family kernel: launch bound 8 blocks": sym_bounds(family=(8, 8)),
+    "(e) family kernel: no minimum blocks": sym_bounds(family=(1, 1)),
+    "(e) SpMV: launch bound 4 blocks in f64": sym_bounds(spmv=(8, 4)),
+    "(e) SpMV: launch bound 6 blocks": sym_bounds(spmv=(6, 6)),
+    "diagonal loop unrolled by 2": [
+        ("sym_common.cuh", "#pragma unroll 4\n  for (int d = 1;",
+         "#pragma unroll 2\n  for (int d = 1;")],
+    "diagonal loop unrolled by 8": [
+        ("sym_common.cuh", "#pragma unroll 4\n  for (int d = 1;",
+         "#pragma unroll 8\n  for (int d = 1;")],
+    "carve-out: 25% of the SM's on-chip memory to shared memory": [
+        ("sym_family.cu",
+         "  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);\n",
+         "  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);\n"
+         "  cudaFuncSetAttribute(sym_family_kernel<T, S>,\n"
+         "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
+         " 25);\n"),
+        ("sym_dia.cu", "  cudaStream_t st = static_cast<cudaStream_t>(stream);\n",
+         "  cudaStream_t st = static_cast<cudaStream_t>(stream);\n"
+         "  cudaFuncSetAttribute(sym_dia_kernel<T, 1>,\n"
+         "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
+         " 25);\n"
+         "  cudaFuncSetAttribute(sym_dia_kernel<T, 2>,\n"
+         "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
+         " 25);\n")],
+}
+
+
 #: the minimum-blocks launch bound of the half-band SpMV, the DIA SpMV and the
 #: full-DIA family kernel: (source, text, replacement taking the bound)
 LAUNCH_BOUNDS = (
-    ("sym_dia.cu",
-     "__global__ void __launch_bounds__(kTile)\n    sym_dia_kernel",
-     "__global__ void __launch_bounds__(kTile, {})\n    sym_dia_kernel"),
+    ("sym_dia.cu", "constexpr int kSymDiaMinBlocks = 8;",
+     "constexpr int kSymDiaMinBlocks = {};"),
     ("dia_spmv.cu", "constexpr int kDiaMinBlocks = sizeof(T) == 4 ? 8 : 4;",
      "constexpr int kDiaMinBlocks = {};"),
     ("dia_family.cu",
@@ -422,7 +916,7 @@ def build_edited(stack, edits, only=None):
     replacement)] applied, in a temporary directory that lives as long as
     ``stack``; ``only``: the ``.cu`` sources to build (default all).
     Returns the loaded libraries by source (for ``_kernels.using``) and the
-    build logs' register lines."""
+    build logs' register and spill lines."""
     from new_cg_variants_tpu_torch.ops import _kernels
 
     tmp = Path(stack.enter_context(
@@ -440,7 +934,7 @@ def build_edited(stack, edits, only=None):
     paths = _kernels.build(csrc=tmp / "csrc", build_root=tmp / "_build")
     libs = {src: _kernels.load(src, p) for src, p in paths.items()}
     logs = {src: [ln for ln in p.with_suffix(".log").read_text().splitlines()
-                  if "registers" in ln or "Compiling" in ln]
+                  if "registers" in ln or "Compiling" in ln or "spill" in ln]
             for src, p in paths.items()}
     return libs, logs
 
@@ -457,6 +951,20 @@ def dia_checks(torch, card):
                 failed_err_min=min(errs, default=None),
                 failed_err_max=max(errs, default=None),
                 passed_err_max=max(honest, default=None))
+
+
+def sym_checks(torch, card):
+    """The half-band checks, counted instead of raised and not timed."""
+    lines = []
+    failed = cs.sym_checks(torch, card, None, lines.append)
+    errs = [max(r["max_err"], r.get("max_dot_err", 0.0)) for r in failed]
+    return dict(checks=len(lines), failed=len(failed),
+                failed_checks=sorted({(r["kernel"], r["n"], r["k"])
+                                      for r in failed}),
+                failed_err_min=min(errs, default=None),
+                passed_err_max=max((max(r["max_err"], r.get("max_dot_err", 0.0))
+                                    for r in lines if r not in failed),
+                                   default=None))
 
 
 def df_checks(torch, card):
@@ -501,6 +1009,114 @@ def study_check(torch, card):
         with _kernels.using(libs):
             cs.check_dia(torch, card, {})
     emit("check", ok=True)
+
+
+def study_symcheck(torch, card):
+    """The quick first call after touching a half-band kernel: build,
+    registers, the half-band checks (timed)."""
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    with contextlib.ExitStack() as stack:
+        libs, logs = build_edited(stack, [])
+        for src in ("sym_dia.cu", "sym_family.cu"):
+            emit("symcheck", source=src, ptxas=logs[src])
+        with _kernels.using(libs):
+            cs.check_sym(torch, card, {})
+    emit("symcheck", ok=True)
+
+
+def sym_cases(torch, n, k, dtype, seed):
+    """Name -> callable of every half-band kernel entry on one band, random
+    inputs from ``seed``: the two SpMV entries and the eleven family
+    entries."""
+    from new_cg_variants_tpu_torch.ops import sym_dia as sd
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+
+    rng = np.random.default_rng(seed)
+    offs = tuple(range(k))
+    data = cs.random_band(torch, offs, n, dtype, rng)
+    vecs = {nm: torch.as_tensor(
+        rng.uniform(0.5, 2.0, n) if nm == "d" else rng.standard_normal(n),
+        dtype=dtype, device="cuda") for nm in "d x r w u p s rt st wt ut".split()}
+    scal = {nm: torch.tensor(val, dtype=dtype, device="cuda")
+            for nm, val in cs.SCALAR_VALUES.items()}
+    v, w = vecs["x"], vecs["r"]
+    cases = {
+        "sym_dia_spmv": lambda: flat(sd.sym_dia_spmv(offs, data, v)),
+        "sym_dia_spmv2": lambda: flat(sd.sym_dia_spmv2(offs, data, v, w)),
+    }
+    for entry, (ins, scs, _, _, _, _, kw, _) in cs.FAMILY.items():
+        fn = getattr(sf, entry.split("/")[0])
+        args = [vecs[nm] for nm in ins.split()] + [scal[nm] for nm in scs.split()]
+        cases[entry] = (lambda fn=fn, args=args, kw=kw:
+                        flat(fn(offs, data, *args, **kw)))
+    return cases
+
+
+def study_symopts(torch, card):
+    """Rows 1, 2 and 2b's design options against the committed source,
+    timed in turns at the main path's shape (n = 655,360, k = 32) in f32
+    and f64; every option's outputs compared bit for bit with the committed
+    kernels' there and on every shape of the half-band checks
+    (chip_smoke.SYM_SHAPES), and the half-band checks run under each."""
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    cases = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = cs.dtype_name(dtype)
+        for name, fn in sym_cases(torch, cs.N, cs.K_BAND, dtype, 7).items():
+            cases[f"{name}, {dn}"] = fn
+    shape_cases = {}
+    for dtype in (torch.float32, torch.float64):
+        for n, k in cs.SYM_SHAPES:
+            for name, fn in sym_cases(torch, n, k, dtype, n + k).items():
+                shape_cases[(name, cs.dtype_name(dtype), n, k)] = fn
+
+    # a staged band takes ndiag * (256 + h) values of shared memory a
+    # block (two stages: twice that): 392 KB at k = 128 in f64, which no
+    # block has
+    staged = {name for name, edits in SYM_OPTIONS.items()
+              if any("band_pad" in repl for _, _, repl in edits)}
+
+    def check(variant):
+        shapes = cs.SYM_SHAPES
+        if variant in staged:
+            cs.SYM_SHAPES = tuple(s for s in shapes if s[1] <= cs.K_BAND)
+        try:
+            lines = []
+            failed = cs.sym_checks(torch, card, None, lines.append)
+        finally:
+            cs.SYM_SHAPES = shapes
+        outs = {key: [t.clone() for t in fn()]
+                for key, fn in shape_cases.items()
+                if variant not in staged or key[3] <= cs.K_BAND}
+        return dict(checks=len(lines), failed=len(failed),
+                    passed_err_max=max(max(r["max_err"],
+                                           r.get("max_dot_err", 0.0))
+                                       for r in lines), outs=outs)
+
+    variants = {"as committed": [], **SYM_OPTIONS}
+    times, same, logs, checked = timed_in_turns(
+        torch, variants, cases, rounds=5, iters=100,
+        only=("sym_dia.cu", "sym_family.cu"), check=check)
+    ref = checked["as committed"]["outs"]
+    for name, by_src in logs.items():
+        outs = checked[name].pop("outs")
+        differ = sorted({f"{key[0]}, {key[1]}, n = {key[2]}, k = {key[3]}"
+                         for key, got in outs.items()
+                         if not all(bool(torch.equal(a, b))
+                                    for a, b in zip(got, ref[key]))})
+        emit("symopts", variant=name,
+             ptxas=by_src["sym_dia.cu"] + by_src["sym_family.cu"],
+             sym_checks=checked[name], check_shapes_compared=len(outs),
+             check_shapes_same_bits_as_committed=not differ,
+             check_shapes_differing=differ)
+    for c in cases:
+        emit("symopts", case=c, card=card,
+             ms={v: [round(t, 5) for t in ts] for v, ts in times[c].items()},
+             median_ms={v: round(float(np.median(ts)), 5)
+                        for v, ts in times[c].items()},
+             same_bits_as_committed=same[c])
 
 
 def study_dfcheck(torch, card):
@@ -585,7 +1201,7 @@ def study_denseopts(torch, card):
         cases[f"df_dense_spmv2, n = {n}"] = (
             lambda mats=mats, v=v, w=w: flat(ds.df_dense_spmv2(*mats, v, w)))
 
-    def check():
+    def check(variant):
         lines = []
         failed = cs.check_df_dense(torch, card, None, lines.append)
         return dict(checks=len(lines), failed=len(failed))
@@ -606,19 +1222,31 @@ def study_denseopts(torch, card):
 
 
 def study_mutants(torch, card):
+    """Every mutant, built in parallel, against the checks its kernel takes
+    part in; each family of checks also runs on the committed kernels."""
     from new_cg_variants_tpu_torch.ops import _kernels
 
-    runs = [(what, edit, dia_checks) for what, edit in
-            {"as committed": None, **MUTANTS}.items()]
-    runs += [(what, edit, df_checks) for what, edit in
-             {"as committed (double-word checks)": None,
-              **DF_MUTANTS}.items()]
-    runs += [(what, edit, ell_checks) for what, edit in
-             {"as committed (ELL checks)": None, **ELL_MUTANTS}.items()]
-    for what, edit, checks in runs:
-        with contextlib.ExitStack() as stack:
-            libs, _ = build_edited(stack, [edit] if edit else [])
-            with _kernels.using(libs):
+    runs = []
+    for label, mutants, checks in (
+            ("", MUTANTS, dia_checks),
+            (" (half-band checks)", SYM_MUTANTS, sym_checks),
+            (" (double-word checks)", DF_MUTANTS, df_checks),
+            (" (ELL checks)", ELL_MUTANTS, ell_checks)):
+        runs += [(what, edit, checks) for what, edit in
+                 {"as committed" + label: None, **mutants}.items()]
+
+    def only(edit):
+        # a header's mutant rebuilds every source; committed runs build none
+        if edit is None:
+            return ()
+        return (edit[0],) if edit[0].endswith(".cu") else None
+
+    with contextlib.ExitStack() as stack:
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            built = [pool.submit(build_edited, stack, [edit] if edit else [],
+                                 only(edit)) for _, edit, _ in runs]
+        for (what, edit, checks), fut in zip(runs, built):
+            with _kernels.using(fut.result()[0]):
                 emit("mutants", mutant=what, source=edit and edit[0],
                      **checks(torch, card))
 
@@ -630,7 +1258,7 @@ def timed_in_turns(torch, variants, cases, rounds=2, iters=50, only=None,
     round, ``iters`` calls a time) and compares each case's outputs with the
     first variant's bit for bit.  Returns {case: {variant: [ms, ...]}},
     {case: {variant: same}}, the build logs by variant and, with ``check``,
-    {variant: check()} run under each variant."""
+    {variant: check(variant)} run under each variant."""
     from new_cg_variants_tpu_torch.ops import _kernels
 
     with contextlib.ExitStack() as stack:
@@ -645,7 +1273,7 @@ def timed_in_turns(torch, variants, cases, rounds=2, iters=50, only=None,
         if check is not None:
             for v in names:
                 with _kernels.using(libs[v]):
-                    checked[v] = check()
+                    checked[v] = check(v)
         times = {c: {v: [] for v in names} for c in cases}
         same = {c: {} for c in cases}
         for c, fn in cases.items():
@@ -769,6 +1397,7 @@ def main(argv):
     import torch
 
     studies = {"check": study_check, "dfcheck": study_dfcheck,
+               "symcheck": study_symcheck, "symopts": study_symopts,
                "ellcheck": study_ellcheck, "ellopts": study_ellopts,
                "denseopts": study_denseopts, "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo}

@@ -1,7 +1,7 @@
 // The CG families' fused phases on full-DIA storage (diagonals at arbitrary
 // offsets, data[d, i] = A[i, i + off_d]): one kernel template over the family
 // specs of family_specs.cuh, as sym_family.cu is for half-band storage, with
-// the full-band row product dia_row in place of sym_row, and the same eleven
+// the full-band row product dia_row in place of sym_rows, and the same eleven
 // entries: hs, pr, cgcg, gv and their Jacobi twins, and the whole pipe-P/PR
 // iteration, unpreconditioned,
 //

@@ -5,18 +5,24 @@
 // Half-band storage:
 // data[d, i] = A[i, i + off_d] for the stored offsets off_0 = 0 <
 // off_1 < ... (main + upper diagonals), row-major (ndiag, n), explicit zeros
-// past the matrix edge.  The half-band h is the largest stored offset.
+// past the matrix edge.  The half-band h is the largest stored offset.  Row i
+// of the product is
+//   (A v)_i = data[0, i] v_i
+//           + sum_{d >= 1} (data[d, i] v_{i + off_d}             (forward)
+//                           + data[d, i - off_d] v_{i - off_d})  (mirror).
 //
-// Every kernel gives each block a tile of kTile rows [i0, i0 + kTile) and one
-// thread per row.  Blocks run in no order, so a block cannot inherit the
-// mirror term data[d, i - off] * v[i - off] from its neighbour (the TPU
-// kernels carry it across a sequential grid in a spill scratch).  Instead
-// every block stages what its rows need in shared memory:
-//   data[:, i0 - h : i0 + kTile)      (ndiag * (kTile + h) values)
-//   v[i0 - h : i0 + kTile + h)        (kTile + 2h values per right-hand side)
-// so the band is read from device memory (1 + h / kTile) times, about once.
-// Rows outside [0, n) are staged as zeros: they contribute nothing, and no
-// load goes out of bounds.
+// Every kernel gives each block a tile of rows starting at i0.  Blocks run in
+// no order, so a block cannot inherit the mirror term from its neighbour (the
+// TPU kernels carry it across a sequential grid in a spill scratch).  Instead
+// the thread of row i reads both band values of a diagonal itself, straight
+// from device memory (sym_rows): the forward value data[d, i], coalesced and
+// used once, and the mirror value data[d, i - off], which lies on lines that
+// this block's warps (or, for its first off rows, the previous block) loaded
+// moments earlier, so it comes from L1 or L2 and the band crosses the memory
+// bus about once.  What a row reuses is the right-hand side: each block
+// stages its window v[i0 - h : i0 + tile + h) in shared memory (tile + 2h
+// values per right-hand side; rows outside [0, n) are zeros, so no load goes
+// out of bounds).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,48 +44,70 @@ __device__ __forceinline__ void load_offsets(const Offsets& o, int ndiag,
   for (int d = threadIdx.x; d < ndiag; d += blockDim.x) soff[d] = o.off[d];
 }
 
-// Stage data[:, i0 - h : i0 + kTile) into sdata (row stride kTile + h).
-template <typename T>
-__device__ __forceinline__ void load_band(const T* __restrict__ data,
-                                          int ndiag, int h, long long n,
-                                          long long i0, T* sdata) {
-  const int dw = kTile + h;
-  const int total = ndiag * dw;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int d = idx / dw;
-    const long long g = i0 - h + (idx - d * dw);
-    sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
-  }
-}
-
-// Stage v[i0 - h : i0 + kTile + h) into sv.
+// Stage v[i0 - h : i0 - h + vw) into sv.
 template <typename T>
 __device__ __forceinline__ void load_window(const T* __restrict__ v, int h,
-                                            long long n, long long i0,
+                                            long long n, long long i0, int vw,
                                             T* sv) {
-  const int vw = kTile + 2 * h;
   for (int j = threadIdx.x; j < vw; j += blockDim.x) {
     const long long g = i0 - h + j;
     sv[j] = (g >= 0 && g < n) ? v[g] : T(0);
   }
 }
 
-// (A v)[i0 + t] from the staged band and window.  Same term order as the
-// plain version (sym_dia.py:_mv_plain): main, then per diagonal the forward
-// term data[d, i] v[i + off] and the mirror term data[d, i - off] v[i - off].
+// The forward band value: read once, coalesced.  In f32 it streams
+// (evict-first); in f64 a plain load is faster (chip_study.py symopts times
+// each hint in both types).  The mirror loads are never evict-first: they
+// need the lines the forward loads just brought in.
 template <typename T>
-__device__ __forceinline__ T sym_row(const T* sdata, const T* sv, int ndiag,
-                                     int h, const int* soff, int t) {
-  const int dw = kTile + h;
-  const int c = t + h;  // row i0 + t in window coordinates
-  T acc = sdata[c] * sv[c];
+__device__ __forceinline__ T band_load(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return __ldcs(p);
+  } else {
+    return *p;
+  }
+}
+
+// (A v)_i for each of thread t's R rows i = i0 + t + r kTile and each of the
+// NMV staged windows smv (stride vw; row i at window position i - i0 + h),
+// from one read of the band.  Same terms in the same order as the plain
+// version (sym_dia.py:_mv_plain): the main term, then per diagonal the
+// forward term and then the mirror term, each a multiply-add into the row's
+// accumulator.  Where i - off < 0 the mirror value is a zero rather than a
+// load, and the window holds a zero there too: the zero term is still added,
+// as it was when the band was staged with zeros, so every sum keeps its bits
+// (-0.0 included).  Rows at or past n read nothing and give zeros.
+template <typename T, int R, int NMV>
+__device__ __forceinline__ void sym_rows(const T* __restrict__ data,
+                                         long long n, long long i0, int ndiag,
+                                         const int* soff, const T* smv, int vw,
+                                         int h, T (&acc)[R][NMV]) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + t + r * kTile;
+    const int c = t + r * kTile + h;
+    const T a = i < n ? band_load(data + i) : T(0);
+#pragma unroll
+    for (int k = 0; k < NMV; ++k) acc[r][k] = a * smv[k * vw + c];
+  }
+#pragma unroll 4
   for (int d = 1; d < ndiag; ++d) {
     const int off = soff[d];
-    const T* row = sdata + d * dw;
-    acc += row[c] * sv[c + off];
-    acc += row[c - off] * sv[c - off];
+    const T* row = data + (long long)d * n;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long i = i0 + t + r * kTile;
+      const int c = t + r * kTile + h;
+      const T af = i < n ? band_load(row + i) : T(0);
+      const T am = (i < n && i >= off) ? __ldg(row + i - off) : T(0);
+#pragma unroll
+      for (int k = 0; k < NMV; ++k) {
+        acc[r][k] += af * smv[k * vw + c + off];
+        acc[r][k] += am * smv[k * vw + c - off];
+      }
+    }
   }
-  return acc;
 }
 
 constexpr int kWarps = kTile / 32;

@@ -10,41 +10,55 @@
 // stored value per RHS) is two orders of magnitude below the f32 peak, and the
 // band is larger than the 50 MB L2, so nothing stays resident between calls.
 //
-// What the design does about it: each block stages its band window and vector
-// window in shared memory once (sym_common.cuh) and every product then reads
-// shared memory, so the band crosses the memory bus (1 + h / 256) times and is
-// shared by both right-hand sides.  One thread per row, 256 rows per block,
-// thousands of blocks in flight hide the load latency.  No wgmma or TMA: a
-// later change may pipeline the staging.
+// What the design does about it (sym_common.cuh): each thread reads the band
+// values of its rows straight from device memory, the forward value coalesced
+// and the mirror value from lines its block (or the previous one) just
+// brought into L1 / L2, so the band crosses the memory bus about once and no
+// block waits for a staging loop before its first product.  Each band value
+// is loaded once for both right-hand sides.  The right-hand sides, which
+// every row reads 2 ndiag - 1 times, are staged per block in shared memory
+// (tile + 2h values each), which leaves occupancy to the registers: see
+// kSymDiaMinBlocks.
 
 #include "sym_common.cuh"
 
 namespace ncgv {
 
+// Blocks per SM the compiler must leave registers for (32 a thread); the
+// windows take a few KB of shared memory per block and are never the limit.
+template <typename T>
+constexpr int kSymDiaMinBlocks = 8;
+
+// Rows a thread owns (t + r kTile), and so rows a block owns.
+constexpr int kSymDiaRows = 1;
+constexpr int kSymDiaTile = kSymDiaRows * kTile;
+
 template <typename T, int NRHS>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<T>)
     sym_dia_kernel(const T* __restrict__ data, const __grid_constant__ Offsets o,
                    int ndiag, int h, long long n, const T* __restrict__ v0,
                    const T* __restrict__ v1, T* __restrict__ y0,
                    T* __restrict__ y1) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int soff[kMaxDiags];
-  T* sdata = reinterpret_cast<T*>(smem);
-  T* sv0 = sdata + size_t(ndiag) * (kTile + h);
-  T* sv1 = sv0 + (kTile + 2 * h);
-  const long long i0 = (long long)blockIdx.x * kTile;
+  const int vw = kSymDiaTile + 2 * h;
+  T* sv = reinterpret_cast<T*>(smem);  // NRHS windows of vw
+  const long long i0 = (long long)blockIdx.x * kSymDiaTile;
 
   load_offsets(o, ndiag, soff);
-  load_band(data, ndiag, h, n, i0, sdata);
-  load_window(v0, h, n, i0, sv0);
-  if (NRHS == 2) load_window(v1, h, n, i0, sv1);
+  load_window(v0, h, n, i0, vw, sv);
+  if (NRHS == 2) load_window(v1, h, n, i0, vw, sv + vw);
   __syncthreads();
 
-  const int t = threadIdx.x;
-  const long long i = i0 + t;
-  if (i < n) {
-    y0[i] = sym_row(sdata, sv0, ndiag, h, soff, t);
-    if (NRHS == 2) y1[i] = sym_row(sdata, sv1, ndiag, h, soff, t);
+  T acc[kSymDiaRows][NRHS];
+  sym_rows<T, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h, acc);
+#pragma unroll
+  for (int r = 0; r < kSymDiaRows; ++r) {
+    const long long i = i0 + threadIdx.x + r * kTile;
+    if (i < n) {
+      y0[i] = acc[r][0];
+      if (NRHS == 2) y1[i] = acc[r][NRHS - 1];
+    }
   }
 }
 
@@ -58,10 +72,8 @@ int launch_sym_dia(const void* data, const int* offsets, int ndiag, int h,
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const size_t smem =
-      (size_t(ndiag) * (kTile + h) + size_t(nrhs) * (kTile + 2 * h)) *
-      sizeof(T);
-  const unsigned grid = unsigned((n + kTile - 1) / kTile);
+  const size_t smem = size_t(nrhs) * (kSymDiaTile + 2 * h) * sizeof(T);
+  const unsigned grid = unsigned((n + kSymDiaTile - 1) / kSymDiaTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* d = static_cast<const T*>(data);
   const T* a = static_cast<const T*>(v0);

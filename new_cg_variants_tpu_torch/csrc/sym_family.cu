@@ -20,45 +20,81 @@
 // arithmetic at the 67 TFLOP/s peak.
 //
 // What the design does about it:
-// * One block per kTile rows, one thread per row.  The band columns
-//   [i0 - h, i0 + kTile) and, per SpMV input, the window
-//   [i0 - h, i0 + kTile + h) are staged in shared memory (sym_common.cuh).
-// * The SpMV input is never written and re-read: each block applies the
+// * One block per kFamilyTile rows, one thread per kFamilyRows of them.  Each
+//   thread reads its rows' band values straight from device memory, the
+//   forward value coalesced and the mirror value from lines just brought into
+//   L1 / L2 (sym_common.cuh:sym_rows), once for all of the entry's SpMV
+//   inputs: the band crosses the memory bus about once and no block waits
+//   for a staging loop.
+// * The SpMV inputs are never written and re-read: each block applies the
 //   spec's update to the rows it owns AND to the h rows on each side, from
-//   the OLD vectors, in one loop with one call of Spec::update (the TPU
-//   kernel gets the front halo from XLA and carries the back one across its
-//   sequential grid; blocks here run in no order).  A thread's
-//   first turn of that loop is the row it owns, whose values it keeps in
-//   registers for the finish; later turns fill the halo.  Halo and owned
-//   rows go through the same code, so a row of the SpMV input has one bit
-//   pattern in every block that computes it.  Vectors that only the owned
-//   row needs (x everywhere; r, s where the product is of another vector)
-//   are not read for halo rows.
+//   the OLD vectors, into shared-memory windows [i0 - h, i0 + tile + h)
+//   (sym_window; the TPU kernel gets the front halo from XLA and carries the
+//   back one across its sequential grid; blocks here run in no order).  A
+//   thread's first turns of that loop are the rows it owns, whose values it
+//   keeps in registers for the finish; later turns fill the halo.  Halo and
+//   owned rows go through the same call of Spec::update, so a row of the
+//   SpMV input has one bit pattern in every block that computes it.  Vectors
+//   that only the owned row needs (x everywhere; r, s where the product is
+//   of another vector) are not read for halo rows.
 // * Inputs and outputs are distinct buffers: a neighbour block reads the old
 //   vectors of a row while its owner writes the new ones.
 // * The finish runs on owned rows only, after the row product, so dots that
 //   use a finished vector (r2.st2, st2.s2) are formed last.
-// * Dots leave the kernel as one (kDots,) partial per block, reduced in a
-//   fixed order (block_dots); the wrapper sums the (nblocks, kDots) partials.
-//   No atomics: runs repeat bit for bit.
+// * Dots leave the kernel as one (kDots,) partial per kTile rows, reduced in
+//   a fixed order (block_dots); the wrapper sums the (ceil(n / kTile), kDots)
+//   partials.  No atomics: runs repeat bit for bit.
 // * Scalars are read from device memory, so the host never waits for the
 //   previous iteration.
-// * Occupancy sets the time more than the vectors do: see the launch bound
-//   at the kernel.
+// * Shared memory holds only the windows (a few KB), so occupancy is set by
+//   the registers: see the launch bound at the kernel.
 
 #include "family_specs.cuh"
 
 namespace ncgv {
 
-// Blocks per SM the compiler must leave registers for.  In f32 at k = 32 a
-// block stages ~38 KB, so shared memory admits five, and the bound holds the
-// compiler to the 48 registers per thread that five need.  Left to itself it
-// takes 60-80 and only three or four blocks fit: the same entries then run
-// 2-50% slower (pr_prec 0.152 against 0.102 ms on an H100, PERF.md).  In f64
-// the staged band is twice as large and admits two blocks, so nothing is
-// gained by squeezing (48 registers spill there).
+// Blocks per SM the compiler must leave registers for: 48 registers a
+// thread in f32, 80 in f64 (chip_study.py symopts times 4, 6, 8 and none).
 template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 2;
+constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 3;
+
+// Rows a thread owns (t + r kTile), and so rows a block owns
+// (ops/_kernels.py:SYM_FAMILY_TILE).  Two rows a thread halve the halo rows
+// a block updates besides its own (2h per block).
+constexpr int kFamilyRows = 2;
+constexpr int kFamilyTile = kFamilyRows * kTile;
+
+// The update over a block's window [i0 - h, i0 - h + vw) of the SpMV inputs
+// into the S::kMv shared-memory windows smv (stride vw), as update_window
+// (family_specs.cuh) with kFamilyRows owned rows a thread: turn r of thread
+// t is row i0 + t + r kTile, whose other updated values go to keep[r]; the
+// later turns are the back and front halo.  Rows outside [0, n) are zeros.
+template <typename T, typename S>
+__device__ __forceinline__ void sym_window(const FamilyArgs<T>& a,
+                                           const T* sc, long long n,
+                                           long long i0, int h, int vw,
+                                           T (&keep)[kFamilyRows][S::kKeep],
+                                           T* smv) {
+  auto turn = [&](int idx, bool owned, T* kept) {
+    int j = idx + h;
+    if (j >= vw) j -= vw;
+    const long long g = i0 - h + j;
+    T mv[S::kMv];
+#pragma unroll
+    for (int k = 0; k < S::kMv; ++k) mv[k] = T(0);
+    if (g >= 0 && g < n) S::update(a, sc, g, owned, kept, mv);
+#pragma unroll
+    for (int k = 0; k < S::kMv; ++k) smv[k * vw + j] = mv[k];
+  };
+#pragma unroll
+  for (int r = 0; r < kFamilyRows; ++r) {
+#pragma unroll
+    for (int k = 0; k < S::kKeep; ++k) keep[r][k] = T(0);
+    turn(threadIdx.x + r * kTile, true, keep[r]);
+  }
+  for (int idx = threadIdx.x + kFamilyTile; idx < vw; idx += kTile)
+    turn(idx, false, keep[0]);
+}
 
 template <typename T, typename S>
 __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
@@ -67,36 +103,40 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
     T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int soff[kMaxDiags];
-  const int vw = kTile + 2 * h;
-  T* sdata = reinterpret_cast<T*>(smem);
-  T* smv = sdata + size_t(ndiag) * (kTile + h);  // S::kMv windows of vw
-  T* sred = smv + size_t(S::kMv) * vw;           // S::kDots * kWarps
+  const int vw = kFamilyTile + 2 * h;
+  T* smv = reinterpret_cast<T*>(smem);   // S::kMv windows of vw
+  T* sred = smv + size_t(S::kMv) * vw;   // kFamilyRows * S::kDots * kWarps
   const int t = threadIdx.x;
-  const long long i0 = (long long)blockIdx.x * kTile;
+  const long long i0 = (long long)blockIdx.x * kFamilyTile;
   T sc[2];
   sc[0] = *a.sc[0];
   sc[1] = S::kSc > 1 ? *a.sc[1] : T(0);
 
   load_offsets(o, ndiag, soff);
-  load_band(data, ndiag, h, n, i0, sdata);
-  T keep[S::kKeep];
-  update_window<T, S>(a, sc, n, i0, h, vw, keep, smv);
+  T keep[kFamilyRows][S::kKeep];
+  sym_window<T, S>(a, sc, n, i0, h, vw, keep, smv);
   __syncthreads();
 
-  const long long i = i0 + t;
-  T prod[S::kDots];
+  T acc[kFamilyRows][S::kMv];
+  sym_rows<T, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,
+                                   acc);
 #pragma unroll
-  for (int k = 0; k < S::kDots; ++k) prod[k] = T(0);
-  if (i < n) {
-    T mv[S::kMv], acc[S::kMv];
+  for (int r = 0; r < kFamilyRows; ++r) {
+    const long long i = i0 + t + r * kTile;
+    T prod[S::kDots];
 #pragma unroll
-    for (int k = 0; k < S::kMv; ++k) {
-      mv[k] = smv[k * vw + t + h];
-      acc[k] = sym_row(sdata, smv + k * vw, ndiag, h, soff, t);
+    for (int k = 0; k < S::kDots; ++k) prod[k] = T(0);
+    if (i < n) {
+      T mv[S::kMv];
+#pragma unroll
+      for (int k = 0; k < S::kMv; ++k) mv[k] = smv[k * vw + t + r * kTile + h];
+      S::finish(a, i, keep[r], mv, acc[r], prod);
     }
-    S::finish(a, i, keep, mv, acc, prod);
+    // one partial per kTile rows; none for rows wholly past n
+    if (i0 + r * kTile < n)
+      block_dots(prod, sred + r * S::kDots * kWarps,
+                 partials + size_t(blockIdx.x * kFamilyRows + r) * S::kDots);
   }
-  block_dots(prod, sred, partials + size_t(blockIdx.x) * S::kDots);
 }
 
 template <typename T, typename S>
@@ -107,12 +147,12 @@ int launch_spec(const T* data, const Offsets& o, int ndiag, int h,
   FamilyArgs<T> a;
   if (!family_args<T, S>(in, nin, sc, nsc, out, nout, &a))
     return int(cudaErrorInvalidValue);
-  const size_t smem = (size_t(ndiag) * (kTile + h) +
-                       size_t(S::kMv) * (kTile + 2 * h) + S::kDots * kWarps) *
+  const size_t smem = (size_t(S::kMv) * (kFamilyTile + 2 * h) +
+                       size_t(kFamilyRows) * S::kDots * kWarps) *
                       sizeof(T);
   cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);
   if (err != cudaSuccess) return int(err);
-  const unsigned grid = unsigned((n + kTile - 1) / kTile);
+  const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);
   sym_family_kernel<T, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n, a,
                                                     partials);
   return int(cudaGetLastError());

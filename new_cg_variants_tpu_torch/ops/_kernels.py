@@ -27,8 +27,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build", "load", "library", "using", "nvcc_command",
-           "KERNEL_TILE", "MAX_DIAGS", "KERNEL_DTYPES", "offsets_array",
-           "check_band", "check_ell", "check_vectors"]
+           "KERNEL_TILE", "SYM_FAMILY_TILE", "MAX_DIAGS", "KERNEL_DTYPES",
+           "offsets_array", "check_band", "check_ell", "check_vectors"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -87,8 +87,12 @@ _SIGNATURES = {
     },
 }
 
-#: rows per block of every kernel (csrc/sym_common.cuh:kTile)
+#: threads per block of every kernel, rows per block of all but the
+#: half-band family kernel, rows per dot partial (csrc/sym_common.cuh:kTile)
 KERNEL_TILE = 256
+#: rows per block of the half-band family kernel, two a thread
+#: (csrc/sym_family.cu:kFamilyTile)
+SYM_FAMILY_TILE = 512
 #: stored diagonals a launch may take (csrc/sym_common.cuh:kMaxDiags)
 MAX_DIAGS = 256
 #: suffix of the C entry point per element type

@@ -43,34 +43,37 @@ def _mv_plain(offsets, data, v):
     return y
 
 
-def kernel_smem_bytes(ndiag, h, nvec_buffers, itemsize):
-    """Shared memory of one block: the band window, ``nvec_buffers`` vector
-    windows, the fused step's 32-value reduction scratch (an upper bound
-    for the SpMV, which has none) and the staged offsets."""
-    return (ndiag * (KERNEL_TILE + h) + nvec_buffers * (KERNEL_TILE + 2 * h)
-            + 32) * itemsize + 4 * MAX_DIAGS
+def kernel_smem_bytes(h, nvec_buffers, itemsize, tile=KERNEL_TILE):
+    """Shared memory of one block of ``tile`` rows: ``nvec_buffers`` vector
+    windows of ``tile + 2 h`` values, the fused step's reduction scratch (32
+    values per 256 rows; an upper bound for the SpMV, which has none) and
+    the staged offsets.  The band is read from device memory and takes
+    none."""
+    return ((nvec_buffers * (tile + 2 * h) + 32 * (tile // KERNEL_TILE))
+            * itemsize + 4 * MAX_DIAGS)
 
 
 def check_kernel_args(offsets, data, vecs, nvec_buffers,
-                      entry="sym_dia_spmv"):
+                      entry="sym_dia_spmv", tile=KERNEL_TILE):
     """Validate what a half-band CUDA kernel takes; return ``(n, h, suffix)``.
 
-    ``nvec_buffers`` is the number of length-n work buffers the kernel stages
-    in shared memory beside the band (one per right-hand side, or the two
-    updated windows of the fused step).  Raises on a wrong device, dtype,
-    shape or contiguity, and on a half-band whose window does not fit in one
-    block's shared memory; that error names ``entry``, the entry point.
+    ``nvec_buffers`` is the number of vector windows the kernel stages in
+    shared memory (one per right-hand side, or the one or two SpMV inputs of
+    a fused entry) for a block of ``tile`` rows.  Raises on a wrong device,
+    dtype, shape or contiguity, and on a half-band whose windows do not fit
+    in one block's shared memory; that error names ``entry``, the entry
+    point.
     """
     n, sfx = check_band(offsets, data)
     if offsets[0] != 0 or min(offsets) < 0:
         raise ValueError(f"bad stored offsets {offsets} for half-band storage")
     check_vectors(data, vecs, n)
-    ndiag, h = len(offsets), max(offsets)
-    smem = kernel_smem_bytes(ndiag, h, nvec_buffers, data.element_size())
+    h = max(offsets)
+    smem = kernel_smem_bytes(h, nvec_buffers, data.element_size(), tile)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"{entry}: half-band {h} with {ndiag} diagonals needs {smem} "
-            f"bytes of shared memory per block (> {MAX_SMEM_BYTES}): "
+            f"{entry}: half-band {h} with {nvec_buffers} vector windows needs "
+            f"{smem} bytes of shared memory per block (> {MAX_SMEM_BYTES}): "
             "unsupported")
     return n, h, sfx
 

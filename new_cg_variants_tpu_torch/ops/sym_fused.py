@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from ._kernels import KERNEL_TILE, offsets_array
+from ._kernels import KERNEL_TILE, SYM_FAMILY_TILE, offsets_array
 from .sym_dia import _mv_plain, check_kernel_args
 
 __all__ = [
@@ -164,7 +164,9 @@ def _pipe_step_prec_plain(offsets, data, d, x, r, w, u, p, s, rt, st, wt, ut,
 
 
 #: kernel entry -> (index in csrc/sym_family.cu:launch_sym_family, vector
-#: outputs, dot products, SpMV inputs staged in shared memory)
+#: outputs, dot products, SpMV inputs staged in shared memory); the kernel
+#: leaves one partial of the dots per KERNEL_TILE rows, two per block of
+#: SYM_FAMILY_TILE
 _FAMILY_ENTRIES = {
     "fused_sym_hs_matvec_phase": (0, 2, 1, 1),
     "fused_sym_pr_full_step": (1, 4, 4, 1),
@@ -184,16 +186,22 @@ def _entry(name, recompute):
     return name if recompute else name + "/no recompute"
 
 
+def partials_shape(n, ndots):
+    """The family kernel's dot partials: one row of ``ndots`` per
+    KERNEL_TILE rows of the operator (two per block of SYM_FAMILY_TILE)."""
+    return -(-n // KERNEL_TILE), ndots
+
+
 def _launch_family(entry, offsets, data, vecs, scalars):
     """Launch one family entry; returns ``(vector outputs, dots)``."""
     from ._kernels import library
 
     index, nout, ndots, nmv = _FAMILY_ENTRIES[entry]
-    n, h, sfx = check_kernel_args(offsets, data, vecs, nmv, entry=entry)
+    n, h, sfx = check_kernel_args(offsets, data, vecs, nmv, entry=entry,
+                                  tile=SYM_FAMILY_TILE)
     scalars = [_scalar(v, data) for v in scalars]
     outs = [torch.empty_like(vecs[0]) for _ in range(nout)]
-    nblocks = -(-n // KERNEL_TILE)
-    partials = torch.empty((nblocks, ndots), dtype=data.dtype,
+    partials = torch.empty(partials_shape(n, ndots), dtype=data.dtype,
                            device=data.device)
     ins = (ctypes.c_void_p * len(vecs))(*[v.data_ptr() for v in vecs])
     scp = (ctypes.c_void_p * len(scalars))(*[v.data_ptr() for v in scalars])

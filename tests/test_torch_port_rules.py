@@ -296,10 +296,12 @@ def test_every_study_edit_applies_to_the_kernel_sources():
     import chip_study
 
     edits = (list(chip_study.MUTANTS.values())
+             + list(chip_study.SYM_MUTANTS.values())
              + list(chip_study.DF_MUTANTS.values())
              + list(chip_study.ELL_MUTANTS.values())
              + list(chip_study.LAUNCH_BOUNDS)
-             + [e for opt in (chip_study.ELL_OPTIONS,
+             + [e for opt in (chip_study.SYM_OPTIONS,
+                              chip_study.ELL_OPTIONS,
                               chip_study.DENSE_OPTIONS)
                 for edits in opt.values() for e in edits])
     assert len(edits) >= 30

@@ -99,6 +99,11 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_kernel_shared_memory_limits():
-    # the main path (k = 32) fits in f32 and f64; a very wide band does not
-    assert tsd.kernel_smem_bytes(32, 31, 2, 8) <= tsd.MAX_SMEM_BYTES
-    assert tsd.kernel_smem_bytes(200, 199, 2, 8) > tsd.MAX_SMEM_BYTES
+    # only the vector windows take shared memory: those of the main path
+    # (h = 31) and of the widest band the auto route stores half-band
+    # (h = 127) fit in f64; windows of a half-band of 8000 rows do not
+    assert tsd.kernel_smem_bytes(31, 2, 8) <= tsd.MAX_SMEM_BYTES
+    assert tsd.kernel_smem_bytes(127, 2, 8) <= tsd.MAX_SMEM_BYTES
+    assert tsd.kernel_smem_bytes(8000, 2, 8) > tsd.MAX_SMEM_BYTES
+    assert tsd.kernel_smem_bytes(31, 2, 8) == (
+        (2 * (256 + 62) + 32) * 8 + 4 * 256)

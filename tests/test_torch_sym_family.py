@@ -16,7 +16,9 @@ decomposition, so agreement is to rtol 1e-12 of each vector's largest entry
 (and of sum |a_i b_i| for a dot), not bitwise.
 """
 
+import re
 import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from new_cg_variants_tpu.ops import sym_fused as jsf
 from new_cg_variants_tpu.ops.sym_dia import SymDiaOperator as JaxSymDia
 from new_cg_variants_tpu_torch.ops import sym_dia as tsd
 from new_cg_variants_tpu_torch.ops import sym_fused as tsf
+from new_cg_variants_tpu_torch.ops._kernels import KERNEL_TILE, SYM_FAMILY_TILE
 
 RTOL = 1e-12
 N, TILE = 1024, 256
@@ -216,21 +219,86 @@ class _FakeCudaTensor(types.SimpleNamespace):
         return True
 
     def element_size(self):
-        return 8
+        return self.dtype.itemsize
+
+
+def _fake_band(offsets, dtype=torch.float64, n=4096):
+    return _FakeCudaTensor(is_cuda=True, dtype=dtype,
+                           shape=(len(offsets), n),
+                           device=torch.device("cuda", 0))
 
 
 def test_shared_memory_limit_error_names_the_entry_point():
-    k = 200  # band + two windows of a 2-SpMV entry: > 227 KB in float64
-    data = _FakeCudaTensor(is_cuda=True, dtype=torch.float64, shape=(k, 4096),
-                           device=torch.device("cuda", 0))
-    need = tsd.kernel_smem_bytes(k, k - 1, 2, 8)
+    # two windows of a 2-SpMV entry over a half-band of 8000: > 227 KB in
+    # float64 (the band itself is read from device memory)
+    offsets = (0, 1, 8000)
+    data = _fake_band(offsets)
+    need = tsd.kernel_smem_bytes(8000, 2, 8)
     assert need > tsd.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="fused_sym_pipe_full_step_prec.*"
                                          f"{need} bytes of shared memory"):
-        tsd.check_kernel_args(tuple(range(k)), data, (), 2,
+        tsd.check_kernel_args(offsets, data, (), 2,
                               entry="fused_sym_pipe_full_step_prec")
     # a band that fits passes the same check
     ok = _FakeCudaTensor(is_cuda=True, dtype=torch.float64, shape=(32, 4096),
                          device=torch.device("cuda", 0))
     assert tsd.check_kernel_args(tuple(range(32)), ok, (), 2) == (
         4096, 31, "f64")
+
+
+@pytest.mark.parametrize("ndiag", [200, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wide_band_fits_the_kernels(ndiag, dtype):
+    """A band of up to MAX_DIAGS diagonals passes the check of every entry:
+    only its vector windows are staged in shared memory, the band is not
+    (a staged band of 200 f64 diagonals would need ~600 KB a block)."""
+    offsets = tuple(range(ndiag))
+    sfx = {torch.float64: "f64", torch.float32: "f32"}[dtype]
+    assert tsd.check_kernel_args(offsets, _fake_band(offsets, dtype),
+                                 (), 2) == (4096, ndiag - 1, sfx)
+    for entry, (_, _, _, nmv) in tsf._FAMILY_ENTRIES.items():
+        assert tsd.check_kernel_args(
+            offsets, _fake_band(offsets, dtype), (), nmv, entry=entry,
+            tile=SYM_FAMILY_TILE) == (4096, ndiag - 1, sfx)
+
+
+@pytest.mark.parametrize("h, fits", [(31, True), (127, True), (6900, True),
+                                     (7100, False)])
+def test_pipe_footprint_is_independent_of_the_band_width(h, fits):
+    """The pipe entry's footprint depends on the half-band h, not on how
+    many diagonals are stored: two stored diagonals or h + 1 (up to
+    MAX_DIAGS) give the same verdict and the same bytes."""
+    entry = "fused_sym_pipe_full_step"
+    nmv = tsf._FAMILY_ENTRIES[entry][3]
+    need = tsd.kernel_smem_bytes(h, nmv, 8, SYM_FAMILY_TILE)
+    assert (need <= tsd.MAX_SMEM_BYTES) == fits
+    for offsets in ((0, h), tuple(range(min(h, 255))) + (h,)):
+        data = _fake_band(offsets)
+        if fits:
+            assert tsd.check_kernel_args(offsets, data, (), nmv, entry=entry,
+                                         tile=SYM_FAMILY_TILE)[1] == h
+        else:
+            with pytest.raises(ValueError, match=f"{entry}: .* {need} bytes"):
+                tsd.check_kernel_args(offsets, data, (), nmv, entry=entry,
+                                      tile=SYM_FAMILY_TILE)
+
+
+def _source_constant(name, source):
+    text = (Path(tsf.__file__).parent.parent / "csrc" / source).read_text()
+    (value,) = re.findall(rf"constexpr int {name} = (\d+);", text)
+    return int(value)
+
+
+@pytest.mark.parametrize("n", [1, 100, 256, 257, 511, 512, 513, 4099,
+                               655_360])
+def test_partials_follow_the_family_kernel_tile(n):
+    """The wrapper's tile and partials are the kernel's: blocks of kFamilyRows
+    * kTile rows, each writing one partial per kTile rows that start before
+    n, in block order."""
+    tile = _source_constant("kTile", "sym_common.cuh")
+    rows = _source_constant("kFamilyRows", "sym_family.cu")
+    assert (tile, rows * tile) == (KERNEL_TILE, SYM_FAMILY_TILE)
+    written = [b * rows + r for b in range(-(-n // (rows * tile)))
+               for r in range(rows) if b * rows * tile + r * tile < n]
+    assert written == list(range(len(written)))
+    assert tsf.partials_shape(n, 4) == (len(written), 4)
