@@ -71,13 +71,16 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     right-hand sides; 63 diagonals at n = 655,360, the wide grid band, small,
     ragged and non-symmetric bands), its dense product (n = 4096, 8192 and
     small n, also below the 256 threads of a row) and the vector phase of
-    ``csrc/df_pipe.cu`` (at 2560 block partials, 16,384, and 1, 3, 5, 6, 7),
+    ``csrc/df_pipe.cu`` (at 2560 tiles of 256 rows, 16,384, and 1, 3, 5, 6, 7),
     each against its plain version on the same O(1) random three-word and
     double-word data: every product and vector word equal (max |difference|
-    0), the four dots within 1e-12 of float64 in units of sum |a_i b_i|.
-    Timed at the paths' shapes, with the bounds from bytes and from float32
-    operations counted without fused multiply-adds, and the float64
-    counterpart of each (a different function, labelled so);
+    0), the four dots within 1e-12 of float64 in units of sum |a_i b_i|;
+    the vector phase's dots also equal to its tile order (tile_order_dots),
+    on two calls back to back on different data, with a third call that
+    must repeat the first one's dot bits, and one launch a call (the
+    profiler's count). Timed at the paths' shapes, with the bounds from
+    bytes and from float32 operations counted without fused multiply-adds,
+    and the float64 counterpart of each (a different function, labelled so);
 13. ``df_f32x2`` — the double-word path at full width: pipe-PR-CG with
     ``dtype="f32x2"`` on the model problem of 4 built in float64 (expanded to
     63 diagonals and split exactly, 495 MB of words), 300 iterations of
@@ -86,7 +89,8 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     for 20 iterations (generic bodies: row 9 once per product); plain-float64
     pipe-PR-CG on the same problem beside it;
 14. ``df_dense_f32x2`` — pipe-PR-CG in f32x2 on a dense SPD operator (n =
-    4096): row 10 (2 right-hand sides) and row 11 once per iteration;
+    4096): row 10 (2 right-hand sides) and row 11 once per iteration, the
+    profiler's launches per iteration;
 15. ``df_card_vs_cpu`` — f32x2 on the card against the CPU on the same words,
     25 iterations (n = 65,536 full-DIA, and a dense 512 x 512): collapsed nu
     and alpha to rtol 1e-10; and the one-shot check that the error words
@@ -1217,8 +1221,8 @@ DF_DIA_SHAPES = (DIA_SHAPES[0], WIDE_SHAPE) + DIA_SHAPES[1:]
 #: the 256 threads of a row
 DF_DENSE_NS = (4096, 8192, 1000, 300, 5, 1)
 DF_DENSE_N = 4096
-#: vector-phase checks: n = 655,360 gives 2560 block partials (not a power
-#: of two), 4,194,304 gives 16,384; then 3, 5, 6, 7 and 1 partials, and the
+#: vector-phase checks: n = 655,360 gives 2560 tiles of 256 rows (not a power
+#: of two), 4,194,304 gives 16,384; then 3, 5, 6, 7 and 1 tiles, and the
 #: dense path's n (16)
 DF_PIPE_NS = (N, WIDE_N, 3 * 256, 5 * 256 - 7, 6 * 256, 7 * 256 - 1, 100,
               DF_DENSE_N)
@@ -1380,9 +1384,52 @@ def check_df_dense(torch, card, timings, report):
     return failed
 
 
+def tile_order_dots(torch, r2, p2, s2):
+    """Row 11's four dots in its kernel's order, from the word pairs of r2, p2
+    and s2: each row's term as the plain version forms it, the double-word
+    halving tree over each tile of KERNEL_TILE rows (rows past n are zero
+    pairs), then over the tiles' partials padded with zero pairs to a power
+    of two.  Returns (hi, lo) pairs of 0-d tensors."""
+    from new_cg_variants_tpu_torch.ops import compensated as tc
+    from new_cg_variants_tpu_torch.ops._kernels import KERNEL_TILE
+
+    n = r2[0].shape[0]
+    tiles = -(-n // KERNEL_TILE)
+    dots = []
+    for a, b in ((p2, s2), (r2, s2), (s2, s2), (r2, r2)):
+        ph, e = tc.two_prod(a[0], b[0])
+        e = e + (a[0] * b[1] + a[1] * b[0] + a[1] * b[1])
+        words = [torch.nn.functional.pad(w, (0, tiles * KERNEL_TILE - n))
+                 .reshape(tiles, KERNEL_TILE) for w in (ph, e)]
+        dots.append(tc._df_tree_sum(*tc._df_sum_axis1(*words)))
+    return dots
+
+
+def launches_per_call(torch, fn):
+    """Device kernels one call of ``fn`` launches, from ``torch.profiler``;
+    ``None`` where the profiler saw no device activity (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) or None
+
+
 def check_df_pipe(torch, card, timings, report):
     """Row 11 against its plain version: the ten vector words equal, the four
-    dots within DF_DOT_TOL of float64 (in units of sum |a_i b_i|)."""
+    dots within DF_DOT_TOL of float64 (in units of sum |a_i b_i|) and equal
+    to the kernel's tile order (tile_order_dots).  Two calls back to back on
+    different data are both held so (a ticket counter left set, or a combine
+    that reads stale partials, fails the second), and a third call on the
+    first data must repeat its dots bit for bit.  A call on the second data
+    on a side stream, free to run at the same time as the first call on the
+    current one, must give the second call's bits (each stream has its own
+    ticket counter)."""
     from new_cg_variants_tpu_torch.ops import df_spmv as ds
     from new_cg_variants_tpu_torch.ops import fused_step as fs
 
@@ -1392,26 +1439,48 @@ def check_df_pipe(torch, card, timings, report):
     for n in DF_PIPE_NS:
         rng = np.random.default_rng(n + 11)
         vecs = [df_vec(torch, rng, n) for _ in range(6)]
+        others = [df_vec(torch, rng, n) for _ in range(6)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got_side = ds.df_pipe_vector_phase(*others, a1, beta)
         got = ds.df_pipe_vector_phase(*vecs, a1, beta)
+        got_b = ds.df_pipe_vector_phase(*others, a1, beta)
+        again = ds.df_pipe_vector_phase(*vecs, a1, beta)
         torch.cuda.synchronize()
-        want = ds._df_pipe_vector_phase_plain(*vecs, a1, beta)
-        err, same = bitwise_err(got[:5], want[:5])
-        v64 = [hi.double() + lo.double() for hi, lo in got[:5]]
-        _, r2, _, p2, s2 = v64
-        dot_errs = []
-        for (gh, gl), (a, b) in zip(got[5], ((p2, s2), (r2, s2), (s2, s2),
-                                             (r2, r2))):
-            exact = torch.dot(a, b)
-            dot_errs.append(float((gh.double() + gl.double() - exact).abs()
-                                  / torch.dot(a.abs(), b.abs())))
+        side_same = (bitwise_err(got_side[:5], got_b[:5])[1]
+                     and bitwise_err(got_side[5], got_b[5])[1])
+        errs, dot_errs, in_order = [], [], []
+        for out, ins in ((got, vecs), (got_b, others)):
+            want = ds._df_pipe_vector_phase_plain(*ins, a1, beta)
+            errs.append(bitwise_err(out[:5], want[:5]))
+            _, r2, _, p2, s2 = (hi.double() + lo.double()
+                                for hi, lo in out[:5])
+            for (gh, gl), (a, b) in zip(out[5], ((p2, s2), (r2, s2),
+                                                 (s2, s2), (r2, r2))):
+                dot_errs.append(float((gh.double() + gl.double()
+                                       - torch.dot(a, b)).abs()
+                                      / torch.dot(a.abs(), b.abs())))
+            model = tile_order_dots(torch, want[1], want[3], want[4])
+            in_order.append(bitwise_err(out[5], model)[1])
+            del want, r2, p2, s2
+        same = all(e[1] for e in errs)
+        repeat = bitwise_err(again[5], got[5])[1]
         rec = dict(kernel="df_pipe_vector_phase", n=n,
-                   partials=-(-n // 256), max_abs_err=err, bitwise=same,
-                   max_dot_err=max(dot_errs), tol=0.0, dot_tol=DF_DOT_TOL)
+                   tiles=-(-n // 256), max_abs_err=max(e[0] for e in errs),
+                   bitwise=same, max_dot_err=max(dot_errs),
+                   dots_in_tile_order=all(in_order),
+                   back_to_back_held=errs[1][1] and in_order[1]
+                   and max(dot_errs[4:]) <= DF_DOT_TOL,
+                   repeat_same_bits=repeat, side_stream_same_bits=side_same,
+                   tol=0.0, dot_tol=DF_DOT_TOL)
         key = {N: "df_pipe_vector_phase",
                DF_DENSE_N: "df_pipe_vector_phase" + DENSE}.get(n)
         if timings is not None and key:
-            ms = time_ms(torch, lambda: ds.df_pipe_vector_phase(*vecs, a1,
-                                                                beta), 50)
+            def call():
+                return ds.df_pipe_vector_phase(*vecs, a1, beta)
+
+            ms = time_ms(torch, call, 50)
             plain_ms = time_ms(torch, lambda: ds._df_pipe_vector_phase_plain(
                 *vecs, a1, beta), 3)
             x64 = [torch.randn(n, dtype=torch.float64, device="cuda")
@@ -1420,19 +1489,23 @@ def check_df_pipe(torch, card, timings, report):
                    for c in (0.37, 0.13)]
             f64_ms = time_ms(
                 torch, lambda: fs.fused_pipe_vector_phase(*x64, *c64), 50)
+            per_call = launches_per_call(torch, call)
             timings[key] = dict(
-                n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                n=n, max_abs_err=rec["max_abs_err"], ms=ms, plain_ms=plain_ms,
                 library_ms=None, f64_counterpart_ms=f64_ms,
                 f64_counterpart="fused_pipe_vector_phase in float64 (not the "
-                "same function)",
+                "same function)", launches_per_call=per_call,
                 **df_bound(22 * n * 4, DF_OPS["pipe"] * n, rate))
             rec.update(ms=ms, plain_ms=plain_ms, f64_ms=f64_ms,
-                       bound=timings[key]["bound_ms"])
+                       bound=timings[key]["bound_ms"],
+                       launches_per_call=per_call)
             del x64
         report(rec)
-        if not (same and max(dot_errs) <= DF_DOT_TOL):
+        if not (same and max(dot_errs) <= DF_DOT_TOL and all(in_order)
+                and repeat and side_same
+                and rec.get("launches_per_call") in (None, 1)):
             failed.append(rec)
-        del vecs, got, want, v64
+        del vecs, others, got, got_b, again, got_side
         torch.cuda.empty_cache()
     return failed
 
@@ -1523,8 +1596,14 @@ def df_f32x2(torch):
 
 def df_dense_f32x2(torch):
     """pipe-PR-CG in f32x2 on a dense SPD operator (n = 4096): row 10 (2
-    right-hand sides) and row 11 once per iteration."""
+    right-hand sides) and row 11 once per iteration; the profiler's launches
+    per iteration."""
     from new_cg_variants_tpu_torch import DenseOperator, df_operator
+    from new_cg_variants_tpu_torch.ops.doublefloat import (
+        DoubleFloatContext,
+        df_split,
+    )
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
 
     a = dense_spd(torch, DF_DENSE_N, device="cuda")
     dop = df_operator(a, device="cuda")
@@ -1537,6 +1616,12 @@ def df_dense_f32x2(torch):
         iters=DF_DENSE_ITERS, dtype="f32x2", plain_op=op64, n=DF_DENSE_N)
     if failed:
         raise AssertionError(f"dense f32x2 run failed: {failed}")
+    init_fn, step_fn = FAMILIES["pipe_pr"]
+    ctx = DoubleFloatContext(dop)
+    state = init_fn(ctx, df_split(b.cpu().numpy(), device="cuda"),
+                    df_split(np.zeros(DF_DENSE_N), device="cuda"))
+    emit("df_dense_f32x2", variant="pipe_pr_cg", profile=profile_steps(
+        torch, ctx, step_fn, state))
     return launches
 
 
@@ -2123,7 +2208,8 @@ def kernel_records(timings, launches):
         extra = {key: t[key] for key in ("f64_counterpart_ms",
                                          "f64_counterpart", "bound_bytes_ms",
                                          "bound_ops_ms", "L", "library",
-                                         "given_order", "ms_2rhs")
+                                         "given_order", "ms_2rhs",
+                                         "launches_per_call")
                  if key in t}
         if name + NATURAL in timings:
             extra["natural_order"] = {

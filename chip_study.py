@@ -8,7 +8,9 @@
     python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
     python3 chip_study.py ellopts   # row 12's design options, timed in turns
     python3 chip_study.py denseopts # row 10's dense design options, the same
+    python3 chip_study.py pipeopts  # row 11's design options, the same
     python3 chip_study.py mutants   # do the checks catch a faulty kernel?
+                                    # (mutants dia|sym|df|ell: one family)
     python3 chip_study.py bounds    # launch bounds, timed in turns
     python3 chip_study.py halo      # whole-iteration kernel against the split
                                     # formulation as the band widens
@@ -122,8 +124,38 @@ DF_MUTANTS = {
         "  return fast_two_sum(u.hi, rn_add(u.lo, t.lo));",
         "  return fast_two_sum(s.hi, rn_add(s.lo, rn_add(a.lo, b.lo)));"),
     "power-of-two-only combine (vector phase)": (
-        "df_pipe.cu", "const long long width = pow2_ceil(nb);",
-        "const long long width = nb;"),
+        "df_pipe.cu", "const long long width = pow2_ceil(ntiles);",
+        "const long long width = ntiles;"),
+    "ticket counter not reset (vector phase)": (
+        "df_pipe.cu",
+        "    last = atomicInc(tickets, gridDim.x - 1) == gridDim.x - 1;\n",
+        "    last = atomicAdd(tickets, 1u) == gridDim.x - 1;\n"),
+    "last block sums partials in arrival order (vector phase)": (
+        "df_pipe.cu",
+        "  if (threadIdx.x == 0) {\n"
+        "#pragma unroll\n"
+        "    for (int d = 0; d < 4; ++d) {\n"
+        "      partials[(2 * d) * parts + g] = group[d].hi;\n"
+        "      partials[(2 * d + 1) * parts + g] = group[d].lo;\n"
+        "    }\n"
+        "    // the partials reach device memory before the block draws its "
+        "ticket,\n"
+        "    // so the block that draws the last one sees them all\n"
+        "    __threadfence();\n"
+        "    last = atomicInc(tickets, gridDim.x - 1) == gridDim.x - 1;\n",
+        # each block draws a slot (the counter's low half) and its partial
+        # goes there; a second ticket (the high half) finds the last block,
+        # which clears both halves
+        "  if (threadIdx.x == 0) {\n"
+        "    const unsigned slot = atomicAdd(tickets, 1u) & 0xffffu;\n"
+        "#pragma unroll\n"
+        "    for (int d = 0; d < 4; ++d) {\n"
+        "      partials[(2 * d) * parts + slot] = group[d].hi;\n"
+        "      partials[(2 * d + 1) * parts + slot] = group[d].lo;\n"
+        "    }\n"
+        "    __threadfence();\n"
+        "    last = atomicAdd(tickets, 1u << 16) >> 16 == gridDim.x - 1;\n"
+        "    if (last) *tickets = 0;\n"),
     "dense tree pairs neighbours instead of halves (dense)": (
         "df_common.cuh", "for (int off = lanes >> 1; off > 0; off >>= 1) {",
         "for (int off = 1; off < lanes; off <<= 1) {"),
@@ -417,6 +449,303 @@ DENSE_OPTIONS = {
          "df_dense_kernel(")],
     "groups of 2 leaves": dense_knobs(lg=1, maxd=13),
     "groups of 8 leaves": dense_knobs(lg=3),
+}
+
+
+#: row 11 as PR 4 built it (option (a) of ``pipeopts``): a pass that leaves
+#: one partial per 256-row tile, then a second launch, one block, that sums
+#: them by a predicated in-thread counter and a shared-memory tree; the same
+#: trees, so the same bits.  Its entry point takes the ticket counter and
+#: leaves it alone.
+PR4_PIPE = r"""#include "df_common.cuh"
+
+namespace ncgv {
+
+constexpr int kPipeIn = 12;
+constexpr int kPipeOut = 10;
+
+struct DfPipeArgs {
+  const float* in[kPipeIn];
+  float* out[kPipeOut];
+  const float* sc[4];
+};
+
+__device__ __forceinline__ Pair load(const float* const* w, int k,
+                                     long long i) {
+  return {__ldg(w[2 * k] + i), __ldg(w[2 * k + 1] + i)};
+}
+
+__device__ __forceinline__ void store(float* const* w, int k, long long i,
+                                      Pair v) {
+  w[2 * k][i] = v.hi;
+  w[2 * k + 1][i] = v.lo;
+}
+
+template <int NR>
+__device__ __forceinline__ void pr4_block_tree_sum(const Pair (&v)[NR],
+                                                   int width, Pair* sred,
+                                                   Pair (&out)[NR]) {
+  const int t = threadIdx.x;
+  const int bd = blockDim.x;
+  if (t < width) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) sred[r * bd + t] = v[r];
+  }
+  __syncthreads();
+  for (int w = width; w > 1; w >>= 1) {
+    const int half = w >> 1;
+    if (t < half) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        sred[r * bd + t] = df_add(sred[r * bd + t], sred[r * bd + t + half]);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) out[r] = sred[r * bd];
+  }
+}
+
+template <int NR, typename Leaf>
+__device__ __forceinline__ void pr4_tree_sum(int width, const Leaf& leaf,
+                                             Pair* sred, Pair (&out)[NR]) {
+  const int t = threadIdx.x;
+  const int teff = width < int(blockDim.x) ? width : int(blockDim.x);
+  const int count = width / teff;
+  const int depth = 31 - __clz(count);
+  Pair total[NR];
+  if (t < teff) {
+    Pair slot[NR][kMaxTreeDepth + 1];
+    for (int m = 0; m < count; ++m) {
+      const int k = depth ? int(__brev(unsigned(m)) >> (32 - depth)) : 0;
+      const int tz = __ffs(~m) - 1;
+      Pair vals[NR];
+      leaf(t + k * teff, vals);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        Pair carry = vals[r];
+#pragma unroll
+        for (int l = 0; l <= kMaxTreeDepth; ++l) {
+          if (l < tz) {
+            carry = df_add(slot[r][l], carry);
+          } else if (l == tz) {
+            slot[r][l] = carry;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l <= kMaxTreeDepth; ++l) {
+      if (l == depth) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r) total[r] = slot[r][l];
+      }
+    }
+  }
+  pr4_block_tree_sum<NR>(total, teff, sred, out);
+}
+
+__global__ void __launch_bounds__(kTile) df_pipe_kernel(
+    long long n, const __grid_constant__ DfPipeArgs a,
+    float* __restrict__ partials, int nblocks) {
+  __shared__ Pair sred[4 * kTile];
+  const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
+  Pair terms[4] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+  if (i < n) {
+    const Pair a1 = {*a.sc[0], *a.sc[1]};
+    const Pair beta = {*a.sc[2], *a.sc[3]};
+    const Pair p = load(a.in, 4, i), s = load(a.in, 5, i);
+    const Pair x2 = df_add(load(a.in, 0, i), df_mul(a1, p));
+    const Pair r2 = df_add(load(a.in, 1, i), df_neg(df_mul(a1, s)));
+    const Pair w2 = df_add(load(a.in, 2, i), df_neg(df_mul(a1, load(a.in, 3, i))));
+    const Pair p2 = df_add(r2, df_mul(beta, p));
+    const Pair s2 = df_add(w2, df_mul(beta, s));
+    store(a.out, 0, i, x2);
+    store(a.out, 1, i, r2);
+    store(a.out, 2, i, w2);
+    store(a.out, 3, i, p2);
+    store(a.out, 4, i, s2);
+    terms[0] = dot_term(p2, s2);
+    terms[1] = dot_term(r2, s2);
+    terms[2] = dot_term(s2, s2);
+    terms[3] = dot_term(r2, r2);
+  }
+  Pair sums[4];
+  pr4_block_tree_sum<4>(terms, kTile, sred, sums);
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < 4; ++d) {
+      partials[(2 * d) * (long long)nblocks + blockIdx.x] = sums[d].hi;
+      partials[(2 * d + 1) * (long long)nblocks + blockIdx.x] = sums[d].lo;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTile) df_pipe_combine_kernel(
+    const float* __restrict__ partials, int nblocks, int width,
+    float* __restrict__ dots) {
+  __shared__ Pair sred[4 * kTile];
+  auto leaf = [&](int c, Pair (&vals)[4]) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      vals[d] = c < nblocks
+                    ? Pair{partials[(2 * d) * (long long)nblocks + c],
+                           partials[(2 * d + 1) * (long long)nblocks + c]}
+                    : Pair{0.0f, 0.0f};
+    }
+  };
+  Pair sums[4];
+  pr4_tree_sum<4>(width, leaf, sred, sums);
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < 4; ++d) {
+      dots[2 * d] = sums[d].hi;
+      dots[2 * d + 1] = sums[d].lo;
+    }
+  }
+}
+
+}  // namespace ncgv
+
+extern "C" {
+
+int df_pipe_f32(long long n, const void* const* in, int nin,
+                const void* const* sc, int nsc, void* const* out, int nout,
+                void* partials, void* dots, void* tickets, int device,
+                void* stream) {
+  using namespace ncgv;
+  (void)tickets;
+  if (n <= 0 || nin != kPipeIn || nout != kPipeOut || nsc != 4)
+    return int(cudaErrorInvalidValue);
+  const long long nb = (n + kTile - 1) / kTile;
+  const long long width = pow2_ceil(nb);
+  if (width > ((long long)kTile << kMaxTreeDepth))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  DfPipeArgs a = {};
+  for (int k = 0; k < kPipeIn; ++k) a.in[k] = static_cast<const float*>(in[k]);
+  for (int k = 0; k < kPipeOut; ++k) a.out[k] = static_cast<float*>(out[k]);
+  for (int k = 0; k < 4; ++k) a.sc[k] = static_cast<const float*>(sc[k]);
+  float* part = static_cast<float*>(partials);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  df_pipe_kernel<<<unsigned(nb), kTile, 0, st>>>(n, a, part, int(nb));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  df_pipe_combine_kernel<<<1, kTile, 0, st>>>(part, int(nb), int(width),
+                                              static_cast<float*>(dots));
+  return int(cudaGetLastError());
+}
+
+}  // extern "C"
+"""
+
+def pipe_min_blocks(blocks):
+    """Row 11's kernel held to at least ``blocks`` resident blocks an SM."""
+    return [("df_pipe.cu", "constexpr int kPipeMinBlocks = 4;",
+             f"constexpr int kPipeMinBlocks = {blocks};")]
+
+
+#: the end of the pass after the partials: fence, ticket, the last block's
+#: test
+PIPE_TICKET = ("    __threadfence();\n"
+               "    last = atomicInc(tickets, gridDim.x - 1) == gridDim.x - 1;\n"
+               "    __threadfence();\n"
+               "  }\n"
+               "  __syncthreads();\n"
+               "  if (!last) return;\n")
+
+#: option (f) of row 11: a grid of as many blocks as fit at once, each
+#: walking the groups of tiles blockIdx.x, blockIdx.x + gridDim.x, ... (the
+#: partials stay one per group, so the bits do too)
+PIPE_PERSISTENT = [
+    ("df_pipe.cu", "  const int g = blockIdx.x, parts = gridDim.x;\n",
+     "  for (int g = blockIdx.x; g < parts; g += gridDim.x) {\n"),
+    ("df_pipe.cu", "    long long n, const __grid_constant__ DfPipeArgs a,\n"
+     "    float* __restrict__ partials, long long ntiles, int width,\n",
+     "    long long n, const __grid_constant__ DfPipeArgs a,\n"
+     "    float* __restrict__ partials, long long ntiles, int parts,\n"
+     "    int width,\n"),
+    ("df_pipe.cu", "    // the partials reach device memory before the block draws "
+     "its ticket,\n",
+     "  }\n  __syncthreads();\n  }\n  if (threadIdx.x == 0) {\n"),
+    ("df_pipe.cu", "  kernel<<<unsigned(parts), kPipeThreads, 0, "
+     "static_cast<cudaStream_t>(stream)>>>(\n"
+     "      n, a, static_cast<float*>(partials), ntiles,\n",
+     "  long long grid = parts;\n"
+     "  int sms = 0, per_sm = 0;\n"
+     "  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,"
+     " device);\n"
+     "  if (err != cudaSuccess) return int(err);\n"
+     "  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+     "      &per_sm, df_pipe_kernel<true>, kPipeThreads, 0);\n"
+     "  if (err != cudaSuccess) return int(err);\n"
+     "  if (grid > (long long)sms * per_sm) grid = (long long)sms * per_sm;\n"
+     "  kernel<<<unsigned(grid), kPipeThreads, 0, "
+     "static_cast<cudaStream_t>(stream)>>>(\n"
+     "      n, a, static_cast<float*>(partials), ntiles, int(parts),\n"),
+]
+
+#: design options of row 11 (``pipeopts``), each timed against the committed
+#: source in turns; (a), the PR 4 design, replaces the whole file.  The
+#: committed kernel is (b), the last-block combine, with (d) taken to eight
+#: rows a lane (a warp a tile) from 1024 tiles, and (e); (f) is an option
+#: of it.  (c), 1024-thread blocks, was timed on the first one-launch build,
+#: a block a tile (PERF.md, Findings PR 8).
+PIPE_OPTIONS = {
+    "(a) PR 4 design: pass + one-block combine, two launches": [
+        ("df_pipe.cu", None, PR4_PIPE)],
+    "one warp a tile at every n": [
+        ("df_pipe.cu", "constexpr long long kWarpTiles = 1024;",
+         "constexpr long long kWarpTiles = 1;")],
+    "a block a tile at every n": [
+        ("df_pipe.cu", "constexpr long long kWarpTiles = 1024;",
+         "constexpr long long kWarpTiles = 1LL << 40;")],
+    "(e) off: input words through __ldg": [
+        ("df_pipe.cu", "__device__ __forceinline__ float stream("
+         "const float* p) { return __ldcs(p); }",
+         "__device__ __forceinline__ float stream(const float* p) "
+         "{ return __ldg(p); }")],
+    "(f) persistent grid, as many blocks as fit": PIPE_PERSISTENT,
+    "outputs evict-first (__stcs)": [
+        ("df_pipe.cu", "  w[2 * k][i] = v.hi;\n  w[2 * k + 1][i] = v.lo;\n",
+         "  __stcs(w[2 * k] + i, v.hi);\n  __stcs(w[2 * k + 1] + i, v.lo);\n")],
+    "no minimum of blocks an SM (registers as the compiler chooses)": [
+        ("df_pipe.cu", "__launch_bounds__(kPipeThreads, kPipeMinBlocks)",
+         "__launch_bounds__(kPipeThreads)")],
+    "at least 3 blocks an SM": pipe_min_blocks(3),
+    "at least 5 blocks an SM": pipe_min_blocks(5),
+    "four sums through every shuffle level (no split over the lanes)": [
+        ("df_pipe.cu", "  warp_tree_sum4(sums);\n",
+         "  for (int off = 16; off > 0; off >>= 1) {\n"
+         "#pragma unroll\n"
+         "    for (int d = 0; d < 4; ++d)\n"
+         "      sums[d] = df_add(sums[d], shfl_down(sums[d], off));\n"
+         "  }\n"
+         "#pragma unroll\n"
+         "  for (int d = 0; d < 4; ++d)\n"
+         "    sums[d] = {__shfl_sync(0xffffffffu, sums[d].hi, 0),\n"
+         "               __shfl_sync(0xffffffffu, sums[d].lo, 0)};\n"),
+        ("df_common.cuh", "  if constexpr (NR == 4) {",
+         "  if constexpr (NR == 0) {")],
+    "combine counter predicated (unrolled, as PR 4)": [
+        ("df_common.cuh",
+         "#pragma unroll 1\n"
+         "        for (int l = 0; l < tz; ++l) carry = df_add(slot[r][l], carry);\n"
+         "        slot[r][tz] = carry;\n",
+         "#pragma unroll\n"
+         "        for (int l = 0; l <= kMaxTreeDepth; ++l) {\n"
+         "          if (l < tz) {\n"
+         "            carry = df_add(slot[r][l], carry);\n"
+         "          } else if (l == tz) {\n"
+         "            slot[r][l] = carry;\n"
+         "          }\n"
+         "        }\n")],
+    # diagnostics: what each part costs (their dots are not the sums)
+    "pass alone: no fence, no ticket, no combine (dots not summed)": [
+        ("df_pipe.cu", PIPE_TICKET, "  }\n  return;\n")],
+    "pass alone without the lanes' tree (dots not summed)": [
+        ("df_pipe.cu", PIPE_TICKET, "  }\n  return;\n"),
+        ("df_pipe.cu", "  warp_tree_sum4(sums);\n", "")],
 }
 
 
@@ -913,7 +1242,8 @@ def emit(study, **fields):
 
 def build_edited(stack, edits, only=None):
     """Build a copy of the kernel sources with ``edits`` = [(source, text,
-    replacement)] applied, in a temporary directory that lives as long as
+    replacement)] applied (text ``None``: the replacement is the whole
+    file), in a temporary directory that lives as long as
     ``stack``; ``only``: the ``.cu`` sources to build (default all).
     Returns the loaded libraries by source (for ``_kernels.using``) and the
     build logs' register and spill lines."""
@@ -926,6 +1256,9 @@ def build_edited(stack, edits, only=None):
                           if f.endswith(".cu") and f not in only]))
     for source, text, replacement in edits:
         path = tmp / "csrc" / source
+        if text is None:  # the whole file
+            path.write_text(replacement)
+            continue
         body = path.read_text()
         if body.count(text) != 1:
             raise ValueError(f"{source}: {text!r} found "
@@ -1221,17 +1554,79 @@ def study_denseopts(torch, card):
              same_bits_as_committed=same[c])
 
 
-def study_mutants(torch, card):
-    """Every mutant, built in parallel, against the checks its kernel takes
-    part in; each family of checks also runs on the committed kernels."""
-    from new_cg_variants_tpu_torch.ops import _kernels
+def study_pipeopts(torch, card):
+    """Row 11's design options against the committed source, timed in turns
+    at n = 655,360 (the f32x2 path's shape), 4096 (the dense path's),
+    4,194,304, and 65,536, 131,072 and 262,144 (256, 512 and 1024 tiles,
+    about where a warp a tile starts to beat a block a tile: kWarpTiles);
+    every option's outputs compared bit for bit with those of
+    the PR 4 design (the first variant) there and at every shape of
+    check_df_pipe (chip_smoke.DF_PIPE_NS), each shape run twice, and
+    check_df_pipe run under each option."""
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
 
+    a1 = cs.df_scalar(0.3712345678901234)
+    beta = cs.df_scalar(0.1298765432109876)
+
+    def case(n, seed):
+        rng = np.random.default_rng(seed)
+        vecs = [cs.df_vec(torch, rng, n) for _ in range(6)]
+        return lambda: flat(ds.df_pipe_vector_phase(*vecs, a1, beta))
+
+    cases = {f"df_pipe_vector_phase, n = {n}": case(n, n)
+             for n in (cs.N, cs.DF_DENSE_N, cs.WIDE_N, 65536, 131072,
+                       262144)}
+    shape_cases = {n: case(n, n + 1) for n in cs.DF_PIPE_NS}
+
+    def check(variant):
+        lines = []
+        failed = cs.check_df_pipe(torch, card, None, lines.append)
+        outs, repeat = {}, True
+        for n, fn in shape_cases.items():
+            outs[n] = [t.clone() for t in fn()]
+            repeat &= all(bool(torch.equal(a, b))
+                          for a, b in zip(fn(), outs[n]))
+        return dict(checks=len(lines), failed=len(failed),
+                    repeat_same_bits=repeat, outs=outs)
+
+    variants = dict(PIPE_OPTIONS)
+    first = next(iter(variants))
+    variants = {first: variants.pop(first), "as committed": [], **variants}
+    times, same, logs, checked = timed_in_turns(
+        torch, variants, cases, rounds=5, iters=100, only=("df_pipe.cu",),
+        check=check)
+    ref = checked[first]["outs"]
+    for name, by_src in logs.items():
+        outs = checked[name].pop("outs")
+        differ = [n for n, got in outs.items()
+                  if not all(bool(torch.equal(a, b))
+                             for a, b in zip(got, ref[n]))]
+        emit("pipeopts", variant=name, ptxas=by_src["df_pipe.cu"],
+             check_df_pipe=checked[name], shapes_compared=len(outs),
+             same_bits_as_pr4_design=not differ, shapes_differing=differ)
+    for c in cases:
+        emit("pipeopts", case=c, card=card,
+             ms={v: [round(t, 5) for t in ts] for v, ts in times[c].items()},
+             median_ms={v: round(float(np.median(ts)), 5)
+                        for v, ts in times[c].items()},
+             same_bits_as_pr4_design=same[c])
+
+
+def study_mutants(torch, card, family=None):
+    """Every mutant, built in parallel, against the checks its kernel takes
+    part in; each family of checks also runs on the committed kernels.
+    ``family`` (dia, sym, df or ell): that family's mutants only."""
+    from new_cg_variants_tpu_torch.ops import _kernels
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+
+    families = {"dia": ("", MUTANTS, dia_checks),
+                "sym": (" (half-band checks)", SYM_MUTANTS, sym_checks),
+                "df": (" (double-word checks)", DF_MUTANTS, df_checks),
+                "ell": (" (ELL checks)", ELL_MUTANTS, ell_checks)}
     runs = []
-    for label, mutants, checks in (
-            ("", MUTANTS, dia_checks),
-            (" (half-band checks)", SYM_MUTANTS, sym_checks),
-            (" (double-word checks)", DF_MUTANTS, df_checks),
-            (" (ELL checks)", ELL_MUTANTS, ell_checks)):
+    for key, (label, mutants, checks) in families.items():
+        if family not in (None, key):
+            continue
         runs += [(what, edit, checks) for what, edit in
                  {"as committed" + label: None, **mutants}.items()]
 
@@ -1246,6 +1641,7 @@ def study_mutants(torch, card):
             built = [pool.submit(build_edited, stack, [edit] if edit else [],
                                  only(edit)) for _, edit, _ in runs]
         for (what, edit, checks), fut in zip(runs, built):
+            ds._TICKETS.clear()  # a mutant may leave its ticket counter set
             with _kernels.using(fut.result()[0]):
                 emit("mutants", mutant=what, source=edit and edit[0],
                      **checks(torch, card))
@@ -1399,9 +1795,12 @@ def main(argv):
     studies = {"check": study_check, "dfcheck": study_dfcheck,
                "symcheck": study_symcheck, "symopts": study_symopts,
                "ellcheck": study_ellcheck, "ellopts": study_ellopts,
-               "denseopts": study_denseopts, "mutants": study_mutants,
+               "denseopts": study_denseopts, "pipeopts": study_pipeopts,
+               "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo}
-    if len(argv) != 2 or argv[1] not in studies:
+    if not (len(argv) == 2 and argv[1] in studies
+            or len(argv) == 3 and argv[1] == "mutants"
+            and argv[2] in ("dia", "sym", "df", "ell")):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1409,7 +1808,7 @@ def main(argv):
         return 1
     card = cs.card_line()
     emit(argv[1], card=card, torch=torch.__version__, cuda=torch.version.cuda)
-    studies[argv[1]](torch, card)
+    studies[argv[1]](torch, card, *argv[2:])
     return 0
 
 

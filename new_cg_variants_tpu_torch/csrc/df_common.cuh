@@ -98,32 +98,91 @@ __device__ __forceinline__ Pair dot_term(Pair a, Pair b) {
   return {p.hi, rn_add(p.lo, x)};
 }
 
-// The halving tree over the block's threads: NR sums of one pair per thread
-// (blockDim.x of them, a power of two).  Level w adds element j + w/2 to
-// element j, w = blockDim.x, ..., 2.  sred holds NR * blockDim.x pairs; every
-// thread of the block must call it, and thread 0 gets the sums.
-template <int NR>
-__device__ __forceinline__ void block_tree_sum(const Pair (&v)[NR], int width,
-                                               Pair* sred, Pair (&out)[NR]) {
-  const int t = threadIdx.x;
-  const int bd = blockDim.x;
-  if (t < width) {
+// Chunk of leaf m of a thread's in-thread tree of 2^depth leaves: the leaves
+// are taken in bit-reversed order, so that the tree pairs neighbours.
+__device__ __forceinline__ int leaf_chunk(int m, int depth) {
+  return depth ? int(__brev(unsigned(m)) >> (32 - depth)) : 0;
+}
+
+__device__ __forceinline__ Pair shfl_xor(Pair v, int mask) {
+  return {__shfl_xor_sync(0xffffffffu, v.hi, mask),
+          __shfl_xor_sync(0xffffffffu, v.lo, mask)};
+}
+
+__device__ __forceinline__ Pair shfl_down(Pair v, int off) {
+  return {__shfl_down_sync(0xffffffffu, v.hi, off),
+          __shfl_down_sync(0xffffffffu, v.lo, off)};
+}
+
+// The last five levels of the halving tree of four sums over one warp (lane
+// l holds element l of each), lane 0 ending with the four sums.  The sums
+// split over the lanes as the tree narrows: at w = 32 lanes l and l + 16
+// swap two of their four sums (l < 16 keeps sums 0 and 1), at w = 16 lanes
+// l and l + 8 one of their two; sum d then halves over the lanes 8d ..
+// 8d + 7 (w = 8, 4, 2), and lane 0 gathers the four.  Each lane adds six
+// pairs, not twenty, and every addition is the halving tree's, operands in
+// its order (element j, then element j + w/2), so the bits are its bits.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void warp_tree_sum4(Pair (&v)[4]) {
+  const int lane = threadIdx.x & 31;
+  const bool low = lane < 16;
+  Pair a[2];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) sred[r * bd + t] = v[r];
+  for (int k = 0; k < 2; ++k) {
+    const Pair keep = low ? v[k] : v[k + 2];
+    const Pair got = shfl_xor(low ? v[k + 2] : v[k], 16);
+    a[k] = df_add(low ? keep : got, low ? got : keep);
   }
-  __syncthreads();
-  for (int w = width; w > 1; w >>= 1) {
-    const int half = w >> 1;
-    if (t < half) {
+  const bool first = (lane & 8) == 0;
+  const Pair keep = first ? a[0] : a[1];
+  const Pair got = shfl_xor(first ? a[1] : a[0], 8);
+  Pair b = df_add(first ? keep : got, first ? got : keep);
 #pragma unroll
-      for (int r = 0; r < NR; ++r)
-        sred[r * bd + t] = df_add(sred[r * bd + t], sred[r * bd + t + half]);
+  for (int off = 4; off > 0; off >>= 1) b = df_add(b, shfl_down(b, off));
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+    v[d] = {__shfl_sync(0xffffffffu, b.hi, 8 * d),
+            __shfl_sync(0xffffffffu, b.lo, 8 * d)};
+}
+
+// The halving tree over segments of `width` threads (a power of two that
+// divides blockDim.x): each segment sums NR pairs, one a thread; level w adds
+// element j + w/2 to element j, w = width, ..., 2, and the segment's first
+// thread ends with the sums in v.  The levels w > 32 pair threads of
+// different warps (t with t + 128, t + 64, t + 32) through shared memory, one
+// region of sred a level; the last five pair lanes of one warp by shuffles
+// with no barrier (four sums over a whole warp: warp_tree_sum4).  The pairs
+// are the same either way, so the bits are too.  sred holds NR * blockDim.x
+// pairs, one region a level, so that no level waits for the previous one's
+// readers; every thread of the block must call it.
+template <int NR>
+__device__ __forceinline__ void block_tree_sum(Pair (&v)[NR], int width,
+                                               Pair* sred) {
+  const int t = threadIdx.x & (width - 1);
+  Pair* region = sred + NR * (threadIdx.x - t);
+  for (int w = width; w > 32; w >>= 1) {
+    const int half = w >> 1;
+    if (t >= half && t < w) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) region[r * half + t - half] = v[r];
     }
     __syncthreads();
-  }
-  if (t == 0) {
+    if (t < half) {
 #pragma unroll
-    for (int r = 0; r < NR; ++r) out[r] = sred[r * bd];
+      for (int r = 0; r < NR; ++r) v[r] = df_add(v[r], region[r * half + t]);
+    }
+    region += NR * half;
+  }
+  if (t >= 32) return;  // whole warps: a segment's first, or all of a narrow one
+  if constexpr (NR == 4) {
+    if (width >= 32) {
+      warp_tree_sum4(v);
+      return;
+    }
+  }
+  for (int off = (width < 32 ? width : 32) >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) v[r] = df_add(v[r], shfl_down(v[r], off));
   }
 }
 
@@ -138,12 +197,14 @@ constexpr int kMaxTreeDepth = 10;
 //
 // Thread t (of teff = min(width, blockDim.x) that take part) owns the columns
 // t + k teff, k < count = width / teff.  The levels w > teff pair k with
-// k + count/2, ..., so they stay inside the thread; they form an adjacent-
-// pairs tree over k taken in bit-reversed order, which the thread walks
-// leaf by leaf, keeping one partial sum per level like a binary counter (the
-// trailing ones of m say how many levels a leaf completes).  The last
-// log2(teff) levels run in shared memory (block_tree_sum).  leaf(c, vals)
-// fills vals[r] for each of the NR sums.
+// k + count/2, ..., so they stay inside the thread: an adjacent-pairs tree
+// over k taken in bit-reversed order (leaf_chunk), walked leaf by leaf with
+// one partial sum per level like a binary counter.  The trailing ones of the
+// leaf's index say how many levels it completes, walked by a loop that
+// branches (the index is the same on every thread), so that no
+// predicated-off addition is issued.  The last log2(teff) levels are
+// block_tree_sum's.  leaf(c, vals) fills vals[r] for each of the NR sums.
+// Every thread of the block must call it; thread 0 gets the sums.
 template <int NR, typename Leaf>
 __device__ __forceinline__ void tree_sum(int width, const Leaf& leaf,
                                          Pair* sred, Pair (&out)[NR]) {
@@ -151,42 +212,26 @@ __device__ __forceinline__ void tree_sum(int width, const Leaf& leaf,
   const int teff = width < int(blockDim.x) ? width : int(blockDim.x);
   const int count = width / teff;
   const int depth = 31 - __clz(count);
-  Pair total[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) out[r] = {0.0f, 0.0f};
   if (t < teff) {
     Pair slot[NR][kMaxTreeDepth + 1];
     for (int m = 0; m < count; ++m) {
-      const int k = depth ? int(__brev(unsigned(m)) >> (32 - depth)) : 0;
-      const int tz = __ffs(~m) - 1;
       Pair vals[NR];
-      leaf(t + k * teff, vals);
+      leaf(t + teff * leaf_chunk(m, depth), vals);
+      const int tz = __ffs(~m) - 1;
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         Pair carry = vals[r];
-#pragma unroll
-        for (int l = 0; l <= kMaxTreeDepth; ++l) {
-          if (l < tz) {
-            carry = df_add(slot[r][l], carry);
-          } else if (l == tz) {
-            slot[r][l] = carry;
-          }
-        }
+#pragma unroll 1
+        for (int l = 0; l < tz; ++l) carry = df_add(slot[r][l], carry);
+        slot[r][tz] = carry;
       }
     }
 #pragma unroll
-    for (int l = 0; l <= kMaxTreeDepth; ++l) {
-      if (l == depth) {
-#pragma unroll
-        for (int r = 0; r < NR; ++r) total[r] = slot[r][l];
-      }
-    }
+    for (int r = 0; r < NR; ++r) out[r] = slot[r][depth];
   }
-  block_tree_sum<NR>(total, teff, sred, out);
-}
-
-// Chunk of leaf m of a lane's in-lane tree of 2^depth leaves: the leaves
-// are taken in bit-reversed order, so that the tree pairs neighbours.
-__device__ __forceinline__ int leaf_chunk(int m, int depth) {
-  return depth ? int(__brev(unsigned(m)) >> (32 - depth)) : 0;
+  block_tree_sum<NR>(out, teff, sred);
 }
 
 // NR sums of the pairs term(words, c, vals) over the columns c in

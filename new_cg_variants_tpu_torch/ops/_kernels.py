@@ -77,7 +77,7 @@ _SIGNATURES = {
     },
     "df_pipe.cu": {
         "df_pipe_f32": [_LL, _PTRS, _INT, _PTRS, _INT, _PTRS, _INT, _VP, _VP,
-                        _INT, _VP],
+                        _VP, _INT, _VP],
     },
     "ell_spmv.cu": {
         **{name: [_VP, _VP, _INT, _LL, _VP, _VP, _VP, _VP, _VP, _INT, _INT,

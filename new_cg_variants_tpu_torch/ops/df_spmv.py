@@ -23,9 +23,9 @@ and ``generic_pipe_vector_phase`` over double words), which is also what the
 kernel is checked against on the card.  The kernels repeat the plain
 versions' steps in the same order with roundings that are never contracted,
 so products and vectors agree bit for bit; only the four dots of the vector
-phase sum in another order.  Each wrapper counts its launches in
-``.launches`` (the vector phase's one count stands for its pass and the
-one-block combine of the dot partials that follows it).
+phase sum in another order (per 256-row tile, then over the tiles).  Each
+wrapper counts its launches in ``.launches``; every kernel here is one launch
+a call, the vector phase's cross-tile combine included.
 """
 
 from __future__ import annotations
@@ -185,10 +185,31 @@ def df_dense_spmv2(a, lo, lo2, v, w):
     return y, z
 
 
+#: The vector phase's ticket counters, one ``int32`` for each (device,
+#: stream), zero between launches (csrc/df_pipe.cu)
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream):
+    """The ticket counter of launches on ``stream`` of ``device``, allocated
+    zeroed at first use."""
+    key = (device, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:  # zeroed on the current stream, which is ``stream``
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
 def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):
     """Double-word pipe vector phase: ``(x2, r2, w2, p2, s2, (mu, delta,
     gamma, nu))`` from the word pairs ``x r w u p s`` and the double-word
-    scalars ``a1``, ``beta`` (pairs of 0-d tensors or numbers)."""
+    scalars ``a1``, ``beta`` (pairs of 0-d tensors or numbers).
+
+    On the card it is one launch on the current stream: the block that
+    finishes last sums the tiles' dot partials, found by a ticket counter
+    that the launch leaves at zero (:func:`_tickets`).  Launches on one
+    stream run one after the other and share their stream's counter, so
+    launches on different streams may run at once."""
     vecs = (x, r, w, u, p, s)
     words = [t for pair in vecs for t in pair]
     if _where(words) == "cpu":
@@ -209,10 +230,12 @@ def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):
     outs = [torch.empty_like(ref) for _ in range(10)]
     partials = torch.empty((8, nblocks), dtype=ref.dtype, device=ref.device)
     dots = torch.empty((4, 2), dtype=ref.dtype, device=ref.device)
+    stream = torch.cuda.current_stream(ref.device)
     rc = library("df_pipe.cu").df_pipe_f32(
         n, _pointers(words), len(words), _pointers(scalars), len(scalars),
         _pointers(outs), len(outs), partials.data_ptr(), dots.data_ptr(),
-        ref.device.index, torch.cuda.current_stream(ref.device).cuda_stream)
+        _tickets(ref.device, stream).data_ptr(), ref.device.index,
+        stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"df_pipe_vector_phase kernel launch failed: CUDA error {rc}")

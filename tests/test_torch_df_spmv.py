@@ -248,8 +248,9 @@ def test_cpu_calls_count_no_launch_and_mixed_devices_raise(dia, vw):
 
 def _tree_like_the_kernel(hi, lo, threads):
     """A Python model of csrc/df_common.cuh:tree_sum for one sum: each of
-    teff threads walks its columns t + k teff in bit-reversed k with one
-    partial per level (a binary counter), then the block's halving tree."""
+    teff threads (all at once, as tensors over t) walks its columns t + k teff
+    in bit-reversed k with one partial per level (a binary counter); then the
+    block's halving tree."""
     width = 1
     while width < hi.shape[0]:
         width *= 2
@@ -258,21 +259,143 @@ def _tree_like_the_kernel(hi, lo, threads):
     teff = min(width, threads)
     count = width // teff
     depth = count.bit_length() - 1
-    totals = []
-    for th in range(teff):
-        slot = {}
-        for m in range(count):
-            k = int(format(m, f"0{depth}b")[::-1], 2) if depth else 0
-            c = th + k * teff
-            carry = (hi[c:c + 1], lo[c:c + 1])
-            tz = (~m & (m + 1)).bit_length() - 1
-            for level in range(tz):
-                carry = tc.df_add(*slot.pop(level), *carry)
-            slot[tz] = carry
-        totals.append(slot[depth])
-    sh = torch.cat([p[0] for p in totals])
-    sl = torch.cat([p[1] for p in totals])
-    return tc._df_tree_sum(sh, sl)
+    cols = torch.arange(teff)
+    slot = {}
+    for m in range(count):
+        k = int(format(m, f"0{depth}b")[::-1], 2) if depth else 0
+        carry = (hi[cols + k * teff], lo[cols + k * teff])
+        tz = (~m & (m + 1)).bit_length() - 1
+        for level in range(tz):
+            carry = tc.df_add(*slot.pop(level), *carry)
+        slot[tz] = carry
+    return tc._df_tree_sum(*slot[depth])
+
+
+def _warp_tree4_like_the_kernel(v):
+    """A Python model of csrc/df_common.cuh:warp_tree_sum4 on (rows, 32)
+    word pairs, one per sum: lanes l and l + 16 swap two of the four sums,
+    then lanes l and l + 8 one of two, then each sum halves over its eight
+    lanes; returns the four sums of each row."""
+    lane = torch.arange(32)
+
+    def pick(c, a, b):
+        return tuple(torch.where(c, x, y) for x, y in zip(a, b))
+
+    low = lane < 16
+    a = []
+    for k in range(2):
+        keep = pick(low, v[k], v[k + 2])
+        got = tuple(w[:, lane ^ 16] for w in pick(low, v[k + 2], v[k]))
+        a.append(tc.df_add(*pick(low, keep, got), *pick(low, got, keep)))
+    first = (lane & 8) == 0
+    keep = pick(first, a[0], a[1])
+    got = tuple(w[:, lane ^ 8] for w in pick(first, a[1], a[0]))
+    b = tc.df_add(*pick(first, keep, got), *pick(first, got, keep))
+    for off in (4, 2, 1):
+        up = torch.where(lane + off < 32, lane + off, lane)
+        b = tc.df_add(*b, *(w[:, up] for w in b))
+    return [(b[0][:, 8 * d], b[1][:, 8 * d]) for d in range(4)]
+
+
+def _tile_tree_like_the_kernel(terms):
+    """A Python model of csrc/df_pipe.cu's tree over each tile of 256 rows
+    (rows past the data zero pairs), one warp a tile: lane l holds the rows
+    l + 32 j, j < 8, and sums them in the lane (j with j + 4, + 2, + 1: the
+    rows 128, 64, 32 apart), then warp_tree_sum4 over the lanes.  ``terms``:
+    the four sums' (hi, lo) row terms; returns the tile sums."""
+    tiles = -(-terms[0][0].shape[0] // 256)
+    v = []
+    for hi, lo in terms:
+        pad = tiles * 256 - hi.shape[0]
+        h, lw = (torch.cat([w, w.new_zeros(pad)]).reshape(tiles, 8, 32)
+                 for w in (hi, lo))
+        for half in (4, 2, 1):
+            h, lw = tc.df_add(h[:, :half], lw[:, :half], h[:, half:2 * half],
+                              lw[:, half:2 * half])
+        v.append((h[:, 0], lw[:, 0]))
+    return _warp_tree4_like_the_kernel(v)
+
+
+def _dots_like_the_kernel(terms, threads, warp_tiles=1024):
+    """Row 11's dots as csrc/df_pipe.cu sums them: the tile trees; from
+    ``warp_tiles`` tiles (padded to a power of two, W) block g sums the
+    tiles g + w W / 8, w < 8, by the tree's first three levels (w with w + 4,
+    + 2, + 1); then the block that draws the last ticket sums the partials by
+    tree_sum, ``threads`` wide."""
+    dots = []
+    for th, tl in _tile_tree_like_the_kernel(terms):
+        width = 1
+        while width < th.shape[0]:
+            width *= 2
+        if width >= warp_tiles:
+            parts = max(width // 8, 1)
+            th, tl = (torch.cat([w, w.new_zeros(8 * parts - w.shape[0])])
+                      .reshape(8, parts) for w in (th, tl))
+            for half in (4, 2, 1):
+                th, tl = tc.df_add(th[:half], tl[:half], th[half:2 * half],
+                                   tl[half:2 * half])
+            th, tl, width = th[0], tl[0], parts
+        dots.append(_tree_like_the_kernel(th, tl, threads))
+    return dots
+
+
+def _dot_terms(vecs):
+    """The four dots' row terms as the kernel forms them, from the plain
+    phase's r2, p2, s2 (word pairs)."""
+    _, r2, _, p2, s2, _ = vecs
+    terms = []
+    for a, b in ((p2, s2), (r2, s2), (s2, s2), (r2, r2)):
+        ph, e = tc.two_prod(a[0], b[0])
+        terms.append((ph, e + (a[0] * b[1] + a[1] * b[0] + a[1] * b[1])))
+    return terms
+
+
+@pytest.mark.parametrize("n", [1, 300, 3 * 256, 5 * 256 - 7, 2560 * 256])
+def test_kernel_dot_order_is_the_same_at_256_and_1024_threads(n):
+    """The dots' order is fixed by the tiles and the tree, not by how many
+    threads sum the partials or whether blocks sum eight tiles first;
+    chip_smoke.tile_order_dots, which the card's kernel is held to bit for
+    bit, is the same order."""
+    import chip_smoke
+
+    vecs = _port_phase(*_phase_inputs(n, seed=n % 97))
+    terms = _dot_terms(vecs)
+    want = chip_smoke.tile_order_dots(torch, vecs[1], vecs[3], vecs[4])
+    for threads in (256, 1024):
+        for warp_tiles in (1, 1024):
+            got = _dots_like_the_kernel(terms, threads, warp_tiles)
+            for a, b in zip(got, want):
+                assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("n", [1, 5, 100, 255, 256])
+def test_kernel_dot_order_at_one_tile_is_the_plain_tree(n):
+    """Below one tile the kernel's zero rows up to 256 add nothing to
+    normalised pairs: the plain tree's bits."""
+    rng = np.random.default_rng(n)
+    hi = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    lo = torch.from_numpy((rng.standard_normal(n) * 2.0 ** -30)
+                          .astype(np.float32))
+    hi, lo = tc.fast_two_sum(hi, lo)
+    want = tc._df_tree_sum(hi, lo)
+    for threads in (256, 1024):
+        for got in _dots_like_the_kernel([(hi, lo)] * 4, threads):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+@pytest.mark.parametrize("tiles", [3, 5, 6, 7, 11])
+def test_kernel_dot_order_against_float64(tiles):
+    """At tile counts that are not powers of two the kernel's order sums
+    every partial: the dots within 1e-12 of float64."""
+    vecs, a1, beta = _phase_inputs(tiles * 256 - 37, seed=tiles)
+    got = _port_phase(vecs, a1, beta)
+    _, want = _float64_phase(vecs, a1, beta)
+    _, r2, _, p2, s2 = (as64(v) for v in got[:5])
+    scale = (np.abs(p2) @ np.abs(s2), np.abs(r2) @ np.abs(s2), s2 @ s2,
+             r2 @ r2)
+    for d, dot in enumerate(_dots_like_the_kernel(_dot_terms(got), 256)):
+        assert abs(as64(dot) - want[d]) <= 1e-12 * scale[d]
 
 
 @pytest.mark.parametrize("n,threads", [(1, 256), (5, 256), (300, 256),

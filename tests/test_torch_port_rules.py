@@ -302,13 +302,39 @@ def test_every_study_edit_applies_to_the_kernel_sources():
              + list(chip_study.LAUNCH_BOUNDS)
              + [e for opt in (chip_study.SYM_OPTIONS,
                               chip_study.ELL_OPTIONS,
-                              chip_study.DENSE_OPTIONS)
+                              chip_study.DENSE_OPTIONS,
+                              chip_study.PIPE_OPTIONS)
                 for edits in opt.values() for e in edits])
     assert len(edits) >= 30
     for source, text, replacement in edits:
         body = (PORT_DIR / "csrc" / source).read_text()
+        if text is None:  # a whole file: it declares the same entry points
+            assert c_entry_points(replacement) == c_entry_points(body)
+            continue
         assert body.count(text) == 1, (source, text)
         assert replacement != text
+
+
+def c_entry_points(source: str) -> dict[str, int]:
+    """Name -> argument count of each function defined after an
+    ``extern "C" {`` in ``source``."""
+    found = {}
+    for block in source.split('extern "C" {')[1:]:
+        for name, args in re.findall(r"^int (\w+)\(([^)]*)\)\s*\{", block,
+                                     re.M):
+            found[name] = len(args.split(","))
+    return found
+
+
+@pytest.mark.parametrize("source", _kernels.SOURCES)
+def test_signatures_match_the_c_entry_points(source):
+    """``_SIGNATURES`` declares every ``extern "C"`` entry point of a source
+    with as many arguments as the C function takes (ctypes would pass a
+    missing pointer as garbage, not fail)."""
+    body = (PORT_DIR / "csrc" / source).read_text()
+    declared = {name: len(types)
+                for name, types in _kernels._SIGNATURES[source].items()}
+    assert c_entry_points(body) == declared
 
 
 def test_gitignore_lists_the_build_directory():
