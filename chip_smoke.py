@@ -128,7 +128,33 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     (the permuted 27-point operator on 32^3), block-banded (the permuted
     model problem, n = 65,536) and stencil operators, one name per family
     and a Jacobi ``_pcg`` name on each; pipe-PR-CG in f32x2 on an ELL inner;
-21. ``kernels`` — one JSON line over all kernel entries: one record per entry
+21. ``convergence_f64`` — the ``figure_gen`` flow on the card in float64
+    (``harness.convergence``): HPCG's operator on 32^3 under a random
+    permutation (n = 32,768; the auto route picks ELL) and the scaled band
+    (n = 65,536, k = 32; half-band) written with ``write_mtx``;
+    ``run_convergence_suite`` over the nine default names with the
+    extended-precision oracle on the host (Jacobi and none on the first,
+    Jacobi on the second), their table rows and seconds; the first with
+    Jacobi again on the card and on the CPU, stopped before the rounding
+    floor: iterations to 1e-5 within 1, log10 of the best error within
+    0.05, the oracle's columns identical; launch counts of every run (row
+    12 once per product of each generic body and each probe product, after
+    one gather; each name's family entry once per step; nothing on the
+    CPU); then ``updated_error_A_norm`` (against ``spsolve``) and
+    ``lanczos_recurrence`` on a card run of ``hs_pcg`` on 24^3.  Row 12 and
+    the half-band kernels are checked and timed in float64 at these shapes
+    first;
+22. ``cli_f32`` — ``cli.main`` in-process at the main path's width:
+    ``solve`` (pipe-PR-CG, 300 iterations, 3 repeats) and ``scaling`` (five
+    names, 1500 iterations, 3 trials; its result files, ``env_info.json``
+    with the ``nvidia-smi`` line, ``scaling.call``), with launch counts;
+    ``solve --devices 2`` must raise ``NotImplementedError`` and ``solve
+    --dtype bf16`` the kernels' ``TypeError``;
+23. ``trace_f32`` — 200 steps of the main path under
+    ``utils.profiling.trace``, parsed by ``utils.trace_analysis``: the
+    family kernel in the spmv bucket, no kernel of the port in "other", the
+    parsed device time within 10% of the profiler's busy time;
+24. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
     paths of that shape.
 
@@ -140,6 +166,7 @@ is available.  The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -291,25 +318,27 @@ def library_csr(torch, offsets, data, mirror=True):
     return coo.coalesce().to_sparse_csr()
 
 
-def check_spmv(torch, card, timings, report=emit_check):
-    """The half-band SpMV kernel against its plain version at SYM_SHAPES,
-    timed (when ``timings`` is a dict) at the main path's shape.  ``report``
-    takes each check's record.  Returns the failed checks."""
+def check_spmv(torch, card, timings, report=emit_check, shapes=SYM_SHAPES,
+               dtypes=("float32", "float64"), timed=((N, K_BAND), "float32"),
+               suffix=""):
+    """The half-band SpMV kernel against its plain version at ``shapes`` in
+    ``dtypes``, timed (when ``timings`` is a dict) at ``timed`` = (shape,
+    dtype), into ``timings["sym_dia_spmv" + suffix]``.  ``report`` takes each
+    check's record.  Returns the failed checks."""
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
 
     rate = memory_rate(card)
     failed = []
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (getattr(torch, dn) for dn in dtypes):
         dn = dtype_name(dtype)
         tol = TOL[dn]
-        for n, k in SYM_SHAPES:
+        for n, k in shapes:
             rng = np.random.default_rng(n + k)
             offs = tuple(range(k))  # the stored offsets of banded_model
             data = random_band(torch, offs, n, dtype, rng)
             v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
                                     device="cuda") for _ in range(2))
-            main = ((n, k) == (N, K_BAND) and dtype == torch.float32
-                    and timings is not None)
+            main = (((n, k), dn) == timed and timings is not None)
             isz = data.element_size()
             y = sd.sym_dia_spmv(offs, data, v)
             y2, z2 = sd.sym_dia_spmv2(offs, data, v, w)
@@ -338,7 +367,7 @@ def check_spmv(torch, card, timings, report=emit_check):
                 rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
                            library_ms=lib_ms, library_err=lib_err,
                            bound_ms=b_ms, bound_by=b_by, spmv2_bound_ms=b2_ms)
-                timings["sym_dia_spmv"] = rec
+                timings["sym_dia_spmv" + suffix] = rec
             report(rec)
             if not max(errs) <= tol:
                 failed.append(rec)
@@ -454,24 +483,25 @@ def family_scales(torch, call, data, names, vecs, scalars):
 
 
 def check_entries(torch, card, timings, module, table, shapes, make_band,
-                  terms_per_value, suffix="", report=emit_check):
+                  terms_per_value, suffix="", report=emit_check,
+                  dtypes=("float32", "float64"), timed_dtype="float32"):
     """Each entry of ``table`` (wrappers of ``module``) against its plain
     version (the wrapper on CPU copies of the same inputs), on each of
-    ``shapes`` = (n, label, offsets) with the band ``make_band`` draws; the
-    first shape in float32 is timed when ``timings`` is a dict, into
-    ``timings[entry + suffix]``.  ``terms_per_value``: operations per stored
+    ``shapes`` = (n, label, offsets) with the band ``make_band`` draws, in
+    ``dtypes``; the first shape in ``timed_dtype`` is timed when ``timings``
+    is a dict, into ``timings[entry + suffix]``.  ``terms_per_value``: operations per stored
     value and SpMV (4 with a mirror term, 2 without).  ``report`` takes each
     check's record.  Returns the failed checks."""
     rate = memory_rate(card)
     failed = []
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (getattr(torch, dn) for dn in dtypes):
         dn = dtype_name(dtype)
         tol = TOL[dn]
         for n, k, offs in shapes:
             rng = np.random.default_rng(7 * n + len(offs))
             data = make_band(torch, offs, n, dtype, rng)
             data_cpu = data.cpu()
-            main = ((n, k, offs) == shapes[0] and dtype == torch.float32
+            main = ((n, k, offs) == shapes[0] and dn == timed_dtype
                     and timings is not None)
             for entry, (ins, scs, outs, dots, nmv, ops, kw,
                         plain_name) in table.items():
@@ -715,13 +745,29 @@ def read_counts():
     return {fn.__name__: fn.launches for fn in counted_wrappers()}
 
 
+def device_activity(prof):
+    """``(busy us, CUDA events, us by name)`` of what a profiler saw on the
+    card: the union of its CUDA events' spans (kernels, copies, sets)."""
+    from torch.autograd import DeviceType
+
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy, end = 0.0, -1.0
+    for a, z in sorted(spans):
+        busy += max(0.0, z - max(a, end))
+        end = max(end, z)
+    return busy, len(spans), by_name
+
+
 def profile_steps(torch, ctx, step_fn, state):
     """Device busy share and kernel time by name over PROFILE_STEPS steps.
 
     From ``torch.profiler``'s CUDA kernel events; ``None`` fields where the
     profiler saw no device activity (not measured).
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     state = step_fn(ctx, state)
@@ -733,23 +779,15 @@ def profile_steps(torch, ctx, step_fn, state):
             state = step_fn(ctx, state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    if not spans:
+    busy, nspans, by_name = device_activity(prof)
+    if not nspans:
         return {"steps": PROFILE_STEPS - 1, "device_busy_share": None}
-    busy, end = 0.0, -1.0
-    for a, z in sorted(spans):
-        busy += max(0.0, z - max(a, end))
-        end = max(end, z)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     steps = PROFILE_STEPS - 1
     return {"steps": steps, "wall_ms_per_iter": wall_us / steps / 1e3,
             "device_busy_ms_per_iter": busy / steps / 1e3,
             "device_busy_share": busy / wall_us,
-            "kernels_per_iter": len(spans) / steps,
+            "kernels_per_iter": nspans / steps,
             "top_kernels_us_per_iter": {k[:60]: v / steps for k, v in top}}
 
 
@@ -848,6 +886,7 @@ def main_path_f32(torch, timings):
     op, b, x_true = model_f32(torch, "symdia")
     out = bench_protocol(torch, op, b, "fused_sym_pipe_full_step",
                          "sym_dia_spmv")
+    timings["main_f32"] = {"ms_per_iter": out["ms_per_iter"]}
     return emit_bench(torch, "main_f32", out, x_true,
                       timings["fused_sym_pipe_full_step"]["ms"])
 
@@ -1779,13 +1818,14 @@ def locality_order(a):
 
 
 def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
-                    perm=None):
+                    perm=None, sfx=None):
     """Both ELL entries against their plain versions on one pattern, in the
     given order and, with ``perm``, in that locality order (storage
     reordered, gather in, scatter out): the locality order's products must
     equal the given order's bit for bit, and its gather in ``v[perm]``.
     Timed (with the plain versions, cuSPARSE and the bound) when
-    ``timings``."""
+    ``timings``, into records named with ``sfx`` (default: none for a
+    permuted pattern, NATURAL else)."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
 
     val, idx, csr = ell_arrays(torch, a, rng, dtype)
@@ -1863,14 +1903,15 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
             rec.update(ms=ms, spmv2_ms=ms2, locality_plain_ms=plain_ms,
                        locality_plain2_ms=plain2_ms, gather_ms=g_ms,
                        gather2_ms=g2_ms)
-            timings["ell_gather"] = dict(
+            timings["ell_gather" + (sfx or "")] = dict(
                 n=n, max_abs_err=gather_err,
                 ms=g_ms, ms_2rhs=g2_ms, plain_ms=g_plain_ms,
                 library_ms=g_lib_ms, library="torch.index_select(v, 0, perm)",
                 bound_ms=g_ms_bound, bound_by=g_by)
             common["given_order"] = given
             del bval, bidx, p
-        sfx = "" if "permuted" in label else NATURAL
+        if sfx is None:
+            sfx = "" if "permuted" in label else NATURAL
         timings["ell_spmv" + sfx] = dict(
             common, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by)
@@ -2156,12 +2197,543 @@ def sparse_f64(torch):
                 dtype="f32x2")
 
 
+# ---------------------------------------------------------------------------
+# The convergence-measurement layer: figure_gen, the post-hoc probes, the
+# command line and the trace parser on the card.
+
+#: (a) HPCG's operator on 32^3 under PERM_SEED: the auto route in float64
+#: picks ELL (at 24^3 it picks the block-banded packing)
+CONV_GRID = 32
+CONV_BAND_N = 65_536
+#: (a): 1e-5 at iteration 35 (this phase's rows); the depth leaves the
+#: oracle room to exit and the variants room to reach their rounding floor
+CONV_ITERS = 150
+#: (b): 1e-5 at iteration 154 (this phase's rows); 600 reach the floor
+CONV_BAND_ITERS = 600
+#: card against CPU on (a) with Jacobi at CONV_ITERS, rows compared twice.
+#: Before the rounding floor (the histories cut after CONV_CMP_ITERS) the two
+#: converge alike: iterations within CONV_ITER_SLACK, log10 of the best error
+#: within CONV_LOG10_TOL.  At the floor the best error is the least of
+#: rounding noise, which two summation orders draw differently.  The limits
+#: are the largest gaps read, with a margin: `chip_study.py floors` (card
+#: against CPU, three permutations, both preconditioners: at most 0.224, and
+#: 1.371 for the names the paper finds to lose accuracy, CONV_NOISY) and
+#: `tests/torch_floor_gaps.py` (the port against the JAX package on the
+#: CPU: 0.385 and 1.464); PERF.md has the readings.  A kernel that falls to
+#: float32 leaves its floor above CONV_FLOOR_MAX (the card's highest read:
+#: -12.38).
+CONV_CMP_ITERS = 50
+CONV_ITER_SLACK = 1
+CONV_LOG10_TOL = 0.05
+CONV_NOISY = ("gv_pcg", "pipe_p_pcg", "pipe_p_m_pcg")
+CONV_FLOOR_TOL = 0.5
+CONV_NOISY_FLOOR_TOL = 2.0
+CONV_FLOOR_MAX = -11.0
+#: the post-hoc probes' run: hs_pcg (M = I) on HPCG's operator on 24^3 as
+#: ELL (n = 13,824: Lanczos densifies A to 1.5 GB on the host; on 32^3 to
+#: 8.6 GB, and the sparse LU's fill, which grows faster than n on a 3-D
+#: grid, makes it many times slower)
+POSTHOC_GRID = 24
+POSTHOC_ITERS = 40
+POSTHOC_CHECK_ITERS = (0, 19, 39)
+POSTHOC_RTOL = 1e-10
+#: suffixes of the kernel records at this slice's float64 shapes
+F64_ELL = " (f64, 27-point 32^3 permuted)"
+F64_ELL_POSTHOC = " (f64, 27-point 24^3 permuted)"
+F64_SYM = " (f64, n=65,536)"
+#: the family entries the _pcg names of DEFAULT_VARIANTS take under Jacobi
+CONV_SYM_ENTRIES = ("fused_sym_hs_matvec_phase",
+                    "fused_sym_cgcg_matvec_phase_prec",
+                    "fused_sym_pr_full_step_prec",
+                    "fused_sym_gv_matvec_phase_prec",
+                    "fused_sym_pipe_full_step_prec",
+                    "fused_sym_pipe_full_step_prec/no recompute")
+CLI_SCALING_VARIANTS = ("hs_cg", "cg_cg", "gv_cg", "pr_cg", "pipe_pr_cg")
+CLI_ITERS = 300
+CLI_REPEATS = 3
+CLI_SCALING_ITERS = 1500
+CLI_TRIALS = 3
+TRACE_STEPS = 200
+TRACE_BUSY_RTOL = 0.10
+#: each ``__global__`` of ``csrc/*.cu`` and the bucket of utils.trace_analysis
+#: its time belongs in: a product, fused or not, in spmv; a vector phase in
+#: vector
+KERNEL_PHASES = {
+    "sym_dia_kernel": "spmv", "sym_family_kernel": "spmv",
+    "dia_spmv_kernel": "spmv", "dia_family_kernel": "spmv",
+    "df_dia_kernel": "spmv", "df_dense_kernel": "spmv",
+    "ell_spmv_kernel": "spmv", "ell_gather_kernel": "spmv",
+    "pipe_vector_kernel": "vector", "df_pipe_kernel": "vector",
+}
+
+
+def add_counts(total, counts):
+    """Add ``counts`` into ``total`` by key; returns ``total``."""
+    for key, val in counts.items():
+        total[key] = total.get(key, 0) + val
+    return total
+
+
+def probe_products(rows, product):
+    """Launches the error_A_norm and residual_2_norm probes add to a
+    history run of ``rows`` rows: one product each a row (``product``: the
+    counts of one product)."""
+    return {key: 2 * rows * val for key, val in product.items()}
+
+
+def run_expected(expected, product, name, iters):
+    """Launches of one history run of ``name``: ``iters`` rows (``iters - 1``
+    steps) with the PROBES; ``expected(name, steps)`` as in solve_names.
+    Returns ``(counts by wrapper, kernel entry)``."""
+    counts, entry = expected(name, iters - 1)
+    return add_counts(dict(counts), probe_products(iters, product)), entry
+
+
+def by_entry(counts, entry):
+    """One name's launch counts by wrapper mapped to kernel entries: a
+    wrapper's launches go to the entry of it that the name runs."""
+    return {(entry if key == entry.split("/")[0] else key): val
+            for key, val in counts.items()}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def conv_checks(torch, card, timings, a_conv, a_posthoc):
+    """The kernels of convergence_f64 against their plain versions at its
+    float64 shapes, timed: row 12 on both ELL patterns in their RCM order,
+    row 1 and the family entries the Jacobi runs take at n = 65,536, k =
+    32.  Raises after all ran."""
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+
+    rate = memory_rate(card)
+    failed = []
+    for label, a, sfx in (("27-point 32^3 permuted", a_conv, F64_ELL),
+                          ("27-point 24^3 permuted", a_posthoc,
+                           F64_ELL_POSTHOC)):
+        failed += check_ell_shape(
+            torch, label, a, np.random.default_rng(12), torch.float64, rate,
+            timings, emit_check, locality_order(a), sfx=sfx)
+    shape = (CONV_BAND_N, K_BAND)
+    failed += check_spmv(torch, card, timings, shapes=(shape,),
+                         dtypes=("float64",), timed=(shape, "float64"),
+                         suffix=F64_SYM)
+    failed += check_entries(
+        torch, card, timings, sf,
+        {e: FAMILY[e] for e in CONV_SYM_ENTRIES},
+        ((CONV_BAND_N, K_BAND, tuple(range(K_BAND))),), random_band, 4,
+        suffix=F64_SYM, dtypes=("float64",), timed_dtype="float64")
+    if failed:
+        raise AssertionError(f"{len(failed)} float64 checks disagree: "
+                             f"{failed}")
+
+
+def row_compare(hc, card_dir, cpu_dir, title, prec, names,
+                cut=CONV_CMP_ITERS):
+    """The card's table row against the CPU's on the same matrix: before the
+    rounding floor (cut after ``cut`` iterations) and at it (whole
+    histories).  Returns ``(record, faults)``; the oracle's numbers must be
+    identical."""
+    rec, faults = {}, {}
+    for label, iters in (("pre_floor", cut), ("floor", None)):
+        card, cpu = (table_numbers(hc, d, title, prec, names, iters)
+                     for d in (card_dir, cpu_dir))
+        diffs = {k: dict(iters=card[k][0] - cpu[k][0],
+                         log10=card[k][1] - cpu[k][1], card=card[k][1],
+                         cpu=cpu[k][1]) for k in names}
+        rec[label] = diffs
+        for k, v in diffs.items():
+            tol = (0.0 if k == "exact_pcg" else CONV_LOG10_TOL if iters
+                   else CONV_NOISY_FLOOR_TOL if k in CONV_NOISY
+                   else CONV_FLOOR_TOL)
+            if (abs(v["iters"]) > (0 if k == "exact_pcg" else CONV_ITER_SLACK)
+                    or abs(v["log10"]) > tol
+                    or not iters and v["cpu"] <= CONV_FLOOR_MAX < v["card"]):
+                faults[f"{label} {k}"] = v
+    return rec, faults
+
+
+def table_numbers(hc, data_dir, title, prec, names, iters=None):
+    """``{name: (iterations to 1e-5, log10 best error, seconds)}`` of one
+    table row's trial files, from the histories cut after ``iters``
+    iterations (None: whole); seconds None where the file has none (the JAX
+    package's)."""
+    import pathlib
+
+    out = {}
+    for name in names:
+        trial = np.load(pathlib.Path(data_dir) / f"{title}_{prec}"
+                        / f"{name}.npy", allow_pickle=True).item()
+        err = trial["error_A_norm"][: None if iters is None else iters + 1]
+        out[name] = (*hc.trial_summary(dict(error_A_norm=err)),
+                     trial.get("seconds"))
+    return out
+
+
+def convergence_f64(torch, card, timings, launches):
+    """figure_gen on the card in float64: two matrices written with
+    write_mtx, the suite over DEFAULT_VARIANTS with the oracle on the host,
+    its table rows, the card against the CPU before the rounding floor, the
+    launch counts of each run, and the post-hoc probes of one card run."""
+    import pathlib
+    import platform
+    import tempfile
+    import warnings
+
+    import scipy.sparse.linalg as spla
+
+    from new_cg_variants_tpu_torch import from_coo, read_mtx, run, write_mtx
+    from new_cg_variants_tpu_torch.harness import convergence as hc
+    from new_cg_variants_tpu_torch.ops.operators import (
+        choose_format,
+        coo_from_scipy,
+    )
+    from new_cg_variants_tpu_torch.probes import posthoc
+
+    a = stencil27(CONV_GRID, PERM_SEED)
+    a24 = stencil27(POSTHOC_GRID, PERM_SEED)
+    conv_checks(torch, card, timings, a, a24)
+
+    ld = np.finfo(np.longdouble)
+    host = dict(machine=platform.machine(), longdouble_eps=float(ld.eps),
+                longdouble_bits=np.dtype(np.longdouble).itemsize * 8)
+    names = hc.DEFAULT_VARIANTS
+    table = names + ("exact_pcg",)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        band, _ = scaled_band(torch, CONV_BAND_N, K_BAND)
+        write_mtx(str(d / "hpcg27.mtx"), coo_from_scipy(a), symmetric=True)
+        write_mtx(str(d / "scaled_band.mtx"), coo_from_scipy(band.tocsr()),
+                  symmetric=True)
+        write_s = time.perf_counter() - t0
+        # the suite's route of each file; its launch counts below show the
+        # kernels of that route ran
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # ELL's warning, expected here
+            routes = {name: choose_format(read_mtx(str(d / f"{name}.mtx")),
+                                          dtype=torch.float64)
+                      for name in ("hpcg27",)}
+        routes["scaled_band"] = choose_format(coo_from_scipy(band.tocsr()),
+                                              dtype=torch.float64)
+        emit("convergence_f64", matrices={
+            "hpcg27": dict(n=a.shape[0], nnz=int(a.nnz),
+                           route=routes["hpcg27"]),
+            "scaled_band": dict(n=CONV_BAND_N, k=K_BAND,
+                                route=routes["scaled_band"])},
+             write_host_seconds=write_s, host=host)
+        if routes != {"hpcg27": "ell", "scaled_band": "symdia"}:
+            raise AssertionError(f"auto routes {routes}, expected ell and "
+                                 "symdia")
+
+        suite = dict(variants=names, table_variants=table, matrix_dir=d,
+                     make_plots=False, verbose=False, fig_dir=d / "figures")
+        ell_product = {"ell_spmv": 1, "ell_gather": 1}
+        failed, path = [], {}
+
+        def run_suite(label, configs, expected, product, **kw):
+            """The suite on ``configs``; the launches of each history run
+            read around the harness's own ``run`` call, held to
+            ``expected`` (None: no launch) and added to ``path``; none may
+            fall outside the history runs."""
+            runs, stray, inner = [], {}, hc.run
+
+            def counted(variant, *args, **kwargs):
+                add_counts(stray, nonzero(read_counts()))
+                reset_counts()
+                out = inner(variant, *args, **kwargs)
+                runs.append((variant, kwargs["max_iter"],
+                             nonzero(read_counts())))
+                reset_counts()
+                return out
+
+            reset_counts()
+            t0 = time.perf_counter()
+            hc.run = counted
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    hc.run_convergence_suite(configs=configs,
+                                             **{**suite, **kw})
+            finally:
+                hc.run = inner
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            add_counts(stray, nonzero(read_counts()))
+            total = {}
+            for name, iters, counts in runs:
+                add_counts(total, counts)
+                want, entry = ({}, None) if expected is None else \
+                    run_expected(expected, product, name, iters)
+                if counts != want:
+                    failed.append(dict(run=label, variant=name,
+                                       launches=counts,
+                                       expected_launches=want))
+                if entry is not None:
+                    add_counts(path, by_entry(counts, entry))
+            if len(runs) != len(names) * len(configs) or stray:
+                failed.append(dict(run=label, history_runs=len(runs),
+                                   outside_history_runs=stray))
+            return seconds, total
+
+        # (a) and (b) at their full depth on the card; the table
+        data = d / "data"
+        sec_a, counts_a = run_suite(
+            "hpcg27", [("hpcg27", CONV_ITERS, "jacobi"),
+                       ("hpcg27", CONV_ITERS, None)],
+            ell_expected, ell_product, data_dir=data, include_exact=True,
+            device="cuda")
+        sec_b, counts_b = run_suite(
+            "scaled_band", [("scaled_band", CONV_BAND_ITERS, "jacobi")],
+            sym_expected, {"sym_dia_spmv": 1}, data_dir=data,
+            table_variants=names, device="cuda")
+        for title, prec, cols in (("hpcg27", "jacobi", table),
+                                  ("hpcg27", None, table),
+                                  ("scaled_band", "jacobi", names)):
+            emit("convergence_f64", matrix=title, preconditioner=prec,
+                 iterations=CONV_ITERS if title == "hpcg27"
+                 else CONV_BAND_ITERS,
+                 row=(data / f"{title}_{prec}" / "convergence.txt"
+                      ).read_text().strip(),
+                 by_variant={k: dict(zip(("iters_to_1e-5", "log10_best",
+                                          "seconds"), v))
+                             for k, v in table_numbers(hc, data, title, prec,
+                                                       cols).items()})
+        emit("convergence_f64", suite_seconds={"hpcg27": sec_a,
+                                               "scaled_band": sec_b},
+             launches={"hpcg27": counts_a, "scaled_band": counts_b},
+             table=(d / "figures" / "convergence_table_data.tex").read_text())
+
+        # (a) with Jacobi on the CPU at the same depth; its row against the
+        # card's, before the rounding floor and at it
+        cpu = d / "cpu"
+        run_suite("hpcg27 cpu", [("hpcg27", CONV_ITERS, "jacobi")], None,
+                  ell_product, data_dir=cpu, include_exact=True, device="cpu")
+        rec, bad = row_compare(hc, data, cpu, "hpcg27", "jacobi", table)
+        emit("convergence_f64", compare="card against CPU",
+             iterations=CONV_ITERS, cut_at=CONV_CMP_ITERS,
+             card_row=(data / "hpcg27_jacobi" / "convergence.txt"
+                       ).read_text().strip(),
+             cpu_row=(cpu / "hpcg27_jacobi" / "convergence.txt"
+                      ).read_text().strip(),
+             **rec, faults=bad,
+             tol=dict(iters=CONV_ITER_SLACK, log10_pre_floor=CONV_LOG10_TOL,
+                      floor=CONV_FLOOR_TOL, floor_noisy=CONV_NOISY_FLOOR_TOL,
+                      noisy=CONV_NOISY, floor_max=CONV_FLOOR_MAX))
+        if bad:
+            failed.append(dict(compare=bad))
+
+    # the post-hoc probes of one card run (hs_pcg, M = I, 24^3 as ELL)
+    op24 = from_coo(coo_from_scipy(a24), fmt="ell", device="cuda")
+    n24 = a24.shape[0]
+    b24 = a24 @ (np.ones(n24) / np.sqrt(n24))
+    reset_counts()
+    out = run("hs_pcg", op24, b24, max_iter=POSTHOC_ITERS,
+              probes=("save_r", "alpha", "beta"), device="cuda")
+    torch.cuda.synchronize()
+    counts = nonzero(read_counts())
+    want, entry = ell_expected("hs_pcg", POSTHOC_ITERS - 1)
+    launches["posthoc_f64"] = by_entry(counts, entry)
+    t0 = time.perf_counter()
+    ue = posthoc.updated_error_A_norm(op24, out)
+    ue_s = time.perf_counter() - t0
+    ks = list(POSTHOC_CHECK_ITERS)
+    r = out["save_r"][ks]
+    ref = np.sqrt(np.einsum("nt,tn->t", spla.spsolve(a24.tocsc(), r.T), r))
+    t0 = time.perf_counter()
+    posthoc.lanczos_recurrence(op24, out)
+    lz_s = time.perf_counter() - t0
+    three = float(np.nanmax(out["lanczos_3_term_error"][1:-1]))
+    orth = float(np.max(out["lanczos_orthogonality"][:5]))
+    rec = dict(posthoc="hs_pcg", n=n24, iterations=POSTHOC_ITERS,
+               operator=type(op24).__name__,
+               locality_order=op24.perm is not None, launches=counts,
+               expected_launches=want,
+               updated_error_A_norm=dict(
+                   seconds=ue_s, at=ks, values=ue[ks].tolist(),
+                   spsolve=ref.tolist(),
+                   max_rel_diff=float(np.max(np.abs(ue[ks] - ref) / ref)),
+                   rtol=POSTHOC_RTOL),
+               lanczos=dict(seconds=lz_s, max_3_term_error=three,
+                            bound_3_term=1e-6, max_orthogonality_first5=orth,
+                            bound_orthogonality=1e-8), host=host)
+    emit("convergence_f64", **rec)
+    if not (counts == want and op24.perm is not None
+            and np.allclose(ue[ks], ref, rtol=POSTHOC_RTOL, atol=0.0)
+            and three < 1e-6 and orth < 1e-8):
+        failed.append(rec)
+    launches["convergence_f64"] = path
+    if failed:
+        raise AssertionError(f"{len(failed)} convergence checks failed: "
+                             f"{failed}")
+
+
+def cli_f32(torch, timings, launches):
+    """``python -m new_cg_variants_tpu_torch`` in-process at the main path's
+    width (n = 655,360, k = 32, float32): ``solve`` (pipe-PR-CG, no norm,
+    300 iterations, 3 repeats) and ``scaling`` over five names, their
+    output files and launch counts; ``solve --devices 2`` must raise, and
+    ``solve --dtype bf16`` reach the kernels' refusal of bf16 data."""
+    import contextlib
+    import io
+    import json as js
+    import pathlib
+    import tempfile
+
+    from new_cg_variants_tpu_torch import cli
+    from new_cg_variants_tpu_torch.harness.scaling import MULTI_DEVICE_MESSAGE
+
+    common = ["-n", str(N), "-k", str(K_BAND), "--dtype", "f32"]
+    failed, path = [], {}
+
+    def main(argv):
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue().splitlines(), nonzero(read_counts()), \
+            time.perf_counter() - t0
+
+    rc, lines, counts, seconds = main(
+        ["solve", *common, "--ksp-type", "pipe_pr_cg", "--ksp-norm-type",
+         "none", "--max-iter", str(CLI_ITERS), "--num-repeat",
+         str(CLI_REPEATS)])
+    want = {"sym_dia_spmv": 3 * CLI_REPEATS,
+            "fused_sym_pipe_full_step": CLI_ITERS * CLI_REPEATS}
+    fields = dict(kv.split("=", 1) for ln in lines[:3] for kv in ln.split()
+                  if "=" in kv)
+    fwd = float(fields.get("forward_error", "nan"))
+    rec = dict(command="solve", rc=rc, lines=lines, forward_error=fwd,
+               seconds=seconds, launches=counts, expected_launches=want)
+    emit("cli_f32", **rec)
+    if not (rc == 0 and len(lines) == 4 and np.isfinite(fwd)
+            and counts == want):
+        failed.append(rec)
+    add_counts(path, counts)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, lines, counts, seconds = main(
+            ["scaling", *common, "--variants", ",".join(CLI_SCALING_VARIANTS),
+             "--mesh-sizes", "1", "--max-iter", str(CLI_SCALING_ITERS),
+             "--trials", str(CLI_TRIALS), "--data-dir", tmp])
+        runs = CLI_TRIALS + 1  # the warm-up trial too
+        want = {}
+        for name in CLI_SCALING_VARIANTS:
+            entry, init = VARIANT_ENTRY.get(name,
+                                            ("fused_sym_pipe_full_step", 3))
+            add_counts(want, {"sym_dia_spmv": init * runs,
+                              entry: CLI_SCALING_ITERS * runs})
+        files = {p.name: js.loads(p.read_text())
+                 for p in sorted(pathlib.Path(tmp).glob("*_p1_n*.json"))}
+        env = js.loads((pathlib.Path(tmp) / "env_info.json").read_text())
+        has_call = (pathlib.Path(tmp) / "scaling.call").exists()
+    ms = {d["variant"]: d["time_per_iter"] * 1e3 for d in files.values()}
+    rec = dict(command="scaling", rc=rc, seconds=seconds,
+               ms_per_iter=ms, main_f32_bench_ms_per_iter=timings[
+                   "main_f32"]["ms_per_iter"],
+               forward_error={d["variant"]: d["error"]
+                              for d in files.values()},
+               files=sorted(files), env_nvidia_smi=env.get("nvidia_smi"),
+               env_devices=env.get("devices"), call_file=has_call,
+               launches=counts, expected_launches=want)
+    emit("cli_f32", **rec)
+    if not (rc == 0 and len(files) == len(CLI_SCALING_VARIANTS)
+            and env.get("nvidia_smi") and has_call and counts == want
+            and all(np.isfinite(v) for v in ms.values())):
+        failed.append(rec)
+    add_counts(path, counts)
+
+    try:
+        cli.main(["solve", *common, "--devices", "2", "--max-iter", "5"])
+    except NotImplementedError as exc:
+        refused = str(exc)
+    else:
+        refused = None
+    emit("cli_f32", command="solve --devices 2", raised=refused)
+    if refused != MULTI_DEVICE_MESSAGE:
+        failed.append(dict(devices=2, raised=refused))
+    # bf16 storage reaches the kernels' refusal, with no cast on the way
+    try:
+        cli.main(["solve", "-n", "4096", "-k", str(K_BAND), "--dtype",
+                  "bf16", "--max-iter", "5"])
+    except TypeError as exc:
+        refused = str(exc)
+    else:
+        refused = None
+    emit("cli_f32", command="solve --dtype bf16", raised=refused)
+    if refused is None or "bf16" not in refused:
+        failed.append(dict(dtype="bf16", raised=refused))
+    launches["cli_f32"] = path
+    if failed:
+        raise AssertionError(f"{len(failed)} CLI runs failed: {failed}")
+
+
+def trace_f32(torch, launches):
+    """TRACE_STEPS steps of the main path under ``utils.profiling.trace``,
+    parsed by ``utils.trace_analysis``: the half-band family kernel in the
+    spmv bucket, every kernel of the port in its bucket of
+    ``KERNEL_PHASES``, and the parsed device
+    time within TRACE_BUSY_RTOL of the profiler's own busy time over the
+    same steps."""
+    import tempfile
+
+    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+    from new_cg_variants_tpu_torch.utils import profiling
+    from new_cg_variants_tpu_torch.utils import trace_analysis as ta
+
+    op, b, _ = model_f32(torch, "symdia")
+    init_fn, step_fn = FAMILIES["pipe_pr"]
+    ctx = Context(op)
+    state = step_fn(ctx, init_fn(ctx, b, torch.zeros_like(b)))
+    torch.cuda.synchronize()
+    port = re.compile(r"(?<!\w)(" + "|".join(KERNEL_PHASES) + r")(?!\w)")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        with profiling.trace(tmp) as prof:
+            for _ in range(TRACE_STEPS):
+                state = step_fn(ctx, state)
+        counts = nonzero(read_counts())
+        seconds = time.perf_counter() - t0
+        busy_us, nspans, _ = device_activity(prof)
+        events = ta.load_trace_events(tmp)
+        bd = ta.phase_breakdown(events)
+        rows = ta.op_breakdown(events, top=10_000)
+    ported = {r["name"][:80]: (ta.phase_of(r["name"]),
+                               KERNEL_PHASES[port.search(r["name"])[1]])
+              for r in rows if port.search(r["name"])}
+    family = [r for r in rows if "sym_family_kernel" in r["name"]]
+    want = {"fused_sym_pipe_full_step": TRACE_STEPS}
+    rel = abs(bd["total_us"] - busy_us) / busy_us if busy_us else None
+    rec = dict(steps=TRACE_STEPS, seconds=seconds,
+               device_us_parsed=bd["total_us"], device_events=bd["events"],
+               busy_us_profiler=busy_us, profiler_events=nspans,
+               rel_diff=rel, rtol=TRACE_BUSY_RTOL,
+               phases={k: v["frac"] for k, v in bd["phases"].items()},
+               table=ta.format_table(bd), port_kernels=ported,
+               family_kernel_phase=[ta.phase_of(r["name"]) for r in family],
+               top={r["name"][:60]: r["total_us"] / TRACE_STEPS
+                    for r in rows[:6]},
+               launches=counts, expected_launches=want)
+    emit("trace_f32", **rec)
+    launches["trace_f32"] = counts
+    if not (family and all(ta.phase_of(r["name"]) == "spmv" for r in family)
+            and all(got == table for got, table in ported.values())
+            and counts == want
+            and rel is not None and rel <= TRACE_BUSY_RTOL):
+        raise AssertionError(f"trace analysis failed: {rec}")
+
+
 def kernel_records(timings, launches):
     """The ``kernels`` line: one record per kernel entry and shape a driven
     path gives it, with the entry's launches on the paths of that shape
     (``launches``: path -> entry -> count)."""
     jax_ops = "new_cg_variants_tpu/ops/"
-    sym = ("main_f32", "variants_f32")
+    sym = ("main_f32", "variants_f32", "cli_f32", "trace_f32")
     records = {
         "sym_dia_spmv": ("sym_dia.cu", "sym_dia.py:47", sym),
         **{entry: ("sym_family.cu", "sym_fused.py:184", sym)
@@ -2201,10 +2773,22 @@ def kernel_records(timings, launches):
         # the gather in of a product in a locality order (part of row 12)
         "ell_gather": ("ell_spmv.cu", "ell_pallas.py:44", ("ell_f32",)),
     })
+    # convergence_f64's float64 shapes (and its post-hoc run's)
+    conv = ("convergence_f64",)
+    records.update({
+        "sym_dia_spmv" + F64_SYM: ("sym_dia.cu", "sym_dia.py:47", conv),
+        **{entry + F64_SYM: ("sym_family.cu", "sym_fused.py:184", conv)
+           for entry in CONV_SYM_ENTRIES},
+        **{entry + F64_ELL: ("ell_spmv.cu", "ell_pallas.py:44", conv)
+           for entry in ("ell_spmv", "ell_spmv2", "ell_gather")},
+        **{entry + F64_ELL_POSTHOC: ("ell_spmv.cu", "ell_pallas.py:44",
+                                     ("posthoc_f64",))
+           for entry in ("ell_spmv", "ell_gather")},
+    })
     kernels = []
     for name, (source, replaces, paths) in records.items():
         t = timings[name]
-        entry = name.removesuffix(WIDE).removesuffix(DENSE)
+        entry = name.split(" (")[0]
         extra = {key: t[key] for key in ("f64_counterpart_ms",
                                          "f64_counterpart", "bound_bytes_ms",
                                          "bound_ops_ms", "L", "library",
@@ -2278,6 +2862,9 @@ def main():
     phase("ell_f32", ell_f32, torch)
     phase("formats_f32", formats_f32, torch)
     phase("sparse_f64", sparse_f64, torch)
+    phase("convergence_f64", convergence_f64, torch, card, timings, launches)
+    phase("cli_f32", cli_f32, torch, timings, launches)
+    phase("trace_f32", trace_f32, torch, launches)
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,8 @@
     python3 chip_study.py bounds    # launch bounds, timed in turns
     python3 chip_study.py halo      # whole-iteration kernel against the split
                                     # formulation as the band widens
+    python3 chip_study.py floors    # convergence rows, card against CPU, at
+                                    # the rounding floor on three matrices
 
 Each study edits throw-away copies of ``new_cg_variants_tpu_torch/csrc`` in a
 temporary directory (the sources in the checkout are never touched), builds
@@ -1789,6 +1791,52 @@ def study_halo(torch, card):
             del data
 
 
+#: permutations of chip_smoke.py's HPCG 27-point matrix (a) for `floors`
+FLOOR_SEEDS = (cs.PERM_SEED, 1, 2)
+
+
+def study_floors(torch, card):
+    """chip_smoke.py's convergence matrix (a), HPCG's operator on 32^3 under
+    three seeded permutations, with Jacobi and without: the suite on the card
+    and on the CPU at CONV_ITERS, and ``row_compare``'s gaps between the two
+    rows before the rounding floor and at it (the readings behind
+    chip_smoke.py's CONV_FLOOR_TOL and CONV_NOISY_FLOOR_TOL)."""
+    import tempfile
+    import time
+    import warnings
+
+    from new_cg_variants_tpu_torch import write_mtx
+    from new_cg_variants_tpu_torch.harness import convergence as hc
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
+
+    names = hc.DEFAULT_VARIANTS + ("exact_pcg",)
+    for seed in FLOOR_SEEDS:
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            write_mtx(str(d / "hpcg27.mtx"),
+                      coo_from_scipy(cs.stencil27(cs.CONV_GRID, seed)),
+                      symmetric=True)
+            for prec in ("jacobi", None):
+                seconds = {}
+                for dev in ("cuda", "cpu"):
+                    t0 = time.perf_counter()
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")  # ELL's warning
+                        hc.run_convergence_suite(
+                            configs=[("hpcg27", cs.CONV_ITERS, prec)],
+                            variants=hc.DEFAULT_VARIANTS,
+                            table_variants=names, data_dir=d / dev,
+                            fig_dir=d / "figures", matrix_dir=d,
+                            include_exact=True, make_plots=False,
+                            verbose=False, device=dev)
+                    seconds[dev] = time.perf_counter() - t0
+                rec, faults = cs.row_compare(hc, d / "cuda", d / "cpu",
+                                             "hpcg27", prec, names)
+                emit("floors", perm_seed=seed, preconditioner=prec,
+                     iterations=cs.CONV_ITERS, seconds=seconds, **rec,
+                     faults=faults, card=card)
+
+
 def main(argv):
     import torch
 
@@ -1797,7 +1845,8 @@ def main(argv):
                "ellcheck": study_ellcheck, "ellopts": study_ellopts,
                "denseopts": study_denseopts, "pipeopts": study_pipeopts,
                "mutants": study_mutants,
-               "bounds": study_bounds, "halo": study_halo}
+               "bounds": study_bounds, "halo": study_halo,
+               "floors": study_floors}
     if not (len(argv) == 2 and argv[1] in studies
             or len(argv) == 3 and argv[1] == "mutants"
             and argv[2] in ("dia", "sym", "df", "ell")):

@@ -13,7 +13,12 @@ half-band, full-DIA, dense, padded-ELL, constant-band stencil and
 block-banded operators, with compensated dots (``compensated=True``) and in
 the double-word mode (``dtype="f32x2"``).  General sparse input (a scipy
 sparse matrix, a :class:`CooMatrix` or a ``.mtx`` file) takes the JAX
-package's auto format policy (:func:`from_coo`).
+package's auto format policy (:func:`from_coo`).  The convergence-measurement
+layer: the extended-precision oracle ``exact_cg`` / ``exact_pcg`` (on the
+host), the post-hoc probes (:mod:`.probes.posthoc`), the ``figure_gen`` and
+single-device scaling harnesses (:mod:`.harness`), the profiling utilities
+(:mod:`.utils`) and the command line (``python -m new_cg_variants_tpu_torch
+solve | convergence | scaling``).
 """
 
 from .matio.matrix_market import CooMatrix, load_matrix, read_mtx, write_mtx

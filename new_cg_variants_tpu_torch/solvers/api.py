@@ -50,13 +50,19 @@ from .engine import history_scan, tolerance_loop
 from .families import FAMILIES, family_of, make_gv_step
 from .precond import IdentityPreconditioner, make_preconditioner
 
-__all__ = ["run", "solve", "SolveResult", "VARIANT_NAMES"]
+__all__ = ["run", "solve", "SolveResult", "VARIANT_NAMES",
+           "is_double_word"]
 
 VARIANT_NAMES = tuple(
     f"{base}_{suffix}"
     for base in ("hs", "cg", "gv", "pr", "m", "pipe_p", "pipe_pr", "pipe_p_m", "pipe_pr_m")
     for suffix in ("cg", "pcg")
 )
+
+
+def is_double_word(dtype) -> bool:
+    """Whether ``dtype`` names the double-word mode (``"f32x2"``)."""
+    return isinstance(dtype, str) and dtype == "f32x2"
 
 
 def _gv_replace_hooks(key, init_fn, step_fn, w_replace, w_replace_init):
@@ -170,7 +176,7 @@ def run(
     Probe rows come back single-word; ``'x'`` is ``hi + lo`` in float64.
     """
     dev = resolve_device(device)
-    if isinstance(dtype, str) and dtype == "f32x2":
+    if is_double_word(dtype):
         return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
                        x_true, print_every, w_replace, w_replace_init, dev)
     op = _operator(A, dtype, dev)
@@ -323,7 +329,7 @@ def solve(
     words (:func:`run`); ``x`` is then ``hi + lo`` in float64.
     """
     dev = resolve_device(device)
-    if isinstance(dtype, str) and dtype == "f32x2":
+    if is_double_word(dtype):
         op, b, x0, init_fn, step_fn, precond = _df_pieces(
             variant, A, b, x0, preconditioner, dev)
         ctx = DoubleFloatContext(op, precond)

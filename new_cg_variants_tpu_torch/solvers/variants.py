@@ -5,8 +5,8 @@ Name-for-name the JAX package's exports: ``hs_cg``, ``cg_cg``, ``gv_cg``,
 ``pipe_pr_m_cg`` and their ``_pcg`` twins (the 18 names of
 ``VARIANT_NAMES``), each with the reference's signature shape
 ``variant(A, b, x0, max_iter, probes=..., preconditioner=..., ...)`` plus
-``device``.  The JAX package's other two entry points, the
-extended-precision oracle ``exact_cg`` / ``exact_pcg``, are not ported yet.
+``device``; and the extended-precision oracle ``exact_cg`` /
+``exact_pcg`` (:mod:`.oracle`), which runs on the host by design.
 """
 
 from __future__ import annotations
@@ -14,8 +14,9 @@ from __future__ import annotations
 import sys
 
 from .api import VARIANT_NAMES, run
+from .oracle import exact_cg, exact_pcg
 
-__all__ = list(VARIANT_NAMES)
+__all__ = list(VARIANT_NAMES) + ["exact_cg", "exact_pcg"]
 
 
 def _make_variant(name):

@@ -4,7 +4,8 @@
   prefix of the port's own: ``new_cg_variants_tpu`` vs
   ``new_cg_variants_tpu_torch``).
 * It never drops to the CPU on its own: ``device=None`` means the CUDA card,
-  and without one the entry points raise.
+  and without one the entry points raise (the harnesses and the command
+  line too; the oracle and the post-hoc probes run on the host by design).
 * Its kernels build for Hopper (``sm_90a``) into a directory git ignores.
 """
 
@@ -342,3 +343,61 @@ def test_gitignore_lists_the_build_directory():
     rel = _kernels.BUILD_ROOT.relative_to(ROOT).as_posix()
     assert rel + "/" in lines or rel in lines
     assert "chiprun_out/" in lines
+
+
+@pytest.fixture(scope="module")
+def written_matrix(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mtx")
+    a = np.diag(np.arange(1.0, 601.0)) + 0.1 * np.eye(600, k=1) \
+        + 0.1 * np.eye(600, k=-1)
+    port.write_mtx(str(d / "tri600.mtx"), a, symmetric=True)
+    return d
+
+
+@pytest.mark.parametrize("entry", [
+    "test_matrix", "run_convergence_suite", "time_variant", "scaling_run",
+    "cli solve", "cli convergence", "cli scaling"])
+def test_harness_and_cli_default_to_cuda(no_cuda, monkeypatch, tmp_path,
+                                        written_matrix, entry):
+    from new_cg_variants_tpu_torch import cli
+    from new_cg_variants_tpu_torch.harness import convergence as hc
+    from new_cg_variants_tpu_torch.harness import scaling as hs
+
+    coo = port.read_mtx(str(written_matrix / "tri600.mtx"))
+    op, b, _ = port.banded_model(256, k=4, kappa=100.0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "test_matrix":
+            hc.test_matrix(coo, 5, "tri600", None, variants=("hs_cg",),
+                           data_dir=tmp_path)
+        elif entry == "run_convergence_suite":
+            hc.run_convergence_suite(
+                configs=[("tri600", 5, None)], variants=("hs_cg",),
+                data_dir=tmp_path, fig_dir=tmp_path, make_plots=False,
+                matrix_dir=written_matrix, verbose=False)
+        elif entry == "time_variant":
+            hs.time_variant("hs_cg", op, b, max_iter=3, trials=1)
+        elif entry == "scaling_run":
+            hs.scaling_run(["hs_cg"], n=256, k=4, max_iter=3, trials=1,
+                           verbose=False)
+        elif entry == "cli solve":
+            cli.main(["solve", "-n", "256", "-k", "4", "--max-iter", "3"])
+        elif entry == "cli convergence":
+            monkeypatch.setenv("CG_TPU_MATRIX_DIR", str(written_matrix))
+            cli.main(["convergence", "--matrices", "tri600",
+                      "--data-dir", str(tmp_path), "--no-plots"])
+        else:
+            cli.main(["scaling", "-n", "256", "-k", "4", "--max-iter", "3",
+                      "--trials", "1"])
+    assert not list(tmp_path.glob("*/*.npy"))  # nothing ran
+
+
+def test_oracle_and_posthoc_run_on_the_host(no_cuda):
+    """The oracle and the post-hoc probes take no device: without a card
+    they run, on any input the port hands them."""
+    from new_cg_variants_tpu_torch.probes import posthoc
+
+    a = np.diag(np.arange(1.0, 33.0))
+    out = port.exact_pcg(a, np.ones(32), max_iter=40, probes=("save_r",))
+    assert out["iterations"] > 0
+    assert posthoc.updated_error_A_norm(a, out).shape == (
+        out["iterations"] + 1,)
