@@ -148,15 +148,37 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     ``solve`` (pipe-PR-CG, 300 iterations, 3 repeats) and ``scaling`` (five
     names, 1500 iterations, 3 trials; its result files, ``env_info.json``
     with the ``nvidia-smi`` line, ``scaling.call``), with launch counts;
-    ``solve --devices 2`` must raise ``NotImplementedError`` and ``solve
-    --dtype bf16`` the kernels' ``TypeError``;
+    ``solve --devices 2`` must raise ``NotImplementedError``; ``solve
+    --dtype bf16`` (kappa 100) must converge through the half-band
+    kernels' bf16 entries;
 23. ``trace_f32`` — 200 steps of the main path under
     ``utils.profiling.trace``, parsed by ``utils.trace_analysis``: the
     family kernel in the spmv bucket, no kernel of the port in "other", the
     parsed device time within 10% of the profiler's busy time;
-24. ``kernels`` — one JSON line over all kernel entries: one record per entry
+24. the bf16 storage tier (the matrix in bf16; vectors, scalars, dots and
+    arithmetic in float32): ``check_bf16`` (after ``check_ell``) holds
+    every ``_bf16`` entry of rows 1, 2, 2b, 3, 6, 7, 8 and 12 at the shapes
+    of 3, 8 and 17 to its plain version (1e-5 of each value's scale) and,
+    bit for bit, to the float32 entry on the widened data, timed beside it
+    with its bound (2 bytes a band value); ``ell_bf16`` (after
+    ``ell_f32``): that operator ``.astype(torch.bfloat16)``, pipe-PR-CG and
+    hs-PCG with Jacobi, one gather and one row-12 launch a product, and
+    what the auto route picks for it in bf16; ``main_bf16``: main_f32's
+    problem with its band in bf16, pipe-PR-CG and hs-CG under the bench
+    protocol (kernels per iteration equal to main_f32's), the other 17
+    names for 100 iterations, and a solve that takes less device memory
+    than a float32 copy of the band; ``dia_bf16``: the same in 63
+    diagonals, all 18 names and one split-path run; ``bf16_accuracy``:
+    ``tests/test_bf16_storage.py``'s floor on the card (n = 8192, k = 8,
+    kappa = 100, hs-PCG with Jacobi, 200 iterations: the best relative
+    A-norm error < 5e-3, float32 storage 100 times deeper), card against
+    CPU on the same bf16 data (half-band, full DIA, dense and block-banded
+    at n = 4096): the same iteration to the floor, histories within rtol
+    1e-4 through iteration 15;
+25. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
-    paths of that shape.
+    paths of that shape (bf16 entries with the float32 entry's time from
+    the same call beside theirs).
 
 Every phase prints one JSON line.  Any failed check raises, and the script
 exits nonzero; it also exits nonzero, printing no result, when no CUDA device
@@ -165,6 +187,7 @@ is available.  The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -203,9 +226,12 @@ DENSE_N = 512
 # holds O(1) random values, so every row carries all its terms at one scale
 # and no few rows set it: a kernel that dropped the mirror term or misplaced
 # one diagonal misses by about 1 in these units (PERF.md, Findings).
-TOL = {"float32": 1e-5, "float64": 1e-12}
-# Data-sheet peaks (NVIDIA H100, dense, no tensor cores)
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 1e-5}
+# Data-sheet peaks (NVIDIA H100, dense, no tensor cores); bf16 storage
+# computes in float32
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
+#: suffix of a bf16-storage kernel's record (timings, the kernels line)
+BF16 = " (bf16)"
 
 
 def emit(phase, **fields):
@@ -285,6 +311,17 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+def vector_dtype(torch, dtype):
+    """The vectors' dtype that goes with data stored as ``dtype``: bf16 is a
+    storage-only tier (float32 vectors, scalars and arithmetic)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def same_bits(torch, got, want):
+    """Whether every tensor of ``got`` equals its ``want`` bit for bit."""
+    return all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+
+
 def random_dia(torch, offsets, n, dtype, rng):
     """O(1) random full-DIA data, explicit zeros outside the matrix."""
     data = rng.uniform(-1.0, 1.0, (len(offsets), n))
@@ -323,8 +360,10 @@ def check_spmv(torch, card, timings, report=emit_check, shapes=SYM_SHAPES,
                suffix=""):
     """The half-band SpMV kernel against its plain version at ``shapes`` in
     ``dtypes``, timed (when ``timings`` is a dict) at ``timed`` = (shape,
-    dtype), into ``timings["sym_dia_spmv" + suffix]``.  ``report`` takes each
-    check's record.  Returns the failed checks."""
+    dtype), into ``timings["sym_dia_spmv" + suffix]``.  bf16 data (with
+    float32 vectors) is also held to the float32 entry on the widened data,
+    bit for bit, and timed beside it.  ``report`` takes each check's
+    record.  Returns the failed checks."""
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
 
     rate = memory_rate(card)
@@ -336,12 +375,19 @@ def check_spmv(torch, card, timings, report=emit_check, shapes=SYM_SHAPES,
             rng = np.random.default_rng(n + k)
             offs = tuple(range(k))  # the stored offsets of banded_model
             data = random_band(torch, offs, n, dtype, rng)
-            v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+            v, w = (torch.as_tensor(rng.standard_normal(n),
+                                    dtype=vector_dtype(torch, dtype),
                                     device="cuda") for _ in range(2))
             main = (((n, k), dn) == timed and timings is not None)
-            isz = data.element_size()
+            isz, vsz = data.element_size(), v.element_size()
             y = sd.sym_dia_spmv(offs, data, v)
             y2, z2 = sd.sym_dia_spmv2(offs, data, v, w)
+            same = True
+            if dtype == torch.bfloat16:
+                wide = data.float()
+                same = same_bits(torch, (y, y2, z2), (
+                    sd.sym_dia_spmv(offs, wide, v),
+                    *sd.sym_dia_spmv2(offs, wide, v, w)))
             yp = sd._mv_plain(offs, data, v)
             zp = sd._mv_plain(offs, data, w)
             ys = sd._mv_plain(offs, data.abs(), v.abs())
@@ -353,23 +399,36 @@ def check_spmv(torch, card, timings, report=emit_check, shapes=SYM_SHAPES,
                           for g, want in ((y, yp), (y2, yp), (z2, zp)))
             rec = dict(kernel="sym_dia_spmv", dtype=dn, n=n, k=k,
                        max_err=max(errs), max_abs_err=abs_err, tol=tol)
+            if dtype == torch.bfloat16:
+                rec["same_bits_as_f32_entry"] = same
             if main:
                 ms = time_ms(torch, lambda: sd.sym_dia_spmv(offs, data, v), 50)
                 ms2 = time_ms(torch,
                               lambda: sd.sym_dia_spmv2(offs, data, v, w), 50)
                 plain_ms = time_ms(torch, lambda: sd._mv_plain(offs, data, v), 5)
-                csr = library_csr(torch, offs, data)
-                lib_err = cw_err(torch, csr @ v, yp, ys)
-                lib_ms = time_ms(torch, lambda: csr @ v, 50)
-                del csr
-                b_ms, b_by = bound((k + 2) * n * isz, 4 * k * n, dn, rate)
-                b2_ms, _ = bound((k + 4) * n * isz, 8 * k * n, dn, rate)
+                b_ms, b_by = bound(k * n * isz + 2 * n * vsz, 4 * k * n, dn,
+                                   rate)
+                b2_ms, _ = bound(k * n * isz + 4 * n * vsz, 8 * k * n, dn,
+                                 rate)
                 rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
-                           library_ms=lib_ms, library_err=lib_err,
                            bound_ms=b_ms, bound_by=b_by, spmv2_bound_ms=b2_ms)
+                if dtype == torch.bfloat16:
+                    # no PyTorch call multiplies bf16 storage into a float32
+                    # vector without a cast: the float32 entry on the
+                    # widened band beside it, in the same call
+                    rec.update(library_ms=None, f32_ms=time_ms(
+                        torch, lambda: sd.sym_dia_spmv(offs, wide, v), 50),
+                        f32_spmv2_ms=time_ms(
+                        torch, lambda: sd.sym_dia_spmv2(offs, wide, v, w),
+                        50))
+                else:
+                    csr = library_csr(torch, offs, data)
+                    rec.update(library_err=cw_err(torch, csr @ v, yp, ys),
+                               library_ms=time_ms(torch, lambda: csr @ v, 50))
+                    del csr
                 timings["sym_dia_spmv" + suffix] = rec
             report(rec)
-            if not max(errs) <= tol:
+            if not (max(errs) <= tol and same):
                 failed.append(rec)
 
             del data, v, w
@@ -490,17 +549,21 @@ def check_entries(torch, card, timings, module, table, shapes, make_band,
     ``shapes`` = (n, label, offsets) with the band ``make_band`` draws, in
     ``dtypes``; the first shape in ``timed_dtype`` is timed when ``timings``
     is a dict, into ``timings[entry + suffix]``.  ``terms_per_value``: operations per stored
-    value and SpMV (4 with a mirror term, 2 without).  ``report`` takes each
-    check's record.  Returns the failed checks."""
+    value and SpMV (4 with a mirror term, 2 without).  bf16 data (with
+    float32 vectors and scalars) is also held to the float32 entry on the
+    widened data, every output and dot bit for bit, and timed beside it.
+    ``report`` takes each check's record.  Returns the failed checks."""
     rate = memory_rate(card)
     failed = []
     for dtype in (getattr(torch, dn) for dn in dtypes):
         dn = dtype_name(dtype)
         tol = TOL[dn]
+        vdt = vector_dtype(torch, dtype)
         for n, k, offs in shapes:
             rng = np.random.default_rng(7 * n + len(offs))
             data = make_band(torch, offs, n, dtype, rng)
             data_cpu = data.cpu()
+            wide = data.float() if dtype == torch.bfloat16 else None
             main = ((n, k, offs) == shapes[0] and dn == timed_dtype
                     and timings is not None)
             for entry, (ins, scs, outs, dots, nmv, ops, kw,
@@ -515,12 +578,18 @@ def check_entries(torch, card, timings, module, table, shapes, make_band,
 
                 vecs = [torch.as_tensor(
                     rng.uniform(0.5, 2.0, n) if nm == "d"
-                    else rng.standard_normal(n), dtype=dtype, device="cuda")
+                    else rng.standard_normal(n), dtype=vdt, device="cuda")
                     for nm in names]
-                scalars = {nm: torch.tensor(SCALAR_VALUES[nm], dtype=dtype,
+                scalars = {nm: torch.tensor(SCALAR_VALUES[nm], dtype=vdt,
                                             device="cuda")
                            for nm in scs.split()}
                 got = call(data, vecs, list(scalars.values()))
+                same = True
+                if wide is not None:
+                    ref = call(wide, vecs, list(scalars.values()))
+                    same = (same_bits(torch, got[:-1], ref[:-1])
+                            and same_bits(torch, got[-1], ref[-1]))
+                    del ref
                 torch.cuda.synchronize()
                 want = call(data_cpu, [v.cpu() for v in vecs],
                             [v.cpu() for v in scalars.values()])
@@ -539,6 +608,8 @@ def check_entries(torch, card, timings, module, table, shapes, make_band,
                            err_by_output=dict(zip(onames, verrs)),
                            max_dot_err=max(derrs), max_abs_err=abs_err,
                            tol=tol)
+                if wide is not None:
+                    rec["same_bits_as_f32_entry"] = same
                 if main:
                     head = (offs, data) if nmv else ()
                     args = (*head, *vecs, *scalars.values())
@@ -548,19 +619,24 @@ def check_entries(torch, card, timings, module, table, shapes, make_band,
                         torch, lambda: plain(*args, *kw.values()), 5)
                     ndiag = len(offs) if nmv else 0
                     b_ms, b_by = bound(
-                        (ndiag + len(names) + len(onames)) * n
-                        * data.element_size(),
+                        ndiag * n * data.element_size()
+                        + (len(names) + len(onames)) * n * vecs[0].element_size(),
                         (terms_per_value * ndiag * nmv + ops) * n, dn, rate)
                     rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                                bound_ms=b_ms, bound_by=b_by)
+                    if wide is not None:
+                        wargs = (offs, wide, *vecs, *scalars.values())
+                        rec["f32_ms"] = time_ms(
+                            torch, lambda: fn(*wargs, **kw), 50)
                     timings[entry + suffix] = rec
                 report(rec)
                 shapes_ok = (len(got) == len(onames) + 1
                              and len(got[-1]) == len(dots))
-                if not (shapes_ok and max(verrs) <= tol and max(derrs) <= tol):
+                if not (shapes_ok and same and max(verrs) <= tol
+                        and max(derrs) <= tol):
                     failed.append(rec)
                 del vecs, got, want, scales, by_name
-            del data, data_cpu
+            del data, data_cpu, wide
             torch.cuda.empty_cache()
     return failed
 
@@ -611,38 +687,62 @@ def staged_against_direct(torch, sp, offs, data, v, w):
     return {"staged_against_direct": out}
 
 
-def check_dia_spmv(torch, card, timings, report=emit_check):
+def dia_spmv_all(sp, offs, data, shard, v, w, vx, wx):
+    """Every entry of the DIA SpMV kernel once: the whole matrix's with 1
+    and 2 right-hand sides, a shard's (``_ext``) with 1 and 2."""
+    got = {"1": sp.dia_spmv(offs, data, v)}
+    got["2a"], got["2b"] = sp.dia_spmv2(offs, data, v, w)
+    got["ext"] = sp.dia_spmv_ext(offs, shard, vx)
+    got["ext2a"], got["ext2b"] = sp.dia_spmv2_ext(offs, shard, vx, wx)
+    return got
+
+
+def check_dia_spmv(torch, card, timings, report=emit_check,
+                   dtypes=("float32", "float64"), suffix=""):
     """The DIA SpMV kernel's entries against their plain versions, in both
-    regimes (staged window, direct reads); timed (when ``timings`` is a dict)
-    at the shapes of the two full-DIA paths.  ``report`` takes each check's
-    record.  Returns the failed checks."""
+    regimes (staged window, direct reads), in ``dtypes``; timed (when
+    ``timings`` is a dict) in the first dtype at the shapes of the two
+    full-DIA paths (bf16: at the full-width band's, which its path runs),
+    into records named with ``suffix``.  bf16 data is also held to the
+    float32 entries on the widened data, bit for bit.  ``report`` takes
+    each check's record.  Returns the failed checks."""
     from new_cg_variants_tpu_torch.ops import spmv_dia as sp
 
     rate = memory_rate(card)
     shapes = DIA_SHAPES + (WIDE_SHAPE, (100_003, "wide", WIDE_OFFSETS),
                            (1000, "wide", WIDE_OFFSETS))
-    timed = {DIA_SHAPES[0]: "", WIDE_SHAPE: WIDE} if timings is not None else {}
+    timed = {DIA_SHAPES[0]: ""}
+    if dtypes[0] != "bfloat16":
+        timed[WIDE_SHAPE] = WIDE
+    if timings is None:
+        timed = {}
     failed = []
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (getattr(torch, dn) for dn in dtypes):
         dn = dtype_name(dtype)
         tol = TOL[dn]
+        vdt = vector_dtype(torch, dtype)
         for n, k, offs in shapes:
             rng = np.random.default_rng(n + len(offs))
             data = random_dia(torch, offs, n, dtype, rng)
             h = max(abs(o) for o in offs)
-            v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+            v, w = (torch.as_tensor(rng.standard_normal(n), dtype=vdt,
                                     device="cuda") for _ in range(2))
             # halo-extended right-hand sides [h | n | h], halos not zero
             vx, wx = (torch.as_tensor(rng.standard_normal(n + 2 * h),
-                                      dtype=dtype, device="cuda")
+                                      dtype=vdt, device="cuda")
                       for _ in range(2))
-            got = {"1": sp.dia_spmv(offs, data, v)}
-            got["2a"], got["2b"] = sp.dia_spmv2(offs, data, v, w)
             # a shard's band: rows of the interior, no zeros at its edges
             shard = torch.as_tensor(rng.uniform(-1.0, 1.0, (len(offs), n)),
                                     dtype=dtype, device="cuda")
-            got["ext"] = sp.dia_spmv_ext(offs, shard, vx)
-            got["ext2a"], got["ext2b"] = sp.dia_spmv2_ext(offs, shard, vx, wx)
+            got = dia_spmv_all(sp, offs, data, shard, v, w, vx, wx)
+            bits_ok = True
+            if dtype == torch.bfloat16:
+                wide = data.float()
+                ref = dia_spmv_all(sp, offs, wide, shard.float(), v, w, vx,
+                                   wx)
+                bits_ok = same_bits(torch, [got[key] for key in ref],
+                                 list(ref.values()))
+                del ref
             torch.cuda.synchronize()
             absd = data.abs()
             want, scale = {}, {}
@@ -661,38 +761,56 @@ def check_dia_spmv(torch, card, timings, report=emit_check):
             rec = dict(kernel="dia_spmv", dtype=dn, n=n, k=k,
                        staged=sp.stages_window(offs), max_err=max(errs.values()),
                        err_by_entry=errs, max_abs_err=abs_err, tol=tol)
-            if (n, k, offs) in timed and dtype == torch.float32:
-                sfx = timed[(n, k, offs)]
-                nd, isz = len(offs), data.element_size()
+            if dtype == torch.bfloat16:
+                rec["same_bits_as_f32_entry"] = bits_ok
+            if (n, k, offs) in timed and dn == dtypes[0]:
+                sfx = timed[(n, k, offs)] + suffix
+                nd, isz, vsz = len(offs), data.element_size(), v.element_size()
                 ms = time_ms(torch, lambda: sp.dia_spmv(offs, data, v), 50)
                 ms2 = time_ms(torch, lambda: sp.dia_spmv2(offs, data, v, w), 50)
                 plain_ms = time_ms(torch,
                                    lambda: sp._dia_mv_plain(offs, data, v), 5)
-                csr = library_csr(torch, offs, data, mirror=False)
-                lib_err = cw_err(torch, csr @ v, want["1"], scale["1"])
-                lib_ms = time_ms(torch, lambda: csr @ v, 50)
-                vw = torch.stack([v, w], dim=1)
-                lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
                 plain2_ms = time_ms(
                     torch, lambda: (sp._dia_mv_plain(offs, data, v),
                                     sp._dia_mv_plain(offs, data, w)), 5)
-                del csr, vw
-                if sp.stages_window(offs):
-                    rec.update(staged_against_direct(torch, sp, offs, data,
-                                                     v, w))
-                b_ms, b_by = bound((nd + 2) * n * isz, 2 * nd * n, dn, rate)
-                b2_ms, b2_by = bound((nd + 4) * n * isz, 4 * nd * n, dn, rate)
+                lib_ms = lib2_ms = None
+                if dtype == torch.bfloat16:
+                    # no library call takes bf16 storage with float32
+                    # vectors: the float32 entries on the widened band
+                    rec.update(
+                        f32_ms=time_ms(
+                            torch, lambda: sp.dia_spmv(offs, wide, v), 50),
+                        f32_spmv2_ms=time_ms(
+                            torch, lambda: sp.dia_spmv2(offs, wide, v, w),
+                            50))
+                else:
+                    csr = library_csr(torch, offs, data, mirror=False)
+                    rec["library_err"] = cw_err(torch, csr @ v, want["1"],
+                                                scale["1"])
+                    lib_ms = time_ms(torch, lambda: csr @ v, 50)
+                    vw = torch.stack([v, w], dim=1)
+                    lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
+                    del csr, vw
+                    if sp.stages_window(offs):
+                        rec.update(staged_against_direct(torch, sp, offs,
+                                                         data, v, w))
+                b_ms, b_by = bound(nd * n * isz + 2 * n * vsz, 2 * nd * n, dn,
+                                   rate)
+                b2_ms, b2_by = bound(nd * n * isz + 4 * n * vsz, 4 * nd * n,
+                                     dn, rate)
                 rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
-                           library_ms=lib_ms, library_err=lib_err,
-                           bound_ms=b_ms, bound_by=b_by, spmv2_bound_ms=b2_ms)
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                           spmv2_bound_ms=b2_ms)
                 timings["dia_spmv" + sfx] = rec
                 # the 2-RHS entry: two plain products; as a library call one
                 # cuSPARSE product with the (n, 2) matrix [v | w]
                 timings["dia_spmv2" + sfx] = dict(
                     rec, ms=ms2, plain_ms=plain2_ms, library_ms=lib2_ms,
-                    bound_ms=b2_ms, bound_by=b2_by)
+                    bound_ms=b2_ms, bound_by=b2_by,
+                    **({"f32_ms": rec["f32_spmv2_ms"]} if "f32_ms" in rec
+                       else {}))
             report(rec)
-            if not max(errs.values()) <= tol:
+            if not (max(errs.values()) <= tol and bits_ok):
                 failed.append(rec)
             del data, shard, absd, v, w, vx, wx, got, want, scale
             torch.cuda.empty_cache()
@@ -791,17 +909,19 @@ def profile_steps(torch, ctx, step_fn, state):
             "top_kernels_us_per_iter": {k[:60]: v / steps for k, v in top}}
 
 
-def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper):
-    """pipe-PR-CG on ``op`` as ``bench.py`` times it, then two timed
-    ``solve(norm_type="none")`` runs and a profiled window.  Returns the
-    measurements and the launch counts next to what they must be: three
-    launches of ``spmv_wrapper`` per init and one of ``fused_wrapper`` per
-    iteration, nothing else."""
+def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper,
+                   variant="pipe_pr_cg", init_spmvs=3):
+    """``variant`` (default pipe-PR-CG; an unpreconditioned name) on ``op``
+    as ``bench.py`` times it, then two timed ``solve(norm_type="none")``
+    runs and a profiled window.  Returns the measurements and the launch
+    counts next to what they must be: ``init_spmvs`` launches of
+    ``spmv_wrapper`` per init and one of ``fused_wrapper`` per iteration,
+    nothing else."""
     from new_cg_variants_tpu_torch import solve
     from new_cg_variants_tpu_torch.solvers.context import Context
     from new_cg_variants_tpu_torch.solvers.families import FAMILIES
 
-    init_fn, step_fn = FAMILIES["pipe_pr"]
+    init_fn, step_fn = FAMILIES[variant.rsplit("_", 1)[0]]
     ctx = Context(op)
 
     def chunk(s):
@@ -831,7 +951,7 @@ def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper):
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = solve(op, b, variant="pipe_pr_cg", max_iter=SOLVE_ITERS,
+        res = solve(op, b, variant=variant, max_iter=SOLVE_ITERS,
                     norm_type="none", device="cuda")
         torch.cuda.synchronize()
         solve_ms.append((time.perf_counter() - t0) / SOLVE_ITERS * 1e3)
@@ -843,10 +963,10 @@ def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper):
     steps = (ITERS_PER_CHUNK * (1 + REPEATS * len(times)) + 2 * SOLVE_ITERS
              + PROFILE_STEPS)
     want = dict.fromkeys(counts, 0)
-    want.update({spmv_wrapper: 3 * inits, fused_wrapper: steps})
+    want.update({spmv_wrapper: init_spmvs * inits, fused_wrapper: steps})
     x = res.x
     resid = float(torch.linalg.norm(b - op.mv(x)) / torch.linalg.norm(b))
-    return dict(ms_per_iter=ms_per_iter, trial_seconds=times,
+    return dict(variant=variant, ms_per_iter=ms_per_iter, trial_seconds=times,
                 solve_ms_per_iter=solve_ms, profile=profile,
                 nu_final=nu_final, rel_residual=resid, x=x, launches=counts,
                 expected_launches=want)
@@ -858,7 +978,7 @@ def emit_bench(torch, phase, out, x_true, kernel_ms, **fields):
     x = out.pop("x")
     fwd = float(torch.linalg.norm(x.double().cpu() - torch.from_numpy(x_true))
                 / np.linalg.norm(x_true))
-    emit(phase, variant="pipe_pr_cg", n=N, k=K_BAND, fused_kernel_ms=kernel_ms,
+    emit(phase, n=N, k=K_BAND, fused_kernel_ms=kernel_ms,
          fused_kernel_share_of_step=kernel_ms / out["ms_per_iter"],
          rel_forward_error=fwd, **fields, **out)
     nu_final, counts = out["nu_final"], out["launches"]
@@ -886,7 +1006,8 @@ def main_path_f32(torch, timings):
     op, b, x_true = model_f32(torch, "symdia")
     out = bench_protocol(torch, op, b, "fused_sym_pipe_full_step",
                          "sym_dia_spmv")
-    timings["main_f32"] = {"ms_per_iter": out["ms_per_iter"]}
+    timings["main_f32"] = {"ms_per_iter": out["ms_per_iter"],
+                           "profile": out["profile"]}
     return emit_bench(torch, "main_f32", out, x_true,
                       timings["fused_sym_pipe_full_step"]["ms"])
 
@@ -1825,15 +1946,24 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
     equal the given order's bit for bit, and its gather in ``v[perm]``.
     Timed (with the plain versions, cuSPARSE and the bound) when
     ``timings``, into records named with ``sfx`` (default: none for a
-    permuted pattern, NATURAL else)."""
+    permuted pattern, NATURAL else).  bf16 values (with float32 vectors)
+    are also held to the float32 entries on the widened values, bit for
+    bit in both orders, and timed beside them (no library call)."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
 
     val, idx, csr = ell_arrays(torch, a, rng, dtype)
     n, L = val.shape
-    v, w = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
-                            device="cuda") for _ in range(2))
+    bf16 = dtype == torch.bfloat16
+    v, w = (torch.as_tensor(rng.standard_normal(n),
+                            dtype=vector_dtype(torch, dtype), device="cuda")
+            for _ in range(2))
     y = es.ell_spmv(val, idx, v)
     y2, z2 = es.ell_spmv2(val, idx, v, w)
+    bits_ok = True
+    if bf16:
+        wide = val.T.float().T
+        bits_ok = same_bits(torch, (y, y2, z2), (
+            es.ell_spmv(wide, idx, v), *es.ell_spmv2(wide, idx, v, w)))
     yp, zp = (es._ell_mv_plain(val, idx, x) for x in (v, w))
     ys, zs = (es._ell_mv_plain(val.abs(), idx, x.abs()) for x in (v, w))
     got = [(y, yp, ys), (y2, yp, ys), (z2, zp, zs)]
@@ -1847,6 +1977,11 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
         bval, bidx = bval_t.T, bidx_t.T
         ry = es.ell_spmv(bval, bidx, v, p)
         ry2, rz2 = es.ell_spmv2(bval, bidx, v, w, p)
+        if bf16:
+            bwide = bval.T.float().T
+            bits_ok = bits_ok and same_bits(torch, (ry, ry2, rz2), (
+                es.ell_spmv(bwide, bidx, v, p),
+                *es.ell_spmv2(bwide, bidx, v, w, p)))
         gathered, gather_want = es.ell_gather(p, [v]), v[p.long()]
         got += [(ry, yp, ys), (ry2, yp, ys), (rz2, zp, zs)]
         same = all(bool(torch.equal(g, want)) for g, want in (
@@ -1860,11 +1995,14 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
     errs = [cw_err(torch, g, want, sc) for g, want, sc in got]
     abs_err = max(float((g - want).abs().max()) for g, want, _ in got)
     rec.update(max_err=max(errs), max_abs_err=abs_err, tol=TOL[dn])
+    if bf16:
+        rec["same_bits_as_f32_entry"] = bits_ok
+        ok = ok and bits_ok
     if timings is not None:
-        isz = val.element_size()
-        b_ms, b_by = bound(n * L * (isz + 4) + 2 * n * isz, 2 * n * L, dn,
+        isz, vsz = val.element_size(), v.element_size()
+        b_ms, b_by = bound(n * L * (isz + 4) + 2 * n * vsz, 2 * n * L, dn,
                            rate)
-        b2_ms, b2_by = bound(n * L * (isz + 4) + 4 * n * isz, 4 * n * L, dn,
+        b2_ms, b2_by = bound(n * L * (isz + 4) + 4 * n * vsz, 4 * n * L, dn,
                              rate)
         given = dict(
             ms=time_ms(torch, lambda: es.ell_spmv(val, idx, v), 50),
@@ -1872,24 +2010,33 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
         plain_ms = time_ms(torch, lambda: es._ell_mv_plain(val, idx, v), 5)
         plain2_ms = time_ms(torch,
                             lambda: es._ell_mv2_plain(val, idx, v, w), 5)
-        vw = torch.stack([v, w], dim=1)
-        lib_err = cw_err(torch, csr @ v, yp, ys)
-        lib_ms = time_ms(torch, lambda: csr @ v, 50)
-        lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
-        common = dict(n=n, L=L, max_abs_err=abs_err,
-                      library="cuSPARSE CSR through torch (csr @ v, "
-                      "csr @ [v w])")
+        common = dict(n=n, L=L, max_abs_err=abs_err)
+        if bf16:
+            # no library call takes bf16 values with float32 vectors
+            lib_ms = lib2_ms = None
+        else:
+            vw = torch.stack([v, w], dim=1)
+            rec["library_err"] = cw_err(torch, csr @ v, yp, ys)
+            lib_ms = time_ms(torch, lambda: csr @ v, 50)
+            lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
+            common["library"] = ("cuSPARSE CSR through torch (csr @ v, "
+                                 "csr @ [v w])")
+            del vw
         rec.update(given_order_ms=given["ms"],
                    given_order_spmv2_ms=given["spmv2_ms"], plain_ms=plain_ms,
                    plain2_ms=plain2_ms, library_ms=lib_ms,
-                   library2_ms=lib2_ms, library_err=lib_err, bound_ms=b_ms,
+                   library2_ms=lib2_ms, bound_ms=b_ms,
                    bound_by=b_by, spmv2_bound_ms=b2_ms)
         if perm is None:
             ms, ms2 = given["ms"], given["spmv2_ms"]
+            if bf16:
+                f32 = (wide, idx, ())
         else:
             ms = time_ms(torch, lambda: es.ell_spmv(bval, bidx, v, p), 50)
             ms2 = time_ms(torch, lambda: es.ell_spmv2(bval, bidx, v, w, p),
                           50)
+            if bf16:
+                f32 = (bwide, bidx, (p,))
             plain_ms = time_ms(
                 torch, lambda: es._ell_reordered_plain(bval, bidx, p, [v]), 5)
             plain2_ms = time_ms(torch, lambda: es._ell_reordered_plain(
@@ -1909,51 +2056,74 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
                 library_ms=g_lib_ms, library="torch.index_select(v, 0, perm)",
                 bound_ms=g_ms_bound, bound_by=g_by)
             common["given_order"] = given
+        f32_ms = {}
+        if bf16:
+            fv, fi, fp = f32
+            f32_ms = dict(
+                f32_ms=time_ms(torch, lambda: es.ell_spmv(fv, fi, v, *fp), 50),
+                f32_spmv2_ms=time_ms(
+                    torch, lambda: es.ell_spmv2(fv, fi, v, w, *fp), 50))
+            rec.update(f32_ms)
+            del f32, fv, fi, fp
+        if perm is not None:
             del bval, bidx, p
         if sfx is None:
             sfx = "" if "permuted" in label else NATURAL
         timings["ell_spmv" + sfx] = dict(
             common, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by,
+            **({"f32_ms": f32_ms["f32_ms"]} if bf16 else {}))
         timings["ell_spmv2" + sfx] = dict(
             common, ms=ms2, plain_ms=plain2_ms, library_ms=lib2_ms,
-            bound_ms=b2_ms, bound_by=b2_by)
-        del vw
+            bound_ms=b2_ms, bound_by=b2_by,
+            **({"f32_ms": f32_ms["f32_spmv2_ms"]} if bf16 else {}))
     report(rec)
     del val, idx, csr, v, w
     torch.cuda.empty_cache()
     return [] if ok and max(errs) <= TOL[dn] else [rec]
 
 
-def ell_checks(torch, card, timings, report):
+@functools.lru_cache(maxsize=2)
+def hpcg_case(perm_seed):
+    """HPCG's pattern at full size (``stencil27(HPCG_GRID, perm_seed)``) and
+    the locality order its operator keeps, built once for every check that
+    takes them (the host's RCM takes seconds)."""
+    a = stencil27(HPCG_GRID, perm_seed)
+    return a, locality_order(a)
+
+
+def ell_checks(torch, card, timings, report, dtypes=("float32", "float64"),
+               suffix=""):
     """Row 12 (``ell_spmv``, ``ell_spmv2`` and the gather in) against its
-    plain version on the card in float32 and float64, every value in units
-    of its own scale ``(|A| |v|)_i``: HPCG's pattern at full size in natural
-    order (which the operator keeps) and permuted (in the RCM order the
-    operator takes, and in the given one: timed in float32), then the small
-    shapes in the given order and in a locality order (RCM, or a random one
-    where RCM does not narrow the band).  Returns the failed checks."""
+    plain version on the card in ``dtypes``, every value in units of its
+    own scale ``(|A| |v|)_i``: HPCG's pattern at full size in natural order
+    (which the operator keeps) and permuted (in the RCM order the operator
+    takes, and in the given one: timed in the first dtype, into records
+    named with ``suffix``), then the small shapes in the given order and in
+    a locality order (RCM, or a random one where RCM does not narrow the
+    band).  Returns the failed checks."""
     rate = memory_rate(card)
     failed = []
     grid = f"27-point {HPCG_GRID}^3"
     for label, seed in ((grid, None), (grid + " permuted", PERM_SEED)):
-        a = stencil27(HPCG_GRID, seed)
-        perm = locality_order(a)
-        for dtype in (torch.float32, torch.float64):
+        a, perm = hpcg_case(seed)
+        sfx = suffix + ("" if seed is not None else NATURAL)
+        for dn in dtypes:
             failed += check_ell_shape(
-                torch, label, a, np.random.default_rng(12), dtype, rate,
-                timings if timings is not None and dtype == torch.float32
-                else None, report, perm)
-        del a
+                torch, label, a, np.random.default_rng(12),
+                getattr(torch, dn), rate,
+                timings if timings is not None and dn == dtypes[0] else None,
+                report, perm, sfx=sfx)
     for label, n, lens in ELL_SMALL:
         rng = np.random.default_rng(n)
         a = small_pattern(n, lens, rng)
         perm = locality_order(a)
         if perm is None:
             perm = rng.permutation(n)
-        for dtype in (torch.float32, torch.float64):
-            failed += check_ell_shape(torch, label, a, rng, dtype, rate, None,
-                                      report, perm)
+        for dn in dtypes:
+            failed += check_ell_shape(torch, label, a, rng,
+                                      getattr(torch, dn), rate, None, report,
+                                      perm)
     return failed
 
 
@@ -1977,11 +2147,12 @@ def ell_expected(name, iters):
     return counts, "ell_spmv"
 
 
-def ell_f32(torch):
+def ell_f32(torch, built):
     """HPCG's operator (27-point, 104^3) under a random symmetric
     permutation, handed over as scipy CSR in float32: the auto route must
     pick ELL (with its warning); all 18 names on the one operator, each
-    product one row-12 launch; one solve that converges."""
+    product one row-12 launch; one solve that converges.  The operator is
+    left in ``built`` for ell_bf16."""
     import warnings
 
     from new_cg_variants_tpu_torch import (
@@ -2033,6 +2204,7 @@ def ell_f32(torch):
     res = solve(op, b, variant="pipe_pr_cg", rtol=ELL_RTOL,
                 max_iter=ELL_MAX_ITER)
     torch.cuda.synchronize()
+    built["hpcg_ell"] = (a, op, b, x_true)  # ell_bf16 stores it in bf16
     xt = torch.from_numpy(x_true).cuda()
     rec = dict(variant="pipe_pr_cg", rtol=ELL_RTOL, converged=res.converged,
                iterations=res.iterations, norm=res.norm,
@@ -2047,6 +2219,300 @@ def ell_f32(torch):
     if failed:
         raise AssertionError(f"{len(failed)} ELL runs failed: {failed}")
     return launches
+
+
+#: the entries of the full-DIA family kernel that read the band (DIA_STEP
+#: without the vector phases)
+DIA_BAND_STEP = {entry: spec for entry, spec in DIA_STEP.items()
+                 if entry not in VECTOR_PHASES}
+BF16_ACCURACY_N = 8192
+BF16_ACCURACY_ITERS = 200
+BF16_DENSE_N = 4096
+#: tests/test_bf16_storage.py's floor properties: the best relative A-norm
+#: error under this, f32 storage FLOOR_DEPTH times deeper
+BF16_FLOOR_MAX = 5e-3
+BF16_FLOOR_DEPTH = 100.0
+#: card against CPU on the same bf16 data: histories within this through
+#: BF16_CMP_ITERS iterations
+BF16_RTOL = 1e-4
+BF16_CMP_ITERS = 16
+
+
+def bf16_checks(torch, card, timings, report):
+    """Every bf16-storage entry (rows 1, 2, 2b, 3, 6, 7, 8 and 12) against
+    its plain version and, bit for bit, against the float32 entry on the
+    widened data, at the shapes of check_sym, check_dia and check_ell;
+    timed beside the float32 entry at the paths' shapes (records named with
+    BF16).  Returns the failed checks."""
+    from new_cg_variants_tpu_torch.ops import fused_family as ff
+    from new_cg_variants_tpu_torch.ops import fused_step as fs
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+
+    bf = ("bfloat16",)
+    failed = check_spmv(torch, card, timings, report, dtypes=bf,
+                        timed=((N, K_BAND), "bfloat16"), suffix=BF16)
+    shapes = tuple((n, k, tuple(range(k))) for n, k in SYM_SHAPES)
+    failed += check_entries(torch, card, timings, sf, FAMILY, shapes,
+                            random_band, 4, BF16, report, dtypes=bf,
+                            timed_dtype="bfloat16")
+    failed += check_dia_spmv(torch, card, timings, report, dtypes=bf,
+                             suffix=BF16)
+    for module, table in ((fs, DIA_BAND_STEP), (ff, DIA_FAMILY)):
+        failed += check_entries(torch, card, timings, module, table,
+                                DIA_SHAPES, random_dia, 2, BF16, report,
+                                dtypes=bf, timed_dtype="bfloat16")
+    failed += ell_checks(torch, card, timings, report, dtypes=bf, suffix=BF16)
+    return failed
+
+
+def check_bf16(torch, card, timings):
+    """The bf16 checks; raises after all ran."""
+    failed = bf16_checks(torch, card, timings, emit_check)
+    hpcg_case.cache_clear()
+    if failed:
+        raise AssertionError(f"{len(failed)} bf16 checks disagree: {failed}")
+
+
+def model_bf16(torch, fmt):
+    """main_f32's problem with its band stored in bf16 on the card (the
+    vectors in float32), rounded once from the float64 band."""
+    from new_cg_variants_tpu_torch import banded_model
+
+    op64, b64, x_true = banded_model(N, k=K_BAND, fmt=fmt, device="cpu")
+    op = op64.astype(torch.bfloat16).to("cuda")
+    b = torch.as_tensor(b64, dtype=torch.float32, device="cuda")
+    if op.data.dtype != torch.bfloat16:
+        raise AssertionError(f"band stored as {op.data.dtype}")
+    return op, b, x_true
+
+
+def stored_values(op):
+    """Values the operator stores (band or ELL values)."""
+    return (op.val_t if hasattr(op, "val_t") else op.data).numel()
+
+
+def storage_check(torch, op, b, variant, precond=None):
+    """The device memory a short solve takes beyond what is allocated
+    before it, against the bytes a float32 copy of the stored matrix would
+    take: a path that widened the band to float32 once, before the
+    iterations, would need at least that much (the kernels read the bf16
+    storage in place).  Returns the record and whether it holds."""
+    from new_cg_variants_tpu_torch import solve
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    solve(op, b, variant=variant, max_iter=GENERIC_ITERS, norm_type="none",
+          preconditioner=precond)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    copy = 4 * stored_values(op)
+    return (dict(storage=dtype_name(op.dtype), peak_extra_bytes=extra,
+                 f32_copy_bytes=copy, variant=variant), extra < copy)
+
+
+def main_bf16(torch, timings):
+    """The main path on bf16 storage: main_f32's problem with its band in
+    bf16; pipe-PR-CG and hs-CG (the two arms of the JAX package's
+    benchmarks/bf16_study.py) under the bench protocol, the profiler's
+    kernels per iteration equal to main_f32's (no cast on the way); the
+    other 17 names for 100 iterations each, each its own fused entry once
+    per iteration.  Returns the launches by entry."""
+    op, b, x_true = model_bf16(torch, "symdia")
+    launches, failed = {}, []
+    for variant, entry, init in (
+            ("pipe_pr_cg", "fused_sym_pipe_full_step", 3),
+            ("hs_cg", "fused_sym_hs_matvec_phase", 2)):
+        out = bench_protocol(torch, op, b, entry, "sym_dia_spmv",
+                             variant=variant, init_spmvs=init)
+        if variant == "pipe_pr_cg":
+            timings["main_bf16"] = {"ms_per_iter": out["ms_per_iter"],
+                                    "profile": out["profile"]}
+        f32 = timings["main_f32"]
+        kpi, kpi32 = (o["profile"].get("kernels_per_iter")
+                      for o in (out, f32))
+        add_counts(launches, emit_bench(
+            torch, "main_bf16", out, x_true, timings[entry + BF16]["ms"],
+            storage="bfloat16", f32_fused_kernel_ms=timings[entry + BF16][
+                "f32_ms"], main_f32_ms_per_iter=f32["ms_per_iter"],
+            main_f32_profile=f32["profile"]))
+        if variant == "pipe_pr_cg" and not (kpi is not None
+                                            and abs(kpi - kpi32) < 0.5):
+            failed.append(dict(variant=variant, kernels_per_iter=kpi,
+                               f32=kpi32))
+    rec, ok = storage_check(torch, op, b, "pipe_pr_cg")
+    emit("main_bf16", **rec)
+    if not ok:
+        failed.append(rec)
+    more, failed2 = solve_names(torch, "main_bf16", op, b, x_true,
+                                VARIANT_ENTRY, sym_expected,
+                                iters=GENERIC_ITERS, n=N, k=K_BAND,
+                                storage="bfloat16")
+    add_counts(launches, more)
+    failed += failed2
+    if failed:
+        raise AssertionError(f"{len(failed)} bf16 runs failed: {failed}")
+    return launches
+
+
+def dia_bf16(torch):
+    """The full-DIA path on bf16 storage: main_f32's problem in 63
+    diagonals, band in bf16; all 18 names for 100 iterations, each its own
+    entry of the full-DIA family kernel once per iteration (rows 6-8), and
+    one split-path run (row 4's preconditioned vector phase, then row 3's
+    2-right-hand-side product).  Returns the launches by entry."""
+    from new_cg_variants_tpu_torch import VARIANT_NAMES
+    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+
+    op, b, x_true = model_bf16(torch, "dia")
+    launches, failed = solve_names(torch, "dia_bf16", op, b, x_true,
+                                   VARIANT_NAMES, dia_expected,
+                                   iters=GENERIC_ITERS, n=N, k=K_BAND,
+                                   fmt="dia", storage="bfloat16")
+    inv = 1.0 / op.diagonal().float()
+    split, failed2 = solve_names(
+        torch, "dia_bf16", op, b, x_true, ("pipe_pr_pcg",), split_expected,
+        lambda name, op: ("inverse diagonal, as a function", lambda v: inv * v),
+        iters=GENERIC_ITERS, n=N, k=K_BAND, fmt="dia", path="split",
+        storage="bfloat16")
+    failed += failed2
+    add_counts(launches, split)
+    init_fn, step_fn = FAMILIES["pipe_pr"]
+    ctx = Context(op)
+    rec, ok = storage_check(torch, op, b, "pipe_pr_cg")
+    emit("dia_bf16", profile=profile_steps(
+        torch, ctx, step_fn, init_fn(ctx, b, torch.zeros_like(b))), **rec)
+    if not ok:
+        failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} bf16 DIA runs failed: {failed}")
+    return launches
+
+
+def ell_bf16(torch, built):
+    """ell_f32's operator (HPCG 27-point, 104^3, permuted, ELL in RCM order)
+    with its values stored in bf16 (``astype``): pipe-PR-CG and hs-PCG with
+    Jacobi for 100 iterations, one gather in and one row-12 launch a
+    product; what the auto route picks for this matrix in bf16.  Returns
+    the launches by entry."""
+    from new_cg_variants_tpu_torch import EllOperator
+    from new_cg_variants_tpu_torch.ops.operators import (
+        choose_format,
+        coo_from_scipy,
+    )
+    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+
+    a, op32, b, x_true = built.pop("hpcg_ell")
+    op = op32.astype(torch.bfloat16)
+    del op32
+    t0 = time.perf_counter()
+    auto = choose_format(coo_from_scipy(a), dtype=torch.bfloat16)
+    emit("ell_bf16", n=op.n, operator=type(op).__name__,
+         values=dtype_name(op.val_t.dtype), locality_order=op.perm is not None,
+         auto_route_bf16=auto, auto_route_seconds=time.perf_counter() - t0)
+    if not (isinstance(op, EllOperator) and op.dtype == torch.bfloat16
+            and op.perm is not None):
+        raise AssertionError("expected a bf16 ELL operator in RCM order")
+    launches, failed = solve_names(
+        torch, "ell_bf16", op, b, x_true, ("pipe_pr_cg", "hs_pcg"),
+        ell_expected, iters=GENERIC_ITERS, n=op.n, storage="bfloat16")
+    init_fn, step_fn = FAMILIES["pipe_pr"]
+    ctx = Context(op)
+    rec, ok = storage_check(torch, op, b, "pipe_pr_cg")
+    emit("ell_bf16", profile=profile_steps(
+        torch, ctx, step_fn, init_fn(ctx, b, torch.zeros_like(b))), **rec)
+    if not ok:
+        failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} bf16 ELL runs failed: {failed}")
+    return launches
+
+
+def floor_iteration(rel):
+    """The first iteration within a factor 2 of the best error."""
+    return int(np.argmax(rel <= 2.0 * np.nanmin(rel)))
+
+
+def bf16_accuracy(torch):
+    """tests/test_bf16_storage.py's floor properties on the card:
+    ``banded_model(8192, k=8, kappa=100)`` in half-band and full-DIA storage,
+    hs-PCG with Jacobi for 200 iterations: bf16 storage's best relative
+    A-norm error under 5e-3, float32 storage's 100 times deeper; card
+    against CPU on the same bf16 data: the same iteration to the floor, the
+    histories within rtol 1e-4 through iteration 15; a dense (n = 4096) and
+    a permuted block-banded bf16 operator the same way against the CPU.
+    Each card run launches what its operator kind prescribes (the band's
+    hs entry once a step, its SpMV in init and once a row for the probe;
+    dense and block-banded: no kernel)."""
+    import scipy.sparse as sp
+
+    from new_cg_variants_tpu_torch import as_operator, banded_model, run
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy, from_coo
+
+    kw = dict(max_iter=BF16_ACCURACY_ITERS, preconditioner="jacobi",
+              probes=("error_A_norm",))
+    failed = []
+
+    def rel_error(op, b, xt, device):
+        out = run("hs_pcg", op, b, x_true=xt, device=device, **kw)
+        if out["x"].dtype != torch.float32:
+            raise AssertionError(f"solution in {out['x'].dtype}")
+        return out["error_A_norm"] / out["error_A_norm"][0]
+
+    def expected(fmt):
+        """hs_pcg's launches on ``fmt``: 199 steps and 200 probe rows."""
+        steps = BF16_ACCURACY_ITERS - 1
+        by_fmt, _ = (sym_expected if fmt == "symdia" else dia_expected)(
+            "hs_pcg", steps)
+        spmv = "sym_dia_spmv" if fmt == "symdia" else "dia_spmv"
+        return add_counts(dict(by_fmt), {spmv: BF16_ACCURACY_ITERS})
+
+    def compare(label, op, b, xt, want, f32_op=None):
+        if op.dtype != torch.bfloat16:
+            raise AssertionError(f"{label} stored as {op.dtype}")
+        reset_counts()
+        card = rel_error(op.to("cuda"), b, xt, "cuda")
+        counts = nonzero(read_counts())
+        cpu = rel_error(op, b, xt, "cpu")
+        cmp = slice(0, BF16_CMP_ITERS)
+        diff = float(np.max(np.abs(card[cmp] - cpu[cmp]) / np.abs(cpu[cmp])))
+        rec = dict(operator=label, n=op.n, storage=dtype_name(op.dtype),
+                   best=float(np.nanmin(card)), cpu_best=float(np.nanmin(cpu)),
+                   floor_iteration=floor_iteration(card),
+                   cpu_floor_iteration=floor_iteration(cpu),
+                   max_rel_diff_to_iteration_15=diff, rtol=BF16_RTOL,
+                   launches=counts, expected_launches=want)
+        ok = (rec["best"] < BF16_FLOOR_MAX and diff <= BF16_RTOL
+              and rec["floor_iteration"] == rec["cpu_floor_iteration"]
+              and counts == want)
+        if f32_op is not None:
+            rec["f32_best"] = float(np.nanmin(rel_error(
+                f32_op.to("cuda"), b, xt, "cuda")))
+            ok = ok and rec["f32_best"] < rec["best"] / BF16_FLOOR_DEPTH
+        emit("bf16_accuracy", **rec)
+        if not ok:
+            failed.append(rec)
+
+    for fmt in ("symdia", "dia"):
+        op64, b64, xt = banded_model(BF16_ACCURACY_N, k=8, kappa=100.0,
+                                     fmt=fmt, device="cpu")
+        compare(fmt, op64.astype(torch.bfloat16), b64, xt, expected(fmt),
+                f32_op=op64.astype(torch.float32))
+    op64, b64, xt = banded_model(BF16_DENSE_N, k=8, kappa=100.0, fmt="dia",
+                                 device="cpu")
+    compare("dense", as_operator(op64.todense(), dtype=torch.bfloat16,
+                                 device="cpu"), b64, xt, {})
+    a = permuted(sp.csr_matrix(op64.tocsr()), PERM_SEED)
+    x_true = np.ones(a.shape[0])
+    compare("block_banded (permuted)",
+            from_coo(coo_from_scipy(a), fmt="block_banded",
+                     dtype=torch.bfloat16, device="cpu"), a @ x_true, x_true,
+            {})
+    if failed:
+        raise AssertionError(f"{len(failed)} bf16 accuracy runs failed: "
+                             f"{failed}")
 
 
 def host_residual(a, b, x):
@@ -2253,6 +2719,10 @@ CLI_ITERS = 300
 CLI_REPEATS = 3
 CLI_SCALING_ITERS = 1500
 CLI_TRIALS = 3
+#: ``solve --dtype bf16``: main_f32's width at kappa 100, which converges to
+#: this in ~50 iterations
+CLI_BF16_KAPPA = 100.0
+CLI_BF16_RTOL = 1e-5
 TRACE_STEPS = 200
 TRACE_BUSY_RTOL = 0.10
 #: each ``__global__`` of ``csrc/*.cu`` and the bucket of utils.trace_analysis
@@ -2574,7 +3044,8 @@ def cli_f32(torch, timings, launches):
     width (n = 655,360, k = 32, float32): ``solve`` (pipe-PR-CG, no norm,
     300 iterations, 3 repeats) and ``scaling`` over five names, their
     output files and launch counts; ``solve --devices 2`` must raise, and
-    ``solve --dtype bf16`` reach the kernels' refusal of bf16 data."""
+    ``solve --dtype bf16`` converge through the half-band kernels' bf16
+    entries."""
     import contextlib
     import io
     import json as js
@@ -2655,17 +3126,23 @@ def cli_f32(torch, timings, launches):
     emit("cli_f32", command="solve --devices 2", raised=refused)
     if refused != MULTI_DEVICE_MESSAGE:
         failed.append(dict(devices=2, raised=refused))
-    # bf16 storage reaches the kernels' refusal, with no cast on the way
-    try:
-        cli.main(["solve", "-n", "4096", "-k", str(K_BAND), "--dtype",
-                  "bf16", "--max-iter", "5"])
-    except TypeError as exc:
-        refused = str(exc)
-    else:
-        refused = None
-    emit("cli_f32", command="solve --dtype bf16", raised=refused)
-    if refused is None or "bf16" not in refused:
-        failed.append(dict(dtype="bf16", raised=refused))
+    # bf16 storage: the band in bf16 reaches the kernels' bf16 entries, and
+    # the solve converges (to the bf16 matrix's solution)
+    rc, lines, counts, seconds = main(
+        ["solve", "-n", str(N), "-k", str(K_BAND), "--kappa",
+         str(CLI_BF16_KAPPA), "--dtype", "bf16", "--ksp-type", "pipe_pr_cg",
+         "--rtol", str(CLI_BF16_RTOL), "--max-iter", str(CLI_ITERS)])
+    fields = dict(kv.split("=", 1) for ln in lines[:3] for kv in ln.split()
+                  if "=" in kv)
+    rec = dict(command="solve --dtype bf16", rc=rc, lines=lines,
+               seconds=seconds, launches=counts)
+    emit("cli_f32", **rec)
+    half_band = {"sym_dia_spmv", "sym_dia_spmv2", "fused_sym_pipe_full_step"}
+    if not (rc == 0 and fields.get("converged") == "True"
+            and counts.get("fused_sym_pipe_full_step", 0) > 0
+            and set(counts) <= half_band):
+        failed.append(rec)
+    launches["cli_bf16"] = counts
     launches["cli_f32"] = path
     if failed:
         raise AssertionError(f"{len(failed)} CLI runs failed: {failed}")
@@ -2785,6 +3262,25 @@ def kernel_records(timings, launches):
                                      ("posthoc_f64",))
            for entry in ("ell_spmv", "ell_gather")},
     })
+    # bf16 storage: each entry beside the float32 entry on the widened data
+    # (f32_ms), on the paths that run it
+    bf_sym = ("main_bf16", "cli_bf16")
+    records.update({
+        "sym_dia_spmv" + BF16: ("sym_dia.cu", "sym_dia.py:47", bf_sym),
+        **{entry + BF16: ("sym_family.cu", "sym_fused.py:184", bf_sym)
+           for entry in FAMILY},
+        "dia_spmv" + BF16: ("dia_spmv.cu", "spmv_pallas.py:58", ("dia_bf16",)),
+        "dia_spmv2" + BF16: ("dia_spmv.cu", "spmv_pallas.py:58",
+                             ("dia_bf16",)),
+        **{entry + BF16: ("dia_family.cu", "fused_step.py:"
+                          + ("483" if "_prec" in entry else "329"),
+                          ("dia_bf16",)) for entry in DIA_BAND_STEP},
+        **{entry + BF16: ("dia_family.cu", "fused_family.py:189",
+                          ("dia_bf16",)) for entry in DIA_FAMILY},
+        "ell_spmv" + BF16: ("ell_spmv.cu", "ell_pallas.py:44", ("ell_bf16",)),
+        "ell_spmv2" + BF16: ("ell_spmv.cu", "ell_pallas.py:44",
+                             ("ell_bf16",)),
+    })
     kernels = []
     for name, (source, replaces, paths) in records.items():
         t = timings[name]
@@ -2793,8 +3289,10 @@ def kernel_records(timings, launches):
                                          "f64_counterpart", "bound_bytes_ms",
                                          "bound_ops_ms", "L", "library",
                                          "given_order", "ms_2rhs",
-                                         "launches_per_call")
+                                         "launches_per_call", "f32_ms")
                  if key in t}
+        if name.endswith(BF16):
+            extra["storage"] = "bf16 band / values, float32 vectors"
         if name + NATURAL in timings:
             extra["natural_order"] = {
                 key: timings[name + NATURAL][key]
@@ -2833,7 +3331,8 @@ def main():
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    timings, launches = {}, {}
+    # built: what a phase makes for a later one (ell_f32's operator)
+    timings, launches, built = {}, {}, {}
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -2859,7 +3358,12 @@ def main():
     phase("df_card_vs_cpu", df_card_vs_cpu, torch)
     phase("df_accuracy", df_accuracy, torch)
     phase("check_ell", check_ell, torch, card, timings)
-    phase("ell_f32", ell_f32, torch)
+    phase("check_bf16", check_bf16, torch, card, timings)
+    phase("ell_f32", ell_f32, torch, built)
+    phase("ell_bf16", ell_bf16, torch, built)
+    phase("main_bf16", main_bf16, torch, timings)
+    phase("dia_bf16", dia_bf16, torch)
+    phase("bf16_accuracy", bf16_accuracy, torch)
     phase("formats_f32", formats_f32, torch)
     phase("sparse_f64", sparse_f64, torch)
     phase("convergence_f64", convergence_f64, torch, card, timings, launches)

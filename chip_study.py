@@ -6,11 +6,13 @@
     python3 chip_study.py symcheck  # build, registers, the half-band checks
     python3 chip_study.py symopts   # rows 1 and 2's design options in turns
     python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
+    python3 chip_study.py bf16check # build, registers, check_bf16 (timed)
     python3 chip_study.py ellopts   # row 12's design options, timed in turns
     python3 chip_study.py denseopts # row 10's dense design options, the same
     python3 chip_study.py pipeopts  # row 11's design options, the same
     python3 chip_study.py mutants   # do the checks catch a faulty kernel?
-                                    # (mutants dia|sym|df|ell: one family)
+                                    # (mutants dia|sym|df|ell|bf16: one
+                                    # family)
     python3 chip_study.py bounds    # launch bounds, timed in turns
     python3 chip_study.py halo      # whole-iteration kernel against the split
                                     # formulation as the band widens
@@ -85,11 +87,11 @@ SYM_MUTANTS = {
         "        (void)am;\n"),
     "mirror term read at row i + off (half-band)": (
         "sym_common.cuh",
-        "const T am = (i < n && i >= off) ? __ldg(row + i - off) : T(0);",
-        "const T am = (i + off < n) ? __ldg(row + i + off) : T(0);"),
+        "const T am = (i < n && i >= off) ? widen(__ldg(row + i - off)) : T(0);",
+        "const T am = (i + off < n) ? widen(__ldg(row + i + off)) : T(0);"),
     "diagonal d read at the offset of d - 1 (half-band)": (
-        "sym_common.cuh", "    const int off = soff[d];\n    const T* row",
-        "    const int off = soff[d - 1];\n    const T* row"),
+        "sym_common.cuh", "    const int off = soff[d];\n    const D* row",
+        "    const int off = soff[d - 1];\n    const D* row"),
     "halo rows of the SpMV input left zero (half-band step)": (
         "sym_family.cu",
         "if (g >= 0 && g < n) S::update(a, sc, g, owned, kept, mv);",
@@ -174,6 +176,19 @@ ELL_MUTANTS = {
         "ell_spmv.cu",
         "const long long out = PERM ? (long long)stream(perm + i) : i;",
         "const long long out = i;"),
+}
+
+#: faults of the bf16-storage entries (rows 1-3, 6-8, 12), held to
+#: chip_smoke.py's check_bf16: the half-band and ELL faults above as the bf16
+#: entries take them, and a widening that reads the stored bits wrong
+BF16_MUTANTS = {
+    "mirror term dropped (half-band, bf16 checks)":
+        SYM_MUTANTS["mirror term dropped (half-band)"],
+    "last slot dropped (ELL, bf16 checks)":
+        ELL_MUTANTS["last slot dropped (ELL)"],
+    "bf16 value read as the low half of a float32 (every bf16 entry)": (
+        "storage.cuh", "  return __bfloat162float(x);",
+        "  return __uint_as_float(__bfloat16_as_ushort(x));"),
 }
 
 #: design options of row 12, each timed against the committed source in
@@ -754,8 +769,8 @@ PIPE_OPTIONS = {
 #: the earlier staged band (``load_band``, ``sym_row``) as edits of the
 #: direct design: the band window staged in shared memory by 4-byte loads
 STAGED_HELPERS = r"""// Stage data[:, i0 - h : i0 + kTile) into sdata (row stride kTile + h).
-template <typename T>
-__device__ __forceinline__ void load_band(const T* __restrict__ data,
+template <typename T, typename D>
+__device__ __forceinline__ void load_band(const D* __restrict__ data,
                                           int ndiag, int h, long long n,
                                           long long i0, T* sdata) {
   const int dw = kTile + h;
@@ -763,7 +778,7 @@ __device__ __forceinline__ void load_band(const T* __restrict__ data,
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int d = idx / dw;
     const long long g = i0 - h + (idx - d * dw);
-    sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+    sdata[idx] = (g >= 0 && g < n) ? widen(data[(long long)d * n + g]) : T(0);
   }
 }
 
@@ -800,15 +815,16 @@ __host__ __device__ inline int band_pad(int h) {
   return (h + V - 1) / V * V;
 }
 
-// Stage data[:, i0 - hp : i0 + kTile) into sdata (row stride kTile + hp).
-template <typename T>
-__device__ __forceinline__ void load_band(const T* __restrict__ data,
+// Stage data[:, i0 - hp : i0 + kTile) into sdata (row stride kTile + hp);
+// a band stored in another type than T (bf16) by plain loads.
+template <typename T, typename D>
+__device__ __forceinline__ void load_band(const D* __restrict__ data,
                                           int ndiag, int h, long long n,
                                           long long i0, T* sdata) {
   constexpr int V = 16 / sizeof(T);
   const int hp = band_pad<T>(h);
   const int dw = kTile + hp;
-  if (n % V == 0) {
+  if (sizeof(D) == sizeof(T) && n % V == 0) {
     const int nch = dw / V;
     const int total = ndiag * nch;
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -831,7 +847,8 @@ __device__ __forceinline__ void load_band(const T* __restrict__ data,
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int d = idx / dw;
       const long long g = i0 - hp + (idx - d * dw);
-      sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+      sdata[idx] =
+          (g >= 0 && g < n) ? widen(data[(long long)d * n + g]) : T(0);
     }
   }
 }
@@ -869,15 +886,15 @@ __host__ __device__ inline int band_pad(int h) {
 
 // Issue the copies of data[:, i0 - hp : i0 + kTile) into sdata (row stride
 // kTile + hp) as one commit group; plain loads where n leaves the band's
-// rows unaligned.
-template <typename T>
-__device__ __forceinline__ void issue_band(const T* __restrict__ data,
+// rows unaligned or the band is stored in another type than T (bf16).
+template <typename T, typename D>
+__device__ __forceinline__ void issue_band(const D* __restrict__ data,
                                            int ndiag, int h, long long n,
                                            long long i0, T* sdata) {
   constexpr int V = 16 / sizeof(T);
   const int hp = band_pad<T>(h);
   const int dw = kTile + hp;
-  if (n % V == 0) {
+  if (sizeof(D) == sizeof(T) && n % V == 0) {
     const int nch = dw / V;
     const int total = ndiag * nch;
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -899,7 +916,8 @@ __device__ __forceinline__ void issue_band(const T* __restrict__ data,
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int d = idx / dw;
       const long long g = i0 - hp + (idx - d * dw);
-      sdata[idx] = (g >= 0 && g < n) ? data[(long long)d * n + g] : T(0);
+      sdata[idx] =
+          (g >= 0 && g < n) ? widen(data[(long long)d * n + g]) : T(0);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -936,9 +954,9 @@ inline unsigned persistent_grid(K kernel, size_t smem, long long ntiles) {
 
 """
 
-RING_SPMV = r"""template <typename T, int NRHS>
+RING_SPMV = r"""template <typename T, typename D, int NRHS>
 __global__ void __launch_bounds__(kTile) sym_dia_ring_kernel(
-    const T* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
+    const D* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
     int h, long long n, const T* __restrict__ v0, const T* __restrict__ v1,
     T* __restrict__ y0, T* __restrict__ y1) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -975,9 +993,9 @@ __global__ void __launch_bounds__(kTile) sym_dia_ring_kernel(
 
 """
 
-RING_FAMILY = r"""template <typename T, typename S>
+RING_FAMILY = r"""template <typename T, typename D, typename S>
 __global__ void __launch_bounds__(kTile) sym_family_ring_kernel(
-    const T* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
+    const D* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
     int h, long long n, const __grid_constant__ FamilyArgs<T> a,
     T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1032,19 +1050,19 @@ __global__ void __launch_bounds__(kTile) sym_family_ring_kernel(
 SYM_RING = [
     ("sym_common.cuh", "constexpr int kWarps = kTile / 32;\n",
      "constexpr int kWarps = kTile / 32;\n\n" + RING_HELPERS),
-    ("sym_dia.cu", "template <typename T>\nint launch_sym_dia(",
-     RING_SPMV + "template <typename T>\nint launch_sym_dia("),
+    ("sym_dia.cu", "template <typename T, typename D = T>\nint launch_sym_dia(",
+     RING_SPMV + "template <typename T, typename D = T>\nint launch_sym_dia("),
     ("sym_dia.cu",
      "  if (nrhs == 1) {\n"
-     "    err = allow_smem(sym_dia_kernel<T, 1>, smem);\n"
+     "    err = allow_smem(sym_dia_kernel<T, D, 1>, smem);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    sym_dia_kernel<T, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,\n"
-     "                                                    ya, yb);\n"
+     "    sym_dia_kernel<T, D, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,\n"
+     "                                                       b, ya, yb);\n"
      "  } else {\n"
-     "    err = allow_smem(sym_dia_kernel<T, 2>, smem);\n"
+     "    err = allow_smem(sym_dia_kernel<T, D, 2>, smem);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    sym_dia_kernel<T, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,\n"
-     "                                                    ya, yb);\n"
+     "    sym_dia_kernel<T, D, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,\n"
+     "                                                       b, ya, yb);\n"
      "  }\n",
      "  (void)grid;\n"
      "  const long long ntiles = (n + kTile - 1) / kTile;\n"
@@ -1052,38 +1070,38 @@ SYM_RING = [
      "      (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
      "       size_t(nrhs) * (kTile + 2 * h)) * sizeof(T);\n"
      "  if (nrhs == 1) {\n"
-     "    err = allow_smem(sym_dia_ring_kernel<T, 1>, ring);\n"
+     "    err = allow_smem(sym_dia_ring_kernel<T, D, 1>, ring);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, 1>, ring, ntiles);\n"
-     "    sym_dia_ring_kernel<T, 1><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
-     "                                                      ya, yb);\n"
+     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, D, 1>, ring, ntiles);\n"
+     "    sym_dia_ring_kernel<T, D, 1><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "                                                         ya, yb);\n"
      "  } else {\n"
-     "    err = allow_smem(sym_dia_ring_kernel<T, 2>, ring);\n"
+     "    err = allow_smem(sym_dia_ring_kernel<T, D, 2>, ring);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, 2>, ring, ntiles);\n"
-     "    sym_dia_ring_kernel<T, 2><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
-     "                                                      ya, yb);\n"
+     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, D, 2>, ring, ntiles);\n"
+     "    sym_dia_ring_kernel<T, D, 2><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "                                                         ya, yb);\n"
      "  }\n"),
     ("sym_family.cu", "constexpr int kFamilyRows = 2;",
      "constexpr int kFamilyRows = 1;"),
-    ("sym_family.cu", "template <typename T, typename S>\nint launch_spec(",
-     RING_FAMILY + "template <typename T, typename S>\nint launch_spec("),
+    ("sym_family.cu", "template <typename T, typename D, typename S>\nint launch_spec(",
+     RING_FAMILY + "template <typename T, typename D, typename S>\nint launch_spec("),
     ("sym_family.cu",
-     "  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);\n"
+     "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);\n"
      "  if (err != cudaSuccess) return int(err);\n"
      "  const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);\n"
-     "  sym_family_kernel<T, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n, a,\n"
-     "                                                    partials);\n",
+     "  sym_family_kernel<T, D, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n,\n"
+     "                                                       a, partials);\n",
      "  (void)smem;\n"
      "  const long long ntiles = (n + kTile - 1) / kTile;\n"
      "  const size_t ring = (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
      "                       size_t(S::kMv) * (kTile + 2 * h) +\n"
      "                       S::kDots * kWarps) * sizeof(T);\n"
-     "  cudaError_t err = allow_smem(sym_family_ring_kernel<T, S>, ring);\n"
+     "  cudaError_t err = allow_smem(sym_family_ring_kernel<T, D, S>, ring);\n"
      "  if (err != cudaSuccess) return int(err);\n"
-     "  const unsigned g = persistent_grid(sym_family_ring_kernel<T, S>, ring, ntiles);\n"
-     "  sym_family_ring_kernel<T, S><<<g, kTile, ring, st>>>(data, o, ndiag, h, n,\n"
-     "                                                      a, partials);\n"),
+     "  const unsigned g = persistent_grid(sym_family_ring_kernel<T, D, S>, ring, ntiles);\n"
+     "  sym_family_ring_kernel<T, D, S><<<g, kTile, ring, st>>>(data, o, ndiag, h, n,\n"
+     "                                                         a, partials);\n"),
 ]
 
 
@@ -1102,8 +1120,8 @@ def staged_band(helpers):
          "  load_band(data, ndiag, h, n, i0, sdata);\n"
          "  load_window(v0, h, n, i0, vw, sv);"),
         ("sym_dia.cu",
-         "  sym_rows<T, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h, "
-         "acc);",
+         "  sym_rows<T, D, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h,"
+         "\n                                    acc);",
          "  acc[0][0] = sym_row(sdata, sv, ndiag, h, soff, threadIdx.x);\n"
          "  if (NRHS == 2)\n"
          "    acc[0][NRHS - 1] = sym_row(sdata, sv + vw, ndiag, h, soff,\n"
@@ -1128,8 +1146,8 @@ def staged_band(helpers):
          "  load_band(data, ndiag, h, n, i0, sdata);\n"
          "  T keep[kFamilyRows][S::kKeep];"),
         ("sym_family.cu",
-         "  sym_rows<T, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,"
-         "\n                                   acc);",
+         "  sym_rows<T, D, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,"
+         "\n                                      acc);",
          "#pragma unroll\n"
          "  for (int k = 0; k < S::kMv; ++k)\n"
          "    acc[0][k] = sym_row(sdata, smv + k * vw, ndiag, h, soff, t);"),
@@ -1180,13 +1198,17 @@ def rows_per_thread(family=None, spmv=None):
 SYM_OPTIONS = {
     "(a) staged band, the earlier design": SYM_STAGED,
     "(b) f32 forward band loads plain (no hint)": [
-        ("sym_common.cuh", "    return __ldcs(p);", "    return *p;")],
+        ("sym_common.cuh", "    return widen(__ldcs(p));",
+         "    return widen(*p);")],
     "(b) f32 forward band loads read-only (__ldg)": [
-        ("sym_common.cuh", "    return __ldcs(p);", "    return __ldg(p);")],
+        ("sym_common.cuh", "    return widen(__ldcs(p));",
+         "    return widen(__ldg(p));")],
     "(b) f64 forward band loads read-only (__ldg)": [
-        ("sym_common.cuh", "    return *p;", "    return __ldg(p);")],
+        ("sym_common.cuh", "    return widen(*p);",
+         "    return widen(__ldg(p));")],
     "(b) f64 forward band loads evict-first (__ldcs)": [
-        ("sym_common.cuh", "    return *p;", "    return __ldcs(p);")],
+        ("sym_common.cuh", "    return widen(*p);",
+         "    return widen(__ldcs(p));")],
     "(c) staged band by 16-byte cp.async": staged_band(ASYNC_HELPERS),
     "(c) staged band by 16-byte cp.async, persistent blocks, two stages":
         SYM_RING,
@@ -1209,17 +1231,17 @@ SYM_OPTIONS = {
          "#pragma unroll 8\n  for (int d = 1;")],
     "carve-out: 25% of the SM's on-chip memory to shared memory": [
         ("sym_family.cu",
-         "  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);\n",
-         "  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);\n"
-         "  cudaFuncSetAttribute(sym_family_kernel<T, S>,\n"
+         "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);\n",
+         "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);\n"
+         "  cudaFuncSetAttribute(sym_family_kernel<T, D, S>,\n"
          "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
          " 25);\n"),
         ("sym_dia.cu", "  cudaStream_t st = static_cast<cudaStream_t>(stream);\n",
          "  cudaStream_t st = static_cast<cudaStream_t>(stream);\n"
-         "  cudaFuncSetAttribute(sym_dia_kernel<T, 1>,\n"
+         "  cudaFuncSetAttribute(sym_dia_kernel<T, D, 1>,\n"
          "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
          " 25);\n"
-         "  cudaFuncSetAttribute(sym_dia_kernel<T, 2>,\n"
+         "  cudaFuncSetAttribute(sym_dia_kernel<T, D, 2>,\n"
          "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
          " 25);\n")],
 }
@@ -1332,6 +1354,39 @@ def ell_checks(torch, card):
                                if r not in failed],
                 passed_err_max=max((r["max_err"] for r in lines
                                     if r not in failed), default=None))
+
+
+def bf16_checks(torch, card):
+    """check_bf16's checks, counted instead of raised and not timed; the
+    lines whose only fault is a bit difference from the float32 entry on
+    the widened data counted apart."""
+    lines = []
+    failed = cs.bf16_checks(torch, card, None, lines.append)
+    return dict(checks=len(lines), failed=len(failed),
+                failed_checks=sorted({r["kernel"] for r in failed}),
+                failed_bits_only=sum(r["max_err"] <= r["tol"]
+                                     for r in failed),
+                passed_err_max=max((r["max_err"] for r in lines
+                                    if r not in failed), default=None))
+
+
+def study_bf16check(torch, card):
+    """The quick first call after touching a band kernel's bf16 entries:
+    build, registers, check_bf16 (timed)."""
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    with contextlib.ExitStack() as stack:
+        libs, logs = build_edited(stack, [])
+        for src in ("sym_dia.cu", "sym_family.cu", "dia_spmv.cu",
+                    "dia_family.cu", "ell_spmv.cu"):
+            emit("bf16check", source=src, ptxas=logs[src])
+        with _kernels.using(libs):
+            timings = {}
+            cs.check_bf16(torch, card, timings)
+    emit("bf16check", ok=True,
+         timed={name: {key: t.get(key) for key in ("ms", "f32_ms",
+                                                   "bound_ms", "plain_ms")}
+                for name, t in timings.items() if name.endswith(cs.BF16)})
 
 
 def study_check(torch, card):
@@ -1617,14 +1672,15 @@ def study_pipeopts(torch, card):
 def study_mutants(torch, card, family=None):
     """Every mutant, built in parallel, against the checks its kernel takes
     part in; each family of checks also runs on the committed kernels.
-    ``family`` (dia, sym, df or ell): that family's mutants only."""
+    ``family`` (dia, sym, df, ell or bf16): that family's mutants only."""
     from new_cg_variants_tpu_torch.ops import _kernels
     from new_cg_variants_tpu_torch.ops import df_spmv as ds
 
     families = {"dia": ("", MUTANTS, dia_checks),
                 "sym": (" (half-band checks)", SYM_MUTANTS, sym_checks),
                 "df": (" (double-word checks)", DF_MUTANTS, df_checks),
-                "ell": (" (ELL checks)", ELL_MUTANTS, ell_checks)}
+                "ell": (" (ELL checks)", ELL_MUTANTS, ell_checks),
+                "bf16": (" (bf16 checks)", BF16_MUTANTS, bf16_checks)}
     runs = []
     for key, (label, mutants, checks) in families.items():
         if family not in (None, key):
@@ -1843,13 +1899,14 @@ def main(argv):
     studies = {"check": study_check, "dfcheck": study_dfcheck,
                "symcheck": study_symcheck, "symopts": study_symopts,
                "ellcheck": study_ellcheck, "ellopts": study_ellopts,
+               "bf16check": study_bf16check,
                "denseopts": study_denseopts, "pipeopts": study_pipeopts,
                "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo,
                "floors": study_floors}
     if not (len(argv) == 2 and argv[1] in studies
             or len(argv) == 3 and argv[1] == "mutants"
-            and argv[2] in ("dia", "sym", "df", "ell")):
+            and argv[2] in ("dia", "sym", "df", "ell", "bf16")):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

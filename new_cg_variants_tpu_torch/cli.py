@@ -65,8 +65,8 @@ def _add_problem_args(p):
                    default=None,
                    help="compute dtype (default: the problem's, float64); "
                         "f32x2 = double-word arithmetic from float32 words; "
-                        "bf16 = matrix STORAGE only (vectors stay f32; the "
-                        "card's kernels do not take it yet)")
+                        "bf16 = matrix STORAGE only (vectors and "
+                        "arithmetic stay f32)")
     _add_device_arg(p)
 
 

@@ -25,7 +25,9 @@
 // vectors once; at n = 655,360 with 63 diagonals in f32 that is 175.6 MB (hs)
 // to 220.2 MB (pipe with Jacobi), 52-66 us at 3.35 TB/s, against at most
 // ~6 us of f32 arithmetic (2 operations per stored value per SpMV plus 4-32
-// per row) at the 67 TFLOP/s peak.
+// per row) at the 67 TFLOP/s peak.  With the band stored in bf16
+// (dia_family_bf16: 2-byte band values, float32 vectors) 93.1-137.6 MB,
+// 28-41 us.
 //
 // What the design does about it:
 // * One block per kTile rows, one thread per row.  Every stored value is used
@@ -59,28 +61,29 @@ constexpr int kMaxHalo = 512;
 template <typename T>
 constexpr int kDiaFamilyMinBlocks = sizeof(T) == 4 ? 6 : 3;
 
-// (A v)[i0 + t] for each of NMV staged windows, from one read of the band.
-// Terms in stored order of the diagonals, as the plain version adds them.
-template <typename T, int NMV>
-__device__ __forceinline__ void dia_row(const T* __restrict__ data,
+// (A v)[i0 + t] for each of NMV staged windows, from one read of the band
+// (stored as D, widened to T).  Terms in stored order of the diagonals, as
+// the plain version adds them.
+template <typename T, typename D, int NMV>
+__device__ __forceinline__ void dia_row(const D* __restrict__ data,
                                         long long n, long long i, int ndiag,
                                         const int* soff, const T* smv, int vw,
                                         int c, T* acc) {
 #pragma unroll
   for (int k = 0; k < NMV; ++k) acc[k] = T(0);
-  const T* col = data + i;
+  const D* col = data + i;
 #pragma unroll 8
   for (int d = 0; d < ndiag; ++d) {
-    const T a = __ldg(col + (long long)d * n);
+    const T a = widen(__ldg(col + (long long)d * n));
     const int j = c + soff[d];
 #pragma unroll
     for (int k = 0; k < NMV; ++k) acc[k] += a * smv[k * vw + j];
   }
 }
 
-template <typename T, typename S>
+template <typename T, typename D, typename S>
 __global__ void __launch_bounds__(kTile, kDiaFamilyMinBlocks<T>)
-    dia_family_kernel(const T* __restrict__ data,
+    dia_family_kernel(const D* __restrict__ data,
                       const __grid_constant__ Offsets o, int ndiag, int h_lo,
                       int h_hi, long long n,
                       const __grid_constant__ FamilyArgs<T> a,
@@ -109,14 +112,14 @@ __global__ void __launch_bounds__(kTile, kDiaFamilyMinBlocks<T>)
     T mv[S::kMv], acc[S::kMv];
 #pragma unroll
     for (int k = 0; k < S::kMv; ++k) mv[k] = smv[k * vw + t + h_lo];
-    dia_row<T, S::kMv>(data, n, i, ndiag, soff, smv, vw, t + h_lo, acc);
+    dia_row<T, D, S::kMv>(data, n, i, ndiag, soff, smv, vw, t + h_lo, acc);
     S::finish(a, i, keep, mv, acc, prod);
   }
   block_dots(prod, sred, partials + size_t(blockIdx.x) * S::kDots);
 }
 
-template <typename T, typename S>
-int launch_dia_spec(const T* data, const Offsets& o, int ndiag, int h_lo,
+template <typename T, typename D, typename S>
+int launch_dia_spec(const D* data, const Offsets& o, int ndiag, int h_lo,
                     int h_hi, long long n, const void* const* in, int nin,
                     const void* const* sc, int nsc, void* const* out,
                     int nout, T* partials, cudaStream_t st) {
@@ -126,13 +129,15 @@ int launch_dia_spec(const T* data, const Offsets& o, int ndiag, int h_lo,
   const size_t smem =
       (size_t(S::kMv) * (kTile + h_lo + h_hi) + S::kDots * kWarps) * sizeof(T);
   const unsigned grid = unsigned((n + kTile - 1) / kTile);
-  dia_family_kernel<T, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h_lo,
-                                                    h_hi, n, a, partials);
+  dia_family_kernel<T, D, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h_lo,
+                                                       h_hi, n, a, partials);
   return int(cudaGetLastError());
 }
 
-// entry: the numbering of launch_sym_family (sym_family.cu)
-template <typename T>
+// entry: the numbering of launch_sym_family (sym_family.cu); T: the
+// vectors', scalars' and partials' type; D: the band's (T, or
+// __nv_bfloat16 with T = float)
+template <typename T, typename D = T>
 int launch_dia_family(int entry, const void* data, const int* offsets,
                       int ndiag, long long n, const void* const* in, int nin,
                       const void* const* sc, int nsc, void* const* out,
@@ -146,13 +151,13 @@ int launch_dia_family(int entry, const void* data, const int* offsets,
   if (h_lo + h_hi > kMaxHalo) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const T* d = static_cast<const T*>(data);
+  const D* d = static_cast<const D*>(data);
   T* part = static_cast<T*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NCGV_ENTRY(k, Spec)                                                  \
   case k:                                                                    \
-    return launch_dia_spec<T, Spec>(d, o, ndiag, h_lo, h_hi, n, in, nin, sc, \
-                                    nsc, out, nout, part, st)
+    return launch_dia_spec<T, D, Spec>(d, o, ndiag, h_lo, h_hi, n, in, nin,  \
+                                       sc, nsc, out, nout, part, st)
   switch (entry) {
     NCGV_ENTRY(0, HsSpec);
     NCGV_ENTRY(1, PrSpec);
@@ -192,6 +197,16 @@ int dia_family_f64(int entry, const void* data, const int* offsets, int ndiag,
   return ncgv::launch_dia_family<double>(entry, data, offsets, ndiag, n, in,
                                          nin, sc, nsc, out, nout, partials,
                                          device, stream);
+}
+
+// data in bf16; vectors, scalars and partials in float32
+int dia_family_bf16(int entry, const void* data, const int* offsets,
+                    int ndiag, long long n, const void* const* in, int nin,
+                    const void* const* sc, int nsc, void* const* out,
+                    int nout, void* partials, int device, void* stream) {
+  return ncgv::launch_dia_family<float, __nv_bfloat16>(
+      entry, data, offsets, ndiag, n, in, nin, sc, nsc, out, nout, partials,
+      device, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
 // once; at n = 655,360 with 63 diagonals in f32 that is 170.4 MB (1 RHS) or
 // 175.6 MB (2 RHS), 51 / 52 us at 3.35 TB/s, against 1.2-2.5 us of f32
 // arithmetic (2 operations per stored value per RHS) at the 67 TFLOP/s peak.
-// The band is larger than the 50 MB L2, so nothing stays resident.
+// The band is larger than the 50 MB L2, so nothing stays resident.  With the
+// band stored in bf16 (dia_spmv_bf16: 2-byte band values, float32 vectors;
+// sym_common.cuh, "Storage and compute types") 87.8 / 93.1 MB, 26 / 28 us.
 //
 // What the design does about it:
 // * One thread per row, 256 rows per block.  Every stored value is used once
@@ -50,9 +52,9 @@ constexpr int kMaxWindow = kTile + 1024;
 template <typename T>
 constexpr int kDiaMinBlocks = sizeof(T) == 4 ? 8 : 4;
 
-template <typename T, int NRHS, bool STAGED>
+template <typename T, typename D, int NRHS, bool STAGED>
 __global__ void __launch_bounds__(kTile, kDiaMinBlocks<T>) dia_spmv_kernel(
-    const T* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
+    const D* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
     int h_lo, int h_hi, long long n, const T* __restrict__ v0,
     const T* __restrict__ v1, long long vorg, long long vlen,
     T* __restrict__ y0, T* __restrict__ y1) {
@@ -77,12 +79,12 @@ __global__ void __launch_bounds__(kTile, kDiaMinBlocks<T>) dia_spmv_kernel(
 
   const long long i = i0 + t;
   if (i >= n) return;
-  const T* col = data + i;
+  const D* col = data + i;
   const int c = t + h_lo;  // row i in window coordinates
   T acc0 = T(0), acc1 = T(0);
 #pragma unroll 8
   for (int d = 0; d < ndiag; ++d) {
-    const T a = __ldg(col + (long long)d * n);
+    const T a = widen(__ldg(col + (long long)d * n));
     const int off = soff[d];
     T x0, x1 = T(0);
     if (STAGED) {
@@ -101,20 +103,21 @@ __global__ void __launch_bounds__(kTile, kDiaMinBlocks<T>) dia_spmv_kernel(
   if (NRHS == 2) y1[i] = acc1;
 }
 
-template <typename T, int NRHS, bool STAGED>
-int launch_dia_kernel(const T* data, const Offsets& o, int ndiag, int h_lo,
+template <typename T, typename D, int NRHS, bool STAGED>
+int launch_dia_kernel(const D* data, const Offsets& o, int ndiag, int h_lo,
                       int h_hi, long long n, const T* v0, const T* v1,
                       long long vorg, long long vlen, T* y0, T* y1,
                       cudaStream_t st) {
   const size_t smem =
       STAGED ? size_t(NRHS) * (kTile + h_lo + h_hi) * sizeof(T) : 0;
   const unsigned grid = unsigned((n + kTile - 1) / kTile);
-  dia_spmv_kernel<T, NRHS, STAGED><<<grid, kTile, smem, st>>>(
+  dia_spmv_kernel<T, D, NRHS, STAGED><<<grid, kTile, smem, st>>>(
       data, o, ndiag, h_lo, h_hi, n, v0, v1, vorg, vlen, y0, y1);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+// T: the vectors' type; D: the band's (T, or __nv_bfloat16 with T = float)
+template <typename T, typename D = T>
 int launch_dia_spmv(const void* data, const int* offsets, int ndiag,
                     long long n, const void* v0, const void* v1,
                     long long vorg, long long vlen, void* y0, void* y1,
@@ -130,14 +133,14 @@ int launch_dia_spmv(const void* data, const int* offsets, int ndiag,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* d = static_cast<const T*>(data);
+  const D* d = static_cast<const D*>(data);
   const T* a = static_cast<const T*>(v0);
   const T* b = static_cast<const T*>(v1);
   T* ya = static_cast<T*>(y0);
   T* yb = static_cast<T*>(y1);
 #define NCGV_DIA(NRHS, STAGED)                                               \
-  return launch_dia_kernel<T, NRHS, STAGED>(d, o, ndiag, h_lo, h_hi, n, a,   \
-                                            b, vorg, vlen, ya, yb, st)
+  return launch_dia_kernel<T, D, NRHS, STAGED>(d, o, ndiag, h_lo, h_hi, n,   \
+                                               a, b, vorg, vlen, ya, yb, st)
   if (nrhs == 1) {
     if (staged) NCGV_DIA(1, true);
     NCGV_DIA(1, false);
@@ -169,6 +172,16 @@ int dia_spmv_f64(const void* data, const int* offsets, int ndiag, long long n,
   return ncgv::launch_dia_spmv<double>(data, offsets, ndiag, n, v0, v1, vorg,
                                        vlen, y0, y1, nrhs, staged, device,
                                        stream);
+}
+
+// data in bf16, v0 / v1 / y0 / y1 in float32
+int dia_spmv_bf16(const void* data, const int* offsets, int ndiag,
+                  long long n, const void* v0, const void* v1,
+                  long long vorg, long long vlen, void* y0, void* y1,
+                  int nrhs, int staged, int device, void* stream) {
+  return ncgv::launch_dia_spmv<float, __nv_bfloat16>(
+      data, offsets, ndiag, n, v0, v1, vorg, vlen, y0, y1, nrhs, staged,
+      device, stream);
 }
 
 }  // extern "C"

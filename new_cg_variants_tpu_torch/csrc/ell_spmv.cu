@@ -22,6 +22,8 @@
 // side once and write each result once: at n = 1,124,864 and L = 27 in f32
 // (HPCG's 27-point operator) 252 MB, 75 us at 3.35 TB/s (2 RHS: 78 us),
 // against ~1 us of arithmetic (2 operations per slot per RHS) at 67 TFLOP/s.
+// With the values stored in bf16 (ell_spmv_bf16: 2-byte values, int32
+// indices, float32 vectors; storage.cuh) 191 MB, 57 us.
 // The gathers of v are the other cost: each moves a 32-byte L2 sector for
 // one value.  v (4.5 MB in f32) fits the 50 MB L2, so a gather is an L2 hit;
 // in a scattered (randomly permuted) numbering every one of the 30M gathers
@@ -47,7 +49,7 @@
 // * Terms are added in slot order with explicit fused multiply-adds (the
 //   same instructions in both orders); no atomics, no shared memory.
 
-#include <cuda_runtime.h>
+#include "storage.cuh"
 
 namespace ncgv {
 
@@ -61,21 +63,22 @@ __device__ __forceinline__ T stream(const T* p) {
 
 // PERM = false: the given order, v0 / v1 the right-hand sides.  PERM = true:
 // the storage holds B, v0 / v1 the vectors ell_gather_kernel gathered into
-// its order, and row i's result goes to y[perm[i]].
-template <typename T, int NRHS, bool PERM>
+// its order, and row i's result goes to y[perm[i]].  Values stored as D,
+// widened to T.
+template <typename T, typename D, int NRHS, bool PERM>
 __global__ void __launch_bounds__(kEllThreads) ell_spmv_kernel(
-    const T* __restrict__ val_t, const int* __restrict__ idx_t, int L,
+    const D* __restrict__ val_t, const int* __restrict__ idx_t, int L,
     long long n, const int* __restrict__ perm, const T* __restrict__ v0,
     const T* __restrict__ v1, T* __restrict__ y0, T* __restrict__ y1) {
   const long long i = (long long)blockIdx.x * kEllThreads + threadIdx.x;
   if (i >= n) return;
-  const T* a = val_t + i;
+  const D* a = val_t + i;
   const int* c = idx_t + i;
   T acc0 = T(0), acc1 = T(0);
 #pragma unroll 4
   for (int l = 0; l < L; ++l) {
     const long long o = (long long)l * n;
-    const T x = stream(a + o);
+    const T x = widen(stream(a + o));
     const int j = stream(c + o);
     acc0 = fma(x, __ldg(v0 + j), acc0);
     if constexpr (NRHS == 2) acc1 = fma(x, __ldg(v1 + j), acc1);
@@ -101,7 +104,8 @@ inline unsigned ell_grid(long long n) {
   return unsigned((n + kEllThreads - 1) / kEllThreads);
 }
 
-template <typename T>
+// T: the vectors' type; D: the values' (T, or __nv_bfloat16 with T = float)
+template <typename T, typename D = T>
 int launch_ell_spmv(const void* val_t, const void* idx_t, int L, long long n,
                     const void* perm, const void* v0, const void* v1,
                     void* y0, void* y1, int nrhs, int device, void* stream) {
@@ -110,7 +114,7 @@ int launch_ell_spmv(const void* val_t, const void* idx_t, int L, long long n,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* a = static_cast<const T*>(val_t);
+  const D* a = static_cast<const D*>(val_t);
   const int* c = static_cast<const int*>(idx_t);
   const int* p = static_cast<const int*>(perm);
   const T* x0 = static_cast<const T*>(v0);
@@ -119,7 +123,7 @@ int launch_ell_spmv(const void* val_t, const void* idx_t, int L, long long n,
   T* r0 = static_cast<T*>(y0);
   T* r1 = static_cast<T*>(y1);
 #define NCGV_ELL(NRHS, PERM)                                      \
-  ell_spmv_kernel<T, NRHS, PERM><<<ell_grid(n), kEllThreads, 0, st>>>( \
+  ell_spmv_kernel<T, D, NRHS, PERM><<<ell_grid(n), kEllThreads, 0, st>>>( \
       a, c, L, n, p, x0, x1, r0, r1)
   if (p) {
     if (nrhs == 1) NCGV_ELL(1, true);
@@ -174,6 +178,15 @@ int ell_spmv_f64(const void* val_t, const void* idx_t, int L, long long n,
                  void* y1, int nrhs, int device, void* stream) {
   return ncgv::launch_ell_spmv<double>(val_t, idx_t, L, n, perm, v0, v1, y0,
                                        y1, nrhs, device, stream);
+}
+
+// val_t in bf16; v0 / v1 / y0 / y1 in float32 (the gather in is
+// ell_gather_f32's)
+int ell_spmv_bf16(const void* val_t, const void* idx_t, int L, long long n,
+                  const void* perm, const void* v0, const void* v1, void* y0,
+                  void* y1, int nrhs, int device, void* stream) {
+  return ncgv::launch_ell_spmv<float, __nv_bfloat16>(
+      val_t, idx_t, L, n, perm, v0, v1, y0, y1, nrhs, device, stream);
 }
 
 // xs: nrhs * n values; v1 unused when nrhs = 1.

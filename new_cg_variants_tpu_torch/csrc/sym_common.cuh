@@ -23,9 +23,11 @@
 // stages its window v[i0 - h : i0 + tile + h) in shared memory (tile + 2h
 // values per right-hand side; rows outside [0, n) are zeros, so no load goes
 // out of bounds).
+//
+// The band is stored as D and computed with in T (storage.cuh).
 #pragma once
 
-#include <cuda_runtime.h>
+#include "storage.cuh"
 
 namespace ncgv {
 
@@ -55,30 +57,30 @@ __device__ __forceinline__ void load_window(const T* __restrict__ v, int h,
   }
 }
 
-// The forward band value: read once, coalesced.  In f32 it streams
+// The forward band value: read once, coalesced.  In f32 and bf16 it streams
 // (evict-first); in f64 a plain load is faster (chip_study.py symopts times
 // each hint in both types).  The mirror loads are never evict-first: they
 // need the lines the forward loads just brought in.
-template <typename T>
-__device__ __forceinline__ T band_load(const T* p) {
-  if constexpr (sizeof(T) == 4) {
-    return __ldcs(p);
+template <typename D>
+__device__ __forceinline__ auto band_load(const D* p) {
+  if constexpr (sizeof(D) <= 4) {
+    return widen(__ldcs(p));
   } else {
-    return *p;
+    return widen(*p);
   }
 }
 
 // (A v)_i for each of thread t's R rows i = i0 + t + r kTile and each of the
 // NMV staged windows smv (stride vw; row i at window position i - i0 + h),
-// from one read of the band.  Same terms in the same order as the plain
+// from one read of the band (stored as D, widened to T).  Same terms in the same order as the plain
 // version (sym_dia.py:_mv_plain): the main term, then per diagonal the
 // forward term and then the mirror term, each a multiply-add into the row's
 // accumulator.  Where i - off < 0 the mirror value is a zero rather than a
 // load, and the window holds a zero there too: the zero term is still added,
 // as it was when the band was staged with zeros, so every sum keeps its bits
 // (-0.0 included).  Rows at or past n read nothing and give zeros.
-template <typename T, int R, int NMV>
-__device__ __forceinline__ void sym_rows(const T* __restrict__ data,
+template <typename T, typename D, int R, int NMV>
+__device__ __forceinline__ void sym_rows(const D* __restrict__ data,
                                          long long n, long long i0, int ndiag,
                                          const int* soff, const T* smv, int vw,
                                          int h, T (&acc)[R][NMV]) {
@@ -94,13 +96,13 @@ __device__ __forceinline__ void sym_rows(const T* __restrict__ data,
 #pragma unroll 4
   for (int d = 1; d < ndiag; ++d) {
     const int off = soff[d];
-    const T* row = data + (long long)d * n;
+    const D* row = data + (long long)d * n;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long i = i0 + t + r * kTile;
       const int c = t + r * kTile + h;
       const T af = i < n ? band_load(row + i) : T(0);
-      const T am = (i < n && i >= off) ? __ldg(row + i - off) : T(0);
+      const T am = (i < n && i >= off) ? widen(__ldg(row + i - off)) : T(0);
 #pragma unroll
       for (int k = 0; k < NMV; ++k) {
         acc[r][k] += af * smv[k * vw + c + off];

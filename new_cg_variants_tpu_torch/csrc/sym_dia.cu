@@ -6,7 +6,9 @@
 // What bounds it on an H100: device-memory bytes.  Per call it must read the
 // band (ndiag * n values) and each right-hand side once and write each result
 // once; at n = 655,360, ndiag = 32, f32 that is 89.1 MB (1 RHS) or 94.4 MB
-// (2 RHS), about 27 / 28 us at 3.35 TB/s.  The arithmetic (4 operations per
+// (2 RHS), about 27 / 28 us at 3.35 TB/s; with the band stored in bf16
+// (sym_dia_spmv_bf16: 2-byte band values, float32 vectors) 47.2 / 52.4 MB,
+// 14 / 16 us.  The arithmetic (4 operations per
 // stored value per RHS) is two orders of magnitude below the f32 peak, and the
 // band is larger than the 50 MB L2, so nothing stays resident between calls.
 //
@@ -33,9 +35,9 @@ constexpr int kSymDiaMinBlocks = 8;
 constexpr int kSymDiaRows = 1;
 constexpr int kSymDiaTile = kSymDiaRows * kTile;
 
-template <typename T, int NRHS>
+template <typename T, typename D, int NRHS>
 __global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<T>)
-    sym_dia_kernel(const T* __restrict__ data, const __grid_constant__ Offsets o,
+    sym_dia_kernel(const D* __restrict__ data, const __grid_constant__ Offsets o,
                    int ndiag, int h, long long n, const T* __restrict__ v0,
                    const T* __restrict__ v1, T* __restrict__ y0,
                    T* __restrict__ y1) {
@@ -51,7 +53,8 @@ __global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<T>)
   __syncthreads();
 
   T acc[kSymDiaRows][NRHS];
-  sym_rows<T, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h, acc);
+  sym_rows<T, D, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h,
+                                    acc);
 #pragma unroll
   for (int r = 0; r < kSymDiaRows; ++r) {
     const long long i = i0 + threadIdx.x + r * kTile;
@@ -62,7 +65,8 @@ __global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<T>)
   }
 }
 
-template <typename T>
+// T: the vectors' type; D: the band's (T, or __nv_bfloat16 with T = float)
+template <typename T, typename D = T>
 int launch_sym_dia(const void* data, const int* offsets, int ndiag, int h,
                    long long n, const void* v0, const void* v1, void* y0,
                    void* y1, int nrhs, int device, void* stream) {
@@ -75,21 +79,21 @@ int launch_sym_dia(const void* data, const int* offsets, int ndiag, int h,
   const size_t smem = size_t(nrhs) * (kSymDiaTile + 2 * h) * sizeof(T);
   const unsigned grid = unsigned((n + kSymDiaTile - 1) / kSymDiaTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* d = static_cast<const T*>(data);
+  const D* d = static_cast<const D*>(data);
   const T* a = static_cast<const T*>(v0);
   const T* b = static_cast<const T*>(v1);
   T* ya = static_cast<T*>(y0);
   T* yb = static_cast<T*>(y1);
   if (nrhs == 1) {
-    err = allow_smem(sym_dia_kernel<T, 1>, smem);
+    err = allow_smem(sym_dia_kernel<T, D, 1>, smem);
     if (err != cudaSuccess) return int(err);
-    sym_dia_kernel<T, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,
-                                                    ya, yb);
+    sym_dia_kernel<T, D, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,
+                                                       b, ya, yb);
   } else {
-    err = allow_smem(sym_dia_kernel<T, 2>, smem);
+    err = allow_smem(sym_dia_kernel<T, D, 2>, smem);
     if (err != cudaSuccess) return int(err);
-    sym_dia_kernel<T, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a, b,
-                                                    ya, yb);
+    sym_dia_kernel<T, D, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,
+                                                       b, ya, yb);
   }
   return int(cudaGetLastError());
 }
@@ -110,6 +114,14 @@ int sym_dia_spmv_f64(const void* data, const int* offsets, int ndiag, int h,
                      void* y1, int nrhs, int device, void* stream) {
   return ncgv::launch_sym_dia<double>(data, offsets, ndiag, h, n, v0, v1, y0,
                                       y1, nrhs, device, stream);
+}
+
+// data in bf16, v0 / v1 / y0 / y1 in float32
+int sym_dia_spmv_bf16(const void* data, const int* offsets, int ndiag, int h,
+                      long long n, const void* v0, const void* v1, void* y0,
+                      void* y1, int nrhs, int device, void* stream) {
+  return ncgv::launch_sym_dia<float, __nv_bfloat16>(
+      data, offsets, ndiag, h, n, v0, v1, y0, y1, nrhs, device, stream);
 }
 
 }  // extern "C"

@@ -17,7 +17,9 @@
 // band (ndiag * n values) and its 2-11 vectors once and write its 2-10
 // vectors once; at n = 655,360, ndiag = 32, f32 that is 94 MB (hs) to 139 MB
 // (pipe_prec), 28-42 us at 3.35 TB/s, against at most ~5 us of f32
-// arithmetic at the 67 TFLOP/s peak.
+// arithmetic at the 67 TFLOP/s peak.  With the band stored in bf16
+// (sym_family_bf16: 2-byte band values, float32 vectors) the band's share
+// halves: 52 MB (hs) to 97 MB (pipe_prec), 16-29 us.
 //
 // What the design does about it:
 // * One block per kFamilyTile rows, one thread per kFamilyRows of them.  Each
@@ -96,9 +98,9 @@ __device__ __forceinline__ void sym_window(const FamilyArgs<T>& a,
     turn(idx, false, keep[0]);
 }
 
-template <typename T, typename S>
+template <typename T, typename D, typename S>
 __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
-    const T* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
+    const D* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
     int h, long long n, const __grid_constant__ FamilyArgs<T> a,
     T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -118,8 +120,8 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
   __syncthreads();
 
   T acc[kFamilyRows][S::kMv];
-  sym_rows<T, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,
-                                   acc);
+  sym_rows<T, D, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,
+                                      acc);
 #pragma unroll
   for (int r = 0; r < kFamilyRows; ++r) {
     const long long i = i0 + t + r * kTile;
@@ -139,8 +141,8 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
   }
 }
 
-template <typename T, typename S>
-int launch_spec(const T* data, const Offsets& o, int ndiag, int h,
+template <typename T, typename D, typename S>
+int launch_spec(const D* data, const Offsets& o, int ndiag, int h,
                 long long n, const void* const* in, int nin,
                 const void* const* sc, int nsc, void* const* out, int nout,
                 T* partials, cudaStream_t st) {
@@ -150,16 +152,18 @@ int launch_spec(const T* data, const Offsets& o, int ndiag, int h,
   const size_t smem = (size_t(S::kMv) * (kFamilyTile + 2 * h) +
                        size_t(kFamilyRows) * S::kDots * kWarps) *
                       sizeof(T);
-  cudaError_t err = allow_smem(sym_family_kernel<T, S>, smem);
+  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);
   if (err != cudaSuccess) return int(err);
   const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);
-  sym_family_kernel<T, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n, a,
-                                                    partials);
+  sym_family_kernel<T, D, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n,
+                                                       a, partials);
   return int(cudaGetLastError());
 }
 
-// entry: the order of ops/sym_fused.py:_FAMILY_ENTRIES
-template <typename T>
+// entry: the order of ops/sym_fused.py:_FAMILY_ENTRIES; T: the vectors',
+// scalars' and partials' type; D: the band's (T, or __nv_bfloat16 with
+// T = float)
+template <typename T, typename D = T>
 int launch_sym_family(int entry, const void* data, const int* offsets,
                       int ndiag, int h, long long n, const void* const* in,
                       int nin, const void* const* sc, int nsc,
@@ -171,13 +175,13 @@ int launch_sym_family(int entry, const void* data, const int* offsets,
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const T* d = static_cast<const T*>(data);
+  const D* d = static_cast<const D*>(data);
   T* part = static_cast<T*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NCGV_ENTRY(k, Spec)                                                  \
   case k:                                                                    \
-    return launch_spec<T, Spec>(d, o, ndiag, h, n, in, nin, sc, nsc, out,    \
-                                nout, part, st)
+    return launch_spec<T, D, Spec>(d, o, ndiag, h, n, in, nin, sc, nsc, out, \
+                                   nout, part, st)
   switch (entry) {
     NCGV_ENTRY(0, HsSpec);
     NCGV_ENTRY(1, PrSpec);
@@ -217,6 +221,16 @@ int sym_family_f64(int entry, const void* data, const int* offsets, int ndiag,
   return ncgv::launch_sym_family<double>(entry, data, offsets, ndiag, h, n,
                                          in, nin, sc, nsc, out, nout,
                                          partials, device, stream);
+}
+
+// data in bf16; vectors, scalars and partials in float32
+int sym_family_bf16(int entry, const void* data, const int* offsets,
+                    int ndiag, int h, long long n, const void* const* in,
+                    int nin, const void* const* sc, int nsc, void* const* out,
+                    int nout, void* partials, int device, void* stream) {
+  return ncgv::launch_sym_family<float, __nv_bfloat16>(
+      entry, data, offsets, ndiag, h, n, in, nin, sc, nsc, out, nout,
+      partials, device, stream);
 }
 
 }  // extern "C"

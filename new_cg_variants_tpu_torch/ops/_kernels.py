@@ -28,7 +28,8 @@ import torch
 
 __all__ = ["SOURCES", "build", "load", "library", "using", "nvcc_command",
            "KERNEL_TILE", "SYM_FAMILY_TILE", "MAX_DIAGS", "KERNEL_DTYPES",
-           "offsets_array", "check_band", "check_ell", "check_vectors"]
+           "STORAGE_DTYPES", "compute_dtype", "offsets_array", "check_band",
+           "check_ell", "check_vectors"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,17 +48,18 @@ _SIGNATURES = {
     "sym_dia.cu": {
         name: [_VP, _OFFS, _INT, _INT, _LL, _VP, _VP, _VP, _VP, _INT, _INT,
                _VP]
-        for name in ("sym_dia_spmv_f32", "sym_dia_spmv_f64")
+        for name in ("sym_dia_spmv_f32", "sym_dia_spmv_f64",
+                     "sym_dia_spmv_bf16")
     },
     "sym_family.cu": {
         name: [_INT, _VP, _OFFS, _INT, _INT, _LL, _PTRS, _INT, _PTRS, _INT,
                _PTRS, _INT, _VP, _INT, _VP]
-        for name in ("sym_family_f32", "sym_family_f64")
+        for name in ("sym_family_f32", "sym_family_f64", "sym_family_bf16")
     },
     "dia_spmv.cu": {
         name: [_VP, _OFFS, _INT, _LL, _VP, _VP, _LL, _LL, _VP, _VP, _INT,
                _INT, _INT, _VP]
-        for name in ("dia_spmv_f32", "dia_spmv_f64")
+        for name in ("dia_spmv_f32", "dia_spmv_f64", "dia_spmv_bf16")
     },
     "pipe_vector.cu": {
         name: [_INT, _LL, _PTRS, _INT, _PTRS, _INT, _PTRS, _INT, _VP, _INT,
@@ -67,7 +69,7 @@ _SIGNATURES = {
     "dia_family.cu": {
         name: [_INT, _VP, _OFFS, _INT, _LL, _PTRS, _INT, _PTRS, _INT, _PTRS,
                _INT, _VP, _INT, _VP]
-        for name in ("dia_family_f32", "dia_family_f64")
+        for name in ("dia_family_f32", "dia_family_f64", "dia_family_bf16")
     },
     "df_spmv.cu": {
         "df_dia_spmv_f32": [_VP, _VP, _VP, _OFFS, _INT, _LL, _PTRS, _PTRS,
@@ -81,7 +83,8 @@ _SIGNATURES = {
     },
     "ell_spmv.cu": {
         **{name: [_VP, _VP, _INT, _LL, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
-                  _VP] for name in ("ell_spmv_f32", "ell_spmv_f64")},
+                  _VP] for name in ("ell_spmv_f32", "ell_spmv_f64",
+                                    "ell_spmv_bf16")},
         **{name: [_VP, _LL, _VP, _VP, _VP, _INT, _INT, _VP]
            for name in ("ell_gather_f32", "ell_gather_f64")},
     },
@@ -95,8 +98,23 @@ KERNEL_TILE = 256
 SYM_FAMILY_TILE = 512
 #: stored diagonals a launch may take (csrc/sym_common.cuh:kMaxDiags)
 MAX_DIAGS = 256
-#: suffix of the C entry point per element type
+#: suffix of the C entry point per element type of the vectors
 KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+#: per element type of a stored matrix (band, ELL values): the suffix of the
+#: C entry points that take it and the element type of the vectors, scalars
+#: and arithmetic that go with it.  bf16 is a storage-only tier: the matrix
+#: in bf16, everything else in float32 (csrc/storage.cuh)
+STORAGE_DTYPES = {
+    torch.float32: ("f32", torch.float32),
+    torch.float64: ("f64", torch.float64),
+    torch.bfloat16: ("bf16", torch.float32),
+}
+
+
+def compute_dtype(dtype):
+    """The vectors' element type of a kernel on data stored as ``dtype``
+    (``dtype`` itself where it is no storage type of a kernel)."""
+    return STORAGE_DTYPES.get(dtype, (None, dtype))[1]
 
 
 @functools.lru_cache(maxsize=64)
@@ -110,10 +128,10 @@ def check_band(offsets, data):
     suffix)``, the dimension and the suffix of the C entry point."""
     if not data.is_cuda:
         raise ValueError("operator data must lie on the CUDA device")
-    if data.dtype not in KERNEL_DTYPES:
+    if data.dtype not in STORAGE_DTYPES:
         raise TypeError(
-            f"the CUDA band kernels take float32 or float64 data, not "
-            f"{data.dtype} (bf16 storage is not ported yet)")
+            f"the CUDA band kernels take float32, float64 or bfloat16 data, "
+            f"not {data.dtype}")
     ndiag, n = data.shape
     if not data.is_contiguous():
         raise ValueError("operator data must be contiguous (ndiag, n)")
@@ -123,19 +141,20 @@ def check_band(offsets, data):
         raise ValueError(f"{ndiag} stored diagonals > {MAX_DIAGS}")
     if n == 0:
         raise ValueError("empty operator")
-    return n, KERNEL_DTYPES[data.dtype]
+    return n, STORAGE_DTYPES[data.dtype][0]
 
 
 def check_ell(val, idx):
     """Validate the padded-ELL arrays a CUDA kernel is handed: ``(n, L)``
     views of slot-major storage (``val.T`` / ``idx.T`` contiguous), values
-    float32 or float64, indices int32.  Return ``(n, L, suffix)``."""
+    float32, float64 or bfloat16, indices int32.  Return ``(n, L,
+    suffix)``."""
     if not (val.is_cuda and idx.device == val.device):
         raise ValueError("ELL values and indices must lie on one CUDA device")
-    if val.dtype not in KERNEL_DTYPES:
+    if val.dtype not in STORAGE_DTYPES:
         raise TypeError(
-            f"the CUDA ELL kernel takes float32 or float64 values, not "
-            f"{val.dtype} (bf16 storage is not ported yet)")
+            f"the CUDA ELL kernel takes float32, float64 or bfloat16 values, "
+            f"not {val.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"ELL indices must be int32, not {idx.dtype}")
     if val.ndim != 2 or idx.shape != val.shape:
@@ -147,16 +166,19 @@ def check_ell(val, idx):
     n, L = val.shape
     if n == 0 or L == 0 or n >= 2 ** 31:
         raise ValueError(f"ELL shape ({n}, {L}) out of range")
-    return n, L, KERNEL_DTYPES[val.dtype]
+    return n, L, STORAGE_DTYPES[val.dtype][0]
 
 
 def check_vectors(ref, vecs, n):
-    """Every vector on ``ref``'s device, of its dtype, contiguous ``(n,)``."""
+    """Every vector on ``ref``'s device, of the vectors' dtype that goes
+    with ``ref``'s (:func:`compute_dtype`: float32 for bf16 data),
+    contiguous ``(n,)``."""
+    want = compute_dtype(ref.dtype)
     for v in vecs:
         if v.device != ref.device:
             raise ValueError(f"vector on {v.device}, expected {ref.device}")
-        if v.dtype != ref.dtype:
-            raise TypeError(f"vector {v.dtype} != {ref.dtype}")
+        if v.dtype != want:
+            raise TypeError(f"vector {v.dtype} != {want} (data {ref.dtype})")
         if v.shape != (n,) or not v.is_contiguous():
             raise ValueError(f"vector must be contiguous ({n},), "
                              f"got {tuple(v.shape)}")

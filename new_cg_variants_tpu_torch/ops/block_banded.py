@@ -78,13 +78,17 @@ class BlockBandedOperator:
         vp = torch.cat([z, v, z]).reshape((nb + 2, bs) + tail)
         return torch.cat([vp[:-2], vp[1:-1], vp[2:]], dim=1)
 
+    # Stored in bf16 the blocks are widened to the vectors' float32 at each
+    # product, as XLA promotes the JAX package's bf16 x f32 einsum; no
+    # float32 copy is kept (it would undo the storage tier).
+
     def mv(self, v):
         win = self._windows(v)[:, :, None]  # (nb, 3bs, 1)
-        return torch.matmul(self.a_blk, win).reshape(-1)
+        return torch.matmul(self.a_blk.to(v.dtype), win).reshape(-1)
 
     def mv2(self, v, w):
         win = self._windows(torch.stack([v, w], dim=1))  # ONE pass, 2 RHS
-        y = torch.matmul(self.a_blk, win).reshape(-1, 2)
+        y = torch.matmul(self.a_blk.to(v.dtype), win).reshape(-1, 2)
         return y[:, 0], y[:, 1]
 
     def diagonal(self):

@@ -19,8 +19,9 @@ terms of each row are the same products added in the same slot order, so
 the result is the given order's, bit for bit.
 
 On CUDA tensors each launches the hand-written kernels of
-``csrc/ell_spmv.cu``, which take float32 or float64 values, int32 indices
-and any ``n`` and ``L``, and want ``val`` / ``idx`` as ``(n, L)`` views of
+``csrc/ell_spmv.cu``, which take float32, float64 or bf16 values (bf16
+with float32 vectors and results, as the JAX package's default ELL product
+promotes them), int32 indices and any ``n`` and ``L``, and want ``val`` / ``idx`` as ``(n, L)`` views of
 slot-major storage (``val.T`` contiguous, as
 :class:`~.operators.EllOperator` keeps them: slot l of neighbouring rows is
 then one coalesced read).  On CPU tensors they run the plain PyTorch
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from ._kernels import check_ell, check_vectors
+from ._kernels import check_ell, check_vectors, compute_dtype
 
 __all__ = ["check_index", "check_perm", "reorder", "ELL_WRAPPERS"]
 
@@ -158,7 +159,8 @@ def _launch(val, idx, vecs, perm=None):
 
     n, L, sfx = check_ell(val, idx)
     check_vectors(val, vecs, n)
-    ys = [torch.empty(n, dtype=val.dtype, device=val.device) for _ in vecs]
+    ys = [torch.empty(n, dtype=compute_dtype(val.dtype), device=val.device)
+          for _ in vecs]
     two = len(vecs) == 2
     if perm is None:
         v0, v1 = vecs[0].data_ptr(), vecs[1].data_ptr() if two else None

@@ -107,19 +107,19 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _launch(source, entry, head, ref, n, vecs, scalars, nout, ndots=4):
-    """Launch ``entry`` of ``source`` with the leading arguments ``head``;
-    returns ``(vector outputs, the dots)``."""
+def _launch(source, entry, head, sfx, ref, n, vecs, scalars, nout, ndots=4):
+    """Launch ``entry`` of ``source``, the C entry point of suffix ``sfx``,
+    with the leading arguments ``head``; ``ref`` is the band (or the first
+    vector), whose dtype sets the vectors' (float32 on bf16 data).  Returns
+    ``(vector outputs, the dots)``."""
     from ._kernels import library
 
-    sfx = KERNEL_DTYPES.get(ref.dtype)
-    if sfx is None:
-        raise TypeError(f"{entry} takes float32 or float64, not {ref.dtype}")
     check_vectors(ref, vecs, n)
-    scalars = [_scalar(v, ref) for v in scalars]
-    outs = [torch.empty(n, dtype=ref.dtype, device=ref.device)
+    like = vecs[0]
+    scalars = [_scalar(v, like) for v in scalars]
+    outs = [torch.empty(n, dtype=like.dtype, device=ref.device)
             for _ in range(nout)]
-    partials = torch.empty((-(-n // KERNEL_TILE), ndots), dtype=ref.dtype,
+    partials = torch.empty((-(-n // KERNEL_TILE), ndots), dtype=like.dtype,
                            device=ref.device)
     fn = getattr(library(source), f"{source[:-3]}_{sfx}")
     rc = fn(*head, n, _pointers(vecs), len(vecs), _pointers(scalars),
@@ -145,9 +145,13 @@ def _vector_phase(wrapper, plain, vecs, a1, beta, nout):
     x = vecs[0]
     if x.ndim != 1 or x.shape[0] == 0:
         raise ValueError(f"expected non-empty vectors, got {tuple(x.shape)}")
+    sfx = KERNEL_DTYPES.get(x.dtype)
+    if sfx is None:
+        raise TypeError(f"{wrapper.__name__} takes float32 or float64, not "
+                        f"{x.dtype}")
     outs, dots = _launch("pipe_vector.cu", wrapper.__name__,
-                         (int(nout == 8),), x, x.shape[0], vecs, (a1, beta),
-                         nout)
+                         (int(nout == 8),), sfx, x, x.shape[0], vecs,
+                         (a1, beta), nout)
     wrapper.launches += 1
     return (*outs, dots)
 
@@ -185,13 +189,13 @@ def dia_family_entry(wrapper, entry, plain, offsets, data, vecs, scalars,
         raise ValueError(
             f"{entry}: offsets reach {halo(offsets)} rows before and after a "
             f"row, more than {MAX_FULL_STEP_HALO} together")
-    n, _ = check_band(offsets, data)
+    n, sfx = check_band(offsets, data)
     index, nout, ndots, _ = _FAMILY_ENTRIES[
         entry.replace("fused_", "fused_sym_", 1)]
     outs, dots = _launch(
         "dia_family.cu", entry,
         (index, data.data_ptr(), offsets_array(offsets), len(offsets)),
-        data, n, vecs, scalars, nout, ndots)
+        sfx, data, n, vecs, scalars, nout, ndots)
     wrapper.launches += 1
     return (*outs, dots)
 

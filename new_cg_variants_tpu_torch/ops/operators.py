@@ -2,7 +2,8 @@
 
 * :class:`DenseOperator` — a plain 2-D tensor; ``mv`` is one matrix product
   (``torch.matmul``: the JAX package leaves it to XLA too, no kernel of its
-  own), ``mv2`` one product with ``[v | w]``.
+  own), ``mv2`` one product with ``[v | w]``; bf16 storage is widened to the
+  vectors' float32 at the product.
 * :class:`DiaOperator` — diagonal storage, row-indexed: ``data[d, i] =
   A[i, i + offsets[d]]`` with explicit zeros where the position falls outside
   the matrix.  ``mv`` / ``mv2`` go through :mod:`.spmv_dia`: the hand-written
@@ -75,11 +76,15 @@ class DenseOperator:
     def device(self):
         return self.a.device
 
+    # Stored in bf16 the matrix is widened to the vectors' float32 at each
+    # product, as XLA promotes a bf16 x f32 product; no float32 copy is kept
+    # (it would undo the storage tier).
+
     def mv(self, v):
-        return self.a @ v
+        return self.a.to(v.dtype) @ v
 
     def mv2(self, v, w):
-        out = self.a @ torch.stack([v, w], dim=1)
+        out = self.a.to(v.dtype) @ torch.stack([v, w], dim=1)
         return out[:, 0], out[:, 1]
 
     def diagonal(self):

@@ -15,7 +15,8 @@ offsets, negative ones too, and explicit zeros outside the matrix,
 On a CUDA tensor each launches the hand-written kernel of
 ``csrc/dia_spmv.cu``; on a CPU tensor it runs the plain shift formulation
 (:func:`_dia_mv_plain`, :func:`_dia_mv_ext_plain`), which is also what the
-kernel is checked against on the card.  Each wrapper counts its launches in
+kernel is checked against on the card.  bf16 data goes with float32 vectors
+and results (a storage-only tier, as in :mod:`.sym_dia`).  Each wrapper counts its launches in
 ``.launches``.
 """
 
@@ -23,7 +24,12 @@ from __future__ import annotations
 
 import torch
 
-from ._kernels import check_band, check_vectors, offsets_array
+from ._kernels import (
+    check_band,
+    check_vectors,
+    compute_dtype,
+    offsets_array,
+)
 from ._shift import shift
 
 __all__ = ["dia_spmv", "dia_spmv2", "dia_spmv_ext", "dia_spmv2_ext",
@@ -75,7 +81,8 @@ def _launch(offsets, data, vecs, ext, staged=None):
     n, sfx = check_band(offsets, data)
     h = max(abs(o) for o in offsets) if ext else 0
     check_vectors(data, vecs, n + 2 * h)
-    ys = [torch.empty(n, dtype=data.dtype, device=data.device) for _ in vecs]
+    ys = [torch.empty(n, dtype=compute_dtype(data.dtype), device=data.device)
+          for _ in vecs]
     fn = getattr(library("dia_spmv.cu"), f"dia_spmv_{sfx}")
     v1 = vecs[1].data_ptr() if len(vecs) == 2 else None
     y1 = ys[1].data_ptr() if len(vecs) == 2 else None

@@ -9,7 +9,10 @@ zeros past the matrix edge),
 On a CUDA tensor :func:`sym_dia_spmv` / :func:`sym_dia_spmv2` launch the
 hand-written kernel of ``csrc/sym_dia.cu``; on a CPU tensor they run the
 plain two-shift formulation :func:`_mv_plain`, which is also what the kernel
-is checked against on the card.
+is checked against on the card.  The band may be stored in float32,
+float64 or bf16; bf16 data goes with float32 vectors (a storage-only tier:
+the kernel widens each band value to float32, the plain version's products
+promote to float32) and gives float32 results.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ._kernels import (
     MAX_DIAGS,
     check_band,
     check_vectors,
+    compute_dtype,
     offsets_array,
 )
 from ._shift import shift
@@ -45,7 +49,8 @@ def _mv_plain(offsets, data, v):
 
 def kernel_smem_bytes(h, nvec_buffers, itemsize, tile=KERNEL_TILE):
     """Shared memory of one block of ``tile`` rows: ``nvec_buffers`` vector
-    windows of ``tile + 2 h`` values, the fused step's reduction scratch (32
+    windows of ``tile + 2 h`` values of ``itemsize`` bytes (the vectors'
+    element size, not the band's), the fused step's reduction scratch (32
     values per 256 rows; an upper bound for the SpMV, which has none) and
     the staged offsets.  The band is read from device memory and takes
     none."""
@@ -69,7 +74,8 @@ def check_kernel_args(offsets, data, vecs, nvec_buffers,
         raise ValueError(f"bad stored offsets {offsets} for half-band storage")
     check_vectors(data, vecs, n)
     h = max(offsets)
-    smem = kernel_smem_bytes(h, nvec_buffers, data.element_size(), tile)
+    smem = kernel_smem_bytes(h, nvec_buffers,
+                             compute_dtype(data.dtype).itemsize, tile)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{entry}: half-band {h} with {nvec_buffers} vector windows needs "

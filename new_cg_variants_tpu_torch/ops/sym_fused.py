@@ -18,7 +18,8 @@ unpack them positionally) and the update order of its specs:
   their ``*_prec`` twins and :func:`fused_sym_pipe_full_step_prec`.
 
 All are entries of one kernel template over a family spec
-(``csrc/sym_family.cu``).
+(``csrc/sym_family.cu``), with the band stored in float32, float64 or bf16
+(then with float32 vectors and scalars, as :mod:`.sym_dia`).
 
 On CUDA tensors an entry point launches its hand-written kernel (one pass
 over device memory; scalars are read through device pointers, so no step
@@ -199,9 +200,11 @@ def _launch_family(entry, offsets, data, vecs, scalars):
     index, nout, ndots, nmv = _FAMILY_ENTRIES[entry]
     n, h, sfx = check_kernel_args(offsets, data, vecs, nmv, entry=entry,
                                   tile=SYM_FAMILY_TILE)
-    scalars = [_scalar(v, data) for v in scalars]
+    # vectors, scalars and partials in the vectors' dtype (float32 on bf16
+    # data)
+    scalars = [_scalar(v, vecs[0]) for v in scalars]
     outs = [torch.empty_like(vecs[0]) for _ in range(nout)]
-    partials = torch.empty(partials_shape(n, ndots), dtype=data.dtype,
+    partials = torch.empty(partials_shape(n, ndots), dtype=vecs[0].dtype,
                            device=data.device)
     ins = (ctypes.c_void_p * len(vecs))(*[v.data_ptr() for v in vecs])
     scp = (ctypes.c_void_p * len(scalars))(*[v.data_ptr() for v in scalars])

@@ -73,8 +73,8 @@ def test_solve_mtx_file(tmp_path, capsys):
 @pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
 def test_solve_dtypes_on_cpu(capsys, dtype):
     """On the CPU the plain versions take every dtype (bf16: storage only,
-    vectors in float32); on the card bf16 data reaches the kernels'
-    TypeError (not ported yet), with no cast."""
+    vectors in float32); on the card bf16 data reaches the kernels' bf16
+    entries, with no cast (chip_smoke.py: cli_f32)."""
     rc = main(["solve", *BANDED, "--ksp-norm-type", "none", "--max-iter",
                "20", "--dtype", dtype, "--device", "cpu"])
     got = fields(capsys.readouterr().out)

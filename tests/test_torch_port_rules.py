@@ -242,12 +242,16 @@ def test_sparse_entry_points_default_to_cuda(no_cuda, entry):
 
 def test_ell_kernel_source_calls_no_library():
     """Row 12 is written by hand: no cuSPARSE, cuBLAS, Thrust or CUB, and no
-    header beyond the CUDA runtime's."""
+    header beyond the CUDA runtime's and its bf16 type's (through the
+    storage types' header of csrc/)."""
     text = (PORT_DIR / "csrc" / "ell_spmv.cu").read_text()
     includes = re.findall(r"#include\s*[<\"]([^>\"]+)", text)
-    assert includes == ["cuda_runtime.h"]
+    assert includes == ["storage.cuh"]
+    storage = (PORT_DIR / "csrc" / "storage.cuh").read_text()
+    assert re.findall(r"#include\s*[<\"]([^>\"]+)", storage) == [
+        "cuda_bf16.h", "cuda_runtime.h"]
     for name in ("cusparse", "cublas", "thrust", "cub::", "cutlass"):
-        assert name not in text.lower()
+        assert name not in (text + storage).lower()
     assert "__global__" in text and "ell_spmv_kernel" in text
 
 
@@ -300,6 +304,7 @@ def test_every_study_edit_applies_to_the_kernel_sources():
              + list(chip_study.SYM_MUTANTS.values())
              + list(chip_study.DF_MUTANTS.values())
              + list(chip_study.ELL_MUTANTS.values())
+             + list(chip_study.BF16_MUTANTS.values())
              + list(chip_study.LAUNCH_BOUNDS)
              + [e for opt in (chip_study.SYM_OPTIONS,
                               chip_study.ELL_OPTIONS,

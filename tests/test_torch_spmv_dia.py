@@ -139,13 +139,14 @@ def test_wrapper_rejects_other_devices_and_types():
     meta = torch.empty(256, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError):
         tsp.dia_spmv((-1, 0, 1), data, meta)
-    # the kernel's own checks: CPU data never reaches the kernel, and bf16
-    # storage is not ported
+    # the kernel's own checks: CPU data never reaches the kernel, and
+    # float16 is no storage type of a kernel (bf16 is:
+    # test_torch_bf16_storage.py)
     with pytest.raises(ValueError, match="CUDA"):
         tsp._launch((-1, 0, 1), data, (), False)
     from test_torch_sym_family import _FakeCudaTensor
 
-    bf16 = _FakeCudaTensor(is_cuda=True, dtype=torch.bfloat16,
+    half = _FakeCudaTensor(is_cuda=True, dtype=torch.float16,
                            shape=(3, 256), device=torch.device("cuda", 0))
-    with pytest.raises(TypeError, match="bf16"):
-        tsp._launch((-1, 0, 1), bf16, (), False)
+    with pytest.raises(TypeError, match="float16"):
+        tsp._launch((-1, 0, 1), half, (), False)
