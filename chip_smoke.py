@@ -175,7 +175,30 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     CPU on the same bf16 data (half-band, full DIA, dense and block-banded
     at n = 4096): the same iteration to the floor, histories within rtol
     1e-4 through iteration 15;
-25. ``kernels`` — one JSON line over all kernel entries: one record per entry
+25. the row-partitioned distributed layer (``parallel/``) at world size 1,
+    in a process group made from the environment ``torchrun`` sets
+    (NCCL for the card, gloo for the CPU; destroyed at the end, a failed
+    check included): ``check_dist`` holds the kernels at the shapes the
+    row partition gives them to their plain versions (the half-band SpMV
+    on the extended slice of m + 2h = 655,422 rows, the DIA ``_ext``
+    entries at 63 diagonals with halo-extended vectors; the vector phases
+    run on check_dia's n = 655,360 rows), timed with the plain versions
+    and cuSPARSE; ``dist_f32``: pipe_pr_cg, hs_cg (model problem) and
+    pipe_pr_pcg with Jacobi (scaled band) on half-band and full DIA at
+    n = 655,360 in float32, ``dist_run`` against the single-device ``run``
+    (nu, alpha to rtol 1e-4 through iteration 15), the launches, the
+    all-reduces (hs 2, pipe_pr 1) and halo exchanges (1) per iteration,
+    the kernels per iteration by entry and the device busy share, and
+    ``dist_solve`` ms/iter beside ``solve``'s; pipe_pr_cg on half-band
+    under the bench protocol of 4 with 1000-iteration chunks,
+    single-device and row contexts in turns;
+    ``dist_f64``: the same names and storages at n = 65,536 in float64,
+    the card against the CPU over 25 iterations (rtol 1e-10).  ``ell_f32``
+    also times the padded-ELL packing (``build_ell`` against the native
+    ``pack_ell``, the same bits), and ``convergence_f64`` ``read_mtx`` on
+    its 32^3 file through the native reader and the Python parser (the
+    same entries);
+26. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
     paths of that shape (bf16 entries with the float32 entry's time from
     the same call beside theirs).
@@ -187,8 +210,10 @@ is available.  The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -408,10 +433,14 @@ def check_spmv(torch, card, timings, report=emit_check, shapes=SYM_SHAPES,
                 plain_ms = time_ms(torch, lambda: sd._mv_plain(offs, data, v), 5)
                 b_ms, b_by = bound(k * n * isz + 2 * n * vsz, 4 * k * n, dn,
                                    rate)
-                b2_ms, _ = bound(k * n * isz + 4 * n * vsz, 8 * k * n, dn,
-                                 rate)
+                b2_ms, b2_by = bound(k * n * isz + 4 * n * vsz, 8 * k * n,
+                                     dn, rate)
+                plain2_ms = time_ms(
+                    torch, lambda: (sd._mv_plain(offs, data, v),
+                                    sd._mv_plain(offs, data, w)), 5)
                 rec.update(ms=ms, spmv2_ms=ms2, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, spmv2_bound_ms=b2_ms)
+                lib2_ms = None
                 if dtype == torch.bfloat16:
                     # no PyTorch call multiplies bf16 storage into a float32
                     # vector without a cast: the float32 entry on the
@@ -425,8 +454,17 @@ def check_spmv(torch, card, timings, report=emit_check, shapes=SYM_SHAPES,
                     csr = library_csr(torch, offs, data)
                     rec.update(library_err=cw_err(torch, csr @ v, yp, ys),
                                library_ms=time_ms(torch, lambda: csr @ v, 50))
-                    del csr
+                    vw = torch.stack([v, w], dim=1)
+                    lib2_ms = time_ms(torch, lambda: csr @ vw, 50)
+                    del csr, vw
                 timings["sym_dia_spmv" + suffix] = rec
+                # the 2-RHS entry: two plain products; as a library call one
+                # cuSPARSE product with the (n, 2) matrix [v | w]
+                timings["sym_dia_spmv2" + suffix] = dict(
+                    rec, ms=ms2, plain_ms=plain2_ms, library_ms=lib2_ms,
+                    bound_ms=b2_ms, bound_by=b2_by,
+                    **({"f32_ms": rec["f32_spmv2_ms"]} if "f32_ms" in rec
+                       else {}))
             report(rec)
             if not (max(errs) <= tol and same):
                 failed.append(rec)
@@ -909,27 +947,18 @@ def profile_steps(torch, ctx, step_fn, state):
             "top_kernels_us_per_iter": {k[:60]: v / steps for k, v in top}}
 
 
-def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper,
-                   variant="pipe_pr_cg", init_spmvs=3):
-    """``variant`` (default pipe-PR-CG; an unpreconditioned name) on ``op``
-    as ``bench.py`` times it, then two timed ``solve(norm_type="none")``
-    runs and a profiled window.  Returns the measurements and the launch
-    counts next to what they must be: ``init_spmvs`` launches of
-    ``spmv_wrapper`` per init and one of ``fused_wrapper`` per iteration,
-    nothing else."""
-    from new_cg_variants_tpu_torch import solve
-    from new_cg_variants_tpu_torch.solvers.context import Context
-    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
-
-    init_fn, step_fn = FAMILIES[variant.rsplit("_", 1)[0]]
-    ctx = Context(op)
+def chained_ms(torch, ctx, init_fn, step_fn, b, chunk_iters=ITERS_PER_CHUNK):
+    """ms/iter of ``step_fn`` over ``ctx`` as ``bench.py`` times it: 2 x
+    5000 (``chunk_iters``) chained iterations per trial, each trial
+    restarting on a perturbed right-hand side, until the two fastest trials
+    agree within 5%.  Returns ``(ms/iter, trial seconds, nu at the end,
+    inits)``."""
 
     def chunk(s):
-        for _ in range(ITERS_PER_CHUNK):
+        for _ in range(chunk_iters):
             s = step_fn(ctx, s)
         return s
 
-    reset_counts()
     state = chunk(init_fn(ctx, b, torch.zeros_like(b)))
     float(state["nu"])
     times, inits = [], 1
@@ -946,7 +975,27 @@ def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper,
             t1, t2 = sorted(times)[:2]
             if t2 <= 1.05 * t1:
                 break
-    ms_per_iter = min(times) / (REPEATS * ITERS_PER_CHUNK) * 1e3
+    return (min(times) / (REPEATS * chunk_iters) * 1e3, times, nu_final,
+            inits)
+
+
+def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper,
+                   variant="pipe_pr_cg", init_spmvs=3):
+    """``variant`` (default pipe-PR-CG; an unpreconditioned name) on ``op``
+    as ``bench.py`` times it, then two timed ``solve(norm_type="none")``
+    runs and a profiled window.  Returns the measurements and the launch
+    counts next to what they must be: ``init_spmvs`` launches of
+    ``spmv_wrapper`` per init and one of ``fused_wrapper`` per iteration,
+    nothing else."""
+    from new_cg_variants_tpu_torch import solve
+    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+
+    init_fn, step_fn = FAMILIES[variant.rsplit("_", 1)[0]]
+    ctx = Context(op)
+    reset_counts()
+    ms_per_iter, times, nu_final, inits = chained_ms(torch, ctx, init_fn,
+                                                     step_fn, b)
     solve_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -2147,6 +2196,65 @@ def ell_expected(name, iters):
     return counts, "ell_spmv"
 
 
+def read_mtx_seconds(path):
+    """Host seconds of ``read_mtx`` on ``path`` through the native reader
+    (built first, its seconds apart) and through the Python parser; the two
+    CooMatrix must be the same, entry for entry."""
+    from new_cg_variants_tpu_torch import read_mtx
+    from new_cg_variants_tpu_torch.matio import _native
+    from new_cg_variants_tpu_torch.matio.matrix_market import NATIVE_MIN_NNZ
+
+    t0 = time.perf_counter()
+    _native.build()
+    build_s = time.perf_counter() - t0
+    seconds = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        seconds[native] = (read_mtx(path, native=native),
+                           time.perf_counter() - t0)
+    (got, native_s), (want, python_s) = seconds[True], seconds[False]
+    same = all(np.array_equal(getattr(got, f), getattr(want, f))
+               for f in ("row", "col", "val"))
+    rec = dict(read_mtx_native_seconds=native_s,
+               read_mtx_python_seconds=python_s,
+               native_build_seconds=build_s, file_nnz=int(want.nnz),
+               native_route=want.nnz > NATIVE_MIN_NNZ,
+               native_same_coo=same)
+    if not same:
+        raise AssertionError(f"native and Python readers differ: {rec}")
+    return rec
+
+
+def ell_pack_seconds(a):
+    """Host seconds of the padded-ELL packing of scipy matrix ``a``:
+    ``build_ell`` (the stable (row, col) sort, then the native
+    ``pack_ell``) against the same sort then the vectorised numpy packing
+    it replaced; the same bits required."""
+    from new_cg_variants_tpu_torch.matio import _native
+    from new_cg_variants_tpu_torch.ops.operators import (
+        _build_ell_numpy,
+        build_ell,
+        coo_from_scipy,
+    )
+
+    coo = coo_from_scipy(a)
+    _native.build()
+    seconds, out = {}, {}
+    for name, fn in (("build_ell_native", build_ell),
+                     ("build_ell_numpy", _build_ell_numpy)):
+        t0 = time.perf_counter()
+        out[name] = fn(coo)
+        seconds[name + "_seconds"] = time.perf_counter() - t0
+    (got_val, got_idx, _), (want_val, want_idx, _) = out.values()
+    same = (got_val.tobytes() == want_val.tobytes()
+            and np.array_equal(got_idx, want_idx))
+    rec = dict(seconds, ell_pack_same_bits=same)
+    if not same:
+        raise AssertionError(f"the native and numpy ELL packings differ: "
+                             f"{rec}")
+    return rec
+
+
 def ell_f32(torch, built):
     """HPCG's operator (27-point, 104^3) under a random symmetric
     permutation, handed over as scipy CSR in float32: the auto route must
@@ -2182,7 +2290,7 @@ def ell_f32(torch, built):
     emit("ell_f32", n=n, nnz=int(a.nnz), operator=type(op).__name__,
          L=int(op.val_t.shape[0]) if is_ell else None, warned=warned,
          locality_order=reordered, matrix_host_seconds=matrix_s,
-         build_host_seconds=build_s)
+         build_host_seconds=build_s, **ell_pack_seconds(a))
     if not (reordered and warned):
         raise AssertionError(f"auto route gave {type(op).__name__}, "
                              f"warned={warned}, reordered={reordered}: "
@@ -2878,6 +2986,7 @@ def convergence_f64(torch, card, timings, launches):
         write_mtx(str(d / "scaled_band.mtx"), coo_from_scipy(band.tocsr()),
                   symmetric=True)
         write_s = time.perf_counter() - t0
+        emit("convergence_f64", **read_mtx_seconds(str(d / "hpcg27.mtx")))
         # the suite's route of each file; its launch counts below show the
         # kernels of that route ran
         with warnings.catch_warnings():
@@ -3205,6 +3314,385 @@ def trace_f32(torch, launches):
         raise AssertionError(f"trace analysis failed: {rec}")
 
 
+#: the row-partitioned distributed layer (parallel/) at world size 1 on the
+#: card (NCCL): history rows held to the single-device run (iteration 15)
+DIST_ROWS = 16
+DIST_RTOL = 1e-4
+DIST_SOLVE_ITERS = 300
+DIST_STEPS = 20
+#: the bench protocol's chunk in dist_f32 (the row context runs ~1 ms/iter
+#: at world size 1: 2 x 5000-iteration chunks would take ~10 s a trial)
+DIST_CHUNK_ITERS = 1000
+DIST_F64_N = 65_536
+DIST_NAMES = ("pipe_pr_cg", "hs_cg", "pipe_pr_pcg")
+#: all-reduces per iteration of each family in the row partition
+DIST_SYNCS = {"pipe_pr": 1, "hs": 2}
+#: suffix of a kernel's record at the shapes the row partition gives it: the
+#: extended slice of m + 2h rows (half-band), the halo-extended vectors
+#: (DIA), the m rows of the vector phases; m = n at world size 1
+DIST = " (dist)"
+DIST_EXT_N = N + 2 * (K_BAND - 1)
+
+
+@contextlib.contextmanager
+def dist_world():
+    """A world of one on the card, made from the environment ``torchrun``
+    sets (``MASTER_ADDR``, a free ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``): yields the port's mesh; the process group is destroyed
+    on leaving, after a failed check too."""
+    import socket
+
+    import torch.distributed as dist
+
+    from new_cg_variants_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield make_mesh(device="cuda")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
+def collectives():
+    from new_cg_variants_tpu_torch.parallel import contexts
+
+    return contexts.all_reduce, contexts.halo_exchange
+
+
+def dist_expected(name, fmt, steps):
+    """Launches of a row-partition run of ``name`` (pipe_pr or hs) at world
+    size 1 with ``steps`` iterations: half-band, the SpMV on the extended
+    slice (2 RHS for pipe_pr); full DIA, the ``_ext`` SpMV and, for
+    pipe_pr, the vector phase kernel (row 4, or row 5 with a
+    preconditioner)."""
+    hs = name.startswith("hs")
+    if fmt == "symdia":
+        one, two, vec = "sym_dia_spmv", "sym_dia_spmv2", None
+    else:
+        one, two = "dia_spmv_ext", "dia_spmv2_ext"
+        vec = ("fused_pipe_vector_phase_prec" if name.endswith("pcg")
+               else "fused_pipe_vector_phase")
+    if hs:
+        return {one: 2 + steps}
+    return {one: 3, two: steps, **({vec: steps} if vec else {})}
+
+
+def dist_steps(name, fmt, steps):
+    """The launches of ``steps`` iterations alone (no init)."""
+    total, init = dist_expected(name, fmt, steps), dist_expected(name, fmt, 0)
+    return nonzero({k: v - init.get(k, 0) for k, v in total.items()})
+
+
+def check_dia_ext(torch, card, timings, report):
+    """``dia_spmv_ext`` / ``dia_spmv2_ext`` at the row partition's shape
+    (63 diagonals of n = 655,360 rows, vectors of n + 2h) against their
+    plain versions in float32 and float64, timed in float32 with the plain
+    versions and cuSPARSE (the (n, n + 2h) CSR of the shard) beside them,
+    into ``timings["dia_spmv_ext" + DIST]`` and ``"dia_spmv2_ext" +
+    DIST``.  Returns the failed checks."""
+    from new_cg_variants_tpu_torch.ops import spmv_dia as sp
+
+    rate = memory_rate(card)
+    offs, n = DIA_MAIN_OFFSETS, N
+    h = max(abs(o) for o in offs)
+    failed = []
+    for dn in ("float32", "float64"):
+        dtype = getattr(torch, dn)
+        rng = np.random.default_rng(n + h)
+        shard = torch.as_tensor(rng.uniform(-1.0, 1.0, (len(offs), n)),
+                                dtype=dtype, device="cuda")
+        vx, wx = (torch.as_tensor(rng.standard_normal(n + 2 * h), dtype=dtype,
+                                  device="cuda") for _ in range(2))
+        y = sp.dia_spmv_ext(offs, shard, vx)
+        y2, z2 = sp.dia_spmv2_ext(offs, shard, vx, wx)
+        torch.cuda.synchronize()
+        errs, abs_err = [], 0.0
+        for got, x in ((y, vx), (y2, vx), (z2, wx)):
+            want = sp._dia_mv_ext_plain(offs, shard, x)
+            scale = sp._dia_mv_ext_plain(offs, shard.abs(), x.abs())
+            errs.append(cw_err(torch, got, want, scale))
+            abs_err = max(abs_err, float((got - want).abs().max()))
+        rec = dict(kernel="dia_spmv_ext", dtype=dn, n=n, k=K_BAND,
+                   max_err=max(errs), max_abs_err=abs_err, tol=TOL[dn])
+        if dn == "float32":
+            i = torch.arange(n, device="cuda")
+            rows = torch.cat([i] * len(offs))
+            cols = torch.cat([i + h + o for o in offs])
+            csr = torch.sparse_coo_tensor(
+                torch.stack([rows, cols]), shard.reshape(-1),
+                (n, n + 2 * h)).coalesce().to_sparse_csr()
+            vw = torch.stack([vx, wx], dim=1)
+            nd, isz = len(offs), shard.element_size()
+            b1 = bound(nd * n * isz + (2 * n + 2 * h) * isz, 2 * nd * n, dn,
+                       rate)
+            b2 = bound(nd * n * isz + 2 * (2 * n + 2 * h) * isz, 4 * nd * n,
+                       dn, rate)
+            rec.update(library_err=cw_err(
+                torch, csr @ vx, sp._dia_mv_ext_plain(offs, shard, vx),
+                sp._dia_mv_ext_plain(offs, shard.abs(), vx.abs())))
+            for entry, fn, plain, lib, (b_ms, b_by) in (
+                    ("dia_spmv_ext", lambda: sp.dia_spmv_ext(offs, shard, vx),
+                     lambda: sp._dia_mv_ext_plain(offs, shard, vx),
+                     lambda: csr @ vx, b1),
+                    ("dia_spmv2_ext",
+                     lambda: sp.dia_spmv2_ext(offs, shard, vx, wx),
+                     lambda: (sp._dia_mv_ext_plain(offs, shard, vx),
+                              sp._dia_mv_ext_plain(offs, shard, wx)),
+                     lambda: csr @ vw, b2)):
+                timings[entry + DIST] = dict(
+                    rec, kernel=entry, ms=time_ms(torch, fn, 50),
+                    plain_ms=time_ms(torch, plain, 5),
+                    library_ms=time_ms(torch, lib, 50), bound_ms=b_ms,
+                    bound_by=b_by)
+            rec.update({key: timings["dia_spmv_ext" + DIST][key]
+                        for key in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")},
+                       spmv2_ms=timings["dia_spmv2_ext" + DIST]["ms"])
+            del csr, vw
+        report(rec)
+        if not max(errs) <= TOL[dn]:
+            failed.append(rec)
+        del shard, vx, wx
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_dist(torch, card, timings):
+    """The kernels of the row partition at the shapes it gives them, each
+    against its plain version: the half-band SpMV (1 and 2 RHS) on the
+    extended slice of m + 2h = 655,422 rows, the DIA ``_ext`` entries
+    (check_dia_ext); the vector phases (rows 4 and 5) run on m = 655,360
+    rows, check_dia's shape, whose records they take.  Raises after all
+    ran."""
+    shape = (DIST_EXT_N, K_BAND)
+    failed = check_spmv(torch, card, timings, shapes=(shape,),
+                        timed=(shape, "float32"), suffix=DIST)
+    failed += check_dia_ext(torch, card, timings, emit_check)
+    for entry in VECTOR_PHASES:
+        timings[entry + DIST] = timings[entry]
+    if failed:
+        raise AssertionError(f"{len(failed)} row-partition checks disagree: "
+                             f"{failed}")
+
+
+def dist_problem(torch, name, fmt, n, dtype):
+    """``(operator, b)`` of a row-partition run: the model problem for the
+    unpreconditioned names, the scaled band for pipe_pr_pcg (Jacobi solves
+    the model problem to its rounding floor within a few iterations), in
+    ``fmt`` and ``dtype`` on the CPU."""
+    from new_cg_variants_tpu_torch import DiaOperator, banded_model
+
+    if not name.endswith("pcg"):
+        op, b, _ = banded_model(n, k=K_BAND, fmt=fmt, device="cpu")
+    else:
+        op, b = scaled_band(torch, n, K_BAND)
+        if fmt == "dia":
+            offsets, data = op.todia_host()
+            op = DiaOperator(offsets, torch.from_numpy(data))
+    return op.astype(dtype), b
+
+
+def collective_host_us(torch, mesh, v, calls=1000):
+    """Host microseconds a call of each collective of the row context
+    takes on ``mesh``, ``calls`` back to back then one synchronize: the
+    all-reduce of four partials started and waited for, and the halo
+    exchange of two vectors like ``v`` (at world size 1: the extended
+    tensor's zeros and copies, no message)."""
+    from new_cg_variants_tpu_torch.parallel import contexts
+
+    group, parts = mesh.get_group(), torch.ones(4, dtype=v.dtype,
+                                                device=v.device)
+    cases = {"all_reduce": lambda: contexts.all_reduce(
+                 parts, group, async_op=True).wait(),
+             "halo_exchange": lambda: contexts.halo_exchange(
+                 (v, v), K_BAND - 1, group)}
+    out = {}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def dist_f32(torch, mesh, timings):
+    """The row partition on the card at world size 1 (NCCL), n = 655,360,
+    k = 32, float32, half-band and full DIA: for pipe_pr_cg, hs_cg and
+    pipe_pr_pcg (Jacobi), ``dist_run``'s nu and alpha against the
+    single-device ``run`` to DIST_RTOL through iteration 15, the launches of
+    the run, the all-reduces and halo exchanges per iteration, the kernels
+    per iteration by entry and the device busy share (profiler), and
+    ms/iter of ``dist_solve`` beside ``solve`` (norm none, 300
+    iterations); pipe_pr_cg on half-band also under the bench protocol
+    (DIST_CHUNK_ITERS-iteration chunks), both contexts in this process, in
+    turns.  Returns the launches by wrapper."""
+    from new_cg_variants_tpu_torch import run, solve
+    from new_cg_variants_tpu_torch.parallel import dist_run, dist_solve
+    from new_cg_variants_tpu_torch.parallel.dist import _local_ctx_factory
+    from new_cg_variants_tpu_torch.solvers.api import _resolve
+    from new_cg_variants_tpu_torch.solvers.context import Context
+
+    reduce_, halo = collectives()
+    path, failed = {}, []
+
+    def counted(fn, *args, **kw):
+        """``fn``'s output and launches; a row-partition call's launches
+        count to the path."""
+        reset_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counts = nonzero(read_counts())
+        if fn in (dist_run, dist_solve):
+            add_counts(path, counts)
+        return out, counts
+
+    def timed(fn, *args, **kw):
+        fn(*args, **{**kw, "max_iter": 5})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts = counted(fn, *args, **kw)
+        return out, counts, (time.perf_counter() - t0) / kw["max_iter"] * 1e3
+
+    for fmt in ("symdia", "dia"):
+        for name in DIST_NAMES:
+            op, b = dist_problem(torch, name, fmt, N, torch.float32)
+            op = op.to("cuda")
+            b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+            pre = "jacobi" if name.endswith("pcg") else None
+            kw = dict(max_iter=DIST_ROWS, probes=("nu", "alpha"),
+                      preconditioner=pre, device="cuda")
+            got, counts = counted(dist_run, name, op, b, mesh=mesh, **kw)
+            want = run(name, op, b, **kw)
+            errs = {p: float(np.max(np.abs(got[p] - want[p])
+                                    / np.abs(want[p]))) for p in ("nu", "alpha")}
+            expected = dist_expected(name, fmt, DIST_ROWS - 1)
+            # per iteration: steps on this rank's context
+            init_fn, step_fn, precond = _resolve(name, op, pre)
+            ctx = _local_ctx_factory(op, mesh, precond)
+            state = init_fn(ctx, b, torch.zeros_like(b))
+            torch.cuda.synchronize()
+            reset_counts()
+            reduce_.calls = halo.calls = 0
+            for _ in range(DIST_STEPS):
+                state = step_fn(ctx, state)
+            torch.cuda.synchronize()
+            step_counts = nonzero(read_counts())
+            add_counts(path, step_counts)
+            per_iter = dict(
+                all_reduce=reduce_.calls / DIST_STEPS,
+                halo_exchange=halo.calls / DIST_STEPS,
+                kernels={k: v / DIST_STEPS for k, v in step_counts.items()})
+            profile = profile_steps(torch, ctx, step_fn, state)
+            sk = dict(variant=name, norm_type="none", max_iter=DIST_SOLVE_ITERS,
+                      preconditioner=pre, device="cuda")
+            res, solve_counts, dist_ms = timed(dist_solve, op, b, mesh=mesh,
+                                               **sk)
+            ref, _, single_ms = timed(solve, op, b, **sk)
+            rec = dict(variant=name, storage=fmt, n=N, k=K_BAND,
+                       problem="scaled_band" if pre else "banded_model",
+                       rows=DIST_ROWS, max_rel_diff=errs, rtol=DIST_RTOL,
+                       launches=counts, expected_launches=expected,
+                       per_iteration=per_iter, profile=profile,
+                       dist_solve_ms_per_iter=dist_ms,
+                       solve_ms_per_iter=single_ms,
+                       dist_solve_launches=solve_counts,
+                       dist_solve_finite=bool(torch.isfinite(res.x).all()))
+            emit("dist_f32", **rec)
+            family = name.rsplit("_", 1)[0]
+            if not (max(errs.values()) <= DIST_RTOL and counts == expected
+                    and per_iter["all_reduce"] == DIST_SYNCS[family]
+                    and per_iter["halo_exchange"] == 1
+                    and step_counts == dist_steps(name, fmt, DIST_STEPS)
+                    and solve_counts == dist_expected(name, fmt,
+                                                      DIST_SOLVE_ITERS)
+                    and rec["dist_solve_finite"]
+                    and res.iterations == ref.iterations):
+                failed.append(rec)
+            del op, b, ctx, state, res, ref
+            torch.cuda.empty_cache()
+    # the main path's name under the bench protocol (1000-iteration
+    # chunks): the single-device context and this rank's row context, in
+    # turns
+    op, b = dist_problem(torch, "pipe_pr_cg", "symdia", N, torch.float32)
+    op = op.to("cuda")
+    b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+    init_fn, step_fn, _ = _resolve("pipe_pr_cg", op, None)
+    bench = {}
+    for label, ctx in (("single", Context(op)),
+                       ("dist", _local_ctx_factory(op, mesh, None)),
+                       ("dist again", _local_ctx_factory(op, mesh, None)),
+                       ("single again", Context(op))):
+        reset_counts()
+        ms, trials, nu_final, _ = chained_ms(torch, ctx, init_fn, step_fn, b,
+                                             DIST_CHUNK_ITERS)
+        if label.startswith("dist"):
+            add_counts(path, nonzero(read_counts()))
+        bench[label] = dict(ms_per_iter=ms, trial_seconds=trials,
+                            nu_final=nu_final)
+    timings["dist_f32"] = bench
+    emit("dist_f32", variant="pipe_pr_cg", storage="symdia", n=N, k=K_BAND,
+         bench_protocol=bench,
+         collective_host_us=collective_host_us(torch, mesh, b))
+    if not all(np.isfinite(v["nu_final"]) and v["nu_final"] > 0
+               for v in bench.values()):
+        failed.append(bench)
+    if failed:
+        raise AssertionError(f"{len(failed)} row-partition runs failed: "
+                             f"{failed}")
+    return path
+
+
+def dist_f64(torch, mesh):
+    """The row partition in float64 at n = 65,536: ``dist_run`` on the card
+    (NCCL) against ``dist_run`` on the CPU (gloo, the same process group's
+    CPU backend), nu and alpha to F64_RTOL over 25 iterations, for
+    pipe_pr_cg, hs_cg and pipe_pr_pcg (Jacobi) on half-band and full DIA,
+    with the card's launches."""
+    from new_cg_variants_tpu_torch.parallel import dist_run, make_mesh
+
+    cpu_mesh = make_mesh(device="cpu")
+    failed = []
+    for fmt in ("symdia", "dia"):
+        for name in DIST_NAMES:
+            op, b = dist_problem(torch, name, fmt, DIST_F64_N, torch.float64)
+            kw = dict(max_iter=F64_ITERS + 1, probes=("nu", "alpha"),
+                      preconditioner="jacobi" if name.endswith("pcg")
+                      else None)
+            reset_counts()
+            gpu = dist_run(name, op, b, mesh=mesh, device="cuda", **kw)
+            torch.cuda.synchronize()
+            counts = nonzero(read_counts())
+            cpu = dist_run(name, op, b, mesh=cpu_mesh, device="cpu", **kw)
+            errs = {p: float(np.max(np.abs(gpu[p] - cpu[p]) / np.abs(cpu[p])))
+                    for p in ("nu", "alpha")}
+            expected = dist_expected(name, fmt, F64_ITERS)
+            rec = dict(variant=name, storage=fmt, n=DIST_F64_N,
+                       iterations=F64_ITERS, max_rel_diff=errs,
+                       rtol=F64_RTOL, launches=counts,
+                       expected_launches=expected)
+            emit("dist_f64", **rec)
+            if not (max(errs.values()) <= F64_RTOL and counts == expected):
+                failed.append(rec)
+    if failed:
+        raise AssertionError(f"{len(failed)} f64 row-partition comparisons "
+                             f"failed: {failed}")
+
+
 def kernel_records(timings, launches):
     """The ``kernels`` line: one record per kernel entry and shape a driven
     path gives it, with the entry's launches on the paths of that shape
@@ -3280,6 +3768,19 @@ def kernel_records(timings, launches):
         "ell_spmv" + BF16: ("ell_spmv.cu", "ell_pallas.py:44", ("ell_bf16",)),
         "ell_spmv2" + BF16: ("ell_spmv.cu", "ell_pallas.py:44",
                              ("ell_bf16",)),
+    })
+    # the row partition's shapes (dist_f32): the extended half-band slice,
+    # the halo-extended DIA vectors, the vector phases on a shard's rows
+    dist = ("dist_f32",)
+    records.update({
+        "sym_dia_spmv" + DIST: ("sym_dia.cu", "sym_dia.py:47", dist),
+        "sym_dia_spmv2" + DIST: ("sym_dia.cu", "sym_dia.py:47", dist),
+        "dia_spmv_ext" + DIST: ("dia_spmv.cu", "spmv_pallas.py:58", dist),
+        "dia_spmv2_ext" + DIST: ("dia_spmv.cu", "spmv_pallas.py:58", dist),
+        "fused_pipe_vector_phase" + DIST: ("pipe_vector.cu",
+                                           "fused_step.py:76", dist),
+        "fused_pipe_vector_phase_prec" + DIST: ("pipe_vector.cu",
+                                                "fused_step.py:160", dist),
     })
     kernels = []
     for name, (source, replaces, paths) in records.items():
@@ -3369,6 +3870,10 @@ def main():
     phase("convergence_f64", convergence_f64, torch, card, timings, launches)
     phase("cli_f32", cli_f32, torch, timings, launches)
     phase("trace_f32", trace_f32, torch, launches)
+    phase("check_dist", check_dist, torch, card, timings)
+    with dist_world() as mesh:
+        phase("dist_f32", dist_f32, torch, mesh, timings)
+        phase("dist_f64", dist_f64, torch, mesh)
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)

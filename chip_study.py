@@ -18,6 +18,8 @@
                                     # formulation as the band widens
     python3 chip_study.py floors    # convergence rows, card against CPU, at
                                     # the rounding floor on three matrices
+    python3 chip_study.py distcheck # the row-partitioned distributed layer:
+                                    # check_dist, dist_f32, dist_f64
 
 Each study edits throw-away copies of ``new_cg_variants_tpu_torch/csrc`` in a
 temporary directory (the sources in the checkout are never touched), builds
@@ -1389,6 +1391,32 @@ def study_bf16check(torch, card):
                 for name, t in timings.items() if name.endswith(cs.BF16)})
 
 
+def study_distcheck(torch, card):
+    """The quick first call after touching the distributed layer
+    (``parallel/``): check_dia (whose vector-phase records the row
+    partition takes), then chip_smoke.py's check_dist, dist_f32 and
+    dist_f64 in a world of one, and the native reader on a 32^3 file."""
+    from new_cg_variants_tpu_torch import write_mtx
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
+
+    timings = {}
+    cs.check_dia(torch, card, timings)
+    cs.check_dist(torch, card, timings)
+    with cs.dist_world() as mesh:
+        launches = cs.dist_f32(torch, mesh, timings)
+        cs.dist_f64(torch, mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "hpcg27.mtx")
+        write_mtx(path, coo_from_scipy(cs.stencil27(cs.CONV_GRID,
+                                                    cs.PERM_SEED)),
+                  symmetric=True)
+        native = cs.read_mtx_seconds(path)
+    emit("distcheck", ok=True, launches=launches, native=native,
+         timed={name: {key: t.get(key) for key in ("ms", "bound_ms",
+                                                   "plain_ms", "library_ms")}
+                for name, t in timings.items() if name.endswith(cs.DIST)})
+
+
 def study_check(torch, card):
     from new_cg_variants_tpu_torch.ops import _kernels
 
@@ -1903,7 +1931,7 @@ def main(argv):
                "denseopts": study_denseopts, "pipeopts": study_pipeopts,
                "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo,
-               "floors": study_floors}
+               "floors": study_floors, "distcheck": study_distcheck}
     if not (len(argv) == 2 and argv[1] in studies
             or len(argv) == 3 and argv[1] == "mutants"
             and argv[2] in ("dia", "sym", "df", "ell", "bf16")):

@@ -47,6 +47,8 @@ from .solvers.precond import JacobiPreconditioner, make_preconditioner
 from .solvers.variants import *  # noqa: F401,F403 — the public variants
 from .solvers.variants import __all__ as _variant_all
 
+__version__ = "0.1.0"
+
 __all__ = [
     "banded_model",
     "model_spectrum",
@@ -75,4 +77,5 @@ __all__ = [
     "DFJacobi",
     "DoubleFloatContext",
     "comp_dot",
+    "__version__",
 ] + list(_variant_all)

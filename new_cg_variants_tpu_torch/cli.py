@@ -23,8 +23,8 @@ Here all three live under one ``python -m new_cg_variants_tpu_torch``:
 Every subcommand runs on ``--device`` (default ``cuda``; without a card it
 raises, ``--device cpu`` runs the kernels' plain versions).  One device
 only: ``solve --devices N`` with N > 1, ``--partition`` and ``scaling
---mesh-sizes`` above 1 raise ``NotImplementedError`` until the distributed
-layer is ported (ROADMAP item 7).
+--mesh-sizes`` above 1 raise ``NotImplementedError`` until the command line
+reaches the distributed layer (``parallel/``; ROADMAP item 7c).
 """
 
 from __future__ import annotations
@@ -229,10 +229,11 @@ def main(argv=None):
     ps.add_argument("--num-repeat", type=int, default=1)
     ps.add_argument("--devices", type=int, default=1,
                     help="devices to solve over; only 1 until the "
-                         "distributed layer is ported (ROADMAP item 7)")
+                         "command line reaches the distributed layer "
+                         "(ROADMAP item 7c)")
     ps.add_argument("--partition", choices=["auto", "row", "col"],
                     default=None,
-                    help="multi-device partition (ROADMAP item 7; raises)")
+                    help="multi-device partition (ROADMAP item 7c; raises)")
     ps.set_defaults(fn=cmd_solve)
 
     pc = sub.add_parser("convergence", help="figure_gen experiment suite")
@@ -263,8 +264,8 @@ def main(argv=None):
     pg.add_argument("--variants",
                     default="hs_cg,cg_cg,gv_cg,pr_cg,pipe_pr_cg")
     pg.add_argument("--mesh-sizes", default="1",
-                    help="device counts; only 1 until the distributed layer "
-                         "is ported (ROADMAP item 7)")
+                    help="device counts; only 1 until the scaling harness "
+                         "reaches the distributed layer (ROADMAP item 7c)")
     pg.add_argument("--max-iter", type=int, default=1500)
     pg.add_argument("--trials", type=int, default=3)
     pg.add_argument("--pc-type", choices=["none", "jacobi"], default="none")

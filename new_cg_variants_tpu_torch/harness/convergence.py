@@ -172,6 +172,7 @@ def test_matrix(
     data_dir="./data",
     include_exact=False,
     dtype=None,
+    fmt="auto",
     resume=False,
     device=None,
 ):
@@ -189,6 +190,9 @@ def test_matrix(
     experiment-level resumability the reference README describes
     (re-run a single variant/matrix, regenerate only that figure;
     ``predict_and_recompute/README.md:38-40``).
+
+    ``fmt`` is accepted and ignored, as the JAX package ignores it: the
+    operator takes the auto format route.
     """
     import scipy.sparse as sp
 

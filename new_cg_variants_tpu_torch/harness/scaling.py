@@ -15,7 +15,7 @@ A trial is a timed fixed-iteration run of the variant's step loop on one
 device; results are min-over-trials per configuration, the reduction the
 reference's plot scripts apply (``scaling_plots.py:53``,
 ``strong_scaling_plots.py:88``).  **Single device only:** a mesh size above
-1 raises ``NotImplementedError`` (the distributed layer is ROADMAP item 7).
+1 raises ``NotImplementedError`` (ROADMAP item 7c).
 
 Timing protocol: each trial starts from ``x0 = 0`` and chains ``max_iter``
 steps, the state of one step feeding the next;
@@ -38,10 +38,11 @@ from .._device import resolve_device
 
 __all__ = ["ScalingResult", "time_variant", "scaling_run", "save_result"]
 
-#: what a multi-device request raises until the distributed layer is ported
+#: what a multi-device request raises until the harness reaches the
+#: distributed layer (``parallel/``)
 MULTI_DEVICE_MESSAGE = (
-    "multi-device runs need the distributed layer (ROADMAP item 7), which "
-    "the port does not have yet; this harness runs one device")
+    "multi-device scaling runs are not ported yet (ROADMAP item 7c); this "
+    "harness runs one device")
 
 
 @dataclass
@@ -118,7 +119,7 @@ def time_variant(
     Returns a :class:`ScalingResult`.  ``op`` is any operator or matrix the
     solvers take, cast to ``dtype`` (a torch dtype or ``"f32x2"``) when
     given.  ``mesh`` other than ``None`` raises ``NotImplementedError``
-    (ROADMAP item 7).
+    (ROADMAP item 7c).
     """
     if mesh is not None:
         raise NotImplementedError(MULTI_DEVICE_MESSAGE)
@@ -169,7 +170,7 @@ def scaling_run(
 ):
     """Run the scaling matrix on ``device`` (default: the CUDA card):
     variants x mesh sizes, where the only mesh size is 1 (a larger one
-    raises ``NotImplementedError``, ROADMAP item 7).
+    raises ``NotImplementedError``, ROADMAP item 7c).
 
     ``problem``: ``'banded'`` (PETSc ex2a/ex2b model; the port's
     ``banded_model`` stores it half-band unless ``fmt`` says otherwise) or

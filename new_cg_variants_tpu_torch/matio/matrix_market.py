@@ -6,9 +6,11 @@ layouts they use, ``matrix coordinate real {general,symmetric}`` and ``matrix
 array real {general,symmetric}``, plus ``integer`` and ``pattern`` fields.
 Symmetric input is expanded to both triangles.
 
-This module is numpy only.  :func:`read_mtx` is the pure-Python parser of the
-JAX package; the JAX package's native C++ reader for large coordinate files
-(``matio/_native.py`` over ``native/matio.cpp``) is not ported.
+:func:`read_mtx` takes the native C++ reader (:mod:`._native`, the port's
+``native/matio.cpp``) for large numeric coordinate files, as the JAX package
+does, and the pure-Python parser otherwise; both give the same
+:class:`CooMatrix`.  A native reader that fails to build raises: there is no
+quiet fallback to Python.
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ from dataclasses import dataclass
 import numpy as np
 
 __all__ = ["CooMatrix", "read_mtx", "write_mtx", "matrix_path", "load_matrix"]
+
+#: coordinate files of more entries than this take the native reader (the
+#: JAX package's threshold, ``matio/matrix_market.py:98``)
+NATIVE_MIN_NNZ = 200_000
 
 
 @dataclass
@@ -66,12 +72,15 @@ def _parse_header(line: str):
     return fmt, field, symmetry
 
 
-def read_mtx(path: str) -> CooMatrix:
+def read_mtx(path: str, native: bool = True) -> CooMatrix:
     """Read a MatrixMarket file into a :class:`CooMatrix`.
 
     Symmetric matrices are expanded so that both triangles are stored, as
-    ``scipy.io.mmread`` does.  The pure-Python parser: the JAX package's
-    C++ reader is not ported.
+    ``scipy.io.mmread`` does.  With ``native`` a coordinate file of more than
+    :data:`NATIVE_MIN_NNZ` entries whose field is not ``pattern`` is parsed
+    by the native reader (:func:`._native.read_coordinate`); every other file
+    by the Python parser.  The entries, their order and the symmetry
+    expansion are the same either way.
     """
     with open(path, "r") as f:
         fmt, field, symmetry = _parse_header(f.readline())
@@ -83,6 +92,12 @@ def read_mtx(path: str) -> CooMatrix:
         if fmt == "coordinate":
             m, n, nnz = (int(size_parts[0]), int(size_parts[1]),
                          int(size_parts[2]))
+            if native and nnz > NATIVE_MIN_NNZ and field != "pattern":
+                from . import _native
+
+                row, col, val = _native.read_coordinate(path)
+                return _expand_symmetry(CooMatrix((m, n), row, col, val),
+                                        symmetry)
             if field == "pattern":
                 data = np.loadtxt(f, dtype=np.int64, ndmin=2, usecols=(0, 1))
                 row = data[:, 0] - 1

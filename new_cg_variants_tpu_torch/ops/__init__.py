@@ -1,1 +1,3 @@
 """Operators and their kernels."""
+
+from .operators import DenseOperator, DiaOperator, EllOperator, as_operator, from_coo

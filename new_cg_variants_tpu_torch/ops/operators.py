@@ -352,8 +352,23 @@ def build_sym_dia(coo) -> tuple:
     return offsets, data
 
 
+def _ell_entries(coo):
+    """``(n, L, counts, row, col, val)``: the entries in the stable
+    ``np.lexsort((col, row))`` order, as one stable sort of a single int64
+    key (linear on entries already in order, as a CSR's are), with the
+    entries per row and ``L = max(1, longest row)``."""
+    n = coo.shape[0]
+    row = np.asarray(coo.row).astype(np.int64, copy=False)
+    col = np.asarray(coo.col)
+    val = np.asarray(coo.val, dtype=np.float64)
+    counts = np.bincount(row, minlength=n)
+    L = max(1, int(counts.max()) if counts.size else 0)
+    order = np.argsort(row * coo.shape[1] + col, kind="stable")
+    return n, L, counts, row[order], col[order], val[order]
+
+
 def build_ell(coo) -> tuple:
-    """Host padded-ELL layout ``(val, idx, nnz)`` from COO, vectorised.
+    """Host padded-ELL layout ``(val, idx, nnz)`` from COO.
 
     ``val`` (float64) and ``idx`` (int32) are ``(n, L)`` views of slot-major
     ``(L, n)`` arrays; ``L = max(1, longest row)``.  Entries take their
@@ -361,23 +376,30 @@ def build_ell(coo) -> tuple:
     of its own; padding holds value 0 and index i.  ``nnz`` counts every
     entry given.  The values are those of the JAX package's loop, which adds
     each into a zero slot (so ``-0.0`` is stored as ``0.0`` there too).
+
+    The sorted entries are packed by the native ``pack_ell``
+    (:mod:`..matio._native`), which measured faster than the numpy packing
+    (:func:`_build_ell_numpy`, the reference the tests hold it to) on
+    HPCG's 29.8M entries on the chip machine's host (PERF.md, PR 11).
     """
-    n = coo.shape[0]
-    row = np.asarray(coo.row).astype(np.int64, copy=False)
-    col = np.asarray(coo.col)
-    val = np.asarray(coo.val, dtype=np.float64)
-    counts = np.bincount(row, minlength=n)
-    L = max(1, int(counts.max()) if counts.size else 0)
-    # The stable np.lexsort((col, row)) order, as one stable sort of a
-    # single int64 key (linear on entries already in order, as a CSR's are).
-    order = np.argsort(row * coo.shape[1] + col, kind="stable")
-    r = row[order]
+    from ..matio import _native
+
+    n, L, _, row, col, val = _ell_entries(coo)
+    val_n, idx_n = _native.pack_ell(row, col, val, n, L)
+    return val_n, idx_n, int(len(val))
+
+
+def _build_ell_numpy(coo) -> tuple:
+    """:func:`build_ell`'s arrays by vectorised numpy (its packing before
+    the native one): each sorted entry's slot is its place within its
+    row."""
+    n, L, counts, r, col, val = _ell_entries(coo)
     start = np.cumsum(counts) - counts  # first sorted position of each row
     slot = np.arange(len(r)) - start[r]
     val_t = np.zeros((L, n), dtype=np.float64)
     idx_t = np.tile(np.arange(n, dtype=np.int32), (L, 1))
-    val_t[slot, r] = 0.0 + val[order]
-    idx_t[slot, r] = col[order]
+    val_t[slot, r] = 0.0 + val
+    idx_t[slot, r] = col
     return val_t.T, idx_t.T, int(len(val))
 
 

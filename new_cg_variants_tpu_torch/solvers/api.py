@@ -159,6 +159,7 @@ def run(
     dtype=None,
     compensated=False,
     print_every=0,
+    use_jit=True,
     device=None,
 ):
     """Run ``max_iter`` iterations of a variant, capturing probe histories.
@@ -174,6 +175,10 @@ def run(
     ``dtype="f32x2"`` runs the whole solve in double-word arithmetic
     (:mod:`..ops.doublefloat`): ~48 significant bits from float32 words.
     Probe rows come back single-word; ``'x'`` is ``hi + lo`` in float64.
+
+    ``use_jit`` is accepted for the JAX package's signature and ignored: the
+    port runs its steps eagerly either way (a later change may give it the
+    meaning of capturing the loop in a CUDA graph).
     """
     dev = resolve_device(device)
     if is_double_word(dtype):
@@ -316,6 +321,7 @@ def solve(
     norm_type="natural",
     dtype=None,
     compensated=False,
+    use_jit=True,
     device=None,
 ):
     """Tolerance-driven solve with early exit (production path).
@@ -326,7 +332,8 @@ def solve(
     convergence test and no host sync inside the loop (the scaling
     configuration, ``-ksp_norm_type none``).  For an unpreconditioned
     variant the first three coincide.  ``dtype="f32x2"`` solves in double
-    words (:func:`run`); ``x`` is then ``hi + lo`` in float64.
+    words (:func:`run`); ``x`` is then ``hi + lo`` in float64.  ``use_jit``
+    is accepted and ignored, as in :func:`run`.
     """
     dev = resolve_device(device)
     if is_double_word(dtype):

@@ -86,6 +86,43 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_importing_the_distributed_layer_and_native_reader_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import new_cg_variants_tpu_torch.parallel, "
+        "new_cg_variants_tpu_torch.matio._native\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'new_cg_variants_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_source_is_the_ports_own():
+    """The native reader builds from the port's C++ source (``native/`` of
+    the JAX package stays as it is), with a plain C interface of the three
+    entry points its binding declares, standard headers only, and a build
+    that does not tune for the host (``-march``)."""
+    from new_cg_variants_tpu_torch.matio import _native
+
+    assert _native.SOURCE == PORT_DIR / "native" / "matio.cpp"
+    text = _native.SOURCE.read_text()
+    assert text != (ROOT / "native" / "matio.cpp").read_text()
+    assert re.findall(r"#include\s*<([^>]+)>", text) == [
+        "cstdint", "cstdio", "cstdlib"]
+    block = text.split('extern "C" {')[1]
+    assert sorted(re.findall(r"^\w+ (ncgvt_\w+)\(", block, re.M)) == [
+        "ncgvt_free", "ncgvt_pack_ell", "ncgvt_read_coordinate"]
+    binding = (PORT_DIR / "matio" / "_native.py").read_text()
+    for name in ("ncgvt_free", "ncgvt_pack_ell", "ncgvt_read_coordinate"):
+        assert f"lib.{name}.argtypes" in binding
+    cmd = _native.compile_command("g++", "matio.cpp", "libmatio.so")
+    assert not any("march" in flag for flag in cmd)
+    assert _native.BUILD_ROOT == _kernels.BUILD_ROOT
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -188,7 +225,8 @@ def test_kernel_or_generic_choice_reads_the_configuration_only():
                 "ops/operators.py", "ops/spmv_dia.py", "ops/fused_step.py",
                 "ops/fused_family.py", "ops/compensated.py",
                 "ops/doublefloat.py", "ops/df_spmv.py", "solvers/api.py",
-                "ops/ell_spmv.py", "ops/stencil.py", "ops/block_banded.py"):
+                "ops/ell_spmv.py", "ops/stencil.py", "ops/block_banded.py",
+                "parallel/contexts.py"):
         tree = ast.parse((PORT_DIR / rel).read_text())
         for node in ast.walk(tree):
             assert not isinstance(node, ast.Try), rel
