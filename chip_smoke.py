@@ -148,9 +148,9 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     ``solve`` (pipe-PR-CG, 300 iterations, 3 repeats) and ``scaling`` (five
     names, 1500 iterations, 3 trials; its result files, ``env_info.json``
     with the ``nvidia-smi`` line, ``scaling.call``), with launch counts;
-    ``solve --devices 2`` must raise ``NotImplementedError``; ``solve
-    --dtype bf16`` (kappa 100) must converge through the half-band
-    kernels' bf16 entries;
+    ``solve --devices 2`` must raise the ``ValueError`` that names
+    ``torchrun`` (one process); ``solve --dtype bf16`` (kappa 100) must
+    converge through the half-band kernels' bf16 entries;
 23. ``trace_f32`` — 200 steps of the main path under
     ``utils.profiling.trace``, parsed by ``utils.trace_analysis``: the
     family kernel in the spmv bucket, no kernel of the port in "other", the
@@ -197,7 +197,32 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     also times the padded-ELL packing (``build_ell`` against the native
     ``pack_ell``, the same bits), and ``convergence_f64`` ``read_mtx`` on
     its 32^3 file through the native reader and the Python parser (the
-    same entries);
+    same entries).  The rest of the distributed layer, in the same world
+    of one: ``check_dist`` also holds row 9's ``_ext`` entries
+    (``df_dia_spmv_ext`` / ``df_dia_spmv2_ext``: 63 diagonals on m =
+    655,360 and 4096 rows, words halo-extended) to their plain version bit
+    for bit, timed against the bound and float64 ``dia_spmv_ext``, and row
+    12 on the ELL context's shards (``ell_spmv_cache`` /
+    ``ell_spmv2_cache``: HPCG 104^3 in natural order planned by
+    ``plan_ell_exchange`` at 2 and 4 ranks, the first and another rank's
+    rows and caches; the whole permuted operator at one rank) to theirs
+    (1e-5 / 1e-12), timed against the bound and cuSPARSE on the (m, c)
+    shard; ``dist_ell_f32``: pipe_pr_cg on the ELL row context (ell_f32's
+    operator, the cache gathered whole) against the single-device run
+    (1e-4 through iteration 15), row 12 once per product, one all-gather a
+    matvec phase, one all-reduce a sync phase; ``dist_f32x2``: pipe_pr_cg
+    and hs_cg in f32x2 on the double-word row context (n = 655,360, 63
+    diagonals, 200 iterations) against the single-device f32x2 run (1e-5),
+    the ``_ext`` entries once per product, one all-gather a sync phase;
+    ``dist_formats_f32``: pipe_pr_cg on the block-banded (formats_f32's
+    permuted operator), stencil and column contexts (a dense SPD n = 8192,
+    packed and unpacked, and every family's collective totals) against
+    their single-device runs; ``dist_scaling``: ``time_variant`` on the
+    mesh (row and column partitions, 500-iteration chunks),
+    ``scaling_run``'s file keys, ``cli solve --devices 1 --partition
+    row``, and ``--devices 2`` raising the error that names ``torchrun``.
+    Each prints its collectives and kernels per iteration and ms/iter
+    beside the single-device run;
 26. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
     paths of that shape (bf16 entries with the float32 entry's time from
@@ -918,8 +943,9 @@ def device_activity(prof):
     return busy, len(spans), by_name
 
 
-def profile_steps(torch, ctx, step_fn, state):
-    """Device busy share and kernel time by name over PROFILE_STEPS steps.
+def profile_steps(torch, ctx, step_fn, state, steps=PROFILE_STEPS):
+    """Device busy share and kernel time by name over ``steps`` steps
+    (default PROFILE_STEPS).
 
     From ``torch.profiler``'s CUDA kernel events; ``None`` fields where the
     profiler saw no device activity (not measured).
@@ -931,15 +957,15 @@ def profile_steps(torch, ctx, step_fn, state):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS - 1):
+        for _ in range(steps - 1):
             state = step_fn(ctx, state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, nspans, by_name = device_activity(prof)
+    steps -= 1  # the profiled ones
     if not nspans:
-        return {"steps": PROFILE_STEPS - 1, "device_busy_share": None}
+        return {"steps": steps, "device_busy_share": None}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    steps = PROFILE_STEPS - 1
     return {"steps": steps, "wall_ms_per_iter": wall_us / steps / 1e3,
             "device_busy_ms_per_iter": busy / steps / 1e3,
             "device_busy_share": busy / wall_us,
@@ -2260,7 +2286,7 @@ def ell_f32(torch, built):
     permutation, handed over as scipy CSR in float32: the auto route must
     pick ELL (with its warning); all 18 names on the one operator, each
     product one row-12 launch; one solve that converges.  The operator is
-    left in ``built`` for ell_bf16."""
+    left in ``built`` for ell_bf16 and dist_ell_f32."""
     import warnings
 
     from new_cg_variants_tpu_torch import (
@@ -2312,7 +2338,8 @@ def ell_f32(torch, built):
     res = solve(op, b, variant="pipe_pr_cg", rtol=ELL_RTOL,
                 max_iter=ELL_MAX_ITER)
     torch.cuda.synchronize()
-    built["hpcg_ell"] = (a, op, b, x_true)  # ell_bf16 stores it in bf16
+    # ell_bf16 stores it in bf16; dist_ell_f32 runs it on the row context
+    built["hpcg_ell"] = (a, op, b, x_true)
     xt = torch.from_numpy(x_true).cuda()
     rec = dict(variant="pipe_pr_cg", rtol=ELL_RTOL, converged=res.converged,
                iterations=res.iterations, norm=res.norm,
@@ -2512,7 +2539,7 @@ def ell_bf16(torch, built):
     from new_cg_variants_tpu_torch.solvers.context import Context
     from new_cg_variants_tpu_torch.solvers.families import FAMILIES
 
-    a, op32, b, x_true = built.pop("hpcg_ell")
+    a, op32, b, x_true = built["hpcg_ell"]
     op = op32.astype(torch.bfloat16)
     del op32
     t0 = time.perf_counter()
@@ -2633,14 +2660,15 @@ def no_kernel(name, iters):
     return {}, None
 
 
-def formats_f32(torch):
+def formats_f32(torch, built):
     """(a) The PETSc model problem as scipy CSR under a random symmetric
     permutation: the auto route must pick the block-banded packing (RCM
     recovers the band); pipe-PR-CG for 300 iterations, ``x`` back in the
     original order, its residual within 10x of the half-band path's on the
     unpermuted problem.  (b) The same problem unpermuted: the auto route must
     pick the stencil; it and ``banded_model(fmt="stencil")`` for 300
-    iterations.  No path here reaches a kernel."""
+    iterations.  No path here reaches a kernel.  The block-banded operator
+    is left in ``built`` for dist_formats_f32."""
     from new_cg_variants_tpu_torch import (
         BandedStencilOperator,
         as_operator,
@@ -2705,6 +2733,7 @@ def formats_f32(torch):
         failed.append(dict(operator=type(op).__name__,
                            expected="block_banded, bs = 128"))
     else:
+        built["model_block"] = (op, bp)  # dist_formats_f32's operator
         rec = timed(op, bp, "auto route, permuted scipy CSR", ap, bp64,
                     built=type(op).__name__, bs=op.inner.bs,
                     block_bytes=op.inner.a_blk.numel() * 4,
@@ -3152,9 +3181,9 @@ def cli_f32(torch, timings, launches):
     """``python -m new_cg_variants_tpu_torch`` in-process at the main path's
     width (n = 655,360, k = 32, float32): ``solve`` (pipe-PR-CG, no norm,
     300 iterations, 3 repeats) and ``scaling`` over five names, their
-    output files and launch counts; ``solve --devices 2`` must raise, and
-    ``solve --dtype bf16`` converge through the half-band kernels' bf16
-    entries."""
+    output files and launch counts; ``solve --devices 2`` must raise the
+    error that names ``torchrun`` (one process here), and ``solve --dtype
+    bf16`` converge through the half-band kernels' bf16 entries."""
     import contextlib
     import io
     import json as js
@@ -3162,7 +3191,6 @@ def cli_f32(torch, timings, launches):
     import tempfile
 
     from new_cg_variants_tpu_torch import cli
-    from new_cg_variants_tpu_torch.harness.scaling import MULTI_DEVICE_MESSAGE
 
     common = ["-n", str(N), "-k", str(K_BAND), "--dtype", "f32"]
     failed, path = [], {}
@@ -3228,12 +3256,12 @@ def cli_f32(torch, timings, launches):
 
     try:
         cli.main(["solve", *common, "--devices", "2", "--max-iter", "5"])
-    except NotImplementedError as exc:
+    except ValueError as exc:
         refused = str(exc)
     else:
         refused = None
     emit("cli_f32", command="solve --devices 2", raised=refused)
-    if refused != MULTI_DEVICE_MESSAGE:
+    if not (refused and "torchrun --nproc-per-node 2" in refused):
         failed.append(dict(devices=2, raised=refused))
     # bf16 storage: the band in bf16 reaches the kernels' bf16 entries, and
     # the solve converges (to the bf16 matrix's solution)
@@ -3473,13 +3501,16 @@ def check_dist(torch, card, timings):
     """The kernels of the row partition at the shapes it gives them, each
     against its plain version: the half-band SpMV (1 and 2 RHS) on the
     extended slice of m + 2h = 655,422 rows, the DIA ``_ext`` entries
-    (check_dia_ext); the vector phases (rows 4 and 5) run on m = 655,360
-    rows, check_dia's shape, whose records they take.  Raises after all
-    ran."""
+    (check_dia_ext), row 9's ``_ext`` entries (check_df_ext), row 12 on
+    the ELL context's shards (check_ell_shards); the vector phases (rows 4
+    and 5) run on m = 655,360 rows, check_dia's shape, whose records they
+    take.  Raises after all ran."""
     shape = (DIST_EXT_N, K_BAND)
     failed = check_spmv(torch, card, timings, shapes=(shape,),
                         timed=(shape, "float32"), suffix=DIST)
     failed += check_dia_ext(torch, card, timings, emit_check)
+    failed += check_df_ext(torch, card, timings, emit_check)
+    failed += check_ell_shards(torch, card, timings, emit_check)
     for entry in VECTOR_PHASES:
         timings[entry + DIST] = timings[entry]
     if failed:
@@ -3693,6 +3724,592 @@ def dist_f64(torch, mesh):
                              f"failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# The rest of the distributed layer at world size 1: the ELL (row 12 on a
+# shard's cache), double-word (row 9's _ext entries), block-banded, stencil
+# and column contexts; the harness and the command line on a mesh
+# ---------------------------------------------------------------------------
+
+#: (p, rank) of the shards row 12 is checked on: the first and the last of
+#: two, the first and an interior one of four (HPCG 104^3, natural order)
+ELL_SHARDS = ((2, 0), (2, 1), (4, 0), (4, 1))
+#: suffix of a shard's record
+SHARD = " (shard p={} rank {})"
+#: row 9's shard shapes: the row partition's rows (m = 655,360, 63
+#: diagonals, h = 31) and the dense path's n
+DF_EXT_MS = (N, DF_DENSE_N)
+DIST_DF_ITERS = 200
+DIST_DF_NAMES = ("pipe_pr_cg", "hs_cg")
+#: f32x2 on the mesh against f32x2 on one device through DIST_DF_ROWS rows
+#: (the JAX package's bound and length, tests/test_dist_f32x2.py:24-32):
+#: the mesh's dots sum in another order than row 11's tiles, and the
+#: pipelined recurrences carry the difference on (the nu, alpha of every
+#: row are printed)
+DIST_DF_RTOL = 1e-5
+DIST_DF_ROWS = 30
+COL_N = 8192
+#: collectives per iteration of each family in the column context, packed
+#: (tests/test_comm_structure.py:39-50)
+COL_PACKED = {"hs": 3, "cg": 2, "gv": 1, "pr": 2, "m": 2, "pipe_p": 1,
+              "pipe_pr": 1, "pipe_p_m": 1, "pipe_pr_m": 1}
+SCALING_ITERS = 1000
+SCALING_CHUNK = 500
+#: the keys of the JAX package's ScalingResult.to_dict
+SCALING_KEYS = {"variant", "n", "max_iter", "n_devices", "times", "best",
+                "time_per_iter", "error"}
+
+
+def reset_collectives():
+    from new_cg_variants_tpu_torch.parallel import contexts
+
+    for fn in contexts.COLLECTIVES:
+        fn.calls = 0
+
+
+def collective_counts():
+    from new_cg_variants_tpu_torch.parallel import contexts
+
+    return {fn.__name__: fn.calls for fn in contexts.COLLECTIVES if fn.calls}
+
+
+def check_df_ext(torch, card, timings, report):
+    """Row 9's shard entries (``df_dia_spmv_ext`` / ``df_dia_spmv2_ext``) at
+    63 diagonals on m = 655,360 rows and on 4096, the words halo-extended to
+    m + 2h, against their plain version: every word equal.  Timed at the
+    first with its bound (bytes and non-FMA operations), the plain version
+    and float64 ``dia_spmv_ext`` beside, into ``timings``."""
+    from new_cg_variants_tpu_torch import df_split3
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+    from new_cg_variants_tpu_torch.ops import spmv_dia as sp
+
+    rate = memory_rate(card)
+    offs = DIA_MAIN_OFFSETS
+    nd, h = len(offs), max(abs(o) for o in offs)
+    failed = []
+    for m in DF_EXT_MS:
+        rng = np.random.default_rng(m + nd)
+        data = rng.uniform(-1.0, 1.0, (nd, m))  # a shard: no matrix edge
+        band = df_split3(data, device="cuda")
+        v, w = df_vec(torch, rng, m + 2 * h), df_vec(torch, rng, m + 2 * h)
+        got1 = ds.df_dia_spmv_ext(offs, *band, v)
+        got2 = ds.df_dia_spmv2_ext(offs, *band, v, w)
+        torch.cuda.synchronize()
+        want = [ds._df_dia_mv_ext_plain(offs, *band, *x) for x in (v, w)]
+        err, same = bitwise_err([got1, *got2], [want[0], *want])
+        rec = dict(kernel="df_dia_spmv_ext", n=m, k=K_BAND, ndiag=nd, halo=h,
+                   max_abs_err=err, bitwise=same, tol=0.0)
+        if m == N:
+            data64 = torch.from_numpy(data).cuda()
+            v64, w64 = (torch.randn(m + 2 * h, dtype=torch.float64,
+                                    device="cuda") for _ in range(2))
+            ext = m + 2 * h
+            common = dict(n=m, k=K_BAND, max_abs_err=err, library_ms=None,
+                          f64_counterpart="dia_spmv_ext / dia_spmv2_ext on "
+                          "the float64 shard (not the same function)")
+            for entry, fn, plain, f64, nrhs in (
+                    ("df_dia_spmv_ext",
+                     lambda: ds.df_dia_spmv_ext(offs, *band, v),
+                     lambda: ds._df_dia_mv_ext_plain(offs, *band, *v),
+                     lambda: sp.dia_spmv_ext(offs, data64, v64), 1),
+                    ("df_dia_spmv2_ext",
+                     lambda: ds.df_dia_spmv2_ext(offs, *band, v, w),
+                     lambda: [ds._df_dia_mv_ext_plain(offs, *band, *x)
+                              for x in (v, w)],
+                     lambda: sp.dia_spmv2_ext(offs, data64, v64, w64), 2)):
+                timings[entry + DIST] = dict(
+                    common, ms=time_ms(torch, fn, 20),
+                    plain_ms=time_ms(torch, plain, 3),
+                    f64_counterpart_ms=time_ms(torch, f64, 20),
+                    **df_bound((3 * nd * m + 2 * nrhs * (ext + m)) * 4,
+                               DF_OPS["dia"] * nd * nrhs * m, rate))
+            t1, t2 = (timings[e + DIST] for e in ("df_dia_spmv_ext",
+                                                  "df_dia_spmv2_ext"))
+            rec.update(ms=t1["ms"], spmv2_ms=t2["ms"], plain_ms=t1["plain_ms"],
+                       plain2_ms=t2["plain_ms"],
+                       f64_ms=t1["f64_counterpart_ms"],
+                       f64_2_ms=t2["f64_counterpart_ms"],
+                       **{key: t2[key] for key in (
+                           "bound_ms", "bound_by", "bound_bytes_ms",
+                           "bound_ops_ms")},
+                       spmv_bound_ms=t1["bound_ms"],
+                       row9_ms=timings.get("df_dia_spmv", {}).get("ms"),
+                       row9_spmv2_ms=timings.get("df_dia_spmv2", {}).get(
+                           "ms"))
+            del data64, v64, w64
+        report(rec)
+        if not same:
+            failed.append(rec)
+        del band, v, w, got1, got2, want
+        torch.cuda.empty_cache()
+    return failed
+
+
+@functools.lru_cache(maxsize=2)
+def ell_pattern(perm_seed):
+    """HPCG's ELL arrays (numpy ``(n, L)`` values and int32 indices, the
+    given order) of ``stencil27(HPCG_GRID, perm_seed)``."""
+    from new_cg_variants_tpu_torch.ops.operators import build_ell, coo_from_scipy
+
+    a, _ = hpcg_case(perm_seed)
+    val, idx, _ = build_ell(coo_from_scipy(a))
+    return val, idx
+
+
+@functools.lru_cache(maxsize=2)
+def ell_plan(p):
+    """The exchange plan of HPCG's natural order at ``p`` ranks."""
+    from new_cg_variants_tpu_torch.parallel.ell_exchange import (
+        plan_ell_exchange,
+    )
+
+    _, idx = ell_pattern(None)
+    return plan_ell_exchange(idx, idx.shape[0], p)
+
+
+def shard_csr(torch, vals, lidx, c, dtype):
+    """The shard's ``(m, c)`` matrix as a CUDA CSR tensor (the library's
+    yardstick), its real entries in column order within each row."""
+    real = vals != 0.0
+    rows = np.broadcast_to(np.arange(vals.shape[0])[:, None], vals.shape)[real]
+    cols = lidx[real]
+    order = np.lexsort((cols, rows))
+    crow = np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=vals.shape[0]))])
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(crow).cuda(),
+        torch.from_numpy(cols[order].astype(np.int64)).cuda(),
+        torch.from_numpy(vals[real][order]).to(device="cuda", dtype=dtype),
+        size=(vals.shape[0], c))
+
+
+def check_ell_shard(torch, label, vals, lidx, c, rate, timings, sfx, report):
+    """Row 12's shard entries on one shard (``vals`` / ``lidx``: its ``(m,
+    L)`` rows, indices into a cache of length ``c``) against their plain
+    versions in float32 and float64, in units of each value's scale;
+    timed in float32 into ``timings[entry + sfx]``."""
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+
+    m, L = vals.shape
+    failed = []
+    li = torch.from_numpy(np.ascontiguousarray(lidx.T)).cuda().T
+    es.check_index(li, c)
+    for dn in ("float32", "float64"):
+        dtype = getattr(torch, dn)
+        val = torch.from_numpy(np.ascontiguousarray(vals.T)).to(
+            device="cuda", dtype=dtype).T
+        rng = np.random.default_rng(c)
+        cv, cw = (torch.as_tensor(rng.standard_normal(c), dtype=dtype,
+                                  device="cuda") for _ in range(2))
+        y = es.ell_spmv_cache(val, li, cv)
+        y2, z2 = es.ell_spmv2_cache(val, li, cv, cw)
+        yp, zp = (es._ell_mv_plain(val, li, x) for x in (cv, cw))
+        ys, zs = (es._ell_mv_plain(val.abs(), li, x.abs()) for x in (cv, cw))
+        torch.cuda.synchronize()
+        got = [(y, yp, ys), (y2, yp, ys), (z2, zp, zs)]
+        errs = [cw_err(torch, g, want, sc) for g, want, sc in got]
+        abs_err = max(float((g - want).abs().max()) for g, want, _ in got)
+        rec = dict(kernel="ell_spmv_cache", shape=label, dtype=dn, m=m, L=L,
+                   cache=c, max_err=max(errs), max_abs_err=abs_err,
+                   tol=TOL[dn])
+        if dn == "float32":
+            isz = val.element_size()
+            csr = shard_csr(torch, vals, lidx, c, dtype)
+            cvw = torch.stack([cv, cw], dim=1)
+            common = dict(n=m, L=L, cache=c, max_abs_err=abs_err,
+                          library="cuSPARSE CSR of the (m, c) shard "
+                          "through torch (csr @ cache, csr @ [cv cw])")
+            for entry, fn, plain, lib, nrhs in (
+                    ("ell_spmv_cache", lambda: es.ell_spmv_cache(val, li, cv),
+                     lambda: es._ell_mv_plain(val, li, cv), lambda: csr @ cv,
+                     1),
+                    ("ell_spmv2_cache",
+                     lambda: es.ell_spmv2_cache(val, li, cv, cw),
+                     lambda: es._ell_mv2_plain(val, li, cv, cw),
+                     lambda: csr @ cvw, 2)):
+                b_ms, b_by = bound(m * L * (isz + 4) + nrhs * (c + m) * isz,
+                                   2 * nrhs * m * L, dn, rate)
+                timings[entry + sfx] = dict(
+                    common, ms=time_ms(torch, fn, 50),
+                    plain_ms=time_ms(torch, plain, 5),
+                    library_ms=time_ms(torch, lib, 50), bound_ms=b_ms,
+                    bound_by=b_by)
+            t1, t2 = (timings[e + sfx] for e in ("ell_spmv_cache",
+                                                 "ell_spmv2_cache"))
+            rec.update(ms=t1["ms"], spmv2_ms=t2["ms"], plain_ms=t1["plain_ms"],
+                       library_ms=t1["library_ms"],
+                       library2_ms=t2["library_ms"], bound_ms=t1["bound_ms"],
+                       spmv2_bound_ms=t2["bound_ms"],
+                       library_err=cw_err(torch, csr @ cv, yp, ys))
+            del csr, cvw
+        report(rec)
+        if not max(errs) <= TOL[dn]:
+            failed.append(rec)
+        del val, cv, cw
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_ell_shards(torch, card, timings, report):
+    """Row 12 on the shards of the ELL row context: HPCG 104^3 in natural
+    order planned by ``plan_ell_exchange`` at 2 and 4 ranks, the first and
+    another rank's ``(m, L)`` rows and ``m + recv``-long caches (ELL_SHARDS),
+    and the whole permuted operator at one rank (the all-gather's cache
+    ``v``: dist_ell_f32's shape, into ``timings[entry + DIST]``)."""
+    rate = memory_rate(card)
+    failed = []
+    val, idx = ell_pattern(None)
+    n = idx.shape[0]
+    for p, r in ELL_SHARDS:
+        plan, m = ell_plan(p), n // p
+        rows = slice(r * m, (r + 1) * m)
+        vals = np.random.default_rng(p + r).uniform(-1.0, 1.0, val[rows].shape)
+        vals[val[rows] == 0.0] = 0.0  # padding stays 0
+        failed += check_ell_shard(
+            torch, f"27-point {HPCG_GRID}^3, p = {p}, rank {r}", vals,
+            plan.idx_remap[rows], m + plan.recv_total, rate, timings,
+            SHARD.format(p, r), report)
+    val, idx = ell_pattern(PERM_SEED)
+    vals = np.random.default_rng(1).uniform(-1.0, 1.0, val.shape)
+    vals[val == 0.0] = 0.0
+    failed += check_ell_shard(
+        torch, f"27-point {HPCG_GRID}^3 permuted, p = 1", vals, idx, n,
+        rate, timings, DIST, report)
+    return failed
+
+
+def timed_call(torch, fn, *args, **kw):
+    """``fn``'s output, its launches and ms per iteration (a warm-up call
+    of 5 iterations first)."""
+    fn(*args, **{**kw, "max_iter": 5})
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / kw["max_iter"] * 1e3
+    return out, nonzero(read_counts()), ms
+
+
+def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
+              fields=None, want_run=None, want_step=None, want_coll=None,
+              rtol=DIST_RTOL, rows=DIST_ROWS, iters=DIST_SOLVE_ITERS,
+              held_rows=None):
+    """One name on a mesh context at world size 1 (``kw``: ``dist_run``'s
+    ``partition``, ``col_packed``, ``dtype``; ``fields``: the record's
+    labels) against the single-device entry points on ``single_op``
+    (default ``op``): nu and alpha of ``rows`` rows, the first
+    ``held_rows`` (default all) held within ``rtol``; through
+    ``rows`` rows within ``rtol``; the launches of the ``dist_run``
+    (``want_run``), the kernels (``want_step``) and collectives
+    (``want_coll``) per iteration over DIST_STEPS steps; the profiler's
+    kernels per iteration and busy share; ``dist_solve``'s ms/iter beside
+    ``solve``'s.  Returns ``(record, launches on the path, failed)``."""
+    from new_cg_variants_tpu_torch import run, solve
+    from new_cg_variants_tpu_torch.parallel import dist_run, dist_solve
+    from new_cg_variants_tpu_torch.parallel.dist import _setup
+
+    single_op = op if single_op is None else single_op
+    kw = kw or {}
+    pre = "jacobi" if name.endswith("pcg") else None
+    dtype = kw.get("dtype")
+    rk = dict(probes=("nu", "alpha"), preconditioner=pre, device="cuda")
+    dist_run(name, op, b, mesh=mesh, max_iter=2, **rk, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    got = dist_run(name, op, b, mesh=mesh, max_iter=rows, **rk, **kw)
+    torch.cuda.synchronize()
+    path = nonzero(read_counts())
+    want = run(name, single_op, b, max_iter=rows, dtype=dtype, **rk)
+    held = rows if held_rows is None else held_rows
+    rel = {p: np.abs(got[p] - want[p]) / np.abs(want[p])
+           for p in ("nu", "alpha")}
+    errs = {p: float(np.max(r[:held])) for p, r in rel.items()}
+    beyond = [int(np.argmax(r > rtol)) if bool((r > rtol).any()) else None
+              for r in rel.values()]
+    _, local, _ = _setup(name, op, b, None, mesh, kw.get("partition", "auto"),
+                         pre, dtype, False, kw.get("col_packed", True),
+                         "cuda")
+    ctx, step_fn = local.ctx, local.step_fn
+    state = local.init_fn(ctx, local.b, local.x0)
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_collectives()
+    for _ in range(DIST_STEPS):
+        state = step_fn(ctx, state)
+    torch.cuda.synchronize()
+    steps = nonzero(read_counts())
+    add_counts(path, steps)
+    coll = {k: v / DIST_STEPS for k, v in collective_counts().items()}
+    # a short window: the double-word context launches ~2,200 kernels a step
+    profile = profile_steps(torch, ctx, step_fn, state, steps=DIST_STEPS)
+    sk = dict(variant=name, norm_type="none", max_iter=iters,
+              preconditioner=pre, device="cuda")
+    res, solve_counts, dist_ms = timed_call(torch, dist_solve, op, b,
+                                            mesh=mesh, **sk, **kw)
+    add_counts(path, solve_counts)
+    ref, _, single_ms = timed_call(torch, solve, single_op, b, dtype=dtype,
+                                   **sk)
+    rec = dict(variant=name, **(fields or {}), rows=rows, held_rows=held,
+               max_rel_diff=errs, rtol=rtol,
+               max_rel_diff_all_rows={p: float(np.max(r))
+                                      for p, r in rel.items()},
+               first_row_beyond_rtol=min(
+                   (i for i in beyond if i is not None), default=None),
+               nu=[float(v) for v in got["nu"]],
+               nu_single=[float(v) for v in want["nu"]],
+               context=type(ctx).__name__, launches=nonzero(path),
+               per_iteration=dict(
+                   collectives=coll,
+                   kernels={k: v / DIST_STEPS for k, v in steps.items()}),
+               profile=profile, dist_solve_ms_per_iter=dist_ms,
+               solve_ms_per_iter=single_ms, iterations=res.iterations,
+               finite=bool(torch.isfinite(res.x).all()))
+    ok = (max(errs.values()) <= rtol and rec["finite"]
+          and res.iterations == ref.iterations == iters)
+    if want_coll is not None:
+        rec["expected_collectives"] = want_coll
+        ok = ok and coll == want_coll
+    if want_step is not None:
+        rec["expected_step_kernels"] = want_step
+        ok = ok and steps == nonzero(
+            {k: v * DIST_STEPS for k, v in want_step.items()})
+    if want_run is not None:
+        got_run = nonzero({k: path.get(k, 0) - steps.get(k, 0)
+                           - solve_counts.get(k, 0) for k in path})
+        rec.update(run_launches=got_run, expected_run_launches=want_run)
+        ok = ok and got_run == want_run
+    emit(phase, **rec)
+    return rec, path, [] if ok else [rec]
+
+
+def dist_ell_f32(torch, mesh, built):
+    """pipe-PR-CG on the ELL row context at world size 1: ell_f32's
+    operator (HPCG 27-point, 104^3, permuted; the context takes its rows in
+    the given numbering), the cache gathered whole (the planner's choice at
+    one rank): row 12 once per product, one all-gather per matvec phase,
+    one all-reduce per sync phase; nu and alpha within 1e-4 of the
+    single-device run through iteration 15.  Returns the launches."""
+    a, op, b, x_true = built.pop("hpcg_ell")
+    rec, path, failed = dist_case(
+        torch, "dist_ell_f32", mesh, "pipe_pr_cg", op, b,
+        fields=dict(n=op.n, operator="ELL, HPCG 104^3 permuted"),
+        want_run={"ell_spmv_cache": 3, "ell_spmv2_cache": DIST_ROWS - 1},
+        want_step={"ell_spmv2_cache": 1},
+        want_coll={"all_reduce": 1.0, "all_gather": 1.0})
+    if failed:
+        raise AssertionError(f"ELL row context failed: {failed}")
+    return path
+
+
+def dist_f32x2(torch, mesh):
+    """pipe-PR-CG and hs-CG in f32x2 on the double-word row context at
+    world size 1: the model problem (n = 655,360, 63 diagonals built in
+    float64 and split on the host), 200 iterations; against the
+    single-device f32x2 run (nu, alpha to 1e-5 through DIST_DF_ROWS rows,
+    every row printed); row 9's
+    ``_ext`` entries once per product, one all-gather per sync phase, one
+    halo exchange per product.  Returns the launches."""
+    from new_cg_variants_tpu_torch import banded_model, df_operator
+
+    sym, b64, _ = banded_model(N, k=K_BAND, device="cpu")  # float64
+    dop = df_operator(sym, device="cuda")  # split once on the host
+    del sym
+    b = torch.from_numpy(b64)
+    path, failed = {}, []
+    for name in DIST_DF_NAMES:
+        hs = name.startswith("hs")
+        want_run = ({"df_dia_spmv_ext": 2 + DIST_DF_ITERS - 1} if hs
+                    else {"df_dia_spmv_ext": 3,
+                          "df_dia_spmv2_ext": DIST_DF_ITERS - 1})
+        _, counts, bad = dist_case(
+            torch, "dist_f32x2", mesh, name, dop, b, kw=dict(dtype="f32x2"),
+            rows=DIST_DF_ITERS, iters=DIST_DF_ITERS, rtol=DIST_DF_RTOL,
+            held_rows=DIST_DF_ROWS,
+            fields=dict(n=N, ndiag=len(dop.inner.offsets)),
+            want_run=want_run,
+            want_step={"df_dia_spmv_ext" if hs else "df_dia_spmv2_ext": 1},
+            want_coll={"all_gather": 2.0 if hs else 1.0,
+                       "halo_exchange": 1.0})
+        add_counts(path, counts)
+        failed += bad
+    if failed:
+        raise AssertionError(f"{len(failed)} f32x2 row-context runs failed: "
+                             f"{failed}")
+    return path
+
+
+def dist_formats_f32(torch, mesh, built):
+    """The contexts with no kernel of their own, at world size 1, float32:
+    the block-banded row context on formats_f32's operator (the permuted
+    model problem, packed in 128-row blocks), the stencil row context on
+    ``banded_model(655360, k=32, fmt="stencil")``, the column context on a
+    dense SPD n = 8192 matrix (256 MiB) packed and unpacked; pipe-PR-CG
+    against its single-device run (nu, alpha to 1e-4 through iteration
+    15), collectives per iteration, ms/iter; the packed column context's
+    collective totals of every family's ``_cg`` name and the unpacked one's
+    gv and pipe_pr.  formats_f32 leaves its operator in ``built``; the
+    dense one is left there for dist_scaling."""
+    from new_cg_variants_tpu_torch import as_operator, banded_model
+    from new_cg_variants_tpu_torch.parallel.dist import _setup
+    from new_cg_variants_tpu_torch.solvers.api import VARIANT_NAMES
+
+    failed = []
+    if "model_block" not in built:  # formats_f32 did not run before
+        ap, bp64 = model_csr(N, PERM_SEED)
+        built["model_block"] = (
+            as_operator(ap, dtype=torch.float32, device="cuda"),
+            torch.from_numpy(bp64).to(device="cuda", dtype=torch.float32))
+    op, b = built.pop("model_block")
+    failed += dist_case(torch, "dist_formats_f32", mesh, "pipe_pr_cg", op, b,
+                        fields=dict(n=N, operator="block-banded (the "
+                                    "permuted model problem)"),
+                        want_step={}, want_run={},
+                        want_coll={"all_reduce": 1.0,
+                                   "halo_exchange": 1.0})[2]
+    del op, b
+    st, b64, _ = banded_model(N, k=K_BAND, fmt="stencil", device="cpu")
+    op = st.astype(torch.float32).to("cuda")
+    b = torch.from_numpy(b64).to(device="cuda", dtype=torch.float32)
+    failed += dist_case(torch, "dist_formats_f32", mesh, "pipe_pr_cg", op, b,
+                        fields=dict(n=N, operator="stencil"), want_step={},
+                        want_run={},
+                        want_coll={"all_reduce": 1.0,
+                                   "halo_exchange": 1.0})[2]
+    del op, b
+    a = dense_spd(torch, COL_N, seed=5, device="cuda")
+    op = as_operator(a.astype(np.float32), device="cuda")
+    b = torch.from_numpy(a @ np.ones(COL_N)).to(device="cuda",
+                                                 dtype=torch.float32)
+    del a
+    for packed in (True, False):
+        kw = dict(partition="col", col_packed=packed)
+        want = ({"all_reduce": 1.0} if packed
+                else {"all_reduce": 1.0, "reduce_scatter": 1.0})
+        failed += dist_case(torch, "dist_formats_f32", mesh, "pipe_pr_cg",
+                            op, b, kw=kw, fields=dict(
+                                n=COL_N, operator="dense", **kw),
+                            want_step={}, want_run={}, want_coll=want)[2]
+        totals = {}
+        for name in (nm for nm in VARIANT_NAMES if nm.endswith("_cg")):
+            family = name.rsplit("_", 1)[0]
+            if not packed and family not in ("gv", "pipe_pr"):
+                continue
+            _, local, _ = _setup(name, op, b, None, mesh, "col", None, None,
+                                 False, packed, "cuda")
+            state = local.init_fn(local.ctx, local.b, local.x0)
+            reset_collectives()
+            for _ in range(3):
+                state = local.step_fn(local.ctx, state)
+            totals[name] = {k: v / 3 for k, v in collective_counts().items()}
+        want_totals = {name: (sum(c.values()) == COL_PACKED[
+            name.rsplit("_", 1)[0]]) if packed else c == {
+            "all_reduce": 1.0, "reduce_scatter": 1.0}
+            for name, c in totals.items()}
+        emit("dist_formats_f32", operator=f"dense n = {COL_N}",
+             col_packed=packed, collectives_per_iteration=totals,
+             as_expected=want_totals)
+        if not all(want_totals.values()):
+            failed.append(dict(col_packed=packed, totals=totals))
+    built["col_dense"] = (op, b)
+    if failed:
+        raise AssertionError(f"{len(failed)} mesh-context runs failed: "
+                             f"{failed}")
+
+
+def dist_scaling(torch, mesh, built):
+    """The harness and the command line on a mesh at world size 1:
+    ``time_variant(mesh=..., partition="row" | "col", chunk_iters=500)``
+    (main_f32's problem half-band; the dense n = 8192 of
+    dist_formats_f32), beside the single-device loop; ``scaling_run``'s
+    result file with the JAX package's keys; ``cli.main(["solve",
+    "--devices", "1", "--partition", "row", ...])`` through ``dist_solve``;
+    ``--devices 2`` raising the error that names ``torchrun``.  Returns
+    the launches."""
+    import contextlib
+    import io
+    import json as js
+    import pathlib
+    import tempfile
+
+    from new_cg_variants_tpu_torch import cli
+    from new_cg_variants_tpu_torch.harness.scaling import (
+        scaling_run,
+        time_variant,
+    )
+
+    failed, path = [], {}
+    sym, b, x_true = model_f32(torch, "symdia")
+    col_op, col_b = built.pop("col_dense")
+    col_x = np.ones(COL_N)
+    for part, op, rhs, xt in (("row", sym, b, x_true),
+                              ("col", col_op, col_b, col_x)):
+        reset_counts()
+        got = time_variant("pipe_pr_cg", op, rhs, x_true=xt,
+                           max_iter=SCALING_ITERS, trials=2, mesh=mesh,
+                           partition=part, chunk_iters=SCALING_CHUNK)
+        torch.cuda.synchronize()
+        add_counts(path, nonzero(read_counts()))
+        one = time_variant("pipe_pr_cg", op, rhs, x_true=xt,
+                           max_iter=SCALING_ITERS, trials=2)
+        rec = dict(call="time_variant", partition=part, n=got.n,
+                   n_devices=got.n_devices, max_iter=SCALING_ITERS,
+                   chunk_iters=SCALING_CHUNK,
+                   mesh_ms_per_iter=got.time_per_iter * 1e3,
+                   single_ms_per_iter=one.time_per_iter * 1e3,
+                   mesh_error=got.error, single_error=one.error)
+        emit("dist_scaling", **rec)
+        # the same size of error (two summation orders over 1000 float32
+        # iterations: the digits differ)
+        if not (np.isfinite(got.error) and got.n_devices == 1
+                and abs(got.error - one.error) <= 0.05 * one.error):
+            failed.append(rec)
+    del col_op, col_b
+    with tempfile.TemporaryDirectory() as tmp:
+        res = scaling_run(["pipe_pr_cg"], n=N, k=K_BAND, max_iter=300,
+                          trials=1, mesh_sizes=(1,), dtype=torch.float32,
+                          data_dir=tmp, verbose=False)
+        files = {p.name: js.loads(p.read_text())
+                 for p in pathlib.Path(tmp).glob("*_p1_n*.json")}
+    keys = {name: sorted(d) for name, d in files.items()}
+    rec = dict(call="scaling_run", files=sorted(files), keys=keys)
+    emit("dist_scaling", **rec)
+    if not (len(res) == 1 and len(files) == 1
+            and all(set(k) == SCALING_KEYS for k in keys.values())):
+        failed.append(rec)
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["solve", "-n", str(N), "-k", str(K_BAND), "--dtype",
+                       "f32", "--devices", "1", "--partition", "row",
+                       "--ksp-norm-type", "none", "--max-iter", "300"])
+    torch.cuda.synchronize()
+    counts = nonzero(read_counts())
+    add_counts(path, counts)
+    lines = buf.getvalue().splitlines()
+    rec = dict(call="cli solve --devices 1 --partition row", rc=rc,
+               lines=lines, launches=counts)
+    emit("dist_scaling", **rec)
+    # through dist_solve: the half-band SpMV of the extended slice, no
+    # fused family kernel
+    if not (rc == 0 and len(lines) == 4 and counts.get("sym_dia_spmv2")
+            and not any(k.startswith("fused") for k in counts)):
+        failed.append(rec)
+    try:
+        cli.main(["solve", "-n", str(N), "-k", str(K_BAND), "--devices", "2",
+                  "--max-iter", "5"])
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        refused = None
+    emit("dist_scaling", call="solve --devices 2", raised=refused)
+    if not (refused and "torchrun --nproc-per-node 2" in refused):
+        failed.append(dict(devices=2, raised=refused))
+    if failed:
+        raise AssertionError(f"{len(failed)} mesh harness calls failed: "
+                             f"{failed}")
+    return path
+
+
 def kernel_records(timings, launches):
     """The ``kernels`` line: one record per kernel entry and shape a driven
     path gives it, with the entry's launches on the paths of that shape
@@ -3782,6 +4399,19 @@ def kernel_records(timings, launches):
         "fused_pipe_vector_phase_prec" + DIST: ("pipe_vector.cu",
                                                 "fused_step.py:160", dist),
     })
+    # the rest of the distributed layer: row 9 on a shard's extended words
+    # (dist_f32x2), row 12 on a shard's cache (dist_ell_f32 at world size
+    # 1: the whole operator, the cache the gathered vector; and the shards
+    # of 2 and 4 ranks, checked and timed: the entry's launches are those
+    # of dist_ell_f32)
+    records.update({
+        entry + DIST: ("df_spmv.cu", "df_spmv.py:43", ("dist_f32x2",))
+        for entry in ("df_dia_spmv_ext", "df_dia_spmv2_ext")})
+    records.update({
+        entry + sfx: ("ell_spmv.cu", "ell_pallas.py:44", ("dist_ell_f32",))
+        for entry in ("ell_spmv_cache", "ell_spmv2_cache")
+        for sfx in (DIST,) + tuple(SHARD.format(p, r)
+                                   for p, r in ELL_SHARDS)})
     kernels = []
     for name, (source, replaces, paths) in records.items():
         t = timings[name]
@@ -3790,7 +4420,8 @@ def kernel_records(timings, launches):
                                          "f64_counterpart", "bound_bytes_ms",
                                          "bound_ops_ms", "L", "library",
                                          "given_order", "ms_2rhs",
-                                         "launches_per_call", "f32_ms")
+                                         "launches_per_call", "f32_ms",
+                                         "cache")
                  if key in t}
         if name.endswith(BF16):
             extra["storage"] = "bf16 band / values, float32 vectors"
@@ -3865,7 +4496,7 @@ def main():
     phase("main_bf16", main_bf16, torch, timings)
     phase("dia_bf16", dia_bf16, torch)
     phase("bf16_accuracy", bf16_accuracy, torch)
-    phase("formats_f32", formats_f32, torch)
+    phase("formats_f32", formats_f32, torch, built)
     phase("sparse_f64", sparse_f64, torch)
     phase("convergence_f64", convergence_f64, torch, card, timings, launches)
     phase("cli_f32", cli_f32, torch, timings, launches)
@@ -3874,6 +4505,10 @@ def main():
     with dist_world() as mesh:
         phase("dist_f32", dist_f32, torch, mesh, timings)
         phase("dist_f64", dist_f64, torch, mesh)
+        phase("dist_ell_f32", dist_ell_f32, torch, mesh, built)
+        phase("dist_f32x2", dist_f32x2, torch, mesh)
+        phase("dist_formats_f32", dist_formats_f32, torch, mesh, built)
+        phase("dist_scaling", dist_scaling, torch, mesh, built)
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)

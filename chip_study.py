@@ -18,8 +18,10 @@
                                     # formulation as the band widens
     python3 chip_study.py floors    # convergence rows, card against CPU, at
                                     # the rounding floor on three matrices
-    python3 chip_study.py distcheck # the row-partitioned distributed layer:
-                                    # check_dist, dist_f32, dist_f64
+    python3 chip_study.py distcheck [phase ...]  # the distributed layer:
+                                    # check_dist, dist_f32, dist_f64,
+                                    # dist_ell_f32, dist_f32x2,
+                                    # dist_formats_f32, dist_scaling
 
 Each study edits throw-away copies of ``new_cg_variants_tpu_torch/csrc`` in a
 temporary directory (the sources in the checkout are never touched), builds
@@ -1391,30 +1393,62 @@ def study_bf16check(torch, card):
                 for name, t in timings.items() if name.endswith(cs.BF16)})
 
 
-def study_distcheck(torch, card):
+#: the phases ``distcheck`` may be asked to run alone
+DIST_PHASES = {"checks", "dist_f32", "dist_f64", "dist_ell_f32", "dist_f32x2",
+               "dist_formats_f32", "dist_scaling"}
+
+
+def study_distcheck(torch, card, *only):
     """The quick first call after touching the distributed layer
-    (``parallel/``): check_dia (whose vector-phase records the row
-    partition takes), then chip_smoke.py's check_dist, dist_f32 and
-    dist_f64 in a world of one, and the native reader on a 32^3 file."""
-    from new_cg_variants_tpu_torch import write_mtx
+    (``parallel/``) or row 9's ``_ext`` entries: check_dia (whose
+    vector-phase records the row partition takes), then chip_smoke.py's
+    check_dist, dist_f32, dist_f64, dist_ell_f32 (on ell_f32's operator,
+    built here), dist_f32x2, dist_formats_f32 and dist_scaling in a world
+    of one, and the native reader on a 32^3 file.  Phase names given after
+    ``distcheck`` run those phases alone (``checks`` for check_dia and
+    check_dist)."""
+    from new_cg_variants_tpu_torch import as_operator, write_mtx
     from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
 
-    timings = {}
-    cs.check_dia(torch, card, timings)
-    cs.check_dist(torch, card, timings)
+    def wanted(name):
+        return not only or name in only
+
+    timings, built, launches = {}, {}, {}
+    if wanted("checks"):
+        cs.check_dia(torch, card, timings)
+        cs.check_dist(torch, card, timings)
+    if wanted("dist_ell_f32"):
+        a = cs.stencil27(cs.HPCG_GRID, cs.PERM_SEED).astype(np.float32)
+        x_true = np.ones(a.shape[0], dtype=np.float32)
+        built["hpcg_ell"] = (a, as_operator(a, dtype=torch.float32,
+                                            device="cuda"),
+                             torch.from_numpy(a @ x_true).cuda(), x_true)
     with cs.dist_world() as mesh:
-        launches = cs.dist_f32(torch, mesh, timings)
-        cs.dist_f64(torch, mesh)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "hpcg27.mtx")
-        write_mtx(path, coo_from_scipy(cs.stencil27(cs.CONV_GRID,
-                                                    cs.PERM_SEED)),
-                  symmetric=True)
-        native = cs.read_mtx_seconds(path)
+        if wanted("dist_f32"):
+            launches["dist_f32"] = cs.dist_f32(torch, mesh, timings)
+        if wanted("dist_f64"):
+            cs.dist_f64(torch, mesh)
+        for name, fn, args in (
+                ("dist_ell_f32", cs.dist_ell_f32, (built,)),
+                ("dist_f32x2", cs.dist_f32x2, ()),
+                ("dist_formats_f32", cs.dist_formats_f32, (built,)),
+                ("dist_scaling", cs.dist_scaling, (built,))):
+            if wanted(name) or (name == "dist_formats_f32"
+                                and wanted("dist_scaling")):
+                launches[name] = fn(torch, mesh, *args)
+    native = None
+    if not only:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "hpcg27.mtx")
+            write_mtx(path, coo_from_scipy(cs.stencil27(cs.CONV_GRID,
+                                                        cs.PERM_SEED)),
+                      symmetric=True)
+            native = cs.read_mtx_seconds(path)
     emit("distcheck", ok=True, launches=launches, native=native,
          timed={name: {key: t.get(key) for key in ("ms", "bound_ms",
                                                    "plain_ms", "library_ms")}
-                for name, t in timings.items() if name.endswith(cs.DIST)})
+                for name, t in timings.items()
+                if name.endswith(cs.DIST) or "(shard" in name})
 
 
 def study_check(torch, card):
@@ -1934,7 +1968,8 @@ def main(argv):
                "floors": study_floors, "distcheck": study_distcheck}
     if not (len(argv) == 2 and argv[1] in studies
             or len(argv) == 3 and argv[1] == "mutants"
-            and argv[2] in ("dia", "sym", "df", "ell", "bf16")):
+            and argv[2] in ("dia", "sym", "df", "ell", "bf16")
+            or argv[1:2] == ["distcheck"] and set(argv[2:]) <= DIST_PHASES):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

@@ -21,19 +21,23 @@ Here all three live under one ``python -m new_cg_variants_tpu_torch``:
   the strong-scaling harness.
 
 Every subcommand runs on ``--device`` (default ``cuda``; without a card it
-raises, ``--device cpu`` runs the kernels' plain versions).  One device
-only: ``solve --devices N`` with N > 1, ``--partition`` and ``scaling
---mesh-sizes`` above 1 raise ``NotImplementedError`` until the command line
-reaches the distributed layer (``parallel/``; ROADMAP item 7c).
+raises, ``--device cpu`` runs the kernels' plain versions).  Several
+devices: one process a device, started by ``torchrun`` (``torchrun
+--nproc-per-node N -m new_cg_variants_tpu_torch solve --devices N ...``, or
+across hosts the scripts of :mod:`.parallel.launch`).  ``solve --devices N``
+(or any ``--partition``) solves through
+:func:`~.parallel.dist.dist_solve` on ranks ``[0, N)``, ``scaling
+--mesh-sizes 1,2,...`` times each size on its first ranks; rank 0 prints.
+Asking for more devices than the processes started raises ``ValueError``
+naming the ``torchrun`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
-
-from .harness.scaling import MULTI_DEVICE_MESSAGE
 
 
 def _add_device_arg(p):
@@ -112,12 +116,18 @@ def cmd_solve(args):
     import numpy as np
     import torch
 
+    import torch.distributed as dist
+
     from ._device import resolve_device
+    from .parallel.dist import dist_solve, make_mesh
     from .solvers.api import solve
 
-    if args.devices > 1 or args.partition is not None:
-        raise NotImplementedError(MULTI_DEVICE_MESSAGE)
     dev = resolve_device(args.device)
+    mesh = None
+    if args.devices > 1 or args.partition is not None:
+        # f32x2 over several devices rides the double-word row context
+        # (parallel/contexts.py:DFRowShardContext)
+        mesh = make_mesh(args.devices, device=dev)
     op, b, x_true = _build_problem(args, dev)
     dtype = _dtype(args)
     prec = None if args.pc_type == "none" else args.pc_type
@@ -130,10 +140,16 @@ def cmd_solve(args):
     times = []
     for _ in range(args.num_repeat):
         t0 = time.perf_counter()
-        res = solve(op, b, **common)
+        if mesh is None:
+            res = solve(op, b, **common)
+        else:
+            res = dist_solve(op, b, mesh=mesh,
+                             partition=args.partition or "auto", **common)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
+    if res is None or (dist.is_initialized() and dist.get_rank() != 0):
+        return 0  # a rank beyond the mesh, or one that does not print
 
     x = res.x.detach().to("cpu", torch.float64).numpy()
     err = float(np.linalg.norm(x - x_true))
@@ -180,7 +196,8 @@ def cmd_scaling(args):
     from .utils.env_info import write_call_file
 
     mesh_sizes = tuple(int(x) for x in args.mesh_sizes.split(","))
-    if args.data_dir:
+    # under torchrun (RANK set) rank 0 writes, as it writes the results
+    if args.data_dir and int(os.environ.get("RANK", 0)) == 0:
         write_call_file(args.data_dir, "scaling",
                         [f"python -m {__package__}"] + args.argv)
 
@@ -228,12 +245,12 @@ def main(argv=None):
     ps.add_argument("--max-iter", type=int, default=10000)
     ps.add_argument("--num-repeat", type=int, default=1)
     ps.add_argument("--devices", type=int, default=1,
-                    help="devices to solve over; only 1 until the "
-                         "command line reaches the distributed layer "
-                         "(ROADMAP item 7c)")
+                    help="devices to solve over, one process each (start "
+                         "them with torchrun --nproc-per-node N)")
     ps.add_argument("--partition", choices=["auto", "row", "col"],
                     default=None,
-                    help="multi-device partition (ROADMAP item 7c; raises)")
+                    help="solve through the distributed layer with this "
+                         "partition (default with --devices > 1: auto)")
     ps.set_defaults(fn=cmd_solve)
 
     pc = sub.add_parser("convergence", help="figure_gen experiment suite")
@@ -264,8 +281,8 @@ def main(argv=None):
     pg.add_argument("--variants",
                     default="hs_cg,cg_cg,gv_cg,pr_cg,pipe_pr_cg")
     pg.add_argument("--mesh-sizes", default="1",
-                    help="device counts; only 1 until the scaling harness "
-                         "reaches the distributed layer (ROADMAP item 7c)")
+                    help="device counts, e.g. 1,2,4 (start as many "
+                         "processes as the largest with torchrun)")
     pg.add_argument("--max-iter", type=int, default=1500)
     pg.add_argument("--trials", type=int, default=3)
     pg.add_argument("--pc-type", choices=["none", "jacobi"], default="none")

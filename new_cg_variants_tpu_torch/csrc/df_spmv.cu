@@ -2,17 +2,23 @@
 // matrix held as an exact three-word split hi + lo + lo2 of its float64
 // values (ops/doublefloat.py:df_split3) and double-word vectors vh + vl:
 //
-//   DIA:   y[i] = sum_d (hi + lo + lo2)[d, i] * v[i + off_d]   (v zero outside
-//          [0, n)), each term a product with error-free transforms, the terms
-//          added in stored order of the diagonals by double-word additions
-//          (ops/df_spmv.py:_df_dia_mv_plain);
+//   DIA:   y[i] = sum_d (hi + lo + lo2)[d, i] * V[i + off_d], each term a
+//          product with error-free transforms, the terms added in stored
+//          order of the diagonals by double-word additions
+//          (ops/df_spmv.py:_df_dia_mv_plain), with V[j] = v[j + vorg] where
+//          0 <= j + vorg < vlen and 0 elsewhere.  For a whole matrix vorg = 0
+//          and vlen = n (zeros outside [0, n) are the matrix edge); for a row
+//          shard whose words arrive as [left h | v | right h] (the _ext
+//          entries, ops/df_spmv.py:_df_dia_mv_ext_plain) vorg = h and vlen =
+//          n + 2h, n the shard's rows;
 //   dense: y[i] = sum_j (hi + lo + lo2)[i, j] * v[j], the n terms of a row
 //          summed by the double-word halving tree over the columns padded
 //          with zero pairs to a power of two (ops/df_spmv.py:
 //          _df_dense_mv_plain).
 //
 // Replaces the TPU kernels new_cg_variants_tpu/ops/df_spmv.py:_df_dia_kernel
-// (entry points df_dia_spmv, df_dia_spmv2) and :_df_dense_kernel
+// (entry points df_dia_spmv, df_dia_spmv2, df_dia_spmv_ext, df_dia_spmv2_ext)
+// and :_df_dense_kernel
 // (df_dense_spmv, df_dense_spmv2).
 //
 // What bounds it on an H100: device-memory bytes and float32 operations about
@@ -37,7 +43,8 @@
 //   both right-hand sides from registers; the hi and lo windows of each
 //   vector staged in shared memory up to a combined halo of 1024 rows (the
 //   wrapper's rule, ops/spmv_dia.py:stages_window), read through the
-//   read-only cache beyond.  Any n, any offsets; rows outside [0, n) read 0.
+//   read-only cache beyond.  Any n, any offsets; vector entries outside
+//   [0, vlen) read 0.
 // * Dense: one warp per row, no block barrier in the tree.  The halving
 //   tree's order is part of the result, so the kernel keeps it: lane l takes
 //   the columns l, l + 32, ... of the padded width; the tree levels above 32
@@ -78,8 +85,8 @@ template <int NRHS, bool STAGED>
 __global__ void __launch_bounds__(kTile) df_dia_kernel(
     const float* __restrict__ hi, const float* __restrict__ lo,
     const float* __restrict__ lo2, const __grid_constant__ Offsets o,
-    int ndiag, int h_lo, int h_hi, long long n,
-    const __grid_constant__ DfVecs a) {
+    int ndiag, int h_lo, int h_hi, long long n, long long vorg,
+    long long vlen, const __grid_constant__ DfVecs a) {
   extern __shared__ __align__(16) float swin[];  // [2 NRHS][vw]
   __shared__ int soff[kMaxDiags];
   const int vw = kTile + h_lo + h_hi;
@@ -89,8 +96,8 @@ __global__ void __launch_bounds__(kTile) df_dia_kernel(
   load_offsets(o, ndiag, soff);
   if (STAGED) {
     for (int j = t; j < vw; j += kTile) {
-      const long long g = i0 - h_lo + j;
-      const bool in = g >= 0 && g < n;
+      const long long g = i0 - h_lo + j + vorg;
+      const bool in = g >= 0 && g < vlen;
 #pragma unroll
       for (int q = 0; q < 2 * NRHS; ++q) swin[q * vw + j] = in ? a.v[q][g] : 0.0f;
     }
@@ -113,8 +120,8 @@ __global__ void __launch_bounds__(kTile) df_dia_kernel(
         vh = swin[(2 * r) * vw + t + h_lo + off];
         vl = swin[(2 * r + 1) * vw + t + h_lo + off];
       } else {
-        const long long g = i + off;
-        const bool in = g >= 0 && g < n;
+        const long long g = i + off + vorg;
+        const bool in = g >= 0 && g < vlen;
         vh = in ? __ldg(a.v[2 * r] + g) : 0.0f;
         vl = in ? __ldg(a.v[2 * r + 1] + g) : 0.0f;
       }
@@ -270,11 +277,12 @@ DfVecs vectors_of(const void* const* v, void* const* y, int nrhs) {
 }
 
 int launch_df_dia(const void* hi, const void* lo, const void* lo2,
-                  const int* offsets, int ndiag, long long n,
-                  const void* const* v, void* const* y, int nrhs, int staged,
-                  int device, void* stream) {
+                  const int* offsets, int ndiag, long long n, long long vorg,
+                  long long vlen, const void* const* v, void* const* y,
+                  int nrhs, int staged, int device, void* stream) {
   Offsets o;
-  if (!fill_offsets(offsets, ndiag, &o) || n <= 0 || (nrhs != 1 && nrhs != 2))
+  if (!fill_offsets(offsets, ndiag, &o) || n <= 0 || vlen <= 0 ||
+      (nrhs != 1 && nrhs != 2))
     return int(cudaErrorInvalidValue);
   int h_lo, h_hi;
   halo_of(offsets, ndiag, &h_lo, &h_hi);
@@ -291,8 +299,8 @@ int launch_df_dia(const void* hi, const void* lo, const void* lo2,
   const size_t smem =
       staged ? size_t(2 * nrhs) * (kTile + h_lo + h_hi) * sizeof(float) : 0;
 #define NCGV_DF_DIA(NRHS, STAGED)                                            \
-  df_dia_kernel<NRHS, STAGED><<<grid, kTile, smem, st>>>(h, l, l2, o, ndiag, \
-                                                         h_lo, h_hi, n, a)
+  df_dia_kernel<NRHS, STAGED><<<grid, kTile, smem, st>>>(                    \
+      h, l, l2, o, ndiag, h_lo, h_hi, n, vorg, vlen, a)
   if (nrhs == 1) {
     if (staged) NCGV_DF_DIA(1, true);
     else NCGV_DF_DIA(1, false);
@@ -333,8 +341,20 @@ int df_dia_spmv_f32(const void* hi, const void* lo, const void* lo2,
                     const int* offsets, int ndiag, long long n,
                     const void* const* v, void* const* y, int nrhs, int staged,
                     int device, void* stream) {
-  return ncgv::launch_df_dia(hi, lo, lo2, offsets, ndiag, n, v, y, nrhs,
-                             staged, device, stream);
+  return ncgv::launch_df_dia(hi, lo, lo2, offsets, ndiag, n, 0, n, v, y,
+                             nrhs, staged, device, stream);
+}
+
+// The local product of a row shard: n rows of band words, each word array of
+// v of length vlen whose element vorg is the shard's row 0 (the halo-extended
+// words [left h | v | right h]: vorg = h, vlen = n + 2h).
+int df_dia_spmv_ext_f32(const void* hi, const void* lo, const void* lo2,
+                        const int* offsets, int ndiag, long long n,
+                        long long vorg, long long vlen, const void* const* v,
+                        void* const* y, int nrhs, int staged, int device,
+                        void* stream) {
+  return ncgv::launch_df_dia(hi, lo, lo2, offsets, ndiag, n, vorg, vlen, v,
+                             y, nrhs, staged, device, stream);
 }
 
 // hi / lo / lo2: the (n, n) matrix words, row-major; v / y as above.

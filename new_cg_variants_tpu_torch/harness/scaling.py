@@ -11,17 +11,20 @@ reference's two scaling harnesses:
   model problem, min-over-trials timing parsed from ``-log_view``
   (``scaling_experiments_petsc/strong_scaling_tests.py``).
 
-A trial is a timed fixed-iteration run of the variant's step loop on one
-device; results are min-over-trials per configuration, the reduction the
-reference's plot scripts apply (``scaling_plots.py:53``,
-``strong_scaling_plots.py:88``).  **Single device only:** a mesh size above
-1 raises ``NotImplementedError`` (ROADMAP item 7c).
+Here a "rank count" is a mesh size: a trial is a timed fixed-iteration run
+of the variant's step loop on one device, or on every rank of a mesh of
+``p`` (:func:`~..parallel.dist.make_mesh`: ranks ``[0, p)`` of the
+process group, one process a device, as ``torchrun`` starts them; ranks
+beyond ``p`` sit that size out).  Results are min-over-trials per
+configuration, the reduction the reference's plot scripts apply
+(``scaling_plots.py:53``, ``strong_scaling_plots.py:88``).
 
 Timing protocol: each trial starts from ``x0 = 0`` and chains ``max_iter``
-steps, the state of one step feeding the next;
-the warm-up trial is excluded; one ``torch.cuda.synchronize()`` per trial
-closes its timer on the card.  Per-kernel breakdowns come from
-:mod:`..utils.profiling` traces, not from host timers.
+steps (on a mesh: ``max_iter // chunk_iters`` chunks of ``chunk_iters``),
+the state of one step feeding the next; the warm-up trial is excluded; one
+``torch.cuda.synchronize()`` per trial closes its timer on the card.
+Per-kernel breakdowns come from :mod:`..utils.profiling` traces, not from
+host timers.
 """
 
 from __future__ import annotations
@@ -37,12 +40,6 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["ScalingResult", "time_variant", "scaling_run", "save_result"]
-
-#: what a multi-device request raises until the harness reaches the
-#: distributed layer (``parallel/``)
-MULTI_DEVICE_MESSAGE = (
-    "multi-device scaling runs are not ported yet (ROADMAP item 7c); this "
-    "harness runs one device")
 
 
 @dataclass
@@ -109,8 +106,10 @@ def time_variant(
     max_iter=1500,
     trials=3,
     mesh=None,
+    partition="auto",
     preconditioner=None,
     dtype=None,
+    chunk_iters=None,
     device=None,
 ):
     """Time ``trials`` fixed-iteration runs of a variant on ``device``
@@ -118,23 +117,41 @@ def time_variant(
 
     Returns a :class:`ScalingResult`.  ``op`` is any operator or matrix the
     solvers take, cast to ``dtype`` (a torch dtype or ``"f32x2"``) when
-    given.  ``mesh`` other than ``None`` raises ``NotImplementedError``
-    (ROADMAP item 7c).
+    given.  With ``mesh`` (:func:`~..parallel.dist.make_mesh`) every rank of
+    it runs its part under ``partition`` (``dist_run``'s), chained in
+    chunks of ``chunk_iters`` steps (default ``max_iter``); a rank outside
+    the mesh returns ``None``.
     """
-    if mesh is not None:
-        raise NotImplementedError(MULTI_DEVICE_MESSAGE)
     dev = resolve_device(device)
-    ctx, init_fn, step_fn, b, x0, x_out = _pieces(
-        variant, op, b, preconditioner, dtype, dev)
+    if mesh is None:
+        ctx, init_fn, step_fn, b, x0, x_out = _pieces(
+            variant, op, b, preconditioner, dtype, dev)
+        steps = max_iter if chunk_iters is None \
+            else (max_iter // chunk_iters) * chunk_iters
 
-    def one_trial():
-        s = init_fn(ctx, b, x0)
-        t0 = time.perf_counter()
-        for _ in range(max_iter):
-            s = step_fn(ctx, s)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter() - t0, s
+        def one_trial():
+            s = init_fn(ctx, b, x0)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                s = step_fn(ctx, s)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return time.perf_counter() - t0, s
+
+        def final_x(state):
+            return x_out(state["x"]).detach().to("cpu", torch.float64).numpy()
+
+        n_devices = 1
+    else:
+        from ..parallel.dist import _dist_chunked
+
+        trial = _dist_chunked(variant, op, b, mesh, partition,
+                              preconditioner, max_iter,
+                              chunk_iters or max_iter, dtype, dev)
+        if trial is None:
+            return None
+        one_trial, final_x = trial
+        n_devices = mesh.size()
 
     # warm-up (kernel build and first launches) + timed trials
     _, state = one_trial()
@@ -143,14 +160,14 @@ def time_variant(
         dt, state = one_trial()
         times.append(dt)
 
-    x = x_out(state["x"]).detach().to("cpu", torch.float64).numpy()
+    x = final_x(state)
     err = float("nan")
     if x_true is not None:
         err = float(np.linalg.norm(x - np.asarray(x_true, dtype=np.float64)))
 
     return ScalingResult(
-        variant=variant, n=int(x.shape[0]), max_iter=max_iter, n_devices=1,
-        times=times, error=err,
+        variant=variant, n=int(x.shape[0]), max_iter=max_iter,
+        n_devices=n_devices, times=times, error=err,
     )
 
 
@@ -169,21 +186,30 @@ def scaling_run(
     **problem_kwargs,
 ):
     """Run the scaling matrix on ``device`` (default: the CUDA card):
-    variants x mesh sizes, where the only mesh size is 1 (a larger one
-    raises ``NotImplementedError``, ROADMAP item 7c).
+    variants x mesh sizes.
+
+    A size ``p`` runs on ranks ``[0, p)`` of the process group (size 1: on
+    rank 0 alone, single-device, as the JAX package runs it); under a
+    launcher start as many processes as the largest size (``torchrun
+    --nproc-per-node``), a larger size raises ``ValueError``.  Each rank
+    returns the results of the sizes it took part in.
 
     ``problem``: ``'banded'`` (PETSc ex2a/ex2b model; the port's
     ``banded_model`` stores it half-band unless ``fmt`` says otherwise) or
     ``'spectrum'`` (mpi4py diagonal model).  Results saved one JSON per
     (variant, mesh) when ``data_dir`` given — the analog of the reference's
     per-trial ``.npy`` files (``scaling_tests.py:85-86``) — beside
-    ``env_info.json``.
+    ``env_info.json``, all written by rank 0.
     """
-    from ..matio.problems import banded_model, model_spectrum
+    import torch.distributed as dist
 
-    if any(int(p) != 1 for p in mesh_sizes):
-        raise NotImplementedError(MULTI_DEVICE_MESSAGE)
+    from ..matio.problems import banded_model, model_spectrum
+    from ..parallel.dist import make_mesh
+
     dev = resolve_device(device)
+    meshes = {int(p): None if int(p) == 1 else make_mesh(int(p), device=dev)
+              for p in mesh_sizes}
+    rank = dist.get_rank() if dist.is_initialized() else 0
     if problem == "banded":
         op, b, x_true = banded_model(n, device=dev, **problem_kwargs)
     elif problem == "spectrum":
@@ -191,26 +217,30 @@ def scaling_run(
     else:
         raise ValueError(f"unknown problem {problem!r}")
 
-    if data_dir is not None:
+    if data_dir is not None and rank == 0:
         from ..utils.env_info import write_env_info
 
         write_env_info(data_dir)
 
     results = []
-    for p in mesh_sizes:
+    for p, mesh in meshes.items():
+        if mesh is None and rank != 0:
+            continue
         for variant in variants:
             res = time_variant(
                 variant, op, b, x_true=x_true, max_iter=max_iter,
-                trials=trials, preconditioner=preconditioner, dtype=dtype,
-                device=dev,
+                trials=trials, mesh=mesh, preconditioner=preconditioner,
+                dtype=dtype, device=dev,
             )
+            if res is None:  # a rank beyond this size
+                continue
             results.append(res)
-            if verbose:
+            if verbose and rank == 0:
                 print(
                     f"{variant:>14s} p={p}: best {res.best:.4f}s "
                     f"({res.time_per_iter*1e3:.3f} ms/iter), err {res.error:.3e}"
                 )
-            if data_dir is not None:
+            if data_dir is not None and rank == 0:
                 save_result(res, data_dir)
     return results
 

@@ -9,6 +9,13 @@ pairs into :class:`~.doublefloat.DF` values; this module works on the words.
 * :func:`df_dia_spmv` / :func:`df_dia_spmv2` — ``A @ v`` (and ``A @ w`` from
   the same read of the band) for a row-indexed DIA matrix: per diagonal, in
   stored order, an error-free product and a double-word addition.
+* :func:`df_dia_spmv_ext` / :func:`df_dia_spmv2_ext` — the local product of
+  a row shard (``parallel/contexts.py:DFRowShardContext``): ``m`` rows of
+  band words, each vector's words halo-extended to ``m + 2h``
+  (``[left h | v | right h]``, ``h = max|offset|``); the halo stands where
+  the whole matrix has its edge, so nothing is masked but what the words
+  hold.  The terms in the order of the JAX package's ``_mv_ext``, which is
+  ``DFOperator._mv_dia``'s.
 * :func:`df_dense_spmv` / :func:`df_dense_spmv2` — the same for a dense
   matrix; the terms of a row are summed by the double-word halving tree over
   the columns padded with zero pairs to a power of two.
@@ -46,7 +53,8 @@ from .fused_step import _pointers, _where
 from .spmv_dia import stages_window
 from .sym_fused import _scalar
 
-__all__ = ["df_dia_spmv", "df_dia_spmv2", "df_dense_spmv", "df_dense_spmv2",
+__all__ = ["df_dia_spmv", "df_dia_spmv2", "df_dia_spmv_ext",
+           "df_dia_spmv2_ext", "df_dense_spmv", "df_dense_spmv2",
            "df_pipe_vector_phase"]
 
 #: Widest padded row (dense) or count of dot partials (vector phase) that a
@@ -63,6 +71,24 @@ def _df_dia_mv_plain(offsets, hi, lo, lo2, vh, vl):
     for d, off in enumerate(offsets):
         svh = shift(vh, off)
         svl = shift(vl, off)
+        ph, e = two_prod(hi[d], svh)
+        e = e + (hi[d] * svl + lo[d] * svh + lo[d] * svl + lo2[d] * svh)
+        ph, pl = fast_two_sum(ph, e)
+        acc_h, acc_l = df_add(acc_h, acc_l, ph, pl)
+    return acc_h, acc_l
+
+
+def _df_dia_mv_ext_plain(offsets, hi, lo, lo2, vh, vl):
+    """Plain double-word DIA product of a row shard: ``(ndiag, m)`` band
+    words, vector words of length ``m + 2h``; per diagonal the window of
+    the extended words, then the steps of :func:`_df_dia_mv_plain`."""
+    m = hi.shape[1]
+    h = max(abs(o) for o in offsets)
+    acc_h = vh.new_zeros(m)
+    acc_l = vl.new_zeros(m)
+    for d, off in enumerate(offsets):
+        svh = vh[h + off: h + off + m]
+        svl = vl[h + off: h + off + m]
         ph, e = two_prod(hi[d], svh)
         e = e + (hi[d] * svl + lo[d] * svh + lo[d] * svl + lo2[d] * svh)
         ph, pl = fast_two_sum(ph, e)
@@ -106,19 +132,25 @@ def _check_words(ref, words, shape):
                              f"got {tuple(t.shape)}")
 
 
-def _launch_dia(offsets, hi, lo, lo2, words):
+def _launch_dia(offsets, hi, lo, lo2, words, ext=False):
+    """The kernel on ``words`` of length n, or with ``ext`` of length n + 2h
+    (a shard's halo-extended words)."""
     from ._kernels import library
 
     offsets = tuple(offsets)
     n, _ = check_band(offsets, hi)
+    h = max(abs(o) for o in offsets) if ext else 0
     _check_words(hi, (hi, lo, lo2), hi.shape)
-    _check_words(hi, words, (n,))
-    ys = [torch.empty_like(v) for v in words]
-    rc = library("df_spmv.cu").df_dia_spmv_f32(
-        hi.data_ptr(), lo.data_ptr(), lo2.data_ptr(), offsets_array(offsets),
-        len(offsets), n, _pointers(words), _pointers(ys), len(words) // 2,
-        int(stages_window(offsets)), hi.device.index,
-        torch.cuda.current_stream(hi.device).cuda_stream)
+    _check_words(hi, words, (n + 2 * h,))
+    ys = [hi.new_empty(n) for _ in words]
+    lib = library("df_spmv.cu")
+    head = (hi.data_ptr(), lo.data_ptr(), lo2.data_ptr(),
+            offsets_array(offsets), len(offsets), n)
+    tail = (_pointers(words), _pointers(ys), len(words) // 2,
+            int(stages_window(offsets)), hi.device.index,
+            torch.cuda.current_stream(hi.device).cuda_stream)
+    rc = (lib.df_dia_spmv_ext_f32(*head, h, n + 2 * h, *tail) if ext
+          else lib.df_dia_spmv_f32(*head, *tail))
     if rc != 0:
         raise RuntimeError(f"df_dia_spmv kernel launch failed: CUDA error {rc}")
     return [tuple(ys[k:k + 2]) for k in range(0, len(ys), 2)]
@@ -166,6 +198,27 @@ def df_dia_spmv(offsets, hi, lo, lo2, v):
 def df_dia_spmv2(offsets, hi, lo, lo2, v, w):
     """``(A @ v, A @ w)`` from one read of the band words."""
     y, z = _product(df_dia_spmv2, _df_dia_mv_plain, _launch_dia,
+                    (offsets, hi, lo, lo2), (v, w))
+    return y, z
+
+
+def _launch_dia_ext(offsets, hi, lo, lo2, words):
+    return _launch_dia(offsets, hi, lo, lo2, words, ext=True)
+
+
+def df_dia_spmv_ext(offsets, hi, lo, lo2, v):
+    """``A_shard @ v`` for a row shard's ``(ndiag, m)`` band words and the
+    word pair ``v`` halo-extended to ``m + 2h``; returns the ``(m,)``
+    pair."""
+    (y,) = _product(df_dia_spmv_ext, _df_dia_mv_ext_plain, _launch_dia_ext,
+                    (offsets, hi, lo, lo2), (v,))
+    return y
+
+
+def df_dia_spmv2_ext(offsets, hi, lo, lo2, v, w):
+    """Both halo-extended right-hand sides from one read of the band
+    words."""
+    y, z = _product(df_dia_spmv2_ext, _df_dia_mv_ext_plain, _launch_dia_ext,
                     (offsets, hi, lo, lo2), (v, w))
     return y, z
 
@@ -245,6 +298,6 @@ def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):
 
 
 DF_WRAPPERS = (df_dia_spmv, df_dia_spmv2, df_dense_spmv, df_dense_spmv2,
-               df_pipe_vector_phase)
+               df_pipe_vector_phase, df_dia_spmv_ext, df_dia_spmv2_ext)
 for _fn in DF_WRAPPERS:
     _fn.launches = 0

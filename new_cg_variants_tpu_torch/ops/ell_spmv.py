@@ -8,7 +8,13 @@ padding slots holding value 0 and index i),
 
 * :func:`ell_spmv` — ``A @ v``;
 * :func:`ell_spmv2` — ``(A @ v, A @ w)`` from one read of ``val`` and
-  ``idx`` (the JAX ``EllOperator.mv2``).
+  ``idx`` (the JAX ``EllOperator.mv2``);
+* :func:`ell_spmv_cache` / :func:`ell_spmv2_cache` — the local product of a
+  row shard (``parallel/contexts.py:EllRowShardContext``): ``m`` rows whose
+  indices point into a vector of length ``c >= m``, the rank's own rows
+  followed by what the exchange brought.  The kernel takes ``n`` as the
+  row count only and reads ``v[idx]`` wherever the index points, so these
+  are the same C entry with ``n = m`` and the cache as the vector.
 
 Both take an optional ``perm``: the arrays then hold ``B = P A P^T`` in a
 locality order (:func:`reorder`: row i of B is row ``perm[i]`` of A, its
@@ -154,11 +160,13 @@ def ell_gather(perm, vecs):
     return xs
 
 
-def _launch(val, idx, vecs, perm=None):
+def _launch(val, idx, vecs, perm=None, c=None):
+    """The kernel on ``(n, L)`` arrays; ``c``: the vectors' length, when it
+    is not ``n`` (a shard's cache)."""
     from ._kernels import library
 
     n, L, sfx = check_ell(val, idx)
-    check_vectors(val, vecs, n)
+    check_vectors(val, vecs, n if c is None else c)
     ys = [torch.empty(n, dtype=compute_dtype(val.dtype), device=val.device)
           for _ in vecs]
     two = len(vecs) == 2
@@ -177,10 +185,10 @@ def _launch(val, idx, vecs, perm=None):
     return ys
 
 
-def _plain_or_launch(wrapper, val, idx, vecs, perm):
+def _plain_or_launch(wrapper, val, idx, vecs, perm, c=None):
     tensors = (val, idx) + tuple(vecs) + (() if perm is None else (perm,))
     if all(t.is_cuda for t in tensors):
-        ys = _launch(val, idx, vecs, perm)
+        ys = _launch(val, idx, vecs, perm, c)
         wrapper.launches += 1
         return ys
     if all(t.device.type == "cpu" for t in tensors):
@@ -209,6 +217,25 @@ def ell_spmv2(val, idx, v, w, perm=None):
     return y, z
 
 
-ELL_WRAPPERS = (ell_spmv, ell_spmv2, ell_gather)
+def ell_spmv_cache(val, idx, cache):
+    """``y[i] = sum_l val[i, l] * cache[idx[i, l]]`` for the ``m`` rows of
+    ``(val, idx)`` and a vector ``cache`` of length ``c >= m``, the indices
+    already held to ``[0, c)`` by :func:`check_index` (the rows in the given
+    order)."""
+    (y,) = _plain_or_launch(ell_spmv_cache, val, idx, (cache,), None,
+                            cache.shape[0])
+    return y
+
+
+def ell_spmv2_cache(val, idx, cache_v, cache_w):
+    """Both right-hand sides' caches from one read of ``val`` and ``idx``,
+    as :func:`ell_spmv_cache`."""
+    y, z = _plain_or_launch(ell_spmv2_cache, val, idx, (cache_v, cache_w),
+                            None, cache_v.shape[0])
+    return y, z
+
+
+ELL_WRAPPERS = (ell_spmv, ell_spmv2, ell_gather, ell_spmv_cache,
+                ell_spmv2_cache)
 for _fn in ELL_WRAPPERS:
     _fn.launches = 0

@@ -1,38 +1,48 @@
-"""Distributed solver entry points on ``torch.distributed``: the row partition.
+"""Distributed solver entry points on ``torch.distributed``.
 
 The port of the JAX package's ``parallel/dist.py``.  The JAX package runs the
 family step functions inside ``shard_map``; here every rank runs them in its
-own process on its own device over a row context (:mod:`.contexts`), the
-structure of PETSc's row-partitioned ``KSPSolve`` (``cg_impls/pipeprcg.c``).
+own process on its own device over a mesh context (:mod:`.contexts`), the
+structure of the reference's two distributed harnesses: PETSc's
+row-partitioned ``KSPSolve`` (``cg_impls/pipeprcg.c``, ``partition='row'``)
+and the mpi4py column blocks (``scaling_experiments_mpi4py/cg_variants``,
+``partition='col'``).
 
-* :func:`make_mesh` — a 1-D ``DeviceMesh`` over the default process group.
-  A plain script with no group and no launcher environment gets a world of
-  one on its device, as JAX's one-device mesh; under ``torchrun`` (or after
-  :func:`initialize_multihost`) the mesh spans every rank.
+* :func:`make_mesh` — a 1-D ``DeviceMesh`` over the default process group,
+  or over its ranks ``[0, n_devices)``.  A plain script with no group and no
+  launcher environment gets a world of one on its device, as JAX's
+  one-device mesh; under ``torchrun`` (or after :func:`initialize_multihost`)
+  the mesh spans every rank.
 * :func:`dist_run` / :func:`dist_solve` — the mesh analogues of
   :func:`~..solvers.api.run` and :func:`~..solvers.api.solve`: each rank
-  slices its rows of the operator, the right-hand side, the initial guess
+  slices its part of the operator, the right-hand side, the initial guess
   and a Jacobi preconditioner, runs the port's own loops over its context,
-  and gathers ``x`` (and the vector probes), so that every rank returns the
-  global output.
+  and gathers ``x`` (and the vector probes), so that every rank of the mesh
+  returns the global output.  A rank outside a sub-mesh joins no collective
+  and returns ``None``.
 
-The row partition covers DIA and symmetric half-band operators in float32,
-float64 and bf16 storage.  ELL, block-banded and stencil rows, the column
-partition and ``dtype="f32x2"`` raise ``NotImplementedError`` (ROADMAP item
-7b); a sub-mesh (``n_devices`` other than the world size) raises too (item
-7c).  Every entry point takes ``device`` (default the CUDA card, which is
-then NCCL's); without a card it raises.
+The row partition takes DIA, symmetric half-band, ELL (index exchange or
+all-gather), block-banded and stencil operators in float32, float64 and
+bf16 storage; the column partition dense and DIA operators (densified);
+``dtype="f32x2"`` the row partition of a DIA-representable operator (DIA,
+half-band expanded on the host, or a ``DFOperator``).  Every entry point
+takes ``device`` (default the CUDA card, which is then NCCL's); without a
+card it raises.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
 from ..ops.block_banded import BlockBandedOperator, solver_basis
+from ..ops.doublefloat import DF, DFJacobi, DFOperator, df_operator, df_split
+from ..ops.ell_spmv import check_index
 from ..ops.operators import (
     DenseOperator,
     DiaOperator,
@@ -46,28 +56,40 @@ from ..probes.probes import resolve_probes
 from ..solvers.api import (
     SolveResult,
     _compute_x_true,
+    _df_selfcheck,
+    _host64,
     _needs_x_true,
     _resolve,
     _vectors,
     is_double_word,
 )
 from ..solvers.engine import history_scan, tolerance_loop
-from ..solvers.precond import JacobiPreconditioner
-from .contexts import RowShardContext, SymDiaRowShardContext, sym_dia_shard_data
+from ..solvers.families import FAMILIES, family_of
+from ..solvers.precond import IdentityPreconditioner, JacobiPreconditioner
+from .contexts import (
+    BlockBandedRowShardContext,
+    ColShardContext,
+    DFRowShardContext,
+    EllRowShardContext,
+    RowShardContext,
+    StencilRowShardContext,
+    SymDiaRowShardContext,
+    sym_dia_shard_data,
+)
+from .ell_exchange import plan_or_none
 
-__all__ = ["AXIS", "make_mesh", "dist_run", "dist_solve",
+__all__ = ["make_mesh", "dist_run", "dist_solve",
            "initialize_multihost"]
 
 AXIS = "i"
 
 _ROW_TYPES = (DiaOperator, EllOperator, BlockBandedOperator, SymDiaOperator,
               BandedStencilOperator)
-_LATER = "is not ported yet (ROADMAP item 7b)"
 
 
 def make_mesh(n_devices=None, device=None):
-    """1-D mesh over the row partition axis, on ``device``'s kind (default
-    the CUDA card).
+    """1-D mesh over the partition axis, on ``device``'s kind (default the
+    CUDA card).
 
     A group this makes on the card reduces CUDA tensors with NCCL and CPU
     tensors with gloo, so the card's mesh and a CPU mesh can share it; on
@@ -76,11 +98,25 @@ def make_mesh(n_devices=None, device=None):
     With no process group yet: under a launcher (``RANK`` and
     ``WORLD_SIZE`` set, as ``torchrun`` sets them) the default group is
     initialized from the environment, otherwise as a world of one.
-    ``n_devices`` must be ``None`` or the world size.
+    ``n_devices`` below the world size gives a mesh over ranks ``[0,
+    n_devices)``: every rank must call this (the mesh's group is made by
+    all), and a rank outside it holds a mesh it takes no part in
+    (``get_coordinate()`` is ``None``; the entry points return ``None``
+    there).  More devices than the world holds (or than ``WORLD_SIZE``
+    names, before a group is made) raise ``ValueError`` before any group is
+    made.
     """
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     dev = resolve_device(device)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if n_devices is not None and not 0 < n_devices <= world:
+        raise ValueError(
+            f"a mesh of {n_devices} devices in a world of {world} process"
+            f"{'es' if world > 1 else ''}: start one process a device, e.g. "
+            f"torchrun --nproc-per-node {n_devices} -m "
+            "new_cg_variants_tpu_torch ...")
     if not dist.is_initialized():
         # on the card NCCL, with gloo for the CPU tensors of the same group
         backend = "cpu:gloo,cuda:nccl" if dev.type == "cuda" else "gloo"
@@ -93,11 +129,10 @@ def make_mesh(n_devices=None, device=None):
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1)
     world = dist.get_world_size()
-    if n_devices is not None and n_devices != world:
-        raise NotImplementedError(
-            f"a mesh of {n_devices} of the {world} ranks: sub-meshes are not "
-            "ported yet (ROADMAP item 7c)")
-    return init_device_mesh(dev.type, (world,), mesh_dim_names=(AXIS,))
+    if n_devices is None or n_devices == world:
+        return init_device_mesh(dev.type, (world,), mesh_dim_names=(AXIS,))
+    return DeviceMesh(dev.type, torch.arange(n_devices),
+                      mesh_dim_names=(AXIS,))
 
 
 def initialize_multihost(**kwargs):
@@ -107,7 +142,13 @@ def initialize_multihost(**kwargs):
     dist.init_process_group(**kwargs)
 
 
+def _in_mesh(mesh) -> bool:
+    return mesh.get_coordinate() is not None
+
+
 def _check_partition(op, partition):
+    """The partition ``'row'`` or ``'col'`` that ``partition`` names for
+    ``op``, or ``TypeError``."""
     if partition == "auto":
         partition = "row" if isinstance(op, _ROW_TYPES) else "col"
     if partition == "row" and not isinstance(op, _ROW_TYPES):
@@ -118,11 +159,25 @@ def _check_partition(op, partition):
                                                   DiaOperator)):
         raise TypeError("col partition requires a dense-representable "
                         "operator")
-    if partition == "col":
-        raise NotImplementedError(f"the column partition {_LATER}")
-    if not isinstance(op, (DiaOperator, SymDiaOperator)):
+    return partition
+
+
+def _check_df_dist_args(partition, compensated, col_packed):
+    """The distributed f32x2 mode is row-partitioned DIA with its own
+    double-word reductions: refuse the knobs it cannot honour rather than
+    run another configuration."""
+    if partition not in ("auto", "row"):
         raise NotImplementedError(
-            f"the row partition of a {type(op).__name__} {_LATER}")
+            "distributed f32x2 supports partition='row' only (got "
+            f"{partition!r})")
+    if compensated:
+        raise NotImplementedError(
+            "compensated=True is meaningless under f32x2 (the mode's dots "
+            "are already double-word); drop the flag")
+    if not col_packed:
+        raise NotImplementedError(
+            "col_packed applies to the column partition only; distributed "
+            "f32x2 is row-partitioned")
 
 
 def _rank_device(mesh):
@@ -137,38 +192,104 @@ def _rows(v, rank, m, dev):
     return v[..., rank * m:(rank + 1) * m].contiguous().to(dev)
 
 
-def _local_ctx_factory(op, mesh, precond, compensated=False):
-    """This rank's context of the row partition: its slice of the DIA data
-    (or its extended half-band slice) and of a Jacobi ``inv_diag``, on its
-    device.  Any other preconditioner must act row by row (the identity, a
-    pointwise function)."""
+def _halo_width(op):
+    """How far a row's product reaches into the neighbours' rows."""
+    if isinstance(op, (DiaOperator, SymDiaOperator)):
+        return max(abs(o) for o in op.offsets)
+    if isinstance(op, BandedStencilOperator):
+        return op.k - 1
+    return 0
+
+
+def _shard_shape(op, mesh):
+    """``(p, rank, m, device)`` of this rank's row block; ``ValueError``
+    unless the rows divide and the halo fits a neighbour's shard."""
     p, rank = mesh.size(), mesh.get_local_rank()
     n = op.n
     if n % p:
         raise ValueError(f"n={n} must be divisible by mesh size {p}")
-    m, dev = n // p, _rank_device(mesh)
-    h = max(abs(o) for o in op.offsets)
+    m = n // p
+    h = _halo_width(op)
     if h > m:
         raise ValueError(f"halo {h} wider than a shard of {m} rows: a "
                          "neighbour holds too few of them")
+    return p, rank, m, _rank_device(mesh)
+
+
+def _ell_shard(op, p, rank, m, dev):
+    """This rank's ELL rows (original numbering, slot-major) and how its
+    cache is filled: ``(val, idx, shifts, send_idx)``, ``shifts`` ``None``
+    for the all-gather (the planner's ``None``)."""
+    val_t, idx_t = op._given()
+    rows = slice(rank * m, (rank + 1) * m)
+    val = val_t[:, rows].contiguous().to(dev)
+    # one rank: nothing to exchange, and plan_or_none gives None for any
+    # pattern (no traffic can undercut an all-gather of nothing)
+    plan = None if p == 1 else plan_or_none(idx_t.T.cpu().numpy(), op.n, p)
+    if plan is None:
+        idx, shifts, send, c = idx_t[:, rows], None, (), op.n
+    else:
+        idx = torch.from_numpy(plan.idx_remap[rows].T.copy())
+        shifts = plan.shifts
+        send = tuple(torch.from_numpy(a[rank]).long().to(dev)
+                     for a in plan.send_idx)
+        c = m + plan.recv_total
+    idx = idx.to(torch.int32).contiguous().to(dev)
+    check_index(idx, c)
+    return val.T, idx.T, shifts, send
+
+
+def _local_ctx_factory(op, mesh, precond, compensated=False, partition="row",
+                       col_packed=True):
+    """This rank's context of the partition: its part of the operator and
+    of a Jacobi ``inv_diag``, on its device.  Any other preconditioner must
+    act row by row (the identity, a pointwise function)."""
+    p, rank, m, dev = _shard_shape(op, mesh)
     if isinstance(precond, JacobiPreconditioner):
         precond = JacobiPreconditioner(_rows(precond.inv_diag, rank, m, dev))
     group = mesh.get_group()
+    common = dict(precond=precond, compensated=compensated)
+    if partition == "col":
+        a = op.a if isinstance(op, DenseOperator) else torch.as_tensor(
+            op.todense(), dtype=op.dtype)
+        return ColShardContext(_rows(a, rank, m, dev), group,
+                               packed=col_packed, **common)
+    if isinstance(op, EllOperator):
+        val, idx, shifts, send = _ell_shard(op, p, rank, m, dev)
+        return EllRowShardContext(val, idx, group, shifts=shifts,
+                                  send_idx=send, **common)
+    if isinstance(op, BlockBandedOperator):
+        nb = op.a_blk.shape[0]
+        if nb % p:
+            raise ValueError(f"nb={nb} block rows must be divisible by mesh "
+                             f"size {p}")
+        nbl = nb // p
+        local = op.a_blk[rank * nbl:(rank + 1) * nbl].contiguous().to(dev)
+        return BlockBandedRowShardContext(local, group, **common)
+    if isinstance(op, BandedStencilOperator):
+        return StencilRowShardContext(_rows(op.diag, rank, m, dev),
+                                      op.off_value.to(dev), op.k, group,
+                                      **common)
     if isinstance(op, SymDiaOperator):
-        local = sym_dia_shard_data(op.data, p, h, rank)
+        local = sym_dia_shard_data(op.data, p, _halo_width(op), rank)
         return SymDiaRowShardContext(op.offsets, local.to(dev), group,
-                                     precond, compensated)
+                                     **common)
     return RowShardContext(op.offsets, _rows(op.data, rank, m, dev), group,
-                           precond, compensated)
+                           **common)
 
 
 def _gather(v, mesh):
     """The global vector (``(n,)``) or stacked rows (``(k, n)``) from every
-    rank's ``(m,)`` / ``(k, m)``, on every rank."""
+    rank's ``(m,)`` / ``(k, m)``, on every rank of the mesh."""
     local = v.t().contiguous()
     out = local.new_empty((mesh.size() * local.shape[0],) + local.shape[1:])
     dist.all_gather_into_tensor(out, local, group=mesh.get_group())
     return out.t()
+
+
+def _gather_df(v, mesh):
+    """A double-word vector (or stack of rows) gathered, as float64."""
+    return _gather(v.hi, mesh).double() + _gather(v.lo, mesh).double()
 
 
 def _pieces(op, b, x0, dtype, device):
@@ -176,8 +297,6 @@ def _pieces(op, b, x0, dtype, device):
     (left where the caller made it: each rank moves only its slice), ``b``
     and ``x0`` in the solve's vector dtype (bf16 storage: float32), and the
     resolved ``device``."""
-    if is_double_word(dtype):
-        raise NotImplementedError(f"distributed dtype='f32x2' {_LATER}")
     dev = resolve_device(device)
     is_op = (hasattr(op, "mv") and hasattr(op, "diagonal")
              and not isinstance(op, torch.Tensor))
@@ -195,6 +314,139 @@ def _mesh_for(mesh, dev):
     return mesh
 
 
+class _Local:
+    """A rank's part of a distributed solve: its context, the family's
+    functions, its rows of ``b`` and ``x0`` (``b``, ``x0``), ``rows`` (a
+    global vector to this rank's rows) and ``gather`` (a local vector, or
+    stacked rows, to the global one in the caller's order)."""
+
+    def __init__(self, ctx, init_fn, step_fn, b, x0, rows, gather):
+        self.ctx, self.init_fn, self.step_fn = ctx, init_fn, step_fn
+        self.b, self.x0, self.rows, self.gather = b, x0, rows, gather
+
+
+def _single_word(variant, op, b, x0, mesh, partition, preconditioner,
+                 dtype, compensated, col_packed, device, w_replace=None,
+                 w_replace_init=None, x_true=None, need_x_true=False):
+    """``(mesh, local, aux_x_true)`` of a single-word distributed solve, or
+    ``(mesh, None, None)`` on a rank outside the mesh.  Every refusal raises
+    before the mesh (and a process group) is made."""
+    op, b, x0, dev = _pieces(op, b, x0, dtype, device)
+    op0, b0 = op, b
+    op, to_basis, from_basis = solver_basis(op)
+    partition = _check_partition(op, partition)
+    mesh = _mesh_for(mesh, dev)
+    if not _in_mesh(mesh):
+        return mesh, None, None
+    if need_x_true and x_true is None:
+        x_true = _compute_x_true(op0, b0)
+    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
+                                         w_replace, w_replace_init)
+    ctx = _local_ctx_factory(op, mesh, precond, compensated, partition,
+                             col_packed)
+    m, rank, rdev = op.n // mesh.size(), mesh.get_local_rank(), \
+        _rank_device(mesh)
+
+    def rows(v):
+        return _rows(to_basis(v), rank, m, rdev)
+
+    def gather(v):
+        g = _gather(v, mesh)
+        return from_basis(g) if g.ndim == 1 else from_basis(g.t()).t()
+
+    local = _Local(ctx, init_fn, step_fn, rows(b), rows(x0), rows, gather)
+    aux_x_true = None
+    if need_x_true:
+        aux_x_true = rows(torch.as_tensor(x_true, dtype=b.dtype,
+                                          device=b.device))
+    return mesh, local, aux_x_true
+
+
+def _df_operator(op):
+    """The double-word operator of ``op`` on the host (a ``DFOperator`` is
+    taken as it is): the exact three-word split of a DIA band, a half-band
+    expanded first."""
+    if isinstance(op, DFOperator):
+        return op
+    return df_operator(op, fmt="dia", device="cpu")
+
+
+def _df_precond(prec_flag, preconditioner, op_df):
+    if not prec_flag:
+        return None
+    if preconditioner is None or (isinstance(preconditioner, str)
+                                  and preconditioner == "identity"):
+        return IdentityPreconditioner()
+    if isinstance(preconditioner, DFJacobi):
+        return preconditioner
+    if isinstance(preconditioner, str) and preconditioner == "jacobi":
+        return DFJacobi.from_operator(op_df)
+    raise NotImplementedError(
+        "distributed f32x2 supports preconditioner None|'jacobi'; got "
+        + repr(preconditioner))
+
+
+def _double_word(variant, op, b, x0, mesh, preconditioner, device,
+                 x_true=None, need_x_true=False):
+    """``(mesh, local, aux_x_true)`` of a double-word distributed solve
+    (the row partition of a DIA-representable operator), or ``(mesh, None,
+    None)`` on a rank outside the mesh."""
+    dev = resolve_device(device)
+    op_df = _df_operator(op)
+    if not isinstance(op_df.inner, DiaOperator):
+        raise TypeError(
+            "distributed f32x2 requires a DIA-representable operator (got "
+            f"inner {type(op_df.inner).__name__})")
+    key, prec_flag = family_of(variant)
+    init_fn, step_fn = FAMILIES[key]
+    precond = _df_precond(prec_flag, preconditioner, op_df)
+    mesh = _mesh_for(mesh, dev)
+    if not _in_mesh(mesh):
+        return mesh, None, None
+    inner = op_df.inner
+    p, rank, m, rdev = _shard_shape(inner, mesh)
+    _df_selfcheck(rdev)
+
+    def rows(v):
+        return DF(_rows(v.hi, rank, m, rdev), _rows(v.lo, rank, m, rdev))
+
+    if isinstance(precond, DFJacobi):
+        precond = DFJacobi(rows(precond.inv_diag))
+    words = tuple(_rows(w, rank, m, rdev) for w in op_df._words)
+    ctx = DFRowShardContext(inner.offsets, *words, mesh.get_group(), precond)
+    b_df = df_split(_host64(b), device="cpu")
+    x0_df = df_split(np.zeros(op_df.n) if x0 is None else _host64(x0),
+                     device="cpu")
+
+    def gather(v):
+        if isinstance(v, DF):
+            return _gather_df(v, mesh)
+        return _gather(v, mesh)  # a collapsed probe row
+
+    local = _Local(ctx, init_fn, step_fn, rows(b_df), rows(x0_df), rows,
+                   gather)
+    aux_x_true = None
+    if need_x_true:
+        if x_true is None:
+            x_true = _compute_x_true(op_df, _host64(b))
+        aux_x_true = rows(df_split(_host64(x_true), device="cpu"))
+    return mesh, local, aux_x_true
+
+
+def _setup(variant, op, b, x0, mesh, partition, preconditioner, dtype,
+           compensated, col_packed, device, **kw):
+    if is_double_word(dtype):
+        _check_df_dist_args(partition, compensated, col_packed)
+        if kw.pop("w_replace", None) is not None:
+            raise NotImplementedError(
+                "distributed f32x2 takes no residual-replacement hook")
+        kw.pop("w_replace_init", None)
+        return _double_word(variant, op, b, x0, mesh, preconditioner, device,
+                            **kw)
+    return _single_word(variant, op, b, x0, mesh, partition, preconditioner,
+                        dtype, compensated, col_packed, device, **kw)
+
+
 def dist_run(
     variant,
     op,
@@ -210,41 +462,43 @@ def dist_run(
     compensated=False,
     w_replace=None,
     w_replace_init=None,
+    col_packed=True,
     device=None,
 ):
     """Distributed history run: the mesh analogue of
     :func:`~..solvers.api.run`, on ``device`` (default the CUDA card).
 
-    Every rank returns the global output: ``'x'`` (gathered, a tensor on the
-    rank's device), ``'nu'`` at the end and one numpy array per probe
-    (``save_x`` / ``save_r`` rows gathered to ``(max_iter, n)``).
+    Every rank of the mesh returns the global output: ``'x'`` (gathered, a
+    tensor on the rank's device; float64 ``hi + lo`` in f32x2), ``'nu'`` at
+    the end and one numpy array per probe (``save_x`` / ``save_r`` rows
+    gathered to ``(max_iter, n)``).  A rank outside a sub-mesh
+    (:func:`make_mesh` with ``n_devices`` below the world size) returns
+    ``None``.  ``col_packed`` picks the column partition's combine
+    (:class:`~.contexts.ColShardContext`); ``dtype="f32x2"`` runs the
+    double-word mode (:class:`~.contexts.DFRowShardContext`).
     """
-    op, b, x0, dev = _pieces(op, b, x0, dtype, device)
     probe_fns = resolve_probes(probes)
-    if _needs_x_true(probe_fns) and x_true is None:
-        x_true = _compute_x_true(op, b)
-    op, to_basis, from_basis = solver_basis(op)
-    _check_partition(op, partition)
-    b, x0 = to_basis(b), to_basis(x0)
-    mesh = _mesh_for(mesh, dev)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
-                                         w_replace, w_replace_init)
-    ctx = _local_ctx_factory(op, mesh, precond, compensated)
-    m, rank, rdev = op.n // mesh.size(), mesh.get_local_rank(), \
-        _rank_device(mesh)
-    aux = {"b": _rows(b, rank, m, rdev)}
-    if _needs_x_true(probe_fns):
-        aux["x_true"] = _rows(to_basis(torch.as_tensor(
-            x_true, dtype=b.dtype, device=b.device)), rank, m, rdev)
-    final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, aux["b"],
-                               _rows(x0, rank, m, rdev), max_iter, aux)
+    mesh, local, aux_x_true = _setup(
+        variant, op, b, x0, mesh, partition, preconditioner, dtype,
+        compensated, col_packed, device, w_replace=w_replace,
+        w_replace_init=w_replace_init, x_true=x_true,
+        need_x_true=_needs_x_true(probe_fns))
+    if local is None:
+        return None
+    aux = {"b": local.b}
+    if aux_x_true is not None:
+        aux["x_true"] = aux_x_true
+    final, hist = history_scan(local.ctx, local.init_fn, local.step_fn,
+                               probe_fns, local.b, local.x0, max_iter, aux)
+    nu = final["nu"]
     output = {"name": variant, "max_iter": max_iter,
-              "x": from_basis(_gather(final["x"], mesh)),
-              "nu": final["nu"].cpu().numpy()}
+              "x": local.gather(final["x"]),
+              "nu": (nu.hi + nu.lo if isinstance(nu, DF) else nu)
+              .cpu().numpy()}
     for name in probe_fns:
         h = hist[name]
         if h.ndim == 2:  # vector probe rows: (max_iter, m) on each rank
-            h = from_basis(_gather(h, mesh).t()).t()
+            h = local.gather(h)
         output[name] = h.cpu().numpy()
     return output
 
@@ -263,27 +517,57 @@ def dist_solve(
     norm_type="natural",
     dtype=None,
     compensated=False,
+    col_packed=True,
     device=None,
 ):
     """Distributed tolerance solve: the mesh analogue of
     :func:`~..solvers.api.solve`, on ``device`` (default the CUDA card).
-    ``x`` is gathered on every rank."""
-    op, b, x0, dev = _pieces(op, b, x0, dtype, device)
-    op, to_basis, from_basis = solver_basis(op)
-    _check_partition(op, partition)
-    b, x0 = to_basis(b), to_basis(x0)
-    mesh = _mesh_for(mesh, dev)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
-    ctx = _local_ctx_factory(op, mesh, precond, compensated)
-    m, rank, rdev = op.n // mesh.size(), mesh.get_local_rank(), \
-        _rank_device(mesh)
-    s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn,
-                                    _rows(b, rank, m, rdev),
-                                    _rows(x0, rank, m, rdev), max_iter, rtol,
-                                    atol, norm_type)
+    ``x`` is gathered on every rank of the mesh (float64 ``hi + lo`` in
+    f32x2); a rank outside a sub-mesh returns ``None``."""
+    mesh, local, _ = _setup(variant, op, b, x0, mesh, partition,
+                            preconditioner, dtype, compensated, col_packed,
+                            device)
+    if local is None:
+        return None
+    s, k, nrm, tol = tolerance_loop(local.ctx, local.init_fn, local.step_fn,
+                                    local.b, local.x0, max_iter, rtol, atol,
+                                    norm_type)
     return SolveResult(
-        x=from_basis(_gather(s["x"], mesh)),
+        x=local.gather(s["x"]),
         iterations=int(k),
         norm=float(nrm),
         converged=bool(norm_type == "none" or float(nrm) <= float(tol)),
     )
+
+
+def _dist_chunked(variant, op, b, mesh, partition, preconditioner, max_iter,
+                  chunk_iters, dtype=None, device=None):
+    """The scaling harness's timed trial on a mesh (the analogue of the
+    mpi4py timed loop, ``scaling_experiments_mpi4py/cg_variants/hs_cg.py:
+    31-64``).  Returns ``(one_trial, final_x)``: ``one_trial() -> (seconds,
+    state)`` runs the init, then ``max_iter // chunk_iters`` (at least one)
+    chained chunks of ``chunk_iters`` steps, and closes its timer with one
+    synchronize of the rank's device; ``final_x(state)`` gathers the
+    iterate, float64 on the host (a collective: every rank of the mesh
+    calls it).  ``None`` on a rank outside the mesh."""
+    _, local, _ = _setup(variant, op, b, None, mesh, partition,
+                         preconditioner, dtype, False, True, device)
+    if local is None:
+        return None
+    rdev = _rank_device(mesh)
+
+    def one_trial():
+        s = local.init_fn(local.ctx, local.b, local.x0)
+        t0 = time.perf_counter()
+        for _ in range(max(1, max_iter // chunk_iters)):
+            for _ in range(chunk_iters):
+                s = local.step_fn(local.ctx, s)
+        if rdev.type == "cuda":
+            torch.cuda.synchronize(rdev)
+        return time.perf_counter() - t0, s
+
+    def final_x(state):
+        return local.gather(state["x"]).detach().to("cpu",
+                                                    torch.float64).numpy()
+
+    return one_trial, final_x

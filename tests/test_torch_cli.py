@@ -129,9 +129,31 @@ def test_bad_variant_errors():
     ["solve", "-n", "256", "-k", "2", "--partition", "row"],
     ["scaling", "-n", "256", "-k", "2", "--mesh-sizes", "1,2"],
 ], ids=["devices", "partition", "mesh-sizes"])
-def test_multi_device_requests_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        main(argv + ["--device", "cpu"])
+def test_multi_device_requests_raise(argv, capsys):
+    """A request for more devices than this one process raises before any
+    process group is made, naming the ``torchrun`` line that starts one
+    process a device; ``--partition`` alone solves through ``dist_solve``
+    on a world of one (destroyed after) and prints what ``solve`` prints.
+    (The name is kept from the refusals of ROADMAP item 7c this case held;
+    ``test_torch_dist_harness.py`` runs the requests on 2 ranks.)"""
+    import torch.distributed as dist
+
+    if "--partition" not in argv:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 "
+                           "-m new_cg_variants_tpu_torch"):
+            main(argv + ["--device", "cpu"])
+        assert not dist.is_initialized()
+        return
+    try:
+        assert main(argv + ["--device", "cpu", "--kappa", "100"]) == 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    dist_lines = capsys.readouterr().out.splitlines()
+    main(["solve", "-n", "256", "-k", "2", "--kappa", "100", "--device",
+          "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(dist_lines) == 4 and dist_lines[:3] == lines[:3]
 
 
 def test_module_help():

@@ -30,19 +30,17 @@ Held, in float64 over 25 iterations (26 rows):
 * bf16 half-band storage (float32 vectors) against the port's single-device
   bf16 run, rtol 1e-4 through iteration 15 (the JAX package casts its
   vectors to bf16 there, ROADMAP §3);
-* what raises: ``n % p``, a halo wider than a shard, the routes of ROADMAP
-  item 7b and ``device="cuda"`` without a card.
+* what raises: ``n % p``, a halo wider than a shard and ``device="cuda"``
+  without a card; the routes once refused (ELL, stencil, block-banded,
+  dense, the column partition, f32x2) now run here at world size 1.
 """
-
-import multiprocessing
-import pickle
-import time
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torch_dist_groups as groups_
 import torch_dist_worker as worker
 from new_cg_variants_tpu.matio.problems import banded_model as jax_banded
 from new_cg_variants_tpu.ops.operators import DiaOperator as JaxDia
@@ -135,46 +133,12 @@ def _jax_op(prob, fmt):
     return JaxDia(offsets, jnp.asarray(data)), b
 
 
-def _start(world, tmp):
-    ctx = multiprocessing.get_context("spawn")
-    out = tmp / f"results_{world}.pkl"
-    procs = [ctx.Process(target=worker.main, daemon=True,
-                         args=(rank, world, str(tmp / f"store_{world}"),
-                               str(out), cases(world)))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    return procs, out
-
-
-def _join(groups):
-    """Wait for every group until the deadline; kill all on expiry."""
-    end = time.monotonic() + DEADLINE_S
-    for procs, _ in groups.values():
-        for p in procs:
-            p.join(max(0.0, end - time.monotonic()))
-    late = [p for procs, _ in groups.values() for p in procs if p.is_alive()]
-    for p in late:
-        p.kill()
-        p.join(10)
-    if late:
-        pytest.fail(f"{len(late)} rank processes still running after "
-                    f"{DEADLINE_S} s: killed")
-    results = {}
-    for world, (procs, out) in groups.items():
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            pytest.fail(f"world {world}: rank exit codes {codes}")
-        with open(out, "rb") as f:
-            results[world] = pickle.load(f)
-    return results
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Start every group, compute the references meanwhile, then join."""
     tmp = tmp_path_factory.mktemp("dist")
-    groups = {world: _start(world, tmp) for world in WORLDS}
+    groups = {world: groups_.start(world, tmp, cases(world))
+              for world in WORLDS}
     try:
         jax_out, single = {}, {}
         for fmt in FMTS:
@@ -192,19 +156,14 @@ def runs(tmp_path_factory):
             single["symdia", name + " bf16"] = port.run(
                 name, top, tb, max_iter=ITERS, dtype=torch.bfloat16,
                 device="cpu")
-        results = _join(groups)
+        results = groups_.join(groups, DEADLINE_S)
     finally:
-        for procs, _ in groups.values():
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
+        groups_.kill(groups)
     return dict(port=results, jax=jax_out, single=single)
 
 
 def _result(runs, world, key):
-    status, value = runs["port"][world][key]
-    assert status == "ok", value
-    return value
+    return groups_.result(runs["port"], world, key)
 
 
 @pytest.mark.parametrize("key", list(HISTORIES))
@@ -328,6 +287,8 @@ def _refused(kind):
         op, _ = block_banded_from_coo(
             port.ops.operators.coo_from_scipy(op.tocsr()),
             dtype=torch.float64, device="cpu")
+        # 64 rows packed in one block of 128: the pad rows' b is zero
+        b = np.concatenate([b, np.zeros(op.n - b.shape[0])])
     return op, b, kw
 
 
@@ -335,17 +296,37 @@ def _refused(kind):
 @pytest.mark.parametrize("kind", ["f32x2", "col", "dense", "ell", "stencil",
                                   "block_banded"])
 def test_later_routes_raise_naming_the_roadmap_item(kind, entry):
-    """Refused before any process group is made: these calls leave this
-    process without one."""
+    """The routes this case once saw refused (ROADMAP item 7b: the name is
+    kept from then) now run: in this process, at world size 1 (the port's
+    ``make_mesh`` makes a world of one, destroyed after), each gives the
+    single-device entry point's result.  Across 2 and 4 ranks they are held
+    by ``test_torch_distributed_formats.py``, ``_col.py`` and
+    ``_f32x2.py``."""
     import torch.distributed as dist
 
     op, b, kw = _refused(kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
+    single = {k: v for k, v in kw.items() if k != "partition"}
+    # the column partition's product is a GEMM: at one rank the dense one's
+    one = port.as_operator(op.todense(), device="cpu") if kind == "col" \
+        else op
+    try:
         if entry == "dist_run":
-            parallel.dist_run("pipe_pr_cg", op, b, max_iter=3, **kw)
+            got = parallel.dist_run("pipe_pr_cg", op, b, max_iter=12, **kw)
+            want = port.run("pipe_pr_cg", one, b, max_iter=12, **single)
+            np.testing.assert_allclose(got["updated_residual_2_norm"],
+                                       want["updated_residual_2_norm"],
+                                       rtol=RTOL_SINGLE)
         else:
-            parallel.dist_solve(op, b, max_iter=3, **kw)
-    assert not dist.is_initialized()
+            got = parallel.dist_solve(op, b, rtol=1e-10, max_iter=400, **kw)
+            want = port.solve(one, b, rtol=1e-10, max_iter=400, **single)
+            assert got.converged and got.iterations == want.iterations
+        x = torch.as_tensor(want["x"] if entry == "dist_run" else want.x)
+        gx = torch.as_tensor(got["x"] if entry == "dist_run" else got.x)
+        np.testing.assert_allclose(gx.numpy(), x.numpy(), rtol=1e-9,
+                                   atol=1e-12 * float(x.abs().max()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("entry", ["dist_run", "dist_solve", "make_mesh"])

@@ -3,9 +3,11 @@
 Each JAX subpackage's ``__init__`` is read with ``ast`` (nothing of the JAX
 package is imported here): every name it imports must be importable from
 the port's counterpart, and a star import must come from the port's module
-of the same name.  The one name still to come is listed with its ROADMAP
-item.  Then the keyword arguments the JAX entry points take and the port
-accepts as well (``use_jit``, ``fmt``, ``native``).
+of the same name.  The ``__all__`` of each module of the JAX ``parallel``
+package must be the port module's, but for the one name listed with the
+reason it has no counterpart.  Then the keyword arguments the JAX entry
+points take and the port accepts as well (``use_jit``, ``fmt``,
+``native``).
 """
 
 import ast
@@ -22,8 +24,11 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_DIR = ROOT / "new_cg_variants_tpu"
 SUBPACKAGES = ("matio", "ops", "solvers", "probes", "parallel", "harness",
                "utils")
-#: JAX exports the port has yet to port, with the ROADMAP item that does
-LATER = {("parallel", "ColShardContext"): "7b"}
+#: JAX exports with no counterpart in the port, and why
+LATER = {("parallel.launch", "ASYNC_LIBTPU_FLAGS"):
+         "a TPU compiler's flags for overlapping collectives (libtpu); the "
+         "port overlaps by hand, async_op=True (ROADMAP §3)"}
+PARALLEL_MODULES = ("contexts", "dist", "ell_exchange", "launch")
 
 
 def jax_imports(path):
@@ -49,6 +54,26 @@ def test_subpackage_exports_the_jax_names(sub):
         src = importlib.import_module(f"new_cg_variants_tpu_torch.{sub}."
                                       f"{star}")
         assert src.__all__ and all(hasattr(mod, n) for n in src.__all__)
+
+
+def jax_all(path):
+    """The names of a module's ``__all__`` list, read with ``ast``."""
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", "") == "__all__"):
+            return [elt.value for elt in node.value.elts]
+    return None
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_export_the_jax_names(module):
+    names = jax_all(JAX_DIR / "parallel" / f"{module}.py")
+    mod = importlib.import_module(
+        f"new_cg_variants_tpu_torch.parallel.{module}")
+    later = [n for n in names if (f"parallel.{module}", n) in LATER]
+    assert all(hasattr(mod, n) for n in names if n not in later)
+    assert sorted(mod.__all__) == sorted(n for n in names if n not in later)
+    assert not any(hasattr(mod, n) for n in later)
 
 
 def test_star_exports_name_every_variant():

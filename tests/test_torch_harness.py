@@ -269,12 +269,31 @@ def test_scaling_run_single_device(problem, tmp_path):
 
 
 def test_scaling_multi_device_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    """A mesh size beyond this one process raises before any process group
+    is made, naming ``torchrun``; a mesh of this process's world (one) runs
+    ``time_variant`` through the distributed layer to the single-device
+    loop's iterate.  (The name is kept from the refusals of ROADMAP item 7c
+    this case held; ``test_torch_dist_harness.py`` runs sizes 1 and 2 on 2
+    ranks.)"""
+    import torch.distributed as dist
+
+    from new_cg_variants_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         hs.scaling_run(["hs_cg"], n=256, k=2, mesh_sizes=(1, 2),
                        verbose=False, device="cpu")
-    op, b, _ = port.banded_model(64, k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        hs.time_variant("hs_cg", op, b, mesh=object(), device="cpu")
+    assert not dist.is_initialized()
+    op, b, x_true = port.banded_model(256, k=2, kappa=50.0, device="cpu")
+    try:
+        got = hs.time_variant("hs_cg", op, b, x_true=x_true, max_iter=20,
+                              trials=1, mesh=make_mesh(device="cpu"),
+                              chunk_iters=5, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    want = hs.time_variant("hs_cg", op, b, x_true=x_true, max_iter=20,
+                           trials=1, device="cpu")
+    assert got.n_devices == 1 and got.n == 256 and len(got.times) == 1
+    assert got.error == want.error
 
 
 @pytest.mark.parametrize("dtype", [None, torch.float32, "f32x2"])

@@ -1,4 +1,6 @@
-"""One rank of the port's distributed tests (``test_torch_distributed.py``).
+"""One rank of the port's distributed tests (``test_torch_distributed.py``,
+``test_torch_distributed_formats.py``, ``test_torch_distributed_f32x2.py``,
+``test_torch_dist_harness.py``).
 
 The test spawns a group of these processes per world size; each joins a gloo
 group through a ``FileStore``, runs every case of the list it is handed in
@@ -11,16 +13,26 @@ that a spawned rank loads no JAX.
 A case is a dict with ``key`` and ``kind``:
 
 * ``"run"`` — ``dist_run`` on a problem (:func:`problem`) in a storage
-  ``fmt``; returns the probe histories and the gathered ``x``;
+  ``fmt``; returns the probe histories and the gathered ``x`` (``None`` on
+  a rank outside a sub-mesh, when ``case["mesh"]`` names one);
 * ``"solve"`` — ``dist_solve``; returns ``x``, iterations and convergence;
-* ``"halo"`` — the row context's ``mv`` / ``mv2`` on random vectors,
-  gathered, against ``todense() @ v``: the largest relative difference;
-* ``"counts"`` — a few steps of one name on the row context: per step the
-  all-reduce and halo counters and the order of the collectives;
+* ``"halo"`` — the context's ``mv`` / ``mv2`` on random vectors, gathered,
+  against ``todense() @ v``: the largest relative difference;
+* ``"counts"`` — a few steps of one name on the context: per step the
+  counters of every collective and the order of what reached
+  ``torch.distributed``;
 * ``"split"`` — the overlapped pipe step against the split formulation on
   the same state: the largest difference;
+* ``"mode"`` — the context's type and, for ELL, whether it plans an index
+  exchange (its hops) or gathers the whole vector;
 * ``"raises"`` — ``dist_run`` expected to raise: the exception's type name
-  and message.
+  and message;
+* ``"call"`` — a function of :data:`CALLS` (the harness, the command line,
+  sub-meshes): what it returns.
+
+``case["kw"]`` holds the entry point's keyword arguments (``partition``,
+``col_packed``, ``compensated``, ``dtype``, ...); the ``"counts"``,
+``"split"`` and ``"halo"`` cases take the context's from it too.
 """
 
 from __future__ import annotations
@@ -51,14 +63,92 @@ def scaled_band(n, h, seed=0, eps=1e-3):
     return tuple(range(h + 1)), data
 
 
+def ell_matrix(n, L, bandwidth, seed):
+    """A symmetric general sparse matrix (scipy CSR, float64) on the random
+    pattern of the JAX package's ``test_distributed.py:_random_sparse_ell``
+    (``L - 1`` columns a row within ``bandwidth`` of the diagonal, or
+    anywhere with ``None``), symmetrized: negative off-diagonal values in
+    [-1, -0.5], a diagonal just above each row's absolute sum, scaled on
+    both sides by a random diagonal in [1, 10] so that 25 CG iterations stay
+    above the rounding floor (condition number ~7e3)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    cols = np.empty((n, L - 1), dtype=np.int64)
+    for i in range(n):
+        if bandwidth is None:
+            c = rng.choice(n, size=L - 1, replace=False)
+        else:
+            lo, hi = max(0, i - bandwidth), min(n, i + bandwidth + 1)
+            c = lo + rng.choice(hi - lo, size=min(L - 1, hi - lo - 1),
+                                replace=False)
+            c = np.pad(c, (0, L - 1 - len(c)), constant_values=i)
+        cols[i] = c
+    rows = np.repeat(np.arange(n), L - 1)
+    vals = -rng.uniform(0.5, 1.0, n * (L - 1))
+    keep = rows != cols.ravel()
+    s = sp.csr_matrix((vals[keep], (rows[keep], cols.ravel()[keep])),
+                      shape=(n, n))
+    s = s + s.T
+    d = sp.diags(np.sqrt(rng.uniform(1.0, 100.0, n)))
+    a = s + sp.diags(np.abs(s).sum(1).A1 * (1 + 1e-3))
+    return (d @ a @ d).tocsr()
+
+
+def block_diagonal_matrix(n, p):
+    """A matrix whose rows couple only inside each of ``p`` row blocks: the
+    exchange plan at ``p`` ranks has no hop."""
+    import scipy.sparse as sp
+
+    m = n // p
+    blk = sp.diags([-np.ones(m - 1), 4 * np.ones(m), -np.ones(m - 1)],
+                   [-1, 0, 1])
+    return sp.block_diag([blk] * p).tocsr()
+
+
 def problem(spec, fmt):
-    """``(operator on the CPU, b)`` of ``spec`` in ``fmt`` (``"dia"`` /
-    ``"symdia"``): ``("banded", n, k, kappa)`` is ``banded_model``,
-    ``("scaled", n, h)`` the scaled band with ``b = A 1``."""
+    """``(operator on the CPU, b)`` of ``spec`` in ``fmt``:
+
+    * ``("banded", n, k, kappa)``: ``banded_model`` in ``fmt`` (``"dia"``,
+      ``"symdia"``, ``"stencil"``);
+    * ``("scaled", n, h)``: the scaled band in ``fmt`` (``"dia"`` /
+      ``"symdia"``) with ``b = A 1``;
+    * ``("ell", n, L, bandwidth, seed)``: :func:`ell_matrix` through
+      ``from_coo(fmt="ell")``, ``("ell_blocks", n, p)``:
+      :func:`block_diagonal_matrix` likewise; ``b = A x*``, ``x* = 1 /
+      sqrt(n)``;
+    * ``("block", n, k, kappa)``: ``banded_model``'s matrix packed by
+      ``block_banded_from_coo`` in its natural order (``n`` a multiple of
+      128: no pad rows);
+    * ``("dense", n, k, kappa)``: ``banded_model``'s matrix as a
+      ``DenseOperator``.
+    """
     import new_cg_variants_tpu_torch as port
     from new_cg_variants_tpu_torch.convert import operator_from_numpy
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
 
-    if spec[0] == "banded":
+    kind = spec[0]
+    if kind in ("ell", "ell_blocks"):
+        a = ell_matrix(*spec[1:]) if kind == "ell" \
+            else block_diagonal_matrix(*spec[1:])
+        n = a.shape[0]
+        op = port.from_coo(coo_from_scipy(a), fmt="ell", device="cpu")
+        return op, a @ (np.ones(n) / np.sqrt(n))
+    if kind in ("block", "dense"):
+        from new_cg_variants_tpu_torch.ops.block_banded import (
+            block_banded_from_coo,
+        )
+
+        _, n, k, kappa = spec
+        dia, b, _ = port.banded_model(n, k=k, kappa=kappa, fmt="dia",
+                                      device="cpu")
+        if kind == "dense":
+            return port.as_operator(dia.todense(), device="cpu"), b
+        op, _ = block_banded_from_coo(coo_from_scipy(dia.tocsr()),
+                                      dtype=torch.float64, reorder=None,
+                                      device="cpu")
+        return op, b
+    if kind == "banded":
         _, n, k, kappa = spec
         op, b, _ = port.banded_model(n, k=k, kappa=kappa, fmt=fmt,
                                      device="cpu")
@@ -72,11 +162,20 @@ def problem(spec, fmt):
                                device="cpu"), b
 
 
+def _mesh(case):
+    from new_cg_variants_tpu_torch.parallel import make_mesh
+
+    return make_mesh(case.get("mesh"), device="cpu")
+
+
 def _run(case):
     from new_cg_variants_tpu_torch.parallel import dist_run
 
     op, b = problem(case["problem"], case["fmt"])
-    out = dist_run(case["variant"], op, b, device="cpu", **case["kw"])
+    out = dist_run(case["variant"], op, b, mesh=_mesh(case), device="cpu",
+                   **case["kw"])
+    if out is None:
+        return None
     return {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
             for k, v in out.items()}
 
@@ -96,12 +195,24 @@ def _local(op, b, mesh):
     return b[r * m:(r + 1) * m].contiguous()
 
 
+def _ctx_kw(case):
+    """The context's keyword arguments of ``_local_ctx_factory`` from the
+    case's entry-point ones."""
+    from new_cg_variants_tpu_torch.parallel import dist as pdist
+
+    kw = case.get("kw", {})
+    return dict(partition=pdist._check_partition(
+                    problem(case["problem"], case["fmt"])[0],
+                    kw.get("partition", "auto")),
+                col_packed=kw.get("col_packed", True))
+
+
 def _halo(case):
     from new_cg_variants_tpu_torch.parallel import dist as pdist
 
     op, _ = problem(case["problem"], case["fmt"])
     mesh = pdist.make_mesh(device="cpu")
-    ctx = pdist._local_ctx_factory(op, mesh, None)
+    ctx = pdist._local_ctx_factory(op, mesh, None, **_ctx_kw(case))
     rng = np.random.default_rng(7)
     v, w = (torch.from_numpy(rng.standard_normal(op.n)) for _ in range(2))
     a = op.todense()
@@ -116,67 +227,86 @@ def _halo(case):
     return err
 
 
+def _local_solve(case, mesh):
+    """This rank's ``_Local`` (context, family functions, rows of ``b`` and
+    ``x0``) of the case's variant, Jacobi for a ``_pcg`` name."""
+    from new_cg_variants_tpu_torch.parallel import dist as pdist
+
+    op, b = problem(case["problem"], case["fmt"])
+    kw = case.get("kw", {})
+    variant = case["variant"]
+    pre = "jacobi" if variant.endswith("pcg") else None
+    _, local, _ = pdist._setup(variant, op, b, None, mesh,
+                               kw.get("partition", "auto"), pre,
+                               kw.get("dtype"), kw.get("compensated", False),
+                               kw.get("col_packed", True), "cpu")
+    return local
+
+
+#: what each collective wrapper of the contexts is logged as, by the
+#: ``torch.distributed`` function it reaches (``halo``: every message of a
+#: halo or index exchange, posted at two ranks and more)
+LOGGED = {"all_reduce": "all_reduce", "batch_isend_irecv": "halo",
+          "all_gather_into_tensor": "all_gather",
+          "reduce_scatter_tensor": "reduce_scatter"}
+
+
 def _counts(case):
     from new_cg_variants_tpu_torch.parallel import contexts
     from new_cg_variants_tpu_torch.parallel import dist as pdist
-    from new_cg_variants_tpu_torch.solvers.api import _resolve
 
-    op, b = problem(case["problem"], case["fmt"])
-    b = torch.from_numpy(b)
     mesh = pdist.make_mesh(device="cpu")
-    variant = case["variant"]
-    pre = "jacobi" if variant.endswith("pcg") else None
-    init_fn, step_fn, precond = _resolve(variant, op, pre)
-    ctx = pdist._local_ctx_factory(op, mesh, precond)
-    b_l = _local(op, b, mesh)
-    state = init_fn(ctx, b_l, torch.zeros_like(b_l))
-    # the order of what reaches torch.distributed (at two ranks and more
-    # every rank posts messages in each halo exchange)
-    log = []
-    torch_reduce, torch_p2p = dist.all_reduce, dist.batch_isend_irecv
+    local = _local_solve(case, mesh)
+    ctx, step_fn = local.ctx, local.step_fn
+    state = local.init_fn(ctx, local.b, local.x0)
+    # the order of what reaches torch.distributed
+    log, saved = [], {name: getattr(dist, name) for name in LOGGED}
 
-    def logged_reduce(*args, async_op=False, **kw):
-        log.append("all_reduce async" if async_op else "all_reduce")
-        return torch_reduce(*args, async_op=async_op, **kw)
-
-    def logged_p2p(ops):
-        log.append("halo")
-        return torch_p2p(ops)
+    def logged(name):
+        def call(*args, async_op=False, **kw):
+            log.append(LOGGED[name] + (" async" if async_op else ""))
+            if name == "batch_isend_irecv":
+                return saved[name](*args, **kw)
+            return saved[name](*args, async_op=async_op, **kw)
+        return call
 
     steps = []
-    dist.all_reduce, dist.batch_isend_irecv = logged_reduce, logged_p2p
+    for name in LOGGED:
+        setattr(dist, name, logged(name))
     try:
         for _ in range(case["steps"]):
-            contexts.all_reduce.calls = contexts.halo_exchange.calls = 0
+            for fn in contexts.COLLECTIVES:
+                fn.calls = 0
             del log[:]
             state = step_fn(ctx, state)
-            steps.append(dict(all_reduce=contexts.all_reduce.calls,
-                              halo=contexts.halo_exchange.calls,
-                              order=list(log)))
+            steps.append(dict(
+                all_reduce=contexts.all_reduce.calls,
+                halo=contexts.halo_exchange.calls,
+                index_exchange=contexts.index_exchange.calls,
+                all_gather=contexts.all_gather.calls,
+                reduce_scatter=contexts.reduce_scatter.calls,
+                order=list(log)))
     finally:
-        dist.all_reduce, dist.batch_isend_irecv = torch_reduce, torch_p2p
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
     return steps
 
 
 def _split(case):
-    """The row context's overlapped pipe step against the split formulation
+    """The context's overlapped pipe step against the split formulation
     (vector phase with its own all-reduce, then the products) on one state
-    past init: the largest difference of any output (vectors and dots), or
-    ``None`` where the context declines the step."""
+    past init: the largest difference of any output (vectors and dots)
+    relative to the largest value, or ``None`` where the context declines
+    the step."""
+    from new_cg_variants_tpu_torch.ops.doublefloat import DF
     from new_cg_variants_tpu_torch.parallel import dist as pdist
-    from new_cg_variants_tpu_torch.solvers.api import _resolve
     from new_cg_variants_tpu_torch.solvers.context import split_pipe_full_step
 
-    op, b = problem(case["problem"], case["fmt"])
-    b = torch.from_numpy(b)
     mesh = pdist.make_mesh(device="cpu")
-    variant = case["variant"]
-    pcg = variant.endswith("pcg")
-    init_fn, step_fn, precond = _resolve(variant, op,
-                                         "jacobi" if pcg else None)
-    ctx = pdist._local_ctx_factory(op, mesh, precond)
-    b_l = _local(op, b, mesh)
-    s_ = step_fn(ctx, init_fn(ctx, b_l, torch.zeros_like(b_l)))
+    local = _local_solve(case, mesh)
+    ctx, step_fn = local.ctx, local.step_fn
+    pcg = case["variant"].endswith("pcg")
+    s_ = step_fn(ctx, local.init_fn(ctx, local.b, local.x0))
     a1, beta = s_["a"], s_["b"]
     if not pcg:
         fused = ctx.pipe_full_step(s_, a1, beta, True)
@@ -191,11 +321,52 @@ def _split(case):
         wt, ut = ctx.prec(w), ctx.prec(u)
         split = (x, r, w, p, s, u, rt, st_, wt, ut, dots)
 
+    def words(t):
+        return [t.hi, t.lo] if isinstance(t, DF) else [t]
+
     def flat(out):
         *vecs, dots = out
-        return torch.cat([*vecs, torch.stack(dots)])
+        return torch.cat([w.reshape(-1) for t in (*vecs, *dots)
+                          for w in words(t)])
 
-    return float((flat(fused) - flat(split)).abs().max())
+    got, want = flat(fused), flat(split)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _mvdots(case):
+    """``mv_dots`` / ``mv2_dots`` against ``mv`` / ``mv2`` and ``dots`` on
+    random vectors: the largest difference of each output, relative to its
+    largest value."""
+    from new_cg_variants_tpu_torch.parallel import dist as pdist
+
+    op, _ = problem(case["problem"], case["fmt"])
+    mesh = pdist.make_mesh(device="cpu")
+    ctx = pdist._local_ctx_factory(op, mesh, None, **_ctx_kw(case))
+    rng = np.random.default_rng(11)
+    v, w = (_local(op, torch.from_numpy(rng.standard_normal(op.n)), mesh)
+            for _ in range(2))
+    pairs = ((v, w), (w, w))
+    y, d = ctx.mv_dots(v, pairs)
+    y2, z2, d2 = ctx.mv2_dots(v, w, pairs)
+    y0, (y20, z20), d0 = ctx.mv(v), ctx.mv2(v, w), ctx.dots(*pairs)
+
+    def rel(got, want):
+        got, want = (pdist._gather(t, mesh) if t.ndim else torch.stack([t])
+                     for t in (got, want))
+        return float((got - want).abs().max() / want.abs().max())
+
+    return {"mv": rel(y, y0), "mv2 v": rel(y2, y20), "mv2 w": rel(z2, z20),
+            **{f"dot {i}": max(rel(a, c), rel(b, c))
+               for i, (a, b, c) in enumerate(zip(d, d2, d0))}}
+
+
+def _mode(case):
+    from new_cg_variants_tpu_torch.parallel import dist as pdist
+
+    op, _ = problem(case["problem"], case["fmt"])
+    mesh = pdist.make_mesh(device="cpu")
+    ctx = pdist._local_ctx_factory(op, mesh, None, **_ctx_kw(case))
+    return dict(type=type(ctx).__name__, shifts=getattr(ctx, "shifts", ()))
 
 
 def _raises(case):
@@ -203,19 +374,67 @@ def _raises(case):
 
     op, b = problem(case["problem"], case["fmt"])
     try:
-        dist_run(case["variant"], op, b, device="cpu", max_iter=3)
+        dist_run(case["variant"], op, b, device="cpu", max_iter=3,
+                 **case.get("kw", {}))
     except (NotImplementedError, TypeError, ValueError) as e:
         return (type(e).__name__, str(e))
     return None
 
 
+def _scaling(case):
+    """``scaling_run`` over ``case["mesh_sizes"]`` into ``case["dir"]``:
+    the results this rank returns (``None`` for a size it is outside of)."""
+    from new_cg_variants_tpu_torch.harness.scaling import scaling_run
+
+    res = scaling_run(case["variants"], device="cpu", verbose=False,
+                      data_dir=case["dir"], **case["kw"])
+    return [None if r is None else r.to_dict() for r in res]
+
+
+def _time_variant(case):
+    from new_cg_variants_tpu_torch.harness.scaling import time_variant
+
+    op, b = problem(case["problem"], case["fmt"])
+    res = time_variant(case["variant"], op, b, mesh=_mesh(case),
+                       device="cpu", **case["kw"])
+    return None if res is None else res.to_dict()
+
+
+def _cli(case):
+    """``cli.main(argv)`` with its standard output captured: ``(rc, lines)``
+    or the exception's type name and message."""
+    import contextlib
+    import io
+
+    from new_cg_variants_tpu_torch import cli
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(case["argv"])
+    except (NotImplementedError, TypeError, ValueError, SystemExit) as e:
+        return (type(e).__name__, str(e))
+    return rc, buf.getvalue().splitlines()
+
+
+CALLS = {"scaling_run": _scaling, "time_variant": _time_variant,
+         "cli": _cli}
+
+
+def _call(case):
+    return CALLS[case["fn"]](case)
+
+
 CASES = {"run": _run, "solve": _solve, "halo": _halo, "counts": _counts,
-         "split": _split, "raises": _raises}
+         "split": _split, "mvdots": _mvdots, "mode": _mode,
+         "raises": _raises, "call": _call}
 
 
 def main(rank, world, store_path, out_path, cases):
     """Run ``cases`` as rank ``rank`` of ``world``; rank 0 writes the
-    results.  A case that fails records its traceback under its key."""
+    results.  A case that fails records its traceback under its key.  A
+    case with ``"every_rank"`` set records every rank's ``(status,
+    value)``, in rank order (gathered over the whole group)."""
     torch.set_num_threads(1)
     if world > 1:
         dist.init_process_group(
@@ -225,9 +444,17 @@ def main(rank, world, store_path, out_path, cases):
         results = {}
         for case in cases:
             try:
-                results[case["key"]] = ("ok", CASES[case["kind"]](case))
+                got = ("ok", CASES[case["kind"]](case))
             except Exception:  # reported to the test, which fails on it
-                results[case["key"]] = ("error", traceback.format_exc())
+                got = ("error", traceback.format_exc())
+            if case.get("every_rank"):
+                ranks = [None] * world
+                if world > 1:
+                    dist.all_gather_object(ranks, got)
+                else:
+                    ranks = [got]
+                got = ("ok", ranks)
+            results[case["key"]] = got
         if rank == 0:
             with open(out_path, "wb") as f:
                 pickle.dump(results, f)
