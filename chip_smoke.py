@@ -3740,13 +3740,19 @@ SHARD = " (shard p={} rank {})"
 DF_EXT_MS = (N, DF_DENSE_N)
 DIST_DF_ITERS = 200
 DIST_DF_NAMES = ("pipe_pr_cg", "hs_cg")
-#: f32x2 on the mesh against f32x2 on one device through DIST_DF_ROWS rows
-#: (the JAX package's bound and length, tests/test_dist_f32x2.py:24-32):
-#: the mesh's dots sum in another order than row 11's tiles, and the
-#: pipelined recurrences carry the difference on (the nu, alpha of every
-#: row are printed)
+#: f32x2 on the mesh against f32x2 on one device, every row.  At world size
+#: 1 the mesh context's arithmetic is the single-device mode's with the
+#: generic double-word vector phase, so pipe-PR-CG is held to that run; the
+#: default single-device run (row 11, whose dots sum in its tiles' order)
+#: is the witness (df_witness)
 DIST_DF_RTOL = 1e-5
-DIST_DF_ROWS = 30
+#: rows of the witness printed in double words
+DF_WITNESS_ROWS = 41
+#: the two dot orders' histories agree to the double-word rounding class
+#: through DF_EPS2_ROWS rows; later the model problem amplifies any
+#: difference many times a row (the witness prints how)
+DF_EPS2_ROWS = 20
+DF_EPS2_TOL = 1e-12
 COL_N = 8192
 #: collectives per iteration of each family in the column context, packed
 #: (tests/test_comm_structure.py:39-50)
@@ -3993,17 +3999,16 @@ def timed_call(torch, fn, *args, **kw):
 def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
               fields=None, want_run=None, want_step=None, want_coll=None,
               rtol=DIST_RTOL, rows=DIST_ROWS, iters=DIST_SOLVE_ITERS,
-              held_rows=None):
+              want=None):
     """One name on a mesh context at world size 1 (``kw``: ``dist_run``'s
     ``partition``, ``col_packed``, ``dtype``; ``fields``: the record's
     labels) against the single-device entry points on ``single_op``
-    (default ``op``): nu and alpha of ``rows`` rows, the first
-    ``held_rows`` (default all) held within ``rtol``; through
-    ``rows`` rows within ``rtol``; the launches of the ``dist_run``
-    (``want_run``), the kernels (``want_step``) and collectives
-    (``want_coll``) per iteration over DIST_STEPS steps; the profiler's
-    kernels per iteration and busy share; ``dist_solve``'s ms/iter beside
-    ``solve``'s.  Returns ``(record, launches on the path, failed)``."""
+    (default ``op``): nu and alpha of ``rows`` rows within ``rtol`` of
+    ``want`` (default the single-device ``run``); the launches of the
+    ``dist_run`` (``want_run``), the kernels (``want_step``) and
+    collectives (``want_coll``) per iteration over DIST_STEPS steps; the
+    profiler's kernels per iteration and busy share; ``dist_solve``'s
+    ms/iter beside ``solve``'s.  Returns ``(record, launches on the path, failed)``."""
     from new_cg_variants_tpu_torch import run, solve
     from new_cg_variants_tpu_torch.parallel import dist_run, dist_solve
     from new_cg_variants_tpu_torch.parallel.dist import _setup
@@ -4019,13 +4024,10 @@ def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
     got = dist_run(name, op, b, mesh=mesh, max_iter=rows, **rk, **kw)
     torch.cuda.synchronize()
     path = nonzero(read_counts())
-    want = run(name, single_op, b, max_iter=rows, dtype=dtype, **rk)
-    held = rows if held_rows is None else held_rows
-    rel = {p: np.abs(got[p] - want[p]) / np.abs(want[p])
-           for p in ("nu", "alpha")}
-    errs = {p: float(np.max(r[:held])) for p, r in rel.items()}
-    beyond = [int(np.argmax(r > rtol)) if bool((r > rtol).any()) else None
-              for r in rel.values()]
+    if want is None:
+        want = run(name, single_op, b, max_iter=rows, dtype=dtype, **rk)
+    errs = {p: float(np.max(np.abs(got[p] - want[p]) / np.abs(want[p])))
+            for p in ("nu", "alpha")}
     _, local, _ = _setup(name, op, b, None, mesh, kw.get("partition", "auto"),
                          pre, dtype, False, kw.get("col_packed", True),
                          "cuda")
@@ -4049,14 +4051,8 @@ def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
     add_counts(path, solve_counts)
     ref, _, single_ms = timed_call(torch, solve, single_op, b, dtype=dtype,
                                    **sk)
-    rec = dict(variant=name, **(fields or {}), rows=rows, held_rows=held,
+    rec = dict(variant=name, **(fields or {}), rows=rows,
                max_rel_diff=errs, rtol=rtol,
-               max_rel_diff_all_rows={p: float(np.max(r))
-                                      for p, r in rel.items()},
-               first_row_beyond_rtol=min(
-                   (i for i in beyond if i is not None), default=None),
-               nu=[float(v) for v in got["nu"]],
-               nu_single=[float(v) for v in want["nu"]],
                context=type(ctx).__name__, launches=nonzero(path),
                per_iteration=dict(
                    collectives=coll,
@@ -4101,21 +4097,104 @@ def dist_ell_f32(torch, mesh, built):
     return path
 
 
+def df_rows(torch, ctx, init_fn, step_fn, b, x0, rows):
+    """``rows`` states of a double-word run stepped by hand: nu and alpha as
+    the probes give them (collapsed) and nu in float64 (hi + lo)."""
+    from new_cg_variants_tpu_torch.probes.probes import resolve_probes
+
+    fns = resolve_probes(("nu", "alpha"))
+    out = {"nu": [], "alpha": [], "nu64": []}
+    state = init_fn(ctx, b, x0)
+    for k in range(rows):
+        if k:
+            state = step_fn(ctx, state)
+        for p, fn in fns.items():
+            out[p].append(fn(ctx, state, {}))
+        out["nu64"].append(state["nu"].value64())
+    return {p: torch.stack(v).cpu().numpy() for p, v in out.items()}
+
+
+def df_witness(torch, mesh, dop, b):
+    """pipe-PR-CG in f32x2 on the model problem, stepped by hand: the
+    single-device mode with row 11 (its dots in the tiles' order) and with
+    the generic double-word vector phase (df_dot's flat tree), the mesh
+    context at world size 1, and hs-CG.  The mesh context must repeat the
+    generic run's double words in every row; the row-11 run must stay within
+    DF_EPS2_TOL of it through DF_EPS2_ROWS rows (the other order's
+    rounding, before the model problem amplifies it).  Prints the first
+    DF_WITNESS_ROWS rows of each run and their relative differences.
+    Returns ``(generic run's rows, failed)``."""
+    from new_cg_variants_tpu_torch.ops.doublefloat import DoubleFloatContext
+    from new_cg_variants_tpu_torch.parallel.dist import _setup
+    from new_cg_variants_tpu_torch.solvers.api import _df_pieces
+    from new_cg_variants_tpu_torch.solvers.context import (
+        generic_pipe_vector_phase)
+
+    class GenericPhase(DoubleFloatContext):
+        def pipe_vector_phase(self, *args):
+            return generic_pipe_vector_phase(self, *args)
+
+    runs = {}
+    for name in DIST_DF_NAMES:
+        op, bw, x0, init_fn, step_fn, pre = _df_pieces(name, dop, b, None,
+                                                       None, "cuda")
+        runs[name] = df_rows(torch, DoubleFloatContext(op, pre), init_fn,
+                             step_fn, bw, x0, DIST_DF_ITERS)
+        if name == "pipe_pr_cg":
+            runs["generic"] = df_rows(torch, GenericPhase(op, pre), init_fn,
+                                      step_fn, bw, x0, DIST_DF_ITERS)
+    _, local, _ = _setup("pipe_pr_cg", dop, b, None, mesh, "auto", None,
+                         "f32x2", False, True, "cuda")
+    runs["mesh"] = df_rows(torch, local.ctx, local.init_fn, local.step_fn,
+                           local.b, local.x0, DIST_DF_ITERS)
+    gen = runs["generic"]["nu64"]
+
+    def rel(a, ref):
+        return np.abs(a - ref) / np.abs(ref)
+
+    row11 = rel(runs["pipe_pr_cg"]["nu64"], gen)
+    mesh_same = all(np.array_equal(runs["mesh"][p], runs["generic"][p])
+                    for p in ("nu64", "nu", "alpha"))
+    early = float(np.max(row11[:DF_EPS2_ROWS]))
+    rec = dict(
+        variant="pipe_pr_cg", rows=DIST_DF_ITERS, shown=DF_WITNESS_ROWS,
+        mesh_equals_generic_every_row=mesh_same,
+        row11_vs_generic_max_early=early, early_rows=DF_EPS2_ROWS,
+        early_tol=DF_EPS2_TOL,
+        first_row_row11_beyond={
+            str(t): int(np.argmax(row11 > t)) if (row11 > t).any() else None
+            for t in (DF_EPS2_TOL, DIST_DF_RTOL)},
+        **{f"nu64_{k}": [float(v) for v in r["nu64"][:DF_WITNESS_ROWS]]
+           for k, r in runs.items()},
+        rel_row11_vs_generic=[float(v) for v in row11[:DF_WITNESS_ROWS]],
+        rel_mesh_vs_row11=[float(v) for v in rel(
+            runs["mesh"]["nu64"], runs["pipe_pr_cg"]["nu64"])[
+                :DF_WITNESS_ROWS]],
+        rel_hs_vs_row11=[float(v) for v in rel(
+            runs["hs_cg"]["nu64"], runs["pipe_pr_cg"]["nu64"])[
+                :DF_WITNESS_ROWS]])
+    emit("dist_f32x2_witness", **rec)
+    ok = mesh_same and early <= DF_EPS2_TOL
+    return runs["generic"], [] if ok else [rec]
+
+
 def dist_f32x2(torch, mesh):
     """pipe-PR-CG and hs-CG in f32x2 on the double-word row context at
     world size 1: the model problem (n = 655,360, 63 diagonals built in
-    float64 and split on the host), 200 iterations; against the
-    single-device f32x2 run (nu, alpha to 1e-5 through DIST_DF_ROWS rows,
-    every row printed); row 9's
-    ``_ext`` entries once per product, one all-gather per sync phase, one
-    halo exchange per product.  Returns the launches."""
+    float64 and split on the host), 200 iterations; every row's nu and
+    alpha within 1e-5 of the single-device f32x2 run with the same dot
+    order (hs-CG: ``run``; pipe-PR-CG: the generic vector phase, with row
+    11's run as the witness, df_witness); row 9's ``_ext`` entries once per
+    product, one all-gather per sync phase, one halo exchange per product.
+    Returns the launches."""
     from new_cg_variants_tpu_torch import banded_model, df_operator
 
     sym, b64, _ = banded_model(N, k=K_BAND, device="cpu")  # float64
     dop = df_operator(sym, device="cuda")  # split once on the host
     del sym
     b = torch.from_numpy(b64)
-    path, failed = {}, []
+    generic, failed = df_witness(torch, mesh, dop, b)
+    path = {}
     for name in DIST_DF_NAMES:
         hs = name.startswith("hs")
         want_run = ({"df_dia_spmv_ext": 2 + DIST_DF_ITERS - 1} if hs
@@ -4124,8 +4203,9 @@ def dist_f32x2(torch, mesh):
         _, counts, bad = dist_case(
             torch, "dist_f32x2", mesh, name, dop, b, kw=dict(dtype="f32x2"),
             rows=DIST_DF_ITERS, iters=DIST_DF_ITERS, rtol=DIST_DF_RTOL,
-            held_rows=DIST_DF_ROWS,
-            fields=dict(n=N, ndiag=len(dop.inner.offsets)),
+            want=None if hs else generic,
+            fields=dict(n=N, ndiag=len(dop.inner.offsets),
+                        reference="run" if hs else "generic vector phase"),
             want_run=want_run,
             want_step={"df_dia_spmv_ext" if hs else "df_dia_spmv2_ext": 1},
             want_coll={"all_gather": 2.0 if hs else 1.0,
@@ -4313,7 +4393,9 @@ def dist_scaling(torch, mesh, built):
 def kernel_records(timings, launches):
     """The ``kernels`` line: one record per kernel entry and shape a driven
     path gives it, with the entry's launches on the paths of that shape
-    (``launches``: path -> entry -> count)."""
+    (``launches``: path -> entry -> count); a shape checked and timed that
+    no path runs (the ELL shards of 2 and 4 ranks) has no path and no
+    launches."""
     jax_ops = "new_cg_variants_tpu/ops/"
     sym = ("main_f32", "variants_f32", "cli_f32", "trace_f32")
     records = {
@@ -4401,17 +4483,18 @@ def kernel_records(timings, launches):
     })
     # the rest of the distributed layer: row 9 on a shard's extended words
     # (dist_f32x2), row 12 on a shard's cache (dist_ell_f32 at world size
-    # 1: the whole operator, the cache the gathered vector; and the shards
-    # of 2 and 4 ranks, checked and timed: the entry's launches are those
-    # of dist_ell_f32)
+    # 1: the whole operator, the cache the gathered vector); the shards of
+    # 2 and 4 ranks are checked and timed only: no path runs their shapes
     records.update({
         entry + DIST: ("df_spmv.cu", "df_spmv.py:43", ("dist_f32x2",))
         for entry in ("df_dia_spmv_ext", "df_dia_spmv2_ext")})
-    records.update({
-        entry + sfx: ("ell_spmv.cu", "ell_pallas.py:44", ("dist_ell_f32",))
-        for entry in ("ell_spmv_cache", "ell_spmv2_cache")
-        for sfx in (DIST,) + tuple(SHARD.format(p, r)
-                                   for p, r in ELL_SHARDS)})
+    for entry in ("ell_spmv_cache", "ell_spmv2_cache"):
+        records[entry + DIST] = ("ell_spmv.cu", "ell_pallas.py:44",
+                                 ("dist_ell_f32",))
+        records.update({
+            entry + SHARD.format(p, r): ("ell_spmv.cu", "ell_pallas.py:44",
+                                         ())
+            for p, r in ELL_SHARDS})
     kernels = []
     for name, (source, replaces, paths) in records.items():
         t = timings[name]
@@ -4512,7 +4595,8 @@ def main():
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
-    unlaunched = [k["name"] for k in kernels if k["launches"] < 1]
+    unlaunched = [k["name"] for k in kernels
+                  if k["paths"] and k["launches"] < 1]
     if unlaunched:
         raise AssertionError(f"no launch on its driven path: {unlaunched}")
     print(card, flush=True)

@@ -335,24 +335,16 @@ int launch_df_dense(const void* hi, const void* lo, const void* lo2,
 extern "C" {
 
 // hi / lo / lo2: the (ndiag, n) band words; v / y: 2 nrhs device pointers
-// (hi and lo words of each right-hand side and of each result); staged != 0
-// asks for the shared-memory windows.
+// (hi and lo words of each right-hand side and of each result); each word
+// array of v has length vlen and its element vorg is row 0 (the whole
+// vector: vorg = 0, vlen = n; a row shard's halo-extended words
+// [left h | v | right h]: vorg = h, vlen = n + 2h); staged != 0 asks for
+// the shared-memory windows.
 int df_dia_spmv_f32(const void* hi, const void* lo, const void* lo2,
                     const int* offsets, int ndiag, long long n,
-                    const void* const* v, void* const* y, int nrhs, int staged,
-                    int device, void* stream) {
-  return ncgv::launch_df_dia(hi, lo, lo2, offsets, ndiag, n, 0, n, v, y,
-                             nrhs, staged, device, stream);
-}
-
-// The local product of a row shard: n rows of band words, each word array of
-// v of length vlen whose element vorg is the shard's row 0 (the halo-extended
-// words [left h | v | right h]: vorg = h, vlen = n + 2h).
-int df_dia_spmv_ext_f32(const void* hi, const void* lo, const void* lo2,
-                        const int* offsets, int ndiag, long long n,
-                        long long vorg, long long vlen, const void* const* v,
-                        void* const* y, int nrhs, int staged, int device,
-                        void* stream) {
+                    long long vorg, long long vlen, const void* const* v,
+                    void* const* y, int nrhs, int staged, int device,
+                    void* stream) {
   return ncgv::launch_df_dia(hi, lo, lo2, offsets, ndiag, n, vorg, vlen, v,
                              y, nrhs, staged, device, stream);
 }

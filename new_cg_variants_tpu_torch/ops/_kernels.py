@@ -72,10 +72,8 @@ _SIGNATURES = {
         for name in ("dia_family_f32", "dia_family_f64", "dia_family_bf16")
     },
     "df_spmv.cu": {
-        "df_dia_spmv_f32": [_VP, _VP, _VP, _OFFS, _INT, _LL, _PTRS, _PTRS,
-                            _INT, _INT, _INT, _VP],
-        "df_dia_spmv_ext_f32": [_VP, _VP, _VP, _OFFS, _INT, _LL, _LL, _LL,
-                                _PTRS, _PTRS, _INT, _INT, _INT, _VP],
+        "df_dia_spmv_f32": [_VP, _VP, _VP, _OFFS, _INT, _LL, _LL, _LL,
+                            _PTRS, _PTRS, _INT, _INT, _INT, _VP],
         "df_dense_spmv_f32": [_VP, _VP, _VP, _LL, _PTRS, _PTRS, _INT, _INT,
                               _VP],
     },

@@ -37,6 +37,8 @@ a call, the vector phase's cross-tile combine included.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from ._kernels import KERNEL_TILE, check_band, offsets_array
@@ -144,13 +146,11 @@ def _launch_dia(offsets, hi, lo, lo2, words, ext=False):
     _check_words(hi, words, (n + 2 * h,))
     ys = [hi.new_empty(n) for _ in words]
     lib = library("df_spmv.cu")
-    head = (hi.data_ptr(), lo.data_ptr(), lo2.data_ptr(),
-            offsets_array(offsets), len(offsets), n)
-    tail = (_pointers(words), _pointers(ys), len(words) // 2,
-            int(stages_window(offsets)), hi.device.index,
-            torch.cuda.current_stream(hi.device).cuda_stream)
-    rc = (lib.df_dia_spmv_ext_f32(*head, h, n + 2 * h, *tail) if ext
-          else lib.df_dia_spmv_f32(*head, *tail))
+    rc = lib.df_dia_spmv_f32(
+        hi.data_ptr(), lo.data_ptr(), lo2.data_ptr(), offsets_array(offsets),
+        len(offsets), n, h, n + 2 * h, _pointers(words), _pointers(ys),
+        len(words) // 2, int(stages_window(offsets)), hi.device.index,
+        torch.cuda.current_stream(hi.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"df_dia_spmv kernel launch failed: CUDA error {rc}")
     return [tuple(ys[k:k + 2]) for k in range(0, len(ys), 2)]
@@ -202,24 +202,22 @@ def df_dia_spmv2(offsets, hi, lo, lo2, v, w):
     return y, z
 
 
-def _launch_dia_ext(offsets, hi, lo, lo2, words):
-    return _launch_dia(offsets, hi, lo, lo2, words, ext=True)
-
-
 def df_dia_spmv_ext(offsets, hi, lo, lo2, v):
     """``A_shard @ v`` for a row shard's ``(ndiag, m)`` band words and the
     word pair ``v`` halo-extended to ``m + 2h``; returns the ``(m,)``
     pair."""
-    (y,) = _product(df_dia_spmv_ext, _df_dia_mv_ext_plain, _launch_dia_ext,
-                    (offsets, hi, lo, lo2), (v,))
+    (y,) = _product(df_dia_spmv_ext, _df_dia_mv_ext_plain,
+                    partial(_launch_dia, ext=True), (offsets, hi, lo, lo2),
+                    (v,))
     return y
 
 
 def df_dia_spmv2_ext(offsets, hi, lo, lo2, v, w):
     """Both halo-extended right-hand sides from one read of the band
     words."""
-    y, z = _product(df_dia_spmv2_ext, _df_dia_mv_ext_plain, _launch_dia_ext,
-                    (offsets, hi, lo, lo2), (v, w))
+    y, z = _product(df_dia_spmv2_ext, _df_dia_mv_ext_plain,
+                    partial(_launch_dia, ext=True), (offsets, hi, lo, lo2),
+                    (v, w))
     return y, z
 
 

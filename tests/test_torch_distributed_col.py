@@ -4,7 +4,7 @@ package, on gloo groups of 1, 2 and 4 ranks.
 The mpi4py structure (``scaling_experiments_mpi4py/scaling_tests.py:51-54``):
 each rank owns ``m`` columns of a dense matrix.  Groups, references and the
 deadline as ``test_torch_distributed_formats.py``; wall time of the file
-36 s alone (most of it the JAX package's runs, the compensated ones the
+36-50 s alone (most of it the JAX package's runs, the compensated ones the
 slowest to compile), 98 s in the whole run under ``-n 6``.
 
 Held, in float64 over 25 iterations (26 rows):

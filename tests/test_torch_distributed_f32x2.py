@@ -2,10 +2,10 @@
 JAX package's distributed f32x2 mode, on gloo groups of 1, 2 and 4 ranks.
 
 Groups, references and the deadline as
-``test_torch_distributed_formats.py``.  Wall time of the file 55 s alone,
-86 s in the whole run under ``-n 6``, nearly all of it the JAX package's
-double-word programs compiling (3-7 s each; narrow bands keep them
-short).
+``test_torch_distributed_formats.py``.  Wall time of the file 53-55 s
+alone, 86 s in the whole run under ``-n 6``, nearly all of it the JAX
+package's nine double-word runs, one after another (2-5 s each, a second
+call as long as the first; narrow bands keep them short).
 
 Held, over 25 iterations (26 rows):
 
