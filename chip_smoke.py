@@ -4508,6 +4508,7 @@ def kernel_records(timings, launches):
                  if key in t}
         if name.endswith(BF16):
             extra["storage"] = "bf16 band / values, float32 vectors"
+            extra["share_of_bound"] = t["bound_ms"] / t["ms"]
         if name + NATURAL in timings:
             extra["natural_order"] = {
                 key: timings[name + NATURAL][key]

@@ -7,6 +7,11 @@
     python3 chip_study.py symopts   # rows 1 and 2's design options in turns
     python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
     python3 chip_study.py bf16check # build, registers, check_bf16 (timed)
+    python3 chip_study.py bf16opts  # rows 1, 2 and 2b's bf16 entries: the
+                                    # design options and the isolating
+                                    # edits, in turns
+    python3 chip_study.py against DIR  # rows 1, 2 and 2b in f32 and f64
+                                    # against DIR's sources: bits, times
     python3 chip_study.py ellopts   # row 12's design options, timed in turns
     python3 chip_study.py denseopts # row 10's dense design options, the same
     python3 chip_study.py pipeopts  # row 11's design options, the same
@@ -183,11 +188,25 @@ ELL_MUTANTS = {
 }
 
 #: faults of the bf16-storage entries (rows 1-3, 6-8, 12), held to
-#: chip_smoke.py's check_bf16: the half-band and ELL faults above as the bf16
-#: entries take them, and a widening that reads the stored bits wrong
+#: chip_smoke.py's check_bf16: faults of the half-band ring (the mirror term,
+#: the last group, the stage, the narrow path), the ELL fault above as the
+#: bf16 entries take it, and a widening that reads the stored bits wrong
 BF16_MUTANTS = {
-    "mirror term dropped (half-band, bf16 checks)":
-        SYM_MUTANTS["mirror term dropped (half-band)"],
+    "mirror term dropped (half-band ring, bf16 checks)": (
+        "sym_common.cuh", "          acc[r][k] += bm * x[-off];\n",
+        "          (void)bm;\n"),
+    "last diagonal group of the ring dropped (half-band, bf16 checks)": (
+        "sym_common.cuh",
+        "  const int ngroups = (ndiag + G - 1) / G;\n",
+        "  const int ngroups = max(1, (ndiag + G - 1) / G - 1);\n"),
+    "mirror read from the other stage of the ring (half-band, bf16 checks)": (
+        "sym_common.cuh", "        const T bm = widen(seg[b - off]);",
+        "        const T bm =\n"
+        "            widen(ring[((g + 1) % kRingStages) * sw + j * w + b - off]);"),
+    "unaligned rows staged one value off (half-band, bf16 checks)": (
+        "sym_common.cuh",
+        "    const long long s = i0 - hp + (idx - j * w);",
+        "    const long long s = i0 - hp + (idx - j * w) + 1;"),
     "last slot dropped (ELL, bf16 checks)":
         ELL_MUTANTS["last slot dropped (ELL)"],
     "bf16 value read as the low half of a float32 (every bf16 entry)": (
@@ -1058,32 +1077,33 @@ SYM_RING = [
      RING_SPMV + "template <typename T, typename D = T>\nint launch_sym_dia("),
     ("sym_dia.cu",
      "  if (nrhs == 1) {\n"
-     "    err = allow_smem(sym_dia_kernel<T, D, 1>, smem);\n"
+     "    err = allow_smem(sym_dia_kernel<T, D, 1>, smem + ring);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    sym_dia_kernel<T, D, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,\n"
-     "                                                       b, ya, yb);\n"
+     "    sym_dia_kernel<T, D, 1><<<grid, kTile, smem + ring, st>>>(\n"
+     "        d, o, ndiag, h, n, a, b, ya, yb);\n"
      "  } else {\n"
-     "    err = allow_smem(sym_dia_kernel<T, D, 2>, smem);\n"
+     "    err = allow_smem(sym_dia_kernel<T, D, 2>, smem + ring);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    sym_dia_kernel<T, D, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,\n"
-     "                                                       b, ya, yb);\n"
+     "    sym_dia_kernel<T, D, 2><<<grid, kTile, smem + ring, st>>>(\n"
+     "        d, o, ndiag, h, n, a, b, ya, yb);\n"
      "  }\n",
      "  (void)grid;\n"
+     "  (void)ring;\n"
      "  const long long ntiles = (n + kTile - 1) / kTile;\n"
-     "  const size_t ring =\n"
+     "  const size_t staged =\n"
      "      (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
      "       size_t(nrhs) * (kTile + 2 * h)) * sizeof(T);\n"
      "  if (nrhs == 1) {\n"
-     "    err = allow_smem(sym_dia_ring_kernel<T, D, 1>, ring);\n"
+     "    err = allow_smem(sym_dia_ring_kernel<T, D, 1>, staged);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, D, 1>, ring, ntiles);\n"
-     "    sym_dia_ring_kernel<T, D, 1><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, D, 1>, staged, ntiles);\n"
+     "    sym_dia_ring_kernel<T, D, 1><<<g, kTile, staged, st>>>(d, o, ndiag, h, n, a, b,\n"
      "                                                         ya, yb);\n"
      "  } else {\n"
-     "    err = allow_smem(sym_dia_ring_kernel<T, D, 2>, ring);\n"
+     "    err = allow_smem(sym_dia_ring_kernel<T, D, 2>, staged);\n"
      "    if (err != cudaSuccess) return int(err);\n"
-     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, D, 2>, ring, ntiles);\n"
-     "    sym_dia_ring_kernel<T, D, 2><<<g, kTile, ring, st>>>(d, o, ndiag, h, n, a, b,\n"
+     "    const unsigned g = persistent_grid(sym_dia_ring_kernel<T, D, 2>, staged, ntiles);\n"
+     "    sym_dia_ring_kernel<T, D, 2><<<g, kTile, staged, st>>>(d, o, ndiag, h, n, a, b,\n"
      "                                                         ya, yb);\n"
      "  }\n"),
     ("sym_family.cu", "constexpr int kFamilyRows = 2;",
@@ -1091,20 +1111,21 @@ SYM_RING = [
     ("sym_family.cu", "template <typename T, typename D, typename S>\nint launch_spec(",
      RING_FAMILY + "template <typename T, typename D, typename S>\nint launch_spec("),
     ("sym_family.cu",
-     "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);\n"
+     "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem + ring);\n"
      "  if (err != cudaSuccess) return int(err);\n"
      "  const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);\n"
-     "  sym_family_kernel<T, D, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n,\n"
-     "                                                       a, partials);\n",
+     "  sym_family_kernel<T, D, S><<<grid, kTile, smem + ring, st>>>(\n"
+     "      data, o, ndiag, h, n, a, partials);\n",
      "  (void)smem;\n"
+     "  (void)ring;\n"
      "  const long long ntiles = (n + kTile - 1) / kTile;\n"
-     "  const size_t ring = (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
-     "                       size_t(S::kMv) * (kTile + 2 * h) +\n"
-     "                       S::kDots * kWarps) * sizeof(T);\n"
-     "  cudaError_t err = allow_smem(sym_family_ring_kernel<T, D, S>, ring);\n"
+     "  const size_t staged = (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
+     "                         size_t(S::kMv) * (kTile + 2 * h) +\n"
+     "                         S::kDots * kWarps) * sizeof(T);\n"
+     "  cudaError_t err = allow_smem(sym_family_ring_kernel<T, D, S>, staged);\n"
      "  if (err != cudaSuccess) return int(err);\n"
-     "  const unsigned g = persistent_grid(sym_family_ring_kernel<T, D, S>, ring, ntiles);\n"
-     "  sym_family_ring_kernel<T, D, S><<<g, kTile, ring, st>>>(data, o, ndiag, h, n,\n"
+     "  const unsigned g = persistent_grid(sym_family_ring_kernel<T, D, S>, staged, ntiles);\n"
+     "  sym_family_ring_kernel<T, D, S><<<g, kTile, staged, st>>>(data, o, ndiag, h, n,\n"
      "                                                         a, partials);\n"),
 ]
 
@@ -1124,13 +1145,13 @@ def staged_band(helpers):
          "  load_band(data, ndiag, h, n, i0, sdata);\n"
          "  load_window(v0, h, n, i0, vw, sv);"),
         ("sym_dia.cu",
-         "  sym_rows<T, D, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h,"
-         "\n                                    acc);",
+         "    sym_rows<T, D, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h,"
+         "\n                                      acc);",
          "  acc[0][0] = sym_row(sdata, sv, ndiag, h, soff, threadIdx.x);\n"
          "  if (NRHS == 2)\n"
          "    acc[0][NRHS - 1] = sym_row(sdata, sv + vw, ndiag, h, soff,\n"
          "                               threadIdx.x);"),
-        ("sym_dia.cu", "__launch_bounds__(kTile, kSymDiaMinBlocks<T>)",
+        ("sym_dia.cu", "__launch_bounds__(kTile, kSymDiaMinBlocks<D>)",
          "__launch_bounds__(kTile)"),
         ("sym_dia.cu",
          "  const size_t smem = size_t(nrhs) * (kSymDiaTile + 2 * h) * "
@@ -1145,19 +1166,18 @@ def staged_band(helpers):
          "  T* sdata = reinterpret_cast<T*>(smem);\n"
          "  T* smv = sdata + size_t(ndiag) * (kTile + band_pad<T>(h));"),
         ("sym_family.cu",
-         "  load_offsets(o, ndiag, soff);\n  T keep[kFamilyRows][S::kKeep];",
-         "  load_offsets(o, ndiag, soff);\n"
+         "  T keep[kFamilyRows][S::kKeep];\n  sym_window",
          "  load_band(data, ndiag, h, n, i0, sdata);\n"
-         "  T keep[kFamilyRows][S::kKeep];"),
+         "  T keep[kFamilyRows][S::kKeep];\n  sym_window"),
         ("sym_family.cu",
-         "  sym_rows<T, D, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,"
-         "\n                                      acc);",
+         "    sym_rows<T, D, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw,"
+         "\n                                        h, acc);",
          "#pragma unroll\n"
          "  for (int k = 0; k < S::kMv; ++k)\n"
          "    acc[0][k] = sym_row(sdata, smv + k * vw, ndiag, h, soff, t);"),
         ("sym_family.cu",
-         "constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 3;",
-         "constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 2;"),
+         "constexpr int kMinBlocks = sizeof(D) == 8 ? 3 : 5;",
+         "constexpr int kMinBlocks = sizeof(D) == 8 ? 2 : 5;"),
         ("sym_family.cu",
          "  const size_t smem = (size_t(S::kMv) * (kFamilyTile + 2 * h) +",
          "  const size_t smem = (size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
@@ -1175,13 +1195,13 @@ def sym_bounds(family=None, spmv=None):
     edits = []
     if family:
         edits.append(("sym_family.cu",
-                      "constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 3;",
-                      "constexpr int kMinBlocks = sizeof(T) == 4 ? {} : {};"
+                      "constexpr int kMinBlocks = sizeof(D) == 8 ? 3 : 5;",
+                      "constexpr int kMinBlocks = sizeof(D) == 8 ? {1} : {0};"
                       .format(*family)))
     if spmv:
         edits.append(("sym_dia.cu", "constexpr int kSymDiaMinBlocks = 8;",
-                      "constexpr int kSymDiaMinBlocks = sizeof(T) == 4 ? {} : "
-                      "{};".format(*spmv)))
+                      "constexpr int kSymDiaMinBlocks = sizeof(D) == 8 ? {1} : "
+                      "{0};".format(*spmv)))
     return edits
 
 
@@ -1235,8 +1255,8 @@ SYM_OPTIONS = {
          "#pragma unroll 8\n  for (int d = 1;")],
     "carve-out: 25% of the SM's on-chip memory to shared memory": [
         ("sym_family.cu",
-         "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);\n",
-         "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);\n"
+         "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem + ring);\n",
+         "  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem + ring);\n"
          "  cudaFuncSetAttribute(sym_family_kernel<T, D, S>,\n"
          "                       cudaFuncAttributePreferredSharedMemoryCarveout,"
          " 25);\n"),
@@ -1250,6 +1270,167 @@ SYM_OPTIONS = {
          " 25);\n")],
 }
 
+
+#: the bf16 half-band entries as first designed: the band read straight from
+#: device memory (sym_common.cuh:sym_rows), as the float32 entries read it
+DIRECT_BF16 = [("sym_common.cuh", "constexpr bool kRingBand = sizeof(D) == 2;",
+              "constexpr bool kRingBand = false;")]
+
+#: timing-only edits of the first design and of the ring, each of which takes
+#: one cost away: never committed, their bits differ (bf16opts times them and
+#: checks nothing under them): what -> edits
+_MIRROR = ("const T am = (i < n && i >= off) ? widen(__ldg(row + i - off)) "
+           ": T(0);")
+_WINDOW = ("        acc[r][k] += af * smv[k * vw + c + off];\n"
+           "        acc[r][k] += am * smv[k * vw + c - off];\n")
+BF16_ISOLATE = {
+    "(iso) mirror value = the forward value (no mirror load)": DIRECT_BF16 + [
+        ("sym_common.cuh", _MIRROR, "const T am = af;")],
+    "(iso) window reads replaced by one register": DIRECT_BF16 + [
+        ("sym_common.cuh", _WINDOW,
+         "        acc[r][k] += af * smv[k * vw + c];\n"
+         "        acc[r][k] += am * smv[k * vw + c];\n")],
+    "(iso) forward loads alone (no mirror load, one window register)":
+        DIRECT_BF16 + [
+        ("sym_common.cuh", _MIRROR, "const T am = af;"),
+        ("sym_common.cuh", _WINDOW,
+         "        acc[r][k] += af * smv[k * vw + c];\n"
+         "        acc[r][k] += am * smv[k * vw + c];\n")],
+    "(iso) no bound tests on the band loads": DIRECT_BF16 + [
+        ("sym_common.cuh", _MIRROR,
+         "const T am = widen(__ldg(row + i - off));"),
+        ("sym_common.cuh",
+         "const T af = i < n ? band_load(row + i) : T(0);",
+         "const T af = band_load(row + i);")],
+    "(iso) forward loads through __ldg (no evict-first)": DIRECT_BF16 + [
+        ("sym_common.cuh", "    return widen(__ldcs(p));",
+         "    return widen(__ldg(p));")],
+    "(iso ring) mirror value = the forward value": [
+        ("sym_common.cuh", "        const T bm = widen(seg[b - off]);",
+         "        const T bm = bf;")],
+    "(iso ring) window reads replaced by one register": [
+        ("sym_common.cuh",
+         "          acc[r][k] += bf * x[off];\n"
+         "          acc[r][k] += bm * x[-off];\n",
+         "          acc[r][k] += bf * x[0];\n"
+         "          acc[r][k] += bm * x[0];\n")],
+    "(iso ring) no copies (the band never read)": [
+        ("sym_common.cuh", "  if (nd > 0 && wide) {", "  if (false) {"),
+        ("sym_common.cuh",
+         "  for (int idx = threadIdx.x; idx < nd * w; idx += blockDim.x) {\n"
+         "    const int j = idx / w;",
+         "  for (int idx = threadIdx.x; false; idx += blockDim.x) {\n"
+         "    const int j = idx / w;")],
+}
+
+
+def ring_knob(name, value, new):
+    """An edit that sets one of the bf16 ring's constants
+    (sym_common.cuh)."""
+    return ("sym_common.cuh", f"constexpr int {name} = {value};",
+            f"constexpr int {name} = {new};")
+
+
+def bf16_bounds(spmv=None, family=None):
+    """Edits that set the minimum-blocks launch bounds of the bf16 entries
+    of the half-band SpMV and family kernel (None: keep)."""
+    edits = []
+    if spmv:
+        edits.append(("sym_dia.cu", "constexpr int kSymDiaMinBlocks = 8;",
+                      "constexpr int kSymDiaMinBlocks = sizeof(D) == 2 ? "
+                      f"{spmv} : 8;"))
+    if family:
+        edits.append(("sym_family.cu",
+                      "constexpr int kMinBlocks = sizeof(D) == 8 ? 3 : 5;",
+                      "constexpr int kMinBlocks = sizeof(D) == 2 ? "
+                      f"{family} : sizeof(D) == 8 ? 3 : 5;"))
+    return edits
+
+
+#: the bf16 ring filled by 16-byte asynchronous copies (cp.async.cg), each
+#: thread its share of a stage's chunks, waited for at the block's barrier
+#: (cp.async.wait_group), in place of one thread's bulk copies counted on an
+#: mbarrier
+RING_CP_ASYNC = [
+    ("sym_common.cuh", "__device__ __forceinline__ void bulk_copy(",
+     "__device__ __forceinline__ void cp_async16(void* dst, const void* src) {\n"
+     '  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(\n'
+     "                   smem_addr(dst)), \"l\"(src) : \"memory\");\n"
+     "}\n"
+     "__device__ __forceinline__ void cp_async_commit() {\n"
+     '  asm volatile("cp.async.commit_group;\\n" ::: "memory");\n'
+     "}\n"
+     "template <int N>\n"
+     "__device__ __forceinline__ void cp_async_wait() {\n"
+     '  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N) : "memory");\n'
+     "}\n"
+     "__device__ __forceinline__ void bulk_copy("),
+    ("sym_common.cuh",
+     "    if (threadIdx.x == 0) {\n"
+     "      // the block's reads of the stage's last group before the copies\n"
+     '      asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
+     "      const unsigned bytes = unsigned(hi - lo) * sizeof(D);\n"
+     "      mbar_expect_tx(bar, unsigned(nd) * bytes);\n"
+     "      for (int j = 0; j < nd; ++j)\n"
+     "        bulk_copy(stage + j * w + lo, data + (long long)(d0 + j) * n + s0,\n"
+     "                  bytes, bar);\n"
+     "    }\n"
+     "    return;\n",
+     "    (void)bar;\n"
+     "    const int nch = (hi - lo) / 8;\n"
+     "    for (int idx = threadIdx.x; idx < nd * nch; idx += blockDim.x) {\n"
+     "      const int j = idx / nch;\n"
+     "      const int m = lo + (idx - j * nch) * 8;\n"
+     "      cp_async16(stage + j * w + m,\n"
+     "                 data + (long long)(d0 + j) * n + (i0 - hp + m));\n"
+     "    }\n"
+     "    cp_async_commit();\n"
+     "    return;\n"),
+    ("sym_common.cuh", "  if (threadIdx.x == 0) mbar_expect_tx(bar, 0);\n}\n",
+     "  cp_async_commit();\n}\n"),
+    ("sym_common.cuh",
+     "    __syncthreads();\n    const int next = g + kRingStages - 1;\n",
+     "    cp_async_wait<kRingStages - 2>();\n"
+     "    __syncthreads();\n    const int next = g + kRingStages - 1;\n"),
+    ("sym_common.cuh",
+     "    mbar_wait(ring_bars() + g % kRingStages, unsigned(g / kRingStages) & 1u);\n",
+     ""),
+]
+
+#: the ring's loop reads the stored offsets from their copy in shared memory
+#: (soff) in place of the kernel's parameter block
+BF16_SMEM_OFFSETS = [
+    ("sym_dia.cu",
+     "sym_rows_ring<T, D, kSymDiaRows, NRHS>(data, n, ndiag, o.off, sv, vw, h,",
+     "sym_rows_ring<T, D, kSymDiaRows, NRHS>(data, n, ndiag, soff, sv, vw, h,"),
+    ("sym_family.cu",
+     "sym_rows_ring<T, D, kFamilyRows, S::kMv>(data, n, ndiag, o.off, smv, vw,",
+     "sym_rows_ring<T, D, kFamilyRows, S::kMv>(data, n, ndiag, soff, smv, vw,"),
+]
+
+#: design options of the bf16 half-band path, each timed against the
+#: committed source in turns (``bf16opts``): what -> edits
+BF16_OPTIONS = {
+    "(a) the first design: band read from device memory": DIRECT_BF16,
+    "(b) 16-byte cp.async copies, waited for at the block's barrier":
+        RING_CP_ASYNC,
+    "(b) cp.async copies, offsets from shared memory":
+        RING_CP_ASYNC + BF16_SMEM_OFFSETS,
+    "(c) offsets read from their copy in shared memory": BF16_SMEM_OFFSETS,
+    **{f"(d) ring of {stages} stages": [ring_knob("kRingStages", 2, stages)]
+       for stages in (3, 4)},
+    **{f"(d) stages of {values} values (SpMV {values // 256}, family "
+       f"kernel {values // 512} diagonals)": [
+           ring_knob("kRingValues", 4096, values)] for values in (2048, 8192)},
+    **{f"(e) ring's diagonal loop unrolled by {depth} in both kernels": [
+        ("sym_common.cuh", "#pragma unroll (4 / R)\n    for (; j < nd; ++j) {",
+         f"#pragma unroll {depth}\n    for (; j < nd; ++j) {{")]
+       for depth in (2, 4, 8)},
+    "(f) launch bounds: SpMV 6, family kernel 4 blocks": bf16_bounds(6, 4),
+    "(f) launch bounds: SpMV 4, family kernel 6 blocks": bf16_bounds(4, 6),
+    "(f) launch bounds: family kernel 8 blocks": bf16_bounds(family=8),
+    "(f) no minimum blocks": bf16_bounds(1, 1),
+}
 
 #: the minimum-blocks launch bound of the half-band SpMV, the DIA SpMV and the
 #: full-DIA family kernel: (source, text, replacement taking the bound)
@@ -1477,20 +1658,25 @@ def study_symcheck(torch, card):
     emit("symcheck", ok=True)
 
 
-def sym_cases(torch, n, k, dtype, seed):
+def sym_cases(torch, n, k, dtype, seed, widen=False):
     """Name -> callable of every half-band kernel entry on one band, random
     inputs from ``seed``: the two SpMV entries and the eleven family
-    entries."""
+    entries.  A band stored as bf16 goes with float32 vectors and scalars;
+    ``widen``: the same bf16 band handed over as float32 (the float32
+    entries on the widened data)."""
     from new_cg_variants_tpu_torch.ops import sym_dia as sd
     from new_cg_variants_tpu_torch.ops import sym_fused as sf
 
     rng = np.random.default_rng(seed)
     offs = tuple(range(k))
     data = cs.random_band(torch, offs, n, dtype, rng)
+    vdt = cs.vector_dtype(torch, dtype)
+    if widen:
+        data = data.float()
     vecs = {nm: torch.as_tensor(
         rng.uniform(0.5, 2.0, n) if nm == "d" else rng.standard_normal(n),
-        dtype=dtype, device="cuda") for nm in "d x r w u p s rt st wt ut".split()}
-    scal = {nm: torch.tensor(val, dtype=dtype, device="cuda")
+        dtype=vdt, device="cuda") for nm in "d x r w u p s rt st wt ut".split()}
+    scal = {nm: torch.tensor(val, dtype=vdt, device="cuda")
             for nm, val in cs.SCALAR_VALUES.items()}
     v, w = vecs["x"], vecs["r"]
     cases = {
@@ -1570,6 +1756,133 @@ def study_symopts(torch, card):
                         for v, ts in times[c].items()},
              same_bits_as_committed=same[c])
 
+
+def sym_case_bound(torch, name, n, k, isz, rate):
+    """The bound (ms, by) of one half-band entry at (n, k) with band values
+    of ``isz`` bytes and float32 vectors: band and vectors read once,
+    outputs written once."""
+    if name.startswith("sym_dia_spmv"):
+        nrhs = 2 if name == "sym_dia_spmv2" else 1
+        return cs.bound(k * n * isz + 2 * nrhs * n * 4, 4 * k * n * nrhs,
+                        "float32", rate)
+    ins, _, outs, _, nmv, ops, _, _ = cs.FAMILY[name]
+    return cs.bound(k * n * isz + (len(ins.split()) + len(outs.split())) * n * 4,
+                    (4 * k * nmv + ops) * n, "float32", rate)
+
+
+def sym_bf16_checks(torch, card, report):
+    """check_bf16's half-band lines (rows 1, 2 and 2b at SYM_SHAPES): the
+    lines a half-band edit can change; returns the failed ones."""
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+
+    bf = ("bfloat16",)
+    shapes = tuple((n, k, tuple(range(k))) for n, k in cs.SYM_SHAPES)
+    return (cs.check_spmv(torch, card, None, report, dtypes=bf)
+            + cs.check_entries(torch, card, None, sf, cs.FAMILY, shapes,
+                               cs.random_band, 4, cs.BF16, report, dtypes=bf))
+
+
+def study_bf16opts(torch, card):
+    """Rows 1, 2 and 2b's bf16 entries (bf16 band, float32 vectors) at the
+    main path's shape (n = 655,360, k = 32) under each design option and
+    each isolating edit, timed in turns against the committed source (5
+    rounds of 100 launches), the float32 entries on the widened band beside
+    them.  Every design option's outputs are compared bit for bit with the
+    committed kernels' at every shape of the half-band checks
+    (chip_smoke.SYM_SHAPES), and check_bf16's half-band lines run under it;
+    the isolating edits (BF16_ISOLATE) are timed only."""
+    rate = cs.memory_rate(card)
+    cases, bounds = {}, {}
+    for widen, label in ((False, "bf16"), (True, "f32 on the widened band")):
+        for name, fn in sym_cases(torch, cs.N, cs.K_BAND, torch.bfloat16, 7,
+                                  widen).items():
+            cases[f"{name}, {label}"] = fn
+            bounds[f"{name}, {label}"] = sym_case_bound(
+                torch, name, cs.N, cs.K_BAND, 4 if widen else 2, rate)
+    shape_cases = {}
+    for n, k in cs.SYM_SHAPES:
+        for name, fn in sym_cases(torch, n, k, torch.bfloat16, n + k).items():
+            shape_cases[(name, n, k)] = fn
+
+    def check(variant):
+        if variant in BF16_ISOLATE:
+            return None
+        lines = []
+        failed = sym_bf16_checks(torch, card, lines.append)
+        outs = {key: [t.clone() for t in fn()]
+                for key, fn in shape_cases.items()}
+        return dict(checks=len(lines), failed=len(failed),
+                    not_same_bits_as_f32_entry=sum(
+                        not r["same_bits_as_f32_entry"] for r in lines),
+                    passed_err_max=max(max(r["max_err"],
+                                           r.get("max_dot_err", 0.0))
+                                       for r in lines), outs=outs)
+
+    variants = {"as committed": [], **BF16_OPTIONS, **BF16_ISOLATE}
+    times, same, logs, checked = timed_in_turns(
+        torch, variants, cases, rounds=5, iters=100,
+        only=("sym_dia.cu", "sym_family.cu"), check=check)
+    ref = checked["as committed"]["outs"]
+    for name, by_src in logs.items():
+        rec = checked[name]
+        if rec is not None:
+            outs = rec.pop("outs")
+            differ = sorted({f"{key[0]}, n = {key[1]}, k = {key[2]}"
+                             for key, got in outs.items()
+                             if not all(bool(torch.equal(a, b))
+                                        for a, b in zip(got, ref[key]))})
+            rec.update(check_shapes_compared=len(outs),
+                       check_shapes_same_bits_as_committed=not differ,
+                       check_shapes_differing=differ)
+        emit("bf16opts", variant=name,
+             ptxas=by_src["sym_dia.cu"] + by_src["sym_family.cu"],
+             bf16_checks=rec)
+    for c in cases:
+        b_ms, b_by = bounds[c]
+        med = {v: float(np.median(ts)) for v, ts in times[c].items()}
+        emit("bf16opts", case=c, card=card, bound_ms=b_ms, bound_by=b_by,
+             ms={v: [round(t, 5) for t in ts] for v, ts in times[c].items()},
+             median_ms={v: round(m, 5) for v, m in med.items()},
+             share_of_bound={v: round(b_ms / m, 3) for v, m in med.items()},
+             same_bits_as_committed=same[c])
+
+def study_against(torch, card, other):
+    """Rows 1, 2 and 2b's float32 and float64 entries built from this tree
+    against the same entries built from ``other`` (a directory holding
+    another tree's ``new_cg_variants_tpu_torch/csrc``, e.g. the parent
+    commit unpacked with ``git archive``): outputs bit for bit at every
+    shape of the half-band checks, and times in turns at the main path's
+    shape (n = 655,360, k = 32)."""
+    theirs = Path(other) / "new_cg_variants_tpu_torch" / "csrc"
+    variants = {"this tree": [],
+                "other tree": [(f.name, None, f.read_text())
+                               for f in sorted(theirs.iterdir())]}
+    cases, shape_cases = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        dn = cs.dtype_name(dtype)
+        for name, fn in sym_cases(torch, cs.N, cs.K_BAND, dtype, 7).items():
+            cases[f"{name}, {dn}"] = fn
+        for n, k in cs.SYM_SHAPES:
+            for name, fn in sym_cases(torch, n, k, dtype, n + k).items():
+                shape_cases[(name, dn, n, k)] = fn
+
+    def check(variant):
+        return {key: [t.clone() for t in fn()]
+                for key, fn in shape_cases.items()}
+
+    times, same, _, outs = timed_in_turns(
+        torch, variants, cases, rounds=3, iters=50,
+        only=("sym_dia.cu", "sym_family.cu"), check=check)
+    differ = sorted(f"{key[0]}, {key[1]}, n = {key[2]}, k = {key[3]}"
+                    for key, got in outs["other tree"].items()
+                    if not cs.same_bits(torch, got, outs["this tree"][key]))
+    emit("against", card=card, other=str(other),
+         shapes_compared=len(shape_cases), shapes_differing=differ,
+         main_shape_same_bits=all(all(v.values()) for v in same.values()))
+    for c in cases:
+        emit("against", case=c,
+             median_ms={v: round(float(np.median(ts)), 5)
+                        for v, ts in times[c].items()})
 
 def study_dfcheck(torch, card):
     """The quick first call after touching a double-word kernel: build,
@@ -1961,7 +2274,8 @@ def main(argv):
     studies = {"check": study_check, "dfcheck": study_dfcheck,
                "symcheck": study_symcheck, "symopts": study_symopts,
                "ellcheck": study_ellcheck, "ellopts": study_ellopts,
-               "bf16check": study_bf16check,
+               "bf16check": study_bf16check, "bf16opts": study_bf16opts,
+               "against": study_against,
                "denseopts": study_denseopts, "pipeopts": study_pipeopts,
                "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo,
@@ -1969,7 +2283,8 @@ def main(argv):
     if not (len(argv) == 2 and argv[1] in studies
             or len(argv) == 3 and argv[1] == "mutants"
             and argv[2] in ("dia", "sym", "df", "ell", "bf16")
-            or argv[1:2] == ["distcheck"] and set(argv[2:]) <= DIST_PHASES):
+            or argv[1:2] == ["distcheck"] and set(argv[2:]) <= DIST_PHASES
+            or len(argv) == 3 and argv[1] == "against"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

@@ -12,6 +12,10 @@
 // stored value per RHS) is two orders of magnitude below the f32 peak, and the
 // band is larger than the 50 MB L2, so nothing stays resident between calls.
 //
+// Tensor cores have no role: 4 operations per stored value and RHS is no
+// matrix product, and even in bf16 storage (4 operations per 2 bytes) the
+// arithmetic is two orders below the float32 peak.
+//
 // What the design does about it (sym_common.cuh): each thread reads the band
 // values of its rows straight from device memory, the forward value coalesced
 // and the mirror value from lines its block (or the previous one) just
@@ -20,15 +24,18 @@
 // is loaded once for both right-hand sides.  The right-hand sides, which
 // every row reads 2 ndiag - 1 times, are staged per block in shared memory
 // (tile + 2h values each), which leaves occupancy to the registers: see
-// kSymDiaMinBlocks.
+// kSymDiaMinBlocks.  A band stored in bf16 comes through a ring of bulk
+// copies in shared memory instead (sym_rows_ring), behind the windows.
 
 #include "sym_common.cuh"
 
 namespace ncgv {
 
-// Blocks per SM the compiler must leave registers for (32 a thread); the
-// windows take a few KB of shared memory per block and are never the limit.
-template <typename T>
+// Blocks per SM the compiler must leave registers for (32 a thread), by the
+// band's storage type (chip_study.py bf16opts times bf16's); the windows take
+// a few KB of shared memory per block (a bf16 band's ring 18 KB more at h =
+// 31) and are never the limit.
+template <typename D>
 constexpr int kSymDiaMinBlocks = 8;
 
 // Rows a thread owns (t + r kTile), and so rows a block owns.
@@ -36,7 +43,7 @@ constexpr int kSymDiaRows = 1;
 constexpr int kSymDiaTile = kSymDiaRows * kTile;
 
 template <typename T, typename D, int NRHS>
-__global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<T>)
+__global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<D>)
     sym_dia_kernel(const D* __restrict__ data, const __grid_constant__ Offsets o,
                    int ndiag, int h, long long n, const T* __restrict__ v0,
                    const T* __restrict__ v1, T* __restrict__ y0,
@@ -47,14 +54,25 @@ __global__ void __launch_bounds__(kTile, kSymDiaMinBlocks<T>)
   T* sv = reinterpret_cast<T*>(smem);  // NRHS windows of vw
   const long long i0 = (long long)blockIdx.x * kSymDiaTile;
 
+  // a bf16 band's ring, behind the windows
+  [[maybe_unused]] D* ring =
+      reinterpret_cast<D*>(smem + ring_at(NRHS * vw * sizeof(T)));
+
   load_offsets(o, ndiag, soff);
+  if constexpr (kRingBand<D>)
+    ring_start<kSymDiaTile>(data, n, ndiag, h, i0, ring);
   load_window(v0, h, n, i0, vw, sv);
   if (NRHS == 2) load_window(v1, h, n, i0, vw, sv + vw);
   __syncthreads();
 
   T acc[kSymDiaRows][NRHS];
-  sym_rows<T, D, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h,
-                                    acc);
+  if constexpr (kRingBand<D>) {
+    sym_rows_ring<T, D, kSymDiaRows, NRHS>(data, n, ndiag, o.off, sv, vw, h,
+                                           i0, ring, acc);
+  } else {
+    sym_rows<T, D, kSymDiaRows, NRHS>(data, n, i0, ndiag, soff, sv, vw, h,
+                                      acc);
+  }
 #pragma unroll
   for (int r = 0; r < kSymDiaRows; ++r) {
     const long long i = i0 + threadIdx.x + r * kTile;
@@ -77,6 +95,9 @@ int launch_sym_dia(const void* data, const int* offsets, int ndiag, int h,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const size_t smem = size_t(nrhs) * (kSymDiaTile + 2 * h) * sizeof(T);
+  const size_t ring = kRingBand<D> ? ring_at(smem) - smem +
+                                         ring_bytes<kSymDiaTile, D>(h)
+                                   : 0;
   const unsigned grid = unsigned((n + kSymDiaTile - 1) / kSymDiaTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const D* d = static_cast<const D*>(data);
@@ -85,15 +106,15 @@ int launch_sym_dia(const void* data, const int* offsets, int ndiag, int h,
   T* ya = static_cast<T*>(y0);
   T* yb = static_cast<T*>(y1);
   if (nrhs == 1) {
-    err = allow_smem(sym_dia_kernel<T, D, 1>, smem);
+    err = allow_smem(sym_dia_kernel<T, D, 1>, smem + ring);
     if (err != cudaSuccess) return int(err);
-    sym_dia_kernel<T, D, 1><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,
-                                                       b, ya, yb);
+    sym_dia_kernel<T, D, 1><<<grid, kTile, smem + ring, st>>>(
+        d, o, ndiag, h, n, a, b, ya, yb);
   } else {
-    err = allow_smem(sym_dia_kernel<T, D, 2>, smem);
+    err = allow_smem(sym_dia_kernel<T, D, 2>, smem + ring);
     if (err != cudaSuccess) return int(err);
-    sym_dia_kernel<T, D, 2><<<grid, kTile, smem, st>>>(d, o, ndiag, h, n, a,
-                                                       b, ya, yb);
+    sym_dia_kernel<T, D, 2><<<grid, kTile, smem + ring, st>>>(
+        d, o, ndiag, h, n, a, b, ya, yb);
   }
   return int(cudaGetLastError());
 }

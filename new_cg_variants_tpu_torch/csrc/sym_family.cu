@@ -19,7 +19,8 @@
 // (pipe_prec), 28-42 us at 3.35 TB/s, against at most ~5 us of f32
 // arithmetic at the 67 TFLOP/s peak.  With the band stored in bf16
 // (sym_family_bf16: 2-byte band values, float32 vectors) the band's share
-// halves: 52 MB (hs) to 97 MB (pipe_prec), 16-29 us.
+// halves: 52 MB (hs) to 97 MB (pipe_prec), 16-29 us.  Tensor cores have no
+// role: ~4 operations per stored value and SpMV input is no matrix product.
 //
 // What the design does about it:
 // * One block per kFamilyTile rows, one thread per kFamilyRows of them.  Each
@@ -27,7 +28,9 @@
 //   forward value coalesced and the mirror value from lines just brought into
 //   L1 / L2 (sym_common.cuh:sym_rows), once for all of the entry's SpMV
 //   inputs: the band crosses the memory bus about once and no block waits
-//   for a staging loop.
+//   for a staging loop.  A band stored in bf16 comes through a ring of
+//   bulk copies in shared memory instead (sym_common.cuh:sym_rows_ring),
+//   started before the update so the two overlap.
 // * The SpMV inputs are never written and re-read: each block applies the
 //   spec's update to the rows it owns AND to the h rows on each side, from
 //   the OLD vectors, into shared-memory windows [i0 - h, i0 + tile + h)
@@ -55,10 +58,12 @@
 
 namespace ncgv {
 
-// Blocks per SM the compiler must leave registers for: 48 registers a
-// thread in f32, 80 in f64 (chip_study.py symopts times 4, 6, 8 and none).
-template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? 5 : 3;
+// Blocks per SM the compiler must leave registers for, by the band's storage
+// type: 48 registers a thread in f32, 80 in f64 (chip_study.py symopts times
+// 4, 6, 8 and none); 31 with a bf16 band, whose ring takes 17 KB of shared
+// memory more at h = 31 (bf16opts times 4, 6, 8 and none).
+template <typename D>
+constexpr int kMinBlocks = sizeof(D) == 8 ? 3 : 5;
 
 // Rows a thread owns (t + r kTile), and so rows a block owns
 // (ops/_kernels.py:SYM_FAMILY_TILE).  Two rows a thread halve the halo rows
@@ -99,7 +104,7 @@ __device__ __forceinline__ void sym_window(const FamilyArgs<T>& a,
 }
 
 template <typename T, typename D, typename S>
-__global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
+__global__ void __launch_bounds__(kTile, kMinBlocks<D>) sym_family_kernel(
     const D* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
     int h, long long n, const __grid_constant__ FamilyArgs<T> a,
     T* __restrict__ partials) {
@@ -108,6 +113,10 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
   const int vw = kFamilyTile + 2 * h;
   T* smv = reinterpret_cast<T*>(smem);   // S::kMv windows of vw
   T* sred = smv + size_t(S::kMv) * vw;   // kFamilyRows * S::kDots * kWarps
+  // a bf16 band's ring, behind them
+  [[maybe_unused]] D* ring = reinterpret_cast<D*>(
+      smem + ring_at((size_t(S::kMv) * vw + kFamilyRows * S::kDots * kWarps) *
+                     sizeof(T)));
   const int t = threadIdx.x;
   const long long i0 = (long long)blockIdx.x * kFamilyTile;
   T sc[2];
@@ -115,13 +124,20 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<T>) sym_family_kernel(
   sc[1] = S::kSc > 1 ? *a.sc[1] : T(0);
 
   load_offsets(o, ndiag, soff);
+  if constexpr (kRingBand<D>)
+    ring_start<kFamilyTile>(data, n, ndiag, h, i0, ring);
   T keep[kFamilyRows][S::kKeep];
   sym_window<T, S>(a, sc, n, i0, h, vw, keep, smv);
   __syncthreads();
 
   T acc[kFamilyRows][S::kMv];
-  sym_rows<T, D, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw, h,
-                                      acc);
+  if constexpr (kRingBand<D>) {
+    sym_rows_ring<T, D, kFamilyRows, S::kMv>(data, n, ndiag, o.off, smv, vw,
+                                             h, i0, ring, acc);
+  } else {
+    sym_rows<T, D, kFamilyRows, S::kMv>(data, n, i0, ndiag, soff, smv, vw,
+                                        h, acc);
+  }
 #pragma unroll
   for (int r = 0; r < kFamilyRows; ++r) {
     const long long i = i0 + t + r * kTile;
@@ -152,11 +168,14 @@ int launch_spec(const D* data, const Offsets& o, int ndiag, int h,
   const size_t smem = (size_t(S::kMv) * (kFamilyTile + 2 * h) +
                        size_t(kFamilyRows) * S::kDots * kWarps) *
                       sizeof(T);
-  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem);
+  const size_t ring = kRingBand<D> ? ring_at(smem) - smem +
+                                         ring_bytes<kFamilyTile, D>(h)
+                                   : 0;
+  cudaError_t err = allow_smem(sym_family_kernel<T, D, S>, smem + ring);
   if (err != cudaSuccess) return int(err);
   const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);
-  sym_family_kernel<T, D, S><<<grid, kTile, smem, st>>>(data, o, ndiag, h, n,
-                                                       a, partials);
+  sym_family_kernel<T, D, S><<<grid, kTile, smem + ring, st>>>(
+      data, o, ndiag, h, n, a, partials);
   return int(cudaGetLastError());
 }
 

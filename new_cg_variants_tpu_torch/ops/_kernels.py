@@ -27,7 +27,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build", "load", "library", "using", "nvcc_command",
-           "KERNEL_TILE", "SYM_FAMILY_TILE", "MAX_DIAGS", "KERNEL_DTYPES",
+           "KERNEL_TILE", "SYM_FAMILY_TILE", "MAX_DIAGS", "RING_VALUES",
+           "RING_STAGES", "KERNEL_DTYPES",
            "STORAGE_DTYPES", "compute_dtype", "offsets_array", "check_band",
            "check_ell", "check_vectors"]
 
@@ -98,6 +99,11 @@ KERNEL_TILE = 256
 SYM_FAMILY_TILE = 512
 #: stored diagonals a launch may take (csrc/sym_common.cuh:kMaxDiags)
 MAX_DIAGS = 256
+#: the ring through which the half-band kernels stage a bf16 band
+#: (csrc/sym_common.cuh:kRingValues, kRingStages): band values of a block's
+#: rows a stage holds (RING_VALUES // rows diagonals), stages
+RING_VALUES = 4096
+RING_STAGES = 2
 #: suffix of the C entry point per element type of the vectors
 KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 #: per element type of a stored matrix (band, ELL values): the suffix of the

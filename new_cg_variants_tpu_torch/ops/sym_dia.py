@@ -23,6 +23,8 @@ import torch
 from ._kernels import (
     KERNEL_TILE,
     MAX_DIAGS,
+    RING_STAGES,
+    RING_VALUES,
     check_band,
     check_vectors,
     compute_dtype,
@@ -47,15 +49,31 @@ def _mv_plain(offsets, data, v):
     return y
 
 
-def kernel_smem_bytes(h, nvec_buffers, itemsize, tile=KERNEL_TILE):
+def ring_bytes(h, tile=KERNEL_TILE):
+    """Shared memory of the ring through which a block of ``tile`` rows
+    stages a bf16 band (csrc/sym_common.cuh:ring_bytes): RING_STAGES stages
+    of RING_VALUES // tile diagonals' segments, each ``tile`` rows and a
+    lead of ``h`` rounded up to 16 bytes, 2 bytes a value.  Independent of
+    the number of diagonals."""
+    lead = -(-h // 8) * 8
+    return RING_STAGES * (RING_VALUES // tile) * (tile + lead) * 2
+
+
+def kernel_smem_bytes(h, nvec_buffers, itemsize, tile=KERNEL_TILE,
+                      ring=False):
     """Shared memory of one block of ``tile`` rows: ``nvec_buffers`` vector
     windows of ``tile + 2 h`` values of ``itemsize`` bytes (the vectors'
     element size, not the band's), the fused step's reduction scratch (32
     values per 256 rows; an upper bound for the SpMV, which has none) and
-    the staged offsets.  The band is read from device memory and takes
-    none."""
-    return ((nvec_buffers * (tile + 2 * h) + 32 * (tile // KERNEL_TILE))
-            * itemsize + 4 * MAX_DIAGS)
+    the staged offsets.  A band in float32 or float64 is read from device
+    memory and takes none; ``ring``: the band is stored in bf16 and staged
+    through the ring (:func:`ring_bytes`, on a 16-byte boundary behind the
+    windows)."""
+    windows = ((nvec_buffers * (tile + 2 * h) + 32 * (tile // KERNEL_TILE))
+               * itemsize)
+    if ring:
+        windows = -(-windows // 16) * 16 + ring_bytes(h, tile)
+    return windows + 4 * MAX_DIAGS
 
 
 def check_kernel_args(offsets, data, vecs, nvec_buffers,
@@ -64,23 +82,24 @@ def check_kernel_args(offsets, data, vecs, nvec_buffers,
 
     ``nvec_buffers`` is the number of vector windows the kernel stages in
     shared memory (one per right-hand side, or the one or two SpMV inputs of
-    a fused entry) for a block of ``tile`` rows.  Raises on a wrong device,
-    dtype, shape or contiguity, and on a half-band whose windows do not fit
-    in one block's shared memory; that error names ``entry``, the entry
-    point.
+    a fused entry) for a block of ``tile`` rows; a bf16 band adds its ring.
+    Raises on a wrong device, dtype, shape or contiguity, and on a half-band
+    whose windows (and ring) do not fit in one block's shared memory; that
+    error names ``entry``, the entry point.
     """
     n, sfx = check_band(offsets, data)
     if offsets[0] != 0 or min(offsets) < 0:
         raise ValueError(f"bad stored offsets {offsets} for half-band storage")
     check_vectors(data, vecs, n)
     h = max(offsets)
+    ring = data.dtype == torch.bfloat16
     smem = kernel_smem_bytes(h, nvec_buffers,
-                             compute_dtype(data.dtype).itemsize, tile)
+                             compute_dtype(data.dtype).itemsize, tile, ring)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"{entry}: half-band {h} with {nvec_buffers} vector windows needs "
-            f"{smem} bytes of shared memory per block (> {MAX_SMEM_BYTES}): "
-            "unsupported")
+            f"{entry}: half-band {h} with {nvec_buffers} vector windows"
+            f"{' and a bf16 band ring' if ring else ''} needs {smem} bytes "
+            f"of shared memory per block (> {MAX_SMEM_BYTES}): unsupported")
     return n, h, sfx
 
 

@@ -630,9 +630,10 @@ def test_ell_arrays_take_bf16_values():
 def test_window_sizing_is_the_same_for_bf16_and_float32_data(nvec):
     """The half-band kernels stage float32 vector windows whatever the
     band's storage: the shared-memory check sizes them by the vectors'
-    itemsize, so bf16 data hits the limit at the half-band float32 data
-    does (sized by the band's 2 bytes, the windows would be undersized by
-    half)."""
+    itemsize (sized by the band's 2 bytes, the windows would be undersized
+    by half).  A bf16 band adds the ring it is staged through, so bf16 data
+    hits the limit where the same float32 windows and the ring fill a
+    block."""
     n = 100_000
     vec = _fake(torch.float32, (n,))
 
@@ -645,9 +646,18 @@ def test_window_sizing_is_the_same_for_bf16_and_float32_data(nvec):
             return False
         return True
 
-    limit = max(h for h in range(1, n)
-                if tsd.kernel_smem_bytes(h, nvec, 4) <= tsd.MAX_SMEM_BYTES)
-    assert limit < n - 1
-    for h in (limit - 1, limit, limit + 1):
-        assert fits(BF16, h) == fits(torch.float32, h) == (h <= limit)
-    assert tsd.kernel_smem_bytes(limit + 1, nvec, 2) <= tsd.MAX_SMEM_BYTES
+    for dtype, ring in ((torch.float32, False), (BF16, True)):
+        limit = max(h for h in range(1, n)
+                    if tsd.kernel_smem_bytes(h, nvec, 4, ring=ring)
+                    <= tsd.MAX_SMEM_BYTES)
+        assert limit < n - 1
+        for h in (limit - 1, limit, limit + 1):
+            assert fits(dtype, h) == (h <= limit)
+        assert (tsd.kernel_smem_bytes(limit + 1, nvec, 2, ring=ring)
+                <= tsd.MAX_SMEM_BYTES)
+    # the same windows; the ring, on a 16-byte boundary, is what bf16 adds
+    for h in (31, 127, 4000):
+        windows = tsd.kernel_smem_bytes(h, nvec, 4) - 4 * _kernels.MAX_DIAGS
+        assert tsd.kernel_smem_bytes(h, nvec, 4, ring=True) == (
+            -(-windows // 16) * 16 + tsd.ring_bytes(h)
+            + 4 * _kernels.MAX_DIAGS)

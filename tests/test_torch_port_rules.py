@@ -345,6 +345,8 @@ def test_every_study_edit_applies_to_the_kernel_sources():
              + list(chip_study.BF16_MUTANTS.values())
              + list(chip_study.LAUNCH_BOUNDS)
              + [e for opt in (chip_study.SYM_OPTIONS,
+                              chip_study.BF16_OPTIONS,
+                              chip_study.BF16_ISOLATE,
                               chip_study.ELL_OPTIONS,
                               chip_study.DENSE_OPTIONS,
                               chip_study.PIPE_OPTIONS)
