@@ -235,6 +235,7 @@ is available.  The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -1933,6 +1934,50 @@ ELL_SMALL = (("ragged", 4099, (0, 10)), ("n=100", 100, (1, 6)),
 #: suffix of the timings at HPCG's pattern in natural order (the path's
 #: shape is the permuted one)
 NATURAL = " (natural order)"
+#: the float64 shapes of convergence_f64 (HPCG 32^3 permuted) and of its
+#: post-hoc run (24^3), checked by check_ell too
+ELL_F64_GRIDS = (32, 24)
+#: row 12 as the parent design ran it, one slot a step (each slot's value
+#: and index loads, gather and term in turn): built by main() from this
+#: checkout's source with chunks of one slot (build_ell_witness), it is the
+#: witness whose bits every product of the committed kernel must give
+ELL_WITNESS = {}
+
+
+def build_ell_witness():
+    """Row 12's source with ``kEllChunk = 1``, built from this checkout's
+    ``csrc/`` into the package's ignored ``_build/ell-witness/``; returns
+    ``{source: library}`` for ``_kernels.using``."""
+    import shutil
+
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    root = _kernels.BUILD_ROOT / "ell-witness"
+    csrc = root / "csrc"
+    shutil.rmtree(csrc, ignore_errors=True)
+    csrc.mkdir(parents=True)
+    for f in _kernels.CSRC.glob("*.cuh"):
+        shutil.copy(f, csrc / f.name)
+    text, count = re.subn(r"constexpr int kEllChunk = \d+;",
+                          "constexpr int kEllChunk = 1;",
+                          (_kernels.CSRC / "ell_spmv.cu").read_text())
+    if count != 1:
+        raise RuntimeError("ell_spmv.cu: no single kEllChunk to set to 1")
+    (csrc / "ell_spmv.cu").write_text(text)
+    path = _kernels.build(csrc=csrc, build_root=root / "_build")["ell_spmv.cu"]
+    return {"ell_spmv.cu": _kernels.load("ell_spmv.cu", path)}
+
+
+def witness_same(torch, calls, got):
+    """Whether ``got`` equals, bit for bit, what ``calls()`` returns on the
+    witness build of row 12 (``None`` where main() built none)."""
+    if not ELL_WITNESS:
+        return None
+    from new_cg_variants_tpu_torch.ops import _kernels
+
+    with _kernels.using(ELL_WITNESS):
+        want = calls()
+    return same_bits(torch, got, want)
 
 
 def stencil27(grid, perm_seed=None):
@@ -2018,7 +2063,8 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
     """Both ELL entries against their plain versions on one pattern, in the
     given order and, with ``perm``, in that locality order (storage
     reordered, gather in, scatter out): the locality order's products must
-    equal the given order's bit for bit, and its gather in ``v[perm]``.
+    equal the given order's bit for bit, and its gather in ``v[perm]``;
+    every product also the witness's (``ELL_WITNESS``, where built).
     Timed (with the plain versions, cuSPARSE and the bound) when
     ``timings``, into records named with ``sfx`` (default: none for a
     permuted pattern, NATURAL else).  bf16 values (with float32 vectors)
@@ -2034,6 +2080,8 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
             for _ in range(2))
     y = es.ell_spmv(val, idx, v)
     y2, z2 = es.ell_spmv2(val, idx, v, w)
+    witness = witness_same(torch, lambda: (
+        es.ell_spmv(val, idx, v), *es.ell_spmv2(val, idx, v, w)), (y, y2, z2))
     bits_ok = True
     if bf16:
         wide = val.T.float().T
@@ -2052,6 +2100,10 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
         bval, bidx = bval_t.T, bidx_t.T
         ry = es.ell_spmv(bval, bidx, v, p)
         ry2, rz2 = es.ell_spmv2(bval, bidx, v, w, p)
+        if witness is not None:
+            witness = witness and witness_same(torch, lambda: (
+                es.ell_spmv(bval, bidx, v, p),
+                *es.ell_spmv2(bval, bidx, v, w, p)), (ry, ry2, rz2))
         if bf16:
             bwide = bval.T.float().T
             bits_ok = bits_ok and same_bits(torch, (ry, ry2, rz2), (
@@ -2073,6 +2125,9 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
     if bf16:
         rec["same_bits_as_f32_entry"] = bits_ok
         ok = ok and bits_ok
+    if witness is not None:
+        rec["same_bits_as_witness"] = witness
+        ok = ok and witness
     if timings is not None:
         isz, vsz = val.element_size(), v.element_size()
         b_ms, b_by = bound(n * L * (isz + 4) + 2 * n * vsz, 2 * n * L, dn,
@@ -2176,7 +2231,8 @@ def ell_checks(torch, card, timings, report, dtypes=("float32", "float64"),
     takes, and in the given one: timed in the first dtype, into records
     named with ``suffix``), then the small shapes in the given order and in
     a locality order (RCM, or a random one where RCM does not narrow the
-    band).  Returns the failed checks."""
+    band) and, in float64, convergence_f64's shapes (HPCG 32^3 and 24^3
+    permuted, in their RCM order).  Returns the failed checks."""
     rate = memory_rate(card)
     failed = []
     grid = f"27-point {HPCG_GRID}^3"
@@ -2199,6 +2255,13 @@ def ell_checks(torch, card, timings, report, dtypes=("float32", "float64"),
             failed += check_ell_shape(torch, label, a, rng,
                                       getattr(torch, dn), rate, None, report,
                                       perm)
+    if "float64" in dtypes:
+        for g in ELL_F64_GRIDS:
+            a = stencil27(g, PERM_SEED)
+            failed += check_ell_shape(
+                torch, f"27-point {g}^3 permuted", a,
+                np.random.default_rng(12), torch.float64, rate, None, report,
+                locality_order(a))
     return failed
 
 
@@ -3735,6 +3798,8 @@ def dist_f64(torch, mesh):
 ELL_SHARDS = ((2, 0), (2, 1), (4, 0), (4, 1))
 #: suffix of a shard's record
 SHARD = " (shard p={} rank {})"
+#: suffix of the timings of an all-gather shard of the permuted operator
+AG_SHARD = " (all-gather shard p={} rank {})"
 #: row 9's shard shapes: the row partition's rows (m = 655,360, 63
 #: diagonals, h = 31) and the dense path's n
 DF_EXT_MS = (N, DF_DENSE_N)
@@ -3872,27 +3937,22 @@ def ell_plan(p):
     return plan_ell_exchange(idx, idx.shape[0], p)
 
 
-def shard_csr(torch, vals, lidx, c, dtype):
-    """The shard's ``(m, c)`` matrix as a CUDA CSR tensor (the library's
-    yardstick), its real entries in column order within each row."""
-    real = vals != 0.0
-    rows = np.broadcast_to(np.arange(vals.shape[0])[:, None], vals.shape)[real]
-    cols = lidx[real]
-    order = np.lexsort((cols, rows))
-    crow = np.concatenate([[0], np.cumsum(np.bincount(
-        rows, minlength=vals.shape[0]))])
-    return torch.sparse_csr_tensor(
-        torch.from_numpy(crow).cuda(),
-        torch.from_numpy(cols[order].astype(np.int64)).cuda(),
-        torch.from_numpy(vals[real][order]).to(device="cuda", dtype=dtype),
-        size=(vals.shape[0], c))
+def device_csr(torch, val_t, idx_t, c):
+    """The ``(m, c)`` matrix of slot-major ``(L, m)`` ELL arrays on the
+    card as a CUDA CSR tensor (the library's yardstick), built there."""
+    L, m = val_t.shape
+    real = val_t != 0.0
+    rows = torch.arange(m, device=val_t.device).expand(L, m)[real]
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows, idx_t[real].long()]), val_t[real], (m, c))
+    return coo.coalesce().to_sparse_csr()
 
 
 def check_ell_shard(torch, label, vals, lidx, c, rate, timings, sfx, report):
     """Row 12's shard entries on one shard (``vals`` / ``lidx``: its ``(m,
     L)`` rows, indices into a cache of length ``c``) against their plain
-    versions in float32 and float64, in units of each value's scale;
-    timed in float32 into ``timings[entry + sfx]``."""
+    versions in float32 and float64, in units of each value's scale, and
+    the witness's bits; timed in float32 into ``timings[entry + sfx]``."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
 
     m, L = vals.shape
@@ -3908,6 +3968,9 @@ def check_ell_shard(torch, label, vals, lidx, c, rate, timings, sfx, report):
                                   device="cuda") for _ in range(2))
         y = es.ell_spmv_cache(val, li, cv)
         y2, z2 = es.ell_spmv2_cache(val, li, cv, cw)
+        witness = witness_same(torch, lambda: (
+            es.ell_spmv_cache(val, li, cv),
+            *es.ell_spmv2_cache(val, li, cv, cw)), (y, y2, z2))
         yp, zp = (es._ell_mv_plain(val, li, x) for x in (cv, cw))
         ys, zs = (es._ell_mv_plain(val.abs(), li, x.abs()) for x in (cv, cw))
         torch.cuda.synchronize()
@@ -3917,9 +3980,11 @@ def check_ell_shard(torch, label, vals, lidx, c, rate, timings, sfx, report):
         rec = dict(kernel="ell_spmv_cache", shape=label, dtype=dn, m=m, L=L,
                    cache=c, max_err=max(errs), max_abs_err=abs_err,
                    tol=TOL[dn])
-        if dn == "float32":
+        if witness is not None:
+            rec["same_bits_as_witness"] = witness
+        if dn == "float32" and timings is not None:
             isz = val.element_size()
-            csr = shard_csr(torch, vals, lidx, c, dtype)
+            csr = device_csr(torch, val.T, li.T, c)
             cvw = torch.stack([cv, cw], dim=1)
             common = dict(n=m, L=L, cache=c, max_abs_err=abs_err,
                           library="cuSPARSE CSR of the (m, c) shard "
@@ -3948,9 +4013,128 @@ def check_ell_shard(torch, label, vals, lidx, c, rate, timings, sfx, report):
                        library_err=cw_err(torch, csr @ cv, yp, ys))
             del csr, cvw
         report(rec)
-        if not max(errs) <= TOL[dn]:
+        if not (max(errs) <= TOL[dn] and witness is not False):
             failed.append(rec)
         del val, cv, cw
+        torch.cuda.empty_cache()
+    return failed
+
+
+def check_ell_ag_shard(torch, op, p, r, rate, timings, sfx, report):
+    """Row 12's shard entries on rank ``r`` of ``p``'s all-gather shard of
+    ``op`` (HPCG 104^3 permuted, an ``EllOperator`` in its RCM order,
+    float64 on the card): the rank's rows in the given numbering (the
+    witness) and in the locality order the row context takes
+    (``dist._ell_locality_shard``: rows and touched columns in RCM order,
+    one gather in), the cache the whole vector.  In float32, float64 and
+    bf16 storage: the locality order's products the given order's bits,
+    and the witness build's; both against the plain version.  Timed in
+    float32 into ``timings[entry + sfx]`` (the locality order with its
+    gather in; the given order beside it; at one rank also the gather in,
+    ``ell_gather`` + sfx)."""
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+    from new_cg_variants_tpu_torch.parallel.dist import _ell_locality_shard
+
+    n = op.n
+    m = n // p
+    gval_t, gidx_t = (t[:, r * m:(r + 1) * m].contiguous()
+                      for t in op._given())
+    lval_t, lidx_t, q, cols = _ell_locality_shard(op, r, m, "cuda")
+    k = cols.shape[0]
+    es.check_index(lidx_t, k)
+    L = gval_t.shape[0]
+    label = f"27-point {HPCG_GRID}^3 permuted, all-gather, p = {p}, rank {r}"
+    failed = []
+    for dn in ("float32", "float64", "bfloat16"):
+        dtype = getattr(torch, dn)
+        gval, lval = gval_t.to(dtype).T, lval_t.to(dtype).T
+        gidx, lidx = gidx_t.T, lidx_t.T
+        rng = np.random.default_rng(p + r)
+        cv, cw = (torch.as_tensor(rng.standard_normal(n),
+                                  dtype=vector_dtype(torch, dtype),
+                                  device="cuda") for _ in range(2))
+
+        def local():
+            return (es.ell_spmv_cache(lval, lidx, cv, q, cols),
+                    *es.ell_spmv2_cache(lval, lidx, cv, cw, q, cols))
+
+        ly, ly2, lz2 = local()
+        y = es.ell_spmv_cache(gval, gidx, cv)
+        y2, z2 = es.ell_spmv2_cache(gval, gidx, cv, cw)
+        same = same_bits(torch, (ly, ly2, lz2), (y, y2, z2))
+        witness = witness_same(torch, local, (ly, ly2, lz2))
+        yp, zp = (es._ell_mv_plain(gval, gidx, x) for x in (cv, cw))
+        ys, zs = (es._ell_mv_plain(gval.abs(), gidx, x.abs())
+                  for x in (cv, cw))
+        torch.cuda.synchronize()
+        got = [(ly, yp, ys), (ly2, yp, ys), (lz2, zp, zs), (y, yp, ys),
+               (y2, yp, ys), (z2, zp, zs)]
+        errs = [cw_err(torch, g, want, sc) for g, want, sc in got]
+        abs_err = max(float((g - want).abs().max()) for g, want, _ in got)
+        rec = dict(kernel="ell_spmv_cache", shape=label, dtype=dn, m=m, L=L,
+                   cache=n, columns=k, orders=["given", "locality"],
+                   same_bits_as_given=same, max_err=max(errs),
+                   max_abs_err=abs_err, tol=TOL[dn])
+        ok = same
+        if witness is not None:
+            rec["same_bits_as_witness"] = witness
+            ok = ok and witness
+        if dn == "float32" and timings is not None:
+            csr = device_csr(torch, gval_t.to(dtype), gidx_t, n)
+            cvw = torch.stack([cv, cw], dim=1)
+            common = dict(n=m, L=L, cache=n, columns=k, max_abs_err=abs_err,
+                          library="cuSPARSE CSR of the (m, n) shard "
+                          "through torch (csr @ cache, csr @ [cv cw])")
+            for entry, fn, given_fn, plain, lib, nrhs in (
+                    ("ell_spmv_cache",
+                     lambda: es.ell_spmv_cache(lval, lidx, cv, q, cols),
+                     lambda: es.ell_spmv_cache(gval, gidx, cv),
+                     lambda: es._ell_reordered_plain(lval, lidx, q, [cv],
+                                                     cols),
+                     lambda: csr @ cv, 1),
+                    ("ell_spmv2_cache",
+                     lambda: es.ell_spmv2_cache(lval, lidx, cv, cw, q, cols),
+                     lambda: es.ell_spmv2_cache(gval, gidx, cv, cw),
+                     lambda: es._ell_reordered_plain(lval, lidx, q, [cv, cw],
+                                                     cols),
+                     lambda: csr @ cvw, 2)):
+                # the touched columns read once: the least either order
+                # could read
+                b_ms, b_by = bound(m * L * 8 + nrhs * (k + m) * 4,
+                                   2 * nrhs * m * L, dn, rate)
+                timings[entry + sfx] = dict(
+                    common, ms=time_ms(torch, fn, 50),
+                    given_order=dict(ms=time_ms(torch, given_fn, 50)),
+                    plain_ms=time_ms(torch, plain, 5),
+                    library_ms=time_ms(torch, lib, 50), bound_ms=b_ms,
+                    bound_by=b_by)
+            t1, t2 = (timings[e + sfx] for e in ("ell_spmv_cache",
+                                                 "ell_spmv2_cache"))
+            rec.update(ms=t1["ms"], spmv2_ms=t2["ms"],
+                       given_order_ms=t1["given_order"]["ms"],
+                       given_order_spmv2_ms=t2["given_order"]["ms"],
+                       plain_ms=t1["plain_ms"], library_ms=t1["library_ms"],
+                       library2_ms=t2["library_ms"], bound_ms=t1["bound_ms"],
+                       spmv2_bound_ms=t2["bound_ms"])
+            if p == 1:
+                g_ms, g_by = bound(k * (4 + 2 * 4), 0, dn, rate)
+                timings["ell_gather" + sfx] = dict(
+                    n=k, max_abs_err=float((es.ell_gather(cols, [cv])
+                                            - cv[cols.long()]).abs().max()),
+                    ms=time_ms(torch, lambda: es.ell_gather(cols, [cv]), 50),
+                    ms_2rhs=time_ms(torch,
+                                    lambda: es.ell_gather(cols, [cv, cw]), 50),
+                    plain_ms=time_ms(
+                        torch, lambda: es._ell_gather_plain(cols, [cv]), 50),
+                    library_ms=time_ms(
+                        torch, lambda: torch.index_select(cv, 0, cols), 50),
+                    library="torch.index_select(v, 0, cols)", bound_ms=g_ms,
+                    bound_by=g_by)
+            del csr, cvw
+        report(rec)
+        if not (ok and max(errs) <= TOL[dn]):
+            failed.append(rec)
+        del gval, lval, cv, cw
         torch.cuda.empty_cache()
     return failed
 
@@ -3958,9 +4142,13 @@ def check_ell_shard(torch, label, vals, lidx, c, rate, timings, sfx, report):
 def check_ell_shards(torch, card, timings, report):
     """Row 12 on the shards of the ELL row context: HPCG 104^3 in natural
     order planned by ``plan_ell_exchange`` at 2 and 4 ranks, the first and
-    another rank's ``(m, L)`` rows and ``m + recv``-long caches (ELL_SHARDS),
-    and the whole permuted operator at one rank (the all-gather's cache
-    ``v``: dist_ell_f32's shape, into ``timings[entry + DIST]``)."""
+    another rank's ``(m, L)`` rows and ``m + recv``-long caches
+    (ELL_SHARDS); and HPCG 104^3 permuted, whose shards take the
+    all-gather, at one rank (dist_ell_f32's shape, into ``timings[entry +
+    DIST]``) and at 2 and 4 (ELL_SHARDS again), each in the given
+    numbering and in the locality order (check_ell_ag_shard)."""
+    from new_cg_variants_tpu_torch.ops.operators import EllOperator
+
     rate = memory_rate(card)
     failed = []
     val, idx = ell_pattern(None)
@@ -3977,9 +4165,15 @@ def check_ell_shards(torch, card, timings, report):
     val, idx = ell_pattern(PERM_SEED)
     vals = np.random.default_rng(1).uniform(-1.0, 1.0, val.shape)
     vals[val == 0.0] = 0.0
-    failed += check_ell_shard(
-        torch, f"27-point {HPCG_GRID}^3 permuted, p = 1", vals, idx, n,
-        rate, timings, DIST, report)
+    _, perm = hpcg_case(PERM_SEED)
+    op = EllOperator(torch.from_numpy(vals).cuda(),
+                     torch.from_numpy(idx).cuda(), perm=perm)
+    for p, r in ((1, 0),) + ELL_SHARDS:
+        failed += check_ell_ag_shard(
+            torch, op, p, r, rate, timings,
+            DIST if p == 1 else AG_SHARD.format(p, r), report)
+    del op
+    torch.cuda.empty_cache()
     return failed
 
 
@@ -4080,17 +4274,19 @@ def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
 
 def dist_ell_f32(torch, mesh, built):
     """pipe-PR-CG on the ELL row context at world size 1: ell_f32's
-    operator (HPCG 27-point, 104^3, permuted; the context takes its rows in
-    the given numbering), the cache gathered whole (the planner's choice at
-    one rank): row 12 once per product, one all-gather per matvec phase,
-    one all-reduce per sync phase; nu and alpha within 1e-4 of the
+    operator (HPCG 27-point, 104^3, permuted; the context takes its rows
+    and columns in the operator's RCM order), the cache gathered whole (the
+    planner's choice at one rank): row 12 once per product, after one
+    gather in (``ell_gather``) into that order, one all-gather per matvec
+    phase, one all-reduce per sync phase; nu and alpha within 1e-4 of the
     single-device run through iteration 15.  Returns the launches."""
     a, op, b, x_true = built.pop("hpcg_ell")
     rec, path, failed = dist_case(
         torch, "dist_ell_f32", mesh, "pipe_pr_cg", op, b,
         fields=dict(n=op.n, operator="ELL, HPCG 104^3 permuted"),
-        want_run={"ell_spmv_cache": 3, "ell_spmv2_cache": DIST_ROWS - 1},
-        want_step={"ell_spmv2_cache": 1},
+        want_run={"ell_spmv_cache": 3, "ell_spmv2_cache": DIST_ROWS - 1,
+                  "ell_gather": DIST_ROWS + 2},
+        want_step={"ell_spmv2_cache": 1, "ell_gather": 1},
         want_coll={"all_reduce": 1.0, "all_gather": 1.0})
     if failed:
         raise AssertionError(f"ELL row context failed: {failed}")
@@ -4492,9 +4688,11 @@ def kernel_records(timings, launches):
         records[entry + DIST] = ("ell_spmv.cu", "ell_pallas.py:44",
                                  ("dist_ell_f32",))
         records.update({
-            entry + SHARD.format(p, r): ("ell_spmv.cu", "ell_pallas.py:44",
-                                         ())
-            for p, r in ELL_SHARDS})
+            entry + sfx.format(p, r): ("ell_spmv.cu", "ell_pallas.py:44", ())
+            for sfx in (SHARD, AG_SHARD) for p, r in ELL_SHARDS})
+    # the gather in of the row context's product in its locality order
+    records["ell_gather" + DIST] = ("ell_spmv.cu", "ell_pallas.py:44",
+                                    ("dist_ell_f32",))
     kernels = []
     for name, (source, replaces, paths) in records.items():
         t = timings[name]
@@ -4504,7 +4702,7 @@ def kernel_records(timings, launches):
                                          "bound_ops_ms", "L", "library",
                                          "given_order", "ms_2rhs",
                                          "launches_per_call", "f32_ms",
-                                         "cache")
+                                         "cache", "columns")
                  if key in t}
         if name.endswith(BF16):
             extra["storage"] = "bf16 band / values, float32 vectors"
@@ -4533,9 +4731,13 @@ def main():
     from new_cg_variants_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    paths = _kernels.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        witness = pool.submit(build_ell_witness)  # beside the package's
+        paths = _kernels.build()
+        ELL_WITNESS.update(witness.result())
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(str(p.name) for p in paths.values()))
+         libraries=sorted(str(p.name) for p in paths.values()),
+         witness=sorted(ELL_WITNESS))
     for p in paths.values():
         log = p.with_suffix(".log").read_text()
         print("\n".join(ln for ln in log.splitlines()

@@ -5,12 +5,14 @@
     python3 chip_study.py dfcheck   # build, registers, the double-word checks
     python3 chip_study.py symcheck  # build, registers, the half-band checks
     python3 chip_study.py symopts   # rows 1 and 2's design options in turns
-    python3 chip_study.py ellcheck  # build, registers, check_ell (timed)
+    python3 chip_study.py ellcheck  # build, registers, check_ell and the
+                                    # ELL shard checks (timed)
     python3 chip_study.py bf16check # build, registers, check_bf16 (timed)
     python3 chip_study.py bf16opts  # rows 1, 2 and 2b's bf16 entries: the
                                     # design options and the isolating
                                     # edits, in turns
-    python3 chip_study.py against DIR  # rows 1, 2 and 2b in f32 and f64
+    python3 chip_study.py against DIR [sym|ell]  # rows 1, 2 and 2b in f32
+                                    # and f64, row 12 in f32, f64 and bf16
                                     # against DIR's sources: bits, times
     python3 chip_study.py ellopts   # row 12's design options, timed in turns
     python3 chip_study.py denseopts # row 10's dense design options, the same
@@ -174,17 +176,29 @@ DF_MUTANTS = {
         "for (int off = 1; off < lanes; off <<= 1) {"),
 }
 
-#: faults of the ELL kernel (row 12), held to chip_smoke.py's check_ell
+#: faults of the ELL kernel (row 12), held to chip_smoke.py's check_ell and
+#: check_ell_shards (the row context's shards, the all-gather ones in their
+#: locality order)
 ELL_MUTANTS = {
     "last slot dropped (ELL)": (
-        "ell_spmv.cu", "for (int l = 0; l < L; ++l) {",
-        "for (int l = 0; l < L - 1; ++l) {"),
-    "v[i] read in place of v[idx] (ELL)": (
-        "ell_spmv.cu", "const int j = stream(c + o);", "const int j = (int)i;"),
-    "scatter-out skips the permutation (ELL)": (
+        "ell_spmv.cu", "  for (; l + kEllChunk <= L; l += kEllChunk)",
+        "  for (--L; l + kEllChunk <= L; l += kEllChunk)"),
+    "a chunk drops its last slot (ELL)": (
+        "ell_spmv.cu",
+        "  for (int k = 0; k < K; ++k) {\n    const T xk = widen(x[k]);",
+        "  for (int k = 0; k < K - 1; ++k) {\n    const T xk = widen(x[k]);"),
+    "every slot of a chunk gathers at its first slot's index (ELL)": (
+        "ell_spmv.cu", "    j[k] = stream(c + o);",
+        "    j[k] = stream(c + (long long)l0 * n);"),
+    "scatter-out skips the order: y[i] for y[perm[i]], a shard's y[i] for "
+    "y[q[i]] (ELL)": (
         "ell_spmv.cu",
         "const long long out = PERM ? (long long)stream(perm + i) : i;",
         "const long long out = i;"),
+    "second gathered vector read at v0 + m, not at the caller's v1 (ELL)": (
+        "ell_spmv.cu",
+        "  const T* x1 = static_cast<const T*>(v1);\n  T* r0",
+        "  const T* x1 = p ? x0 + n : static_cast<const T*>(v1);\n  T* r0"),
 }
 
 #: faults of the bf16-storage entries (rows 1-3, 6-8, 12), held to
@@ -214,29 +228,61 @@ BF16_MUTANTS = {
         "  return __uint_as_float(__bfloat16_as_ushort(x));"),
 }
 
+def ell_knob(name, value):
+    """An edit of one of row 12's constants (``kEllChunk``,
+    ``kEllThreads``)."""
+    line = {"chunk": "constexpr int kEllChunk = 14;",
+            "threads": "constexpr int kEllThreads = 128;"}[name]
+    return ("ell_spmv.cu", line, line.split("=")[0] + f"= {value};")
+
+
+#: row 12's chunk joins (csrc/ell_spmv.cu:ell_chunk), each as an edit that
+#: takes it out: the values' part of the first, the second, and the index
+#: part of the first (the gathers then at j[k] alone)
+_ELL_VALUE_JOIN = ("ell_spmv.cu",
+                   "  for (int k = 0; k < K; ++k) zv += bits(x[k]) & z;\n",
+                   "")
+_ELL_GATHER_JOIN = ("ell_spmv.cu",
+                    "  acc0 = after(acc0, zg);\n"
+                    "  if constexpr (NRHS == 2) acc1 = after(acc1, zg);\n", "")
+_ELL_INDEX_JOIN = ("ell_spmv.cu",
+                   "    g0[k] = __ldg(v0 + (j[k] + zv));\n"
+                   "    if constexpr (NRHS == 2)"
+                   " g1[k] = __ldg(v1 + (j[k] + zv));\n",
+                   "    g0[k] = __ldg(v0 + j[k]);\n"
+                   "    if constexpr (NRHS == 2) g1[k] = __ldg(v1 + j[k]);\n")
+
 #: design options of row 12, each timed against the committed source in
-#: turns (``ellopts``): what -> edits
+#: turns (``ellopts``): what -> edits.  The first four are isolating edits:
+#: each takes the joins away, in part or whole
 ELL_OPTIONS = {
+    "the parent's loop: one slot a step (chunks of 1)": [ell_knob("chunk", 1)],
+    "no joins: the compiler's own order": [
+        _ELL_VALUE_JOIN, _ELL_GATHER_JOIN, _ELL_INDEX_JOIN],
+    "the index join only": [_ELL_VALUE_JOIN, _ELL_GATHER_JOIN],
+    "no gather join": [_ELL_GATHER_JOIN],
+    **{f"chunks of {k} slots": [ell_knob("chunk", k)] for k in (6, 9, 27)},
+    **{f"{t} rows per block": [ell_knob("threads", t)] for t in (64, 256)},
     "val / idx / perm through __ldg (no evict-first)": [
         ("ell_spmv.cu", "  return __ldcs(p);", "  return __ldg(p);")],
     "2 RHS in a locality order gathered interleaved (one load of both)": [
         ("ell_spmv.cu",
-         "    acc0 = fma(x, __ldg(v0 + j), acc0);\n"
-         "    if constexpr (NRHS == 2) acc1 = fma(x, __ldg(v1 + j), acc1);\n",
-         "    if constexpr (PERM && NRHS == 2) {\n"
-         "      if constexpr (sizeof(T) == 4) {\n"
-         "        const float2 g = __ldg(reinterpret_cast<const float2*>(v0) + j);\n"
-         "        acc0 = fma(x, T(g.x), acc0);\n"
-         "        acc1 = fma(x, T(g.y), acc1);\n"
-         "      } else {\n"
-         "        const double2 g =\n"
-         "            __ldg(reinterpret_cast<const double2*>(v0) + j);\n"
-         "        acc0 = fma(x, T(g.x), acc0);\n"
-         "        acc1 = fma(x, T(g.y), acc1);\n"
-         "      }\n"
+         "// The bits of a loaded value as an int (a double's low word).",
+         "template <typename T> struct Pair;\n"
+         "template <> struct Pair<float> { using type = float2; };\n"
+         "template <> struct Pair<double> { using type = double2; };\n\n"
+         "// The bits of a loaded value as an int (a double's low word)."),
+        ("ell_spmv.cu",
+         "    g0[k] = __ldg(v0 + (j[k] + zv));\n"
+         "    if constexpr (NRHS == 2) g1[k] = __ldg(v1 + (j[k] + zv));\n",
+         "    if (NRHS == 2 && v1 == nullptr) {\n"
+         "      const auto g = __ldg(reinterpret_cast<\n"
+         "          const typename Pair<T>::type*>(v0) + (j[k] + zv));\n"
+         "      g0[k] = g.x;\n"
+         "      g1[k] = g.y;\n"
          "    } else {\n"
-         "      acc0 = fma(x, __ldg(v0 + j), acc0);\n"
-         "      if constexpr (NRHS == 2) acc1 = fma(x, __ldg(v1 + j), acc1);\n"
+         "      g0[k] = __ldg(v0 + (j[k] + zv));\n"
+         "      if constexpr (NRHS == 2) g1[k] = __ldg(v1 + (j[k] + zv));\n"
          "    }\n"),
         ("ell_spmv.cu",
          "  xs[i] = __ldg(v0 + p);\n"
@@ -248,14 +294,8 @@ ELL_OPTIONS = {
          "    xs[i] = __ldg(v0 + p);\n"
          "  }\n"),
         ("ell_spmv.cu",
-         "  const T* x1 = p ? x0 + n : static_cast<const T*>(v1);",
-         "  const T* x1 = p ? nullptr : static_cast<const T*>(v1);")],
-    "128 rows per block": [
-        ("ell_spmv.cu", "constexpr int kEllThreads = 256;",
-         "constexpr int kEllThreads = 128;")],
-    "512 rows per block": [
-        ("ell_spmv.cu", "constexpr int kEllThreads = 256;",
-         "constexpr int kEllThreads = 512;")],
+         "  const T* x1 = static_cast<const T*>(v1);\n  T* r0",
+         "  const T* x1 = p ? nullptr : static_cast<const T*>(v1);\n  T* r0")],
 }
 
 #: design options of row 10's dense product (``denseopts``)
@@ -1522,12 +1562,13 @@ def df_checks(torch, card):
 
 
 def ell_checks(torch, card):
-    """check_ell's checks, counted instead of raised and not timed; the
-    lines that check a locality order counted apart."""
+    """check_ell's checks and check_ell_shards', counted instead of raised
+    and not timed; the lines that check a locality order counted apart."""
     lines = []
     failed = cs.ell_checks(torch, card, None, lines.append)
+    failed += cs.check_ell_shards(torch, card, None, lines.append)
     errs = [r["max_err"] for r in failed]
-    local = [r for r in lines if "locality" in r["orders"]]
+    local = [r for r in lines if "locality" in r.get("orders", ())]
     return dict(checks=len(lines), failed=len(failed),
                 locality_checks=len(local),
                 locality_failed=sum(r in failed for r in local),
@@ -1535,6 +1576,8 @@ def ell_checks(torch, card):
                 failed_err_max=max(errs, default=None),
                 failed_not_same_bits=sum(
                     not r.get("same_bits_as_given", True) for r in failed),
+                failed_not_witness_bits=sum(
+                    r.get("same_bits_as_witness") is False for r in failed),
                 passed_checks=[(r["shape"], r["dtype"]) for r in lines
                                if r not in failed],
                 passed_err_max=max((r["max_err"] for r in lines
@@ -1846,43 +1889,110 @@ def study_bf16opts(torch, card):
              share_of_bound={v: round(b_ms / m, 3) for v, m in med.items()},
              same_bits_as_committed=same[c])
 
-def study_against(torch, card, other):
-    """Rows 1, 2 and 2b's float32 and float64 entries built from this tree
-    against the same entries built from ``other`` (a directory holding
-    another tree's ``new_cg_variants_tpu_torch/csrc``, e.g. the parent
-    commit unpacked with ``git archive``): outputs bit for bit at every
-    shape of the half-band checks, and times in turns at the main path's
-    shape (n = 655,360, k = 32)."""
+def study_against(torch, card, other, family=None):
+    """This tree's kernels against the same entries built from ``other`` (a
+    directory holding another tree's ``new_cg_variants_tpu_torch/csrc``,
+    e.g. the parent commit unpacked with ``git archive``): outputs bit for
+    bit at every shape of the checks, and times in turns at the paths'
+    shapes.  ``family`` ``sym`` (rows 1, 2 and 2b in f32 and f64: every
+    half-band check shape, timed at n = 655,360, k = 32) or ``ell`` (row
+    12 in f32, f64 and bf16 storage, in the given and the locality order,
+    at every check_ell shape, timed at its paths' shapes as ``ellopts``
+    times them but for the shards, whose caller hands the kernel a second
+    vector the parent did not read); default both."""
     theirs = Path(other) / "new_cg_variants_tpu_torch" / "csrc"
     variants = {"this tree": [],
                 "other tree": [(f.name, None, f.read_text())
                                for f in sorted(theirs.iterdir())]}
-    cases, shape_cases = {}, {}
-    for dtype in (torch.float32, torch.float64):
-        dn = cs.dtype_name(dtype)
-        for name, fn in sym_cases(torch, cs.N, cs.K_BAND, dtype, 7).items():
-            cases[f"{name}, {dn}"] = fn
-        for n, k in cs.SYM_SHAPES:
-            for name, fn in sym_cases(torch, n, k, dtype, n + k).items():
-                shape_cases[(name, dn, n, k)] = fn
+    cases, shape_cases, only = {}, {}, ()
+    if family in (None, "sym"):
+        only += ("sym_dia.cu", "sym_family.cu")
+        for dtype in (torch.float32, torch.float64):
+            dn = cs.dtype_name(dtype)
+            for name, fn in sym_cases(torch, cs.N, cs.K_BAND, dtype,
+                                      7).items():
+                cases[f"{name}, {dn}"] = fn
+            for n, k in cs.SYM_SHAPES:
+                for name, fn in sym_cases(torch, n, k, dtype,
+                                          n + k).items():
+                    shape_cases[(name, dn, f"n = {n}, k = {k}")] = fn
+    if family in (None, "ell"):
+        only += ("ell_spmv.cu",)
+        rng = np.random.default_rng(12)
+        for grid, seed, dtype, label in (
+                (cs.HPCG_GRID, cs.PERM_SEED, torch.float32,
+                 "104^3 RCM order"),
+                (cs.HPCG_GRID, None, torch.float32, "104^3 natural order"),
+                (cs.HPCG_GRID, cs.PERM_SEED, torch.bfloat16,
+                 "104^3 RCM order, bf16"),
+                (32, cs.PERM_SEED, torch.float64, "32^3 RCM order, f64"),
+                (24, cs.PERM_SEED, torch.float64, "24^3 RCM order, f64")):
+            cases.update(ell_op_cases(torch, grid, seed, dtype, rng, label))
+        for key, fn in ell_shape_cases(torch).items():
+            shape_cases[key] = fn
 
     def check(variant):
         return {key: [t.clone() for t in fn()]
                 for key, fn in shape_cases.items()}
 
     times, same, _, outs = timed_in_turns(
-        torch, variants, cases, rounds=3, iters=50,
-        only=("sym_dia.cu", "sym_family.cu"), check=check)
-    differ = sorted(f"{key[0]}, {key[1]}, n = {key[2]}, k = {key[3]}"
-                    for key, got in outs["other tree"].items()
+        torch, variants, cases, rounds=3, iters=50, only=only, check=check)
+    differ = sorted(", ".join(key) for key, got in outs["other tree"].items()
                     if not cs.same_bits(torch, got, outs["this tree"][key]))
-    emit("against", card=card, other=str(other),
+    emit("against", card=card, other=str(other), family=family,
          shapes_compared=len(shape_cases), shapes_differing=differ,
-         main_shape_same_bits=all(all(v.values()) for v in same.values()))
+         main_shapes_same_bits=all(all(v.values()) for v in same.values()))
     for c in cases:
         emit("against", case=c,
              median_ms={v: round(float(np.median(ts)), 5)
                         for v, ts in times[c].items()})
+
+
+def ell_shape_cases(torch):
+    """(entry, dtype, shape) -> callable of row 12's operator entries at
+    every check_ell shape (chip_smoke.ell_checks): HPCG 104^3 natural and
+    permuted, the small shapes, HPCG 32^3 and 24^3 permuted (f64 only), in
+    f32, f64 and bf16 storage, in the given order and, where the check has
+    one, the locality order."""
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+
+    patterns = []
+    for seed in (None, cs.PERM_SEED):
+        a, perm = cs.hpcg_case(seed)
+        patterns.append((f"104^3{'' if seed is None else ' permuted'}", a,
+                         perm, ("float32", "float64", "bfloat16")))
+    for label, n, lens in cs.ELL_SMALL:
+        rng = np.random.default_rng(n)
+        a = cs.small_pattern(n, lens, rng)
+        perm = cs.locality_order(a)
+        patterns.append((label, a, rng.permutation(n) if perm is None
+                         else perm, ("float32", "float64", "bfloat16")))
+    for g in cs.ELL_F64_GRIDS:
+        a = cs.stencil27(g, cs.PERM_SEED)
+        patterns.append((f"{g}^3 permuted", a, cs.locality_order(a),
+                         ("float64",)))
+    out = {}
+    for label, a, perm, dtypes in patterns:
+        for dn in dtypes:
+            dtype = getattr(torch, dn)
+            rng = np.random.default_rng(12)
+            val, idx, _ = cs.ell_arrays(torch, a, rng, dtype)
+            n = val.shape[0]
+            v, w = (torch.as_tensor(rng.standard_normal(n),
+                                    dtype=cs.vector_dtype(torch, dtype),
+                                    device="cuda") for _ in range(2))
+            orders = [("given", val, idx, None)]
+            if perm is not None:
+                p = es.check_perm(torch.from_numpy(perm).cuda(), n)
+                bval_t, bidx_t = es.reorder(val.T, idx.T, p)
+                orders.append(("locality", bval_t.T, bidx_t.T, p))
+            for order, vl, ix, pm in orders:
+                out[(label, dn, order)] = (
+                    lambda vl=vl, ix=ix, pm=pm, v=v, w=w:
+                    [es.ell_spmv(vl, ix, v, pm),
+                     *es.ell_spmv2(vl, ix, v, w, pm)])
+    return out
+
 
 def study_dfcheck(torch, card):
     """The quick first call after touching a double-word kernel: build,
@@ -1900,44 +2010,89 @@ def study_dfcheck(torch, card):
 
 def study_ellcheck(torch, card):
     """The first call after touching the ELL kernel: build, registers,
-    check_ell (timed).  Its mutants run in ``mutants``."""
+    check_ell and check_ell_shards (timed; every product also against the
+    witness build, chunks of one slot).  Its mutants run in ``mutants``."""
     from new_cg_variants_tpu_torch.ops import _kernels
 
+    cs.ELL_WITNESS.update(cs.build_ell_witness())
     with contextlib.ExitStack() as stack:
         libs, logs = build_edited(stack, [])
         emit("ellcheck", source="ell_spmv.cu", ptxas=logs["ell_spmv.cu"])
         with _kernels.using(libs):
             timings = {}
             cs.check_ell(torch, card, timings)
+            cs.check_ell_shards(torch, card, timings, cs.emit_check)
             emit("ellcheck", timings=timings)
     emit("ellcheck", ok=True)
 
 
-def study_ellopts(torch, card):
-    """Row 12's design options against the committed source, timed in turns
-    at HPCG's pattern (f32): permuted in its RCM order (the path's shape)
-    and in natural order; every option must give the committed bits."""
+def ell_op_cases(torch, grid, seed, dtype, rng, label):
+    """Name -> callable of row 12's operator entries (1 and 2 RHS) on HPCG's
+    pattern at ``grid``^3 (permuted by ``seed``, in the locality order the
+    operator keeps; ``None``: natural order), O(1) random values."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
 
+    a = cs.stencil27(grid, seed)
+    perm = cs.locality_order(a)
+    val, idx, _ = cs.ell_arrays(torch, a, rng, dtype)
+    n = val.shape[0]
+    v, w = (torch.as_tensor(rng.standard_normal(n),
+                            dtype=cs.vector_dtype(torch, dtype),
+                            device="cuda") for _ in range(2))
+    p = None
+    if perm is not None:
+        p = es.check_perm(torch.from_numpy(perm).cuda(), n)
+        bval_t, bidx_t = es.reorder(val.T, idx.T, p)
+        val, idx = bval_t.T, bidx_t.T
+    return {f"ell_spmv, {label}": lambda: [es.ell_spmv(val, idx, v, p)],
+            f"ell_spmv2, {label}": lambda: list(es.ell_spmv2(val, idx, v, w,
+                                                             p))}
+
+
+def ell_shard_cases(torch, p, r, rng):
+    """Name -> callable of the cache entries on rank ``r`` of ``p``'s
+    all-gather shard of HPCG 104^3 permuted, in the locality order the row
+    context takes (f32)."""
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+    from new_cg_variants_tpu_torch.ops.operators import EllOperator
+    from new_cg_variants_tpu_torch.parallel.dist import _ell_locality_shard
+
+    val, idx = cs.ell_pattern(cs.PERM_SEED)
+    vals = rng.uniform(-1.0, 1.0, val.shape)
+    vals[val == 0.0] = 0.0
+    op = EllOperator(torch.from_numpy(vals).float().cuda(),
+                     torch.from_numpy(idx).cuda(),
+                     perm=cs.hpcg_case(cs.PERM_SEED)[1])
+    lval_t, lidx_t, q, cols = _ell_locality_shard(op, r, op.n // p, "cuda")
+    lval, lidx = lval_t.T, lidx_t.T
+    cv, cw = (torch.as_tensor(rng.standard_normal(op.n), dtype=torch.float32,
+                              device="cuda") for _ in range(2))
+    label = f"all-gather shard p={p} rank {r}"
+    return {f"ell_spmv_cache, {label}": lambda: [es.ell_spmv_cache(
+                lval, lidx, cv, q, cols)],
+            f"ell_spmv2_cache, {label}": lambda: list(es.ell_spmv2_cache(
+                lval, lidx, cv, cw, q, cols))}
+
+
+def study_ellopts(torch, card):
+    """Row 12's design options against the committed source, timed in turns
+    at the paths' shapes: HPCG 104^3 in f32, permuted in its RCM order (the
+    path's shape), in natural order and in bf16 storage; the row context's
+    all-gather shards of it at 1, 2 and 4 ranks (rank 0, locality order);
+    HPCG 32^3 and 24^3 permuted in f64 (convergence_f64's).  Every option
+    must give the committed bits."""
     rng = np.random.default_rng(12)
     cases = {}
-    for label, seed in (("RCM order", cs.PERM_SEED), ("natural order", None)):
-        a = cs.stencil27(cs.HPCG_GRID, seed)
-        perm = cs.locality_order(a)
-        val, idx, _ = cs.ell_arrays(torch, a, rng, torch.float32)
-        n = val.shape[0]
-        v, w = (torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
-                                device="cuda") for _ in range(2))
-        p = None
-        if perm is not None:
-            p = es.check_perm(torch.from_numpy(perm).cuda(), n)
-            bval_t, bidx_t = es.reorder(val.T, idx.T, p)
-            val, idx = bval_t.T, bidx_t.T
-        cases[f"ell_spmv, {label}"] = (
-            lambda val=val, idx=idx, v=v, p=p: [es.ell_spmv(val, idx, v, p)])
-        cases[f"ell_spmv2, {label}"] = (
-            lambda val=val, idx=idx, v=v, w=w, p=p:
-            list(es.ell_spmv2(val, idx, v, w, p)))
+    for grid, seed, dtype, label in (
+            (cs.HPCG_GRID, cs.PERM_SEED, torch.float32, "104^3 RCM order"),
+            (cs.HPCG_GRID, None, torch.float32, "104^3 natural order"),
+            (cs.HPCG_GRID, cs.PERM_SEED, torch.bfloat16,
+             "104^3 RCM order, bf16"),
+            (32, cs.PERM_SEED, torch.float64, "32^3 RCM order, f64"),
+            (24, cs.PERM_SEED, torch.float64, "24^3 RCM order, f64")):
+        cases.update(ell_op_cases(torch, grid, seed, dtype, rng, label))
+    for p in (1, 2, 4):
+        cases.update(ell_shard_cases(torch, p, 0, rng))
     variants = {"as committed": [], **ELL_OPTIONS}
     times, same, logs, _ = timed_in_turns(torch, variants, cases,
                                        only=("ell_spmv.cu",))
@@ -1946,6 +2101,8 @@ def study_ellopts(torch, card):
     for c in cases:
         emit("ellopts", case=c, card=card,
              ms={v: [round(t, 5) for t in ts] for v, ts in times[c].items()},
+             median_ms={v: round(float(np.median(ts)), 5)
+                        for v, ts in times[c].items()},
              same_bits_as_committed=same[c])
 
 
@@ -2073,6 +2230,11 @@ def study_mutants(torch, card, family=None):
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             built = [pool.submit(build_edited, stack, [edit] if edit else [],
                                  only(edit)) for _, edit, _ in runs]
+            if family in (None, "ell"):
+                # the committed source with chunks of one slot: the bits
+                # every ELL product is also held to
+                witness = pool.submit(cs.build_ell_witness)
+                cs.ELL_WITNESS.update(witness.result())
         for (what, edit, checks), fut in zip(runs, built):
             ds._TICKETS.clear()  # a mutant may leave its ticket counter set
             with _kernels.using(fut.result()[0]):
@@ -2284,7 +2446,9 @@ def main(argv):
             or len(argv) == 3 and argv[1] == "mutants"
             and argv[2] in ("dia", "sym", "df", "ell", "bf16")
             or argv[1:2] == ["distcheck"] and set(argv[2:]) <= DIST_PHASES
-            or len(argv) == 3 and argv[1] == "against"):
+            or argv[1:2] == ["against"] and (
+                len(argv) == 3 or len(argv) == 4 and argv[3] in ("sym",
+                                                                 "ell"))):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

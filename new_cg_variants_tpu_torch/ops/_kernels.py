@@ -91,8 +91,9 @@ _SIGNATURES = {
     },
 }
 
-#: threads per block of every kernel, rows per block of all but the
-#: half-band family kernel, rows per dot partial (csrc/sym_common.cuh:kTile)
+#: threads per block of every kernel but row 12's (csrc/ell_spmv.cu:
+#: kEllThreads), rows per block of all but the half-band family kernel and
+#: row 12's, rows per dot partial (csrc/sym_common.cuh:kTile)
 KERNEL_TILE = 256
 #: rows per block of the half-band family kernel, two a thread
 #: (csrc/sym_family.cu:kFamilyTile)

@@ -22,7 +22,11 @@ slots in the same order, its columns mapped through the inverse
 permutation), and the product is ``y[perm] = B v[perm]``: :func:`ell_gather`
 gathers the vectors into the order, the product writes ``y[perm[i]]``.  The
 terms of each row are the same products added in the same slot order, so
-the result is the given order's, bit for bit.
+the result is the given order's, bit for bit.  The cache entries take the
+order as two arrays, ``perm`` for the shard's rows and ``cols`` for the
+columns they touch (``parallel/dist.py:_ell_locality_shard``): the indices
+then point into ``cache[cols]``, which the gather in builds, ``len(cols)``
+long whatever the cache's length.
 
 On CUDA tensors each launches the hand-written kernels of
 ``csrc/ell_spmv.cu``, which take float32, float64 or bf16 values (bf16
@@ -115,10 +119,11 @@ def _ell_gather_plain(perm, vecs):
     return [v[p] for v in vecs]
 
 
-def _ell_reordered_plain(val, idx, perm, vecs):
-    """Plain product in a locality order: gather in, the plain product of
-    the given order's formulation, scatter out."""
-    xs = _ell_gather_plain(perm, vecs)
+def _ell_reordered_plain(val, idx, perm, vecs, cols=None):
+    """Plain product in a locality order: gather in (through ``cols``,
+    default ``perm``), the plain product of the given order's formulation,
+    scatter out (through ``perm``)."""
+    xs = _ell_gather_plain(perm if cols is None else cols, vecs)
     ys = ([_ell_mv_plain(val, idx, xs[0])] if len(xs) == 1
           else list(_ell_mv2_plain(val, idx, *xs)))
     p = perm.long()
@@ -134,24 +139,36 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_order(order, k, device, what):
+    """``order`` a contiguous int32 ``(k,)`` tensor on ``device`` (``k``
+    ``None``: any length)."""
+    if not (order.is_cuda and order.device == device
+            and order.dtype == torch.int32 and order.ndim == 1
+            and (k is None or order.shape[0] == k)
+            and order.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous int32 "
+                         f"({'k' if k is None else k},) CUDA tensor on "
+                         f"{device}")
+
+
 def ell_gather(perm, vecs):
     """The gather in of a product in a locality order, on CUDA tensors:
     ``v[perm]`` (then ``w[perm]``) as one flat buffer, which :func:`ell_spmv`
-    / :func:`ell_spmv2` launch before their product."""
+    / :func:`ell_spmv2` and the cache entries launch before their product.
+    ``perm``: the ``k`` indices to gather (a permutation of the vectors'
+    range, or a shard's column order), already held to that range."""
     from ._kernels import KERNEL_DTYPES, library
 
     v = vecs[0]
-    n = v.shape[0]
-    check_vectors(v, vecs, n)
-    if not (v.is_cuda and perm.is_cuda and perm.device == v.device
-            and perm.dtype == torch.int32 and perm.shape == (n,)
-            and perm.is_contiguous()):
-        raise ValueError("the gather takes CUDA vectors and a contiguous "
-                         "int32 (n,) order on their device")
-    xs = torch.empty(len(vecs) * n, dtype=v.dtype, device=v.device)
+    check_vectors(v, vecs, v.shape[0])
+    if not v.is_cuda:
+        raise ValueError("the gather takes CUDA vectors")
+    _check_order(perm, None, v.device, "the gather's indices")
+    k = perm.shape[0]
+    xs = torch.empty(len(vecs) * k, dtype=v.dtype, device=v.device)
     fn = getattr(library("ell_spmv.cu"),
                  f"ell_gather_{KERNEL_DTYPES[v.dtype]}")
-    rc = fn(perm.data_ptr(), n, v.data_ptr(),
+    rc = fn(perm.data_ptr(), k, v.data_ptr(),
             vecs[1].data_ptr() if len(vecs) == 2 else None, xs.data_ptr(),
             len(vecs), v.device.index, _stream(v))
     if rc != 0:
@@ -160,21 +177,42 @@ def ell_gather(perm, vecs):
     return xs
 
 
-def _launch(val, idx, vecs, perm=None, c=None):
-    """The kernel on ``(n, L)`` arrays; ``c``: the vectors' length, when it
-    is not ``n`` (a shard's cache)."""
-    from ._kernels import library
-
+def check_launch_args(val, idx, vecs, perm=None, c=None, cols=None):
+    """Validate what :func:`_launch` is handed: the ``(n, L)`` arrays, the
+    vectors of length ``c`` (default ``n``), the rows' order ``perm``
+    (``(n,)``) and the columns' ``cols`` (any length: the vector the
+    product reads is ``len(cols)`` long).  Returns ``(n, L, suffix)``."""
     n, L, sfx = check_ell(val, idx)
     check_vectors(val, vecs, n if c is None else c)
+    if cols is not None and perm is None:
+        raise ValueError("a column order needs the rows' order")
+    if perm is not None:
+        _check_order(perm, n, val.device, "the rows' order")
+        if cols is None and c not in (None, n):
+            raise ValueError(f"an order of {n} rows gathers from vectors of "
+                             f"{n}, not {c}: pass the columns' order")
+    if cols is not None:
+        _check_order(cols, None, val.device, "the columns' order")
+    return n, L, sfx
+
+
+def _launch(val, idx, vecs, perm=None, c=None, cols=None):
+    """The kernel on ``(n, L)`` arrays; ``c``: the vectors' length, when it
+    is not ``n`` (a shard's cache); ``perm`` / ``cols``: the rows' and the
+    columns' locality order (``cols`` default ``perm``)."""
+    from ._kernels import library
+
+    n, L, sfx = check_launch_args(val, idx, vecs, perm, c, cols)
     ys = [torch.empty(n, dtype=compute_dtype(val.dtype), device=val.device)
           for _ in vecs]
     two = len(vecs) == 2
     if perm is None:
         v0, v1 = vecs[0].data_ptr(), vecs[1].data_ptr() if two else None
     else:
-        xs = ell_gather(perm, vecs)
-        v0, v1 = xs.data_ptr(), None
+        xs = ell_gather(perm if cols is None else cols, vecs)
+        v0 = xs.data_ptr()
+        # the second vector is the buffer's second half
+        v1 = v0 + xs.numel() // 2 * xs.element_size() if two else None
     fn = getattr(library("ell_spmv.cu"), f"ell_spmv_{sfx}")
     rc = fn(val.data_ptr(), idx.data_ptr(), L, n,
             None if perm is None else perm.data_ptr(), v0, v1,
@@ -185,15 +223,15 @@ def _launch(val, idx, vecs, perm=None, c=None):
     return ys
 
 
-def _plain_or_launch(wrapper, val, idx, vecs, perm, c=None):
-    tensors = (val, idx) + tuple(vecs) + (() if perm is None else (perm,))
+def _plain_or_launch(wrapper, val, idx, vecs, perm, c=None, cols=None):
+    tensors = (val, idx, *vecs, *(t for t in (perm, cols) if t is not None))
     if all(t.is_cuda for t in tensors):
-        ys = _launch(val, idx, vecs, perm, c)
+        ys = _launch(val, idx, vecs, perm, c, cols)
         wrapper.launches += 1
         return ys
     if all(t.device.type == "cpu" for t in tensors):
         if perm is not None:
-            return _ell_reordered_plain(val, idx, perm, vecs)
+            return _ell_reordered_plain(val, idx, perm, vecs, cols)
         if len(vecs) == 2:
             return list(_ell_mv2_plain(val, idx, *vecs))
         return [_ell_mv_plain(val, idx, vecs[0])]
@@ -217,21 +255,24 @@ def ell_spmv2(val, idx, v, w, perm=None):
     return y, z
 
 
-def ell_spmv_cache(val, idx, cache):
+def ell_spmv_cache(val, idx, cache, perm=None, cols=None):
     """``y[i] = sum_l val[i, l] * cache[idx[i, l]]`` for the ``m`` rows of
     ``(val, idx)`` and a vector ``cache`` of length ``c >= m``, the indices
-    already held to ``[0, c)`` by :func:`check_index` (the rows in the given
-    order)."""
-    (y,) = _plain_or_launch(ell_spmv_cache, val, idx, (cache,), None,
-                            cache.shape[0])
+    already held to ``[0, c)`` by :func:`check_index`.  With ``perm`` /
+    ``cols`` (int32, ``(m,)`` and ``(k,)``) the rows are in a locality
+    order, row i being the shard's row ``perm[i]``, and the indices point
+    into ``cache[cols]`` (held to ``[0, k)``); ``y`` is in the shard's
+    given order all the same."""
+    (y,) = _plain_or_launch(ell_spmv_cache, val, idx, (cache,), perm,
+                            cache.shape[0], cols)
     return y
 
 
-def ell_spmv2_cache(val, idx, cache_v, cache_w):
-    """Both right-hand sides' caches from one read of ``val`` and ``idx``,
-    as :func:`ell_spmv_cache`."""
+def ell_spmv2_cache(val, idx, cache_v, cache_w, perm=None, cols=None):
+    """Both right-hand sides' caches from one read of ``val`` and ``idx``
+    (and, in a locality order, one gather in), as :func:`ell_spmv_cache`."""
     y, z = _plain_or_launch(ell_spmv2_cache, val, idx, (cache_v, cache_w),
-                            None, cache_v.shape[0])
+                            perm, cache_v.shape[0], cols)
     return y, z
 
 

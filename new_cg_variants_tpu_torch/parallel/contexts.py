@@ -459,10 +459,10 @@ class SymDiaRowShardContext(_MeshContext):
 class EllRowShardContext(_MeshContext):
     """Row-partitioned padded-ELL operator for general sparse matrices.
 
-    ``local_val`` / ``local_idx`` are this rank's ``(m, L)`` rows in the
-    original numbering, views of slot-major storage (row 12 reads slot l of
-    neighbouring rows in one coalesced load).  Two ways to bring in the
-    vector entries of other ranks:
+    ``local_val`` / ``local_idx`` are this rank's ``(m, L)`` rows, views of
+    slot-major storage (row 12 reads slot l of neighbouring rows in one
+    coalesced load).  Two ways to bring in the vector entries of other
+    ranks:
 
     * **index exchange** (``shifts`` a tuple, from
       :func:`~.ell_exchange.plan_ell_exchange`): ``local_idx`` holds cache
@@ -472,17 +472,27 @@ class EllRowShardContext(_MeshContext):
     * **all-gather** (``shifts=None``, the planner's ``None``): the cache is
       the whole vector and ``local_idx`` holds global indices.
 
+    The rows come in the original numbering, or, with ``order = (perm,
+    cols)`` (the all-gather route of an operator kept in a locality order,
+    ``dist.py:_ell_locality_shard``), in that order: row i is the shard's
+    row ``perm[i]`` and ``local_idx`` points into ``cache[cols]``, the
+    columns the rows touch in the same order.  Neighbouring rows then
+    gather neighbouring entries, as in the single-device product, and each
+    product gives the original numbering's bits.
+
     Both right-hand sides of ``mv2`` ride one exchange.  The product is row
-    12 on the cache (:func:`~..ops.ell_spmv.ell_spmv_cache`).
+    12 on the cache (:func:`~..ops.ell_spmv.ell_spmv_cache`; in a locality
+    order one gather in first).
     """
 
     def __init__(self, local_val, local_idx, group, precond=None,
-                 compensated=False, shifts=None, send_idx=()):
+                 compensated=False, shifts=None, send_idx=(), order=()):
         super().__init__(group, precond, compensated)
         self.local_val = local_val
         self.local_idx = local_idx
         self.shifts = None if shifts is None else tuple(shifts)
         self.send_idx = tuple(send_idx)
+        self.order = tuple(order)
 
     def _cache(self, *vecs):
         """The rows of ``(len(vecs), c)``: each vector's gather target."""
@@ -493,11 +503,13 @@ class EllRowShardContext(_MeshContext):
 
     def mv(self, v):
         (cache,) = self._cache(v)
-        return ell_spmv_cache(self.local_val, self.local_idx, cache)
+        return ell_spmv_cache(self.local_val, self.local_idx, cache,
+                              *self.order)
 
     def mv2(self, v, w):
         cv, cw = self._cache(v, w)  # one exchange carries both
-        return ell_spmv2_cache(self.local_val, self.local_idx, cv, cw)
+        return ell_spmv2_cache(self.local_val, self.local_idx, cv, cw,
+                               *self.order)
 
 
 class BlockBandedRowShardContext(_MeshContext):

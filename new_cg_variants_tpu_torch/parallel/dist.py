@@ -216,16 +216,49 @@ def _shard_shape(op, mesh):
     return p, rank, m, _rank_device(mesh)
 
 
+def _ell_locality_shard(op, rank, m, dev):
+    """This rank's rows of an ``EllOperator`` kept in a locality order
+    (``op.perm``), for the all-gather route: ``(val, idx, perm, cols)``,
+    the rows ordered by their rank in that order (a subsequence of the
+    stored ``B``'s rows, slot-major ``(L, m)``), ``perm[i]`` the shard's
+    row that row i is, ``cols`` the columns those rows touch in the same
+    order (indices into the whole vector) and ``idx`` the rows' indices
+    into ``cache[cols]``.  At one rank these are the operator's own storage
+    and order."""
+    if m == op.n:
+        return (op.val_t.to(dev), op.idx_t.to(dev), op.perm.to(dev),
+                op.perm.to(dev))
+    order = op.perm.long()
+    lo = rank * m
+    rows = torch.nonzero((order >= lo) & (order < lo + m)).squeeze(1)
+    # B's column indices are ranks in the order: sorted, they are the order
+    used, idx = torch.unique(op.idx_t[:, rows], sorted=True,
+                             return_inverse=True)
+    return (op.val_t[:, rows].to(dev), idx.to(torch.int32).to(dev),
+            (order[rows] - lo).to(torch.int32).to(dev),
+            order[used].to(torch.int32).to(dev))
+
+
 def _ell_shard(op, p, rank, m, dev):
-    """This rank's ELL rows (original numbering, slot-major) and how its
-    cache is filled: ``(val, idx, shifts, send_idx)``, ``shifts`` ``None``
-    for the all-gather (the planner's ``None``)."""
-    val_t, idx_t = op._given()
-    rows = slice(rank * m, (rank + 1) * m)
-    val = val_t[:, rows].contiguous().to(dev)
+    """This rank's ELL rows (slot-major) and how its cache is filled and
+    read: ``(val, idx, shifts, send_idx, order)``, ``shifts`` ``None`` for
+    the all-gather (the planner's ``None``).  On that route an operator in
+    a locality order hands over its rows in that order (``order``: the
+    rows' and the columns' order, :func:`_ell_locality_shard`); otherwise
+    the rows come in the original numbering and ``order`` is ``()``."""
     # one rank: nothing to exchange, and plan_or_none gives None for any
     # pattern (no traffic can undercut an all-gather of nothing)
-    plan = None if p == 1 else plan_or_none(idx_t.T.cpu().numpy(), op.n, p)
+    given = plan = None
+    if p > 1:
+        given = op._given()
+        plan = plan_or_none(given[1].T.cpu().numpy(), op.n, p)
+    if plan is None and op.perm is not None:
+        val, idx, perm, cols = _ell_locality_shard(op, rank, m, dev)
+        check_index(idx, cols.shape[0])
+        return val.T, idx.T, None, (), (perm, cols)
+    val_t, idx_t = given or op._given()
+    rows = slice(rank * m, (rank + 1) * m)
+    val = val_t[:, rows].contiguous().to(dev)
     if plan is None:
         idx, shifts, send, c = idx_t[:, rows], None, (), op.n
     else:
@@ -236,7 +269,7 @@ def _ell_shard(op, p, rank, m, dev):
         c = m + plan.recv_total
     idx = idx.to(torch.int32).contiguous().to(dev)
     check_index(idx, c)
-    return val.T, idx.T, shifts, send
+    return val.T, idx.T, shifts, send, ()
 
 
 def _local_ctx_factory(op, mesh, precond, compensated=False, partition="row",
@@ -255,9 +288,9 @@ def _local_ctx_factory(op, mesh, precond, compensated=False, partition="row",
         return ColShardContext(_rows(a, rank, m, dev), group,
                                packed=col_packed, **common)
     if isinstance(op, EllOperator):
-        val, idx, shifts, send = _ell_shard(op, p, rank, m, dev)
+        val, idx, shifts, send, order = _ell_shard(op, p, rank, m, dev)
         return EllRowShardContext(val, idx, group, shifts=shifts,
-                                  send_idx=send, **common)
+                                  send_idx=send, order=order, **common)
     if isinstance(op, BlockBandedOperator):
         nb = op.a_blk.shape[0]
         if nb % p:
