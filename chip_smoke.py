@@ -223,10 +223,36 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     row``, and ``--devices 2`` raising the error that names ``torchrun``.
     Each prints its collectives and kernels per iteration and ms/iter
     beside the single-device run;
-26. ``kernels`` — one JSON line over all kernel entries: one record per entry
+26. the compiled loop (``solvers/graphs.py``): ``run`` / ``solve`` take
+    ``use_jit=True`` by default, which on the card replays captured CUDA
+    graphs of chunks of steps, so every phase above that calls them runs
+    captured; launch counts count a captured launch once for each replay
+    of its graph (``install_graph_counts``).  The ``jit_*`` phases run each
+    path with ``use_jit=True`` and ``use_jit=False`` and hold ``x``, every
+    probe history, and for tolerance solves the iterations and the norm,
+    to the same bits, and the same launches (a tolerance solve's replays
+    may add those of the steps a chunk ran past its stop): ``jit_main_f32``
+    (the main path), ``jit_variants_f32`` (the 18 names on half-band
+    storage; gv's replacement hook under capture), ``jit_solve`` (tolerance
+    solves, natural norm, a ``_pcg`` name, the generic body, ``norm_type=
+    "none"``), ``jit_dia_f32`` / ``jit_dia_wide_f32`` (full DIA, the split
+    formulations), ``jit_f32x2`` / ``jit_df_dense`` (rows 9-11),
+    ``jit_ell_f32`` (row 12 with its gather, a tolerance solve that stops
+    inside a chunk), ``jit_bf16`` (bf16 storage on half-band, DIA and ELL)
+    and ``jit_convergence_f64`` (``convergence_f64``'s table through
+    ``run``); the entries only the row partition runs, whose loops stay
+    eager, are each captured once at their shapes (``capture_dist``).  The
+    main paths are timed both ways under the bench protocol (ELL with
+    2000-iteration chunks, f32x2 and each name with 200; the eager times of
+    main_f32, dia_f32 and main_bf16 from those phases' own benches), with
+    ms/iter, the device busy share,
+    CUDA events per iteration and the capture's and instantiation's host
+    seconds;
+27. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
-    paths of that shape (bf16 entries with the float32 entry's time from
-    the same call beside theirs).
+    paths of that shape and inside captured graphs (``graph_launches``; a
+    record whose path runs has at least one of each) (bf16 entries with the
+    float32 entry's time from the same call beside theirs).
 
 Every phase prints one JSON line.  Any failed check raises, and the script
 exits nonzero; it also exits nonzero, printing no result, when no CUDA device
@@ -252,7 +278,7 @@ K_BAND = 32
 ITERS_PER_CHUNK = 5000
 REPEATS = 2
 MIN_TRIALS = 3
-MAX_TRIALS = 8
+MAX_TRIALS = 5
 SOLVE_ITERS = 5000
 PROFILE_STEPS = 200
 F64_ITERS = 25
@@ -921,10 +947,17 @@ def counted_wrappers():
 def reset_counts():
     for fn in counted_wrappers():
         fn.launches = 0
+    for tally in GRAPH.values():
+        tally.clear()
 
 
 def read_counts():
-    return {fn.__name__: fn.launches for fn in counted_wrappers()}
+    """Launches by wrapper since reset_counts: the eager ones, and each
+    launch of a captured graph once for every replay of that graph (a
+    wrapper counts a capture's launch once, when it is captured)."""
+    return {name: n - GRAPH["captured"].get(name, 0)
+            + GRAPH["replayed"].get(name, 0)
+            for name, n in raw_counts().items()}
 
 
 def device_activity(prof):
@@ -944,26 +977,45 @@ def device_activity(prof):
     return busy, len(spans), by_name
 
 
-def profile_steps(torch, ctx, step_fn, state, steps=PROFILE_STEPS):
-    """Device busy share and kernel time by name over ``steps`` steps
-    (default PROFILE_STEPS).
+def protocol_ms(begin, advance, read_nu, chunk_iters, max_trials):
+    """bench.py's protocol over a loop: ``begin(scale)`` restarts from the
+    right-hand side scaled by ``scale``, ``advance(m)`` chains m steps,
+    ``read_nu()`` reads nu back (a sync).  A warm-up chunk, then trials of
+    REPEATS chained chunks until the two fastest agree within 5%.  Returns
+    (ms/iter, trial seconds, nu at the end)."""
+    begin(1.0)
+    advance(chunk_iters)
+    read_nu()
+    times = []
+    for trial in range(max_trials):
+        begin(1.0 + 1e-6 * (trial + 1))
+        read_nu()  # drain the restart before the timer
+        t0 = time.perf_counter()
+        for _ in range(REPEATS):
+            advance(chunk_iters)
+        nu_final = read_nu()
+        times.append(time.perf_counter() - t0)
+        if len(times) >= MIN_TRIALS:
+            t1, t2 = sorted(times)[:2]
+            if t2 <= 1.05 * t1:
+                break
+    return min(times) / (REPEATS * chunk_iters) * 1e3, times, nu_final
 
-    From ``torch.profiler``'s CUDA kernel events; ``None`` fields where the
-    profiler saw no device activity (not measured).
-    """
+
+def profile_window(torch, advance, steps=PROFILE_STEPS):
+    """Device busy share, CUDA events and kernel time by name over
+    ``advance(steps)`` (a warm-up call of one step first)."""
     from torch.profiler import ProfilerActivity, profile
 
-    state = step_fn(ctx, state)
+    advance(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps - 1):
-            state = step_fn(ctx, state)
+        advance(steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, nspans, by_name = device_activity(prof)
-    steps -= 1  # the profiled ones
     if not nspans:
         return {"steps": steps, "device_busy_share": None}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -974,36 +1026,43 @@ def profile_steps(torch, ctx, step_fn, state, steps=PROFILE_STEPS):
             "top_kernels_us_per_iter": {k[:60]: v / steps for k, v in top}}
 
 
+def profile_steps(torch, ctx, step_fn, state, steps=PROFILE_STEPS):
+    """Device busy share and kernel time by name over ``steps`` steps
+    (default PROFILE_STEPS): one step, then ``steps - 1`` profiled
+    (profile_window)."""
+    _, advance, _ = eager_loop(ctx, None, step_fn, None, None, state)
+    return profile_window(torch, advance, steps - 1)
+
+
+def eager_loop(ctx, init_fn, step_fn, b, x0, state=None):
+    """``(begin, advance, read_nu)`` of the eager step loop (protocol_ms's
+    arguments): ``begin(scale)`` starts from the right-hand side scaled by
+    ``scale`` (or ``state``), ``advance(m)`` chains m steps, ``read_nu()``
+    reads nu back."""
+    from new_cg_variants_tpu_torch.ops.doublefloat import collapse
+
+    st = {"s": state}
+
+    def begin(scale):
+        st["s"] = init_fn(ctx, b * scale, x0)
+
+    def advance(m):
+        for _ in range(m):
+            st["s"] = step_fn(ctx, st["s"])
+
+    return begin, advance, lambda: float(collapse(st["s"]["nu"]))
+
+
 def chained_ms(torch, ctx, init_fn, step_fn, b, chunk_iters=ITERS_PER_CHUNK):
     """ms/iter of ``step_fn`` over ``ctx`` as ``bench.py`` times it: 2 x
     5000 (``chunk_iters``) chained iterations per trial, each trial
     restarting on a perturbed right-hand side, until the two fastest trials
     agree within 5%.  Returns ``(ms/iter, trial seconds, nu at the end,
     inits)``."""
-
-    def chunk(s):
-        for _ in range(chunk_iters):
-            s = step_fn(ctx, s)
-        return s
-
-    state = chunk(init_fn(ctx, b, torch.zeros_like(b)))
-    float(state["nu"])
-    times, inits = [], 1
-    for trial in range(MAX_TRIALS):
-        s = init_fn(ctx, b * (1.0 + 1e-6 * (trial + 1)), torch.zeros_like(b))
-        inits += 1
-        float(s["nu"])  # drain init before the timer
-        t0 = time.perf_counter()
-        for _ in range(REPEATS):
-            s = chunk(s)
-        nu_final = float(s["nu"])
-        times.append(time.perf_counter() - t0)
-        if len(times) >= MIN_TRIALS:
-            t1, t2 = sorted(times)[:2]
-            if t2 <= 1.05 * t1:
-                break
-    return (min(times) / (REPEATS * chunk_iters) * 1e3, times, nu_final,
-            inits)
+    ms, times, nu_final = protocol_ms(
+        *eager_loop(ctx, init_fn, step_fn, b, torch.zeros_like(b)),
+        chunk_iters, MAX_TRIALS)
+    return ms, times, nu_final, 1 + len(times)
 
 
 def bench_protocol(torch, op, b, fused_wrapper, spmv_wrapper,
@@ -1242,12 +1301,14 @@ def variants_f32(torch):
     launches, failed = solve_names(torch, "variants_f32", op, b, x_true,
                                    VARIANT_ENTRY, sym_expected, n=N, k=K_BAND)
 
-    # the generic body: the norm rides the dot batch, so no fused phase
+    # the generic body: the norm rides the dot batch, so no fused phase.
+    # The eager loop's launches: replayed, the tolerance loop runs its last
+    # chunk past max_iter and takes it back (jit_solve holds that run)
     reset_counts()
     t0 = time.perf_counter()
     res = solve(op, b, variant="pipe_pr_pcg", preconditioner="jacobi",
                 norm_type="unpreconditioned", rtol=0.0,
-                max_iter=GENERIC_ITERS)
+                max_iter=GENERIC_ITERS, use_jit=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -1276,6 +1337,8 @@ def dia_path_f32(torch, timings):
 
     op, b, x_true = model_f32(torch, "dia")
     out = bench_protocol(torch, op, b, "fused_pipe_full_step", "dia_spmv")
+    timings["dia_f32"] = {"ms_per_iter": out["ms_per_iter"],
+                          "profile": out["profile"]}
     launches = dict(emit_bench(torch, "dia_f32", out, x_true,
                                timings["fused_pipe_full_step"]["ms"],
                                fmt="dia", ndiag=len(op.offsets)))
@@ -1777,7 +1840,7 @@ def df_expected(name, iters, product="df_dia_spmv"):
     return counts, product
 
 
-def df_f32x2(torch):
+def df_f32x2(torch, built):
     """The double-word path at full width: pipe-PR-CG in f32x2 on the model
     problem built in float64 (expanded to 63 diagonals, split exactly), 300
     iterations, launches asserted, the profiler's launches per iteration;
@@ -1827,10 +1890,11 @@ def df_f32x2(torch):
         launches[key] = launches.get(key, 0) + val
     if failed:
         raise AssertionError(f"{len(failed)} f32x2 runs failed: {failed}")
+    built["df_model"] = (dop, b)  # jit_f32x2's operator
     return launches
 
 
-def df_dense_f32x2(torch):
+def df_dense_f32x2(torch, built):
     """pipe-PR-CG in f32x2 on a dense SPD operator (n = 4096): row 10 (2
     right-hand sides) and row 11 once per iteration; the profiler's launches
     per iteration."""
@@ -1858,6 +1922,7 @@ def df_dense_f32x2(torch):
                     df_split(np.zeros(DF_DENSE_N), device="cuda"))
     emit("df_dense_f32x2", variant="pipe_pr_cg", profile=profile_steps(
         torch, ctx, step_fn, state))
+    built["df_dense"] = (dop, b)  # jit_df_dense's operator
     return launches
 
 
@@ -4586,12 +4651,675 @@ def dist_scaling(torch, mesh, built):
     return path
 
 
+# ---------------------------------------------------------------------------
+# The compiled loop: use_jit=True replays captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: iterations of a run whose bits are held between use_jit=True and False:
+#: the main paths', and each name's of a path that runs every name
+JIT_ITERS = 300
+JIT_NAME_ITERS = 100
+#: chained iterations of a trial's chunk for the paths timed with a shorter
+#: protocol (ELL, at ~0.5-0.8 ms an eager step; f32x2, at ~3.6 ms; each
+#: of the 18 names); the trials of every jit timing (the protocol's least,
+#: MIN_TRIALS); the profiled window, in captured chunks (fewer for f32x2,
+#: whose 278 kernels a step make the profiler's events slow to read, and
+#: for each name)
+JIT_ELL_ITERS = 2000
+JIT_SHORT_ITERS = 200
+JIT_TRIALS = MIN_TRIALS
+JIT_PROFILE_CHUNKS = 6
+JIT_DF_PROFILE_CHUNKS = 2
+JIT_NAME_PROFILE_CHUNKS = 1
+#: a history run's probes: residual_2_norm puts one product a step (the
+#: SpMV entry of the operator's kind) inside the captured graph
+JIT_PROBES = ("nu", "alpha", "residual_2_norm")
+#: the tolerance solves of jit_solve: (problem, variant, preconditioner,
+#: norm type, rtol, max_iter); "model" is main_f32's problem, "scaled" the
+#: scaled band of variants_f64 in float32 (on the model problem Jacobi
+#: converges within a few iterations)
+JIT_SOLVES = (("model", "pipe_pr_cg", None, "natural", 1e-4, 3000),
+              ("scaled", "pipe_pr_pcg", "jacobi", "natural", 1e-5, 3000),
+              ("model", "pipe_pr_pcg", "jacobi", "unpreconditioned", 0.0,
+               GENERIC_ITERS),
+              ("model", "pipe_pr_cg", None, "none", 0.0, 1000))
+
+#: launches made at a capture (by wrapper), the same launches once for each
+#: replay of that graph (``read_counts`` counts a captured launch as often
+#: as its graph was replayed), and the host seconds of the captures' bodies
+#: and of their instantiation (install_graph_counts)
+GRAPH = {"captured": {}, "replayed": {}, "seconds": {}}
+
+
+def raw_counts():
+    return {fn.__name__: fn.launches for fn in counted_wrappers()}
+
+
+def install_graph_counts():
+    """Count the launches a captured graph makes: each capture's launches
+    (the wrappers' counts around it), once for every replay."""
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    capture = graphs.CudaCapture.capture
+
+    def counted(self, body):
+        before = raw_counts()
+        seconds = (self.capture_seconds, self.instantiate_seconds)
+        replay = capture(self, body)
+        inside = {k: v - before[k] for k, v in raw_counts().items()
+                  if v != before[k]}
+        add_counts(GRAPH["captured"], inside)
+        add_counts(GRAPH["seconds"], {
+            "capture": self.capture_seconds - seconds[0],
+            "instantiate": self.instantiate_seconds - seconds[1]})
+
+        def counted_replay():
+            replay()
+            add_counts(GRAPH["replayed"], inside)
+
+        return counted_replay
+
+    graphs.CudaCapture.capture = counted
+
+
+def same_output(got, want, keys):
+    """Whether each of ``keys`` of two ``run`` outputs has the same bits
+    (numpy arrays, or ``x`` as a tensor)."""
+    out = {}
+    for key in keys:
+        g, w = got[key], want[key]
+        if hasattr(g, "cpu"):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+        out[key] = bool(g.dtype == w.dtype and g.shape == w.shape
+                        and g.tobytes() == w.tobytes())
+    return out
+
+
+def jit_pair(torch, call):
+    """``call(use_jit)`` with use_jit=True, then False: the results, host
+    seconds, launches (captured ones once per replay), the launches that
+    ran inside graphs, by wrapper, and the captures' host seconds."""
+    out = {}
+    for jit in (True, False):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = call(jit)
+        torch.cuda.synchronize()
+        out[jit] = (res, time.perf_counter() - t0, read_counts(),
+                    nonzero(GRAPH["replayed"]), dict(GRAPH["seconds"]))
+    return out
+
+
+def run_pair(torch, phase, variant, op, b, iters, probes=JIT_PROBES,
+             fields=None, **kw):
+    """One history run (``run``'s keywords ``kw``) with use_jit=True and
+    with False: ``x`` and every probe history the same bits, the same
+    launches.  Emits the record with ``fields``; returns it, whether it
+    holds, and the launches inside graphs."""
+    from new_cg_variants_tpu_torch import run
+
+    pair = jit_pair(torch, lambda jit: run(
+        variant, op, b, max_iter=iters + 1, probes=probes, use_jit=jit,
+        **kw))
+    (g, g_s, g_n, inside, cap), (e, e_s, e_n, *_) = pair[True], pair[False]
+    same = same_output(g, e, ("x",) + tuple(probes))
+    rec = dict(variant=variant, iterations=iters, same_bits=same,
+               seconds_jit=g_s, seconds_eager=e_s, capture_seconds=cap,
+               graph_launches=inside,
+               launches=nonzero(g_n), eager_launches=nonzero(e_n))
+    rec.update({k: v for k, v in kw.items()
+                if isinstance(v, (str, int, float, type(None)))})
+    rec.update(fields or {})
+    emit(phase, **rec)
+    return rec, all(same.values()) and g_n == e_n and bool(inside), inside
+
+
+def solve_pair(torch, phase, op, b, variant, precond, norm_type, rtol,
+               max_iter, **fields):
+    """One tolerance solve with use_jit=True and with False: the same
+    iterations, norm, convergence and bits of ``x``.  The launches of the
+    replays are the eager loop's and, where a chunk ran past the stopping
+    iteration (its state then taken back), those of the steps past it
+    (``overshoot``): never fewer; with ``norm_type="none"`` the same."""
+    from new_cg_variants_tpu_torch import solve
+
+    pair = jit_pair(torch, lambda jit: solve(
+        op, b, variant=variant, preconditioner=precond, norm_type=norm_type,
+        rtol=rtol, max_iter=max_iter, use_jit=jit))
+    (g, g_s, g_n, inside, cap), (e, e_s, e_n, *_) = pair[True], pair[False]
+    same = dict(iterations=g.iterations == e.iterations,
+                norm=np.float64(g.norm).tobytes() == np.float64(
+                    e.norm).tobytes(),
+                converged=g.converged == e.converged,
+                x=bool(torch.equal(g.x, e.x)))
+    it = max(g.iterations, 1)
+    rec = dict(variant=variant, preconditioner=precond, norm_type=norm_type,
+               rtol=rtol, max_iter=max_iter, iterations=g.iterations,
+               norm=g.norm, converged=g.converged, same=same,
+               ms_per_iter_jit=g_s / it * 1e3,
+               ms_per_iter_eager=e_s / it * 1e3, capture_seconds=cap,
+               graph_launches=inside,
+               launches=nonzero(g_n), eager_launches=nonzero(e_n),
+               overshoot=nonzero({k: g_n[k] - e_n[k] for k in g_n}),
+               **fields)
+    emit(phase, **rec)
+    launches_ok = (g_n == e_n if norm_type == "none"
+                   else all(g_n[k] >= e_n[k] for k in g_n))
+    return rec, all(same.values()) and launches_ok, inside
+
+
+def jit_timing(torch, ctx, init_fn, step_fn, b, x0,
+               chunk_iters=ITERS_PER_CHUNK, max_trials=JIT_TRIALS,
+               profile_chunks=JIT_PROFILE_CHUNKS, eager=None):
+    """The step loop of ``ctx`` timed under the bench protocol eagerly and
+    as replays of captured graphs (graphs.Runner, as use_jit=True runs it),
+    one after the other, each with a profiled window (``profile_chunks``
+    chunks of the graph's steps): ms/iter, device time and busy share (of
+    the profiled window's wall time, and of the protocol's ms/iter), CUDA
+    events per iteration; the capture's and instantiation's host seconds.
+    ``eager``: the eager loop's ``{"ms_per_iter", "profile"}`` as the
+    phase's own bench_protocol measured it earlier in the run (not measured
+    again)."""
+    from new_cg_variants_tpu_torch.ops.doublefloat import collapse
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    steps = profile_chunks * min(graphs.CHUNK, chunk_iters)
+    if eager is None:
+        begin, advance, read_nu = eager_loop(ctx, init_fn, step_fn, b, x0)
+        ms, times, nu = protocol_ms(begin, advance, read_nu, chunk_iters,
+                                    max_trials)
+        eager = dict(ms_per_iter=ms, trial_seconds=times, nu_final=nu,
+                     profile=profile_window(torch, advance, steps))
+    else:
+        eager = dict(eager, measured_in="the phase's bench_protocol")
+    runner = graphs.runner(torch.device("cuda"), use_jit=True)
+    loop = {}
+
+    def gbegin(scale):
+        s = init_fn(ctx, b * scale, x0)
+        if not loop:
+            loop["l"] = runner.start(ctx, step_fn, s, horizon=chunk_iters)
+        loop["l"].load(s)
+
+    def gadvance(m):
+        loop["l"].advance(m)
+
+    ms, times, nu = protocol_ms(
+        gbegin, gadvance, lambda: float(collapse(loop["l"].state()["nu"])),
+        chunk_iters, max_trials)
+    replayed = dict(ms_per_iter=ms, trial_seconds=times, nu_final=nu,
+                    profile=profile_window(torch, gadvance, steps))
+    for rec in (eager, replayed):
+        busy = rec["profile"].get("device_busy_ms_per_iter")
+        rec["busy_share_of_ms_per_iter"] = (None if busy is None
+                                            else busy / rec["ms_per_iter"])
+    cap = loop["l"].cap
+    rec = dict(chunk_iters=chunk_iters, graph_chunk=loop["l"].chunk,
+               ms_per_iter_eager=eager["ms_per_iter"],
+               ms_per_iter_jit=replayed["ms_per_iter"],
+               speedup=eager["ms_per_iter"] / replayed["ms_per_iter"],
+               eager=eager, jit=replayed,
+               capture_seconds=cap.capture_seconds,
+               instantiate_seconds=cap.instantiate_seconds,
+               graphs=len(cap.graphs))
+    ok = all(v is None or np.isfinite(v)
+             for v in (eager.get("nu_final"), replayed["nu_final"]))
+    return rec, ok
+
+
+def jit_timed(torch, phase, op, b, variant, card, chunk_iters=ITERS_PER_CHUNK,
+              max_trials=JIT_TRIALS, precond=None, profile_chunks=None,
+              eager=None, **fields):
+    """jit_timing of ``variant`` on ``op`` (single-word or, for a
+    ``DFOperator``, double-word), emitted with the card's line."""
+    from new_cg_variants_tpu_torch.ops.doublefloat import (
+        DFOperator,
+        DoubleFloatContext,
+        df_split,
+    )
+    from new_cg_variants_tpu_torch.solvers.api import _resolve
+    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.solvers.families import FAMILIES, family_of
+
+    if isinstance(op, DFOperator):
+        init_fn, step_fn = FAMILIES[family_of(variant)[0]]
+        ctx = DoubleFloatContext(op)
+        b = df_split(b.cpu().numpy(), device="cuda")
+        x0 = df_split(np.zeros(op.n), device="cuda")
+    else:
+        init_fn, step_fn, prec = _resolve(variant, op, precond)
+        ctx = Context(op, prec)
+        x0 = torch.zeros_like(b)
+    rec, ok = jit_timing(torch, ctx, init_fn, step_fn, b, x0, chunk_iters,
+                         max_trials, profile_chunks or JIT_PROFILE_CHUNKS,
+                         eager)
+    emit(phase, variant=variant, timing=rec, card=card, **fields)
+    return rec, ok
+
+
+def hold(phase, failed):
+    if failed:
+        raise AssertionError(f"{phase}: {len(failed)} checks failed: "
+                             f"{failed}")
+
+
+def jit_names(torch, phase, op, b, names, iters=JIT_NAME_ITERS,
+              precond=jacobi_for_pcg, probes=("nu", "alpha"), entry=None,
+              fields=None, **kw):
+    """run_pair of each name; returns the launches inside graphs, summed,
+    a wrapper's launches under the kernel entry ``entry(name)`` where that
+    is one of the wrapper's (as solve_names files them), and the failed
+    records."""
+    inside, failed = {}, []
+    for name in names:
+        rec, ok, got = run_pair(torch, phase, name, op, b, iters,
+                                probes=probes, fields=fields,
+                                preconditioner=precond(name, op)[1], **kw)
+        dest = entry(name) if entry else ""
+        add_counts(inside, {dest if k == dest.split("/")[0] else k: v
+                            for k, v in got.items()})
+        if not ok:
+            failed.append(rec)
+    return inside, failed
+
+
+def sym_entry(name):
+    return VARIANT_ENTRY.get(name, ("fused_sym_pipe_full_step",))[0]
+
+
+def dia_entry(name):
+    return dia_expected(name, 0)[1]
+
+
+def jit_main_f32(torch, card, timings):
+    """The main path captured: pipe-PR-CG on main_f32's problem, use_jit
+    True against False (x, nu, alpha and the true residual, whose product
+    runs inside the graph, the same bits; the same launches), both timed
+    under the bench protocol with their profiles."""
+    op, b, _ = model_f32(torch, "symdia")
+    rec, ok, inside = run_pair(torch, "jit_main_f32", "pipe_pr_cg", op, b,
+                               JIT_ITERS)
+    failed = [] if ok else [rec]
+    t, ok = jit_timed(torch, "jit_main_f32", op, b, "pipe_pr_cg", card,
+                      eager=timings["main_f32"], n=N, k=K_BAND)
+    timings["jit_main_f32"] = t
+    hold("jit_main_f32", failed + ([] if ok else [t]))
+    return inside
+
+
+def jit_variants_f32(torch, card):
+    """Every name on main_f32's half-band problem captured: use_jit True
+    against False for JIT_NAME_ITERS iterations, same bits and launches;
+    each timed both ways with JIT_SHORT_ITERS-iteration chunks, profiled
+    over one chunk."""
+    from new_cg_variants_tpu_torch import VARIANT_NAMES
+
+    op, b, _ = model_f32(torch, "symdia")
+    inside, failed = jit_names(torch, "jit_variants_f32", op, b,
+                               VARIANT_NAMES, entry=sym_entry)
+    ms = {}
+    for name in VARIANT_NAMES:
+        t, ok = jit_timed(torch, "jit_variants_f32", op, b, name, card,
+                          JIT_SHORT_ITERS,
+                          profile_chunks=JIT_NAME_PROFILE_CHUNKS,
+                          precond=jacobi_for_pcg(name, op)[1])
+        ms[name] = (t["ms_per_iter_eager"], t["ms_per_iter_jit"])
+        if not ok:
+            failed.append(t)
+    emit("jit_variants_f32", ms_per_iter_eager_jit=ms, card=card)
+    failed += jit_hook(torch, op, b)
+    hold("jit_variants_f32", failed)
+    return inside
+
+
+def jit_hook(torch, op, b):
+    """gv's replacement hook under capture: ``k % 10 == 0`` answers a bool
+    tensor for the device ``k`` of use_jit=True (the step selects) and a
+    Python bool for use_jit=False's host ``k`` (the step branches): the
+    same bits; a hook that answers a Python bool under use_jit=True is
+    refused with TypeError.  Returns the failed records."""
+    from new_cg_variants_tpu_torch import run
+
+    kw = dict(max_iter=JIT_NAME_ITERS + 1, probes=("nu", "alpha"))
+    pair = jit_pair(torch, lambda jit: run(
+        "gv_cg", op, b, use_jit=jit, w_replace=lambda k, view: k % 10 == 0,
+        **kw))
+    same = same_output(pair[True][0], pair[False][0], ("x", "nu", "alpha"))
+    try:
+        run("gv_cg", op, b, w_replace=lambda k, view: True, **kw)
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    rec = dict(variant="gv_cg", hook="k % 10 == 0", same_bits=same,
+               graph_launches=pair[True][3], python_bool_refused=refused)
+    emit("jit_variants_f32", **rec)
+    ok = (all(same.values()) and bool(pair[True][3])
+          and refused is not None and "use_jit=False" in refused)
+    return [] if ok else [rec]
+
+
+def jit_dia_f32(torch, card, timings):
+    """The full-DIA path captured: every name (use_jit True against False,
+    same bits and launches), pipe-PR-CG with the true residual (the DIA
+    SpMV inside the graph) and timed both ways; the split formulation
+    (preconditioner as a function: row 5 and the 2-RHS SpMV)."""
+    from new_cg_variants_tpu_torch import VARIANT_NAMES
+
+    op, b, _ = model_f32(torch, "dia")
+    inside, failed = jit_names(torch, "jit_dia_f32", op, b, VARIANT_NAMES,
+                               entry=dia_entry)
+    rec, ok, got = run_pair(torch, "jit_dia_f32", "pipe_pr_cg", op, b,
+                            JIT_ITERS)
+    add_counts(inside, got)
+    failed += [] if ok else [rec]
+    inv = 1.0 / op.diagonal()
+    got, f2 = jit_names(torch, "jit_dia_f32", op, b, ("pipe_pr_pcg",),
+                        precond=lambda name, op: (None, lambda v: inv * v))
+    add_counts(inside, got)
+    t, ok = jit_timed(torch, "jit_dia_f32", op, b, "pipe_pr_cg", card,
+                      eager=timings["dia_f32"], n=N, k=K_BAND, fmt="dia")
+    timings["jit_dia_f32"] = t
+    hold("jit_dia_f32", failed + f2 + ([] if ok else [t]))
+    return inside
+
+
+def jit_dia_wide_f32(torch):
+    """dia_wide_f32's band captured: the split formulations (rows 4, 5 and
+    the direct-regime SpMV) and a generic body, use_jit True against
+    False."""
+    op = grid_operator(torch, torch.float32)
+    b = op.mv(torch.ones(op.n, dtype=torch.float32, device="cuda"))
+    inside, failed = jit_names(torch, "jit_dia_wide_f32", op, b,
+                               ("pipe_pr_cg", "pipe_pr_pcg", "pr_cg"),
+                               iters=40, probes=JIT_PROBES)
+    hold("jit_dia_wide_f32", failed)
+    return inside
+
+
+def df_checked(torch):
+    """The double-word mode's one-shot check on the card, made before a
+    use_jit pair so that neither run's launches include it."""
+    from new_cg_variants_tpu_torch.solvers import api
+
+    api._df_selfcheck(torch.device("cuda"))
+
+
+def jit_f32x2(torch, card, built, timings):
+    """The double-word path captured: pipe-PR-CG (row 9 with 2 RHS, row 11)
+    and hs-CG (row 9 once a product) in f32x2 on df_f32x2's operator,
+    use_jit True against False; pipe-PR-CG timed both ways with
+    JIT_SHORT_ITERS-iteration chunks."""
+    dop, b = built.pop("df_model")
+    df_checked(torch)
+    inside, failed = jit_names(torch, "jit_f32x2", dop, b,
+                               ("pipe_pr_cg", "hs_cg"), dtype="f32x2",
+                               probes=JIT_PROBES)
+    t, ok = jit_timed(torch, "jit_f32x2", dop, b, "pipe_pr_cg", card,
+                      JIT_SHORT_ITERS, profile_chunks=JIT_DF_PROFILE_CHUNKS,
+                      n=N, ndiag=len(dop.inner.offsets))
+    timings["jit_f32x2"] = t
+    hold("jit_f32x2", failed + ([] if ok else [t]))
+    return inside
+
+
+def jit_df_dense(torch, built):
+    """df_dense_f32x2's operator captured (row 10, rows 9-11's dense
+    path): pipe-PR-CG and hs-CG in f32x2, use_jit True against False."""
+    dense, b = built.pop("df_dense")
+    df_checked(torch)
+    inside, failed = jit_names(torch, "jit_df_dense", dense, b,
+                               ("pipe_pr_cg", "hs_cg"), dtype="f32x2",
+                               probes=JIT_PROBES)
+    hold("jit_df_dense", failed)
+    return inside
+
+
+def jit_ell_f32(torch, card, built, timings):
+    """The ELL path captured (HPCG 104^3 permuted, RCM order, row 12 with
+    its gather): pipe-PR-CG with the true residual and hs-CG, use_jit True
+    against False; pipe-PR-CG timed both ways (JIT_ELL_ITERS-iteration
+    chunks); the tolerance solve of ell_f32, which stops inside a
+    chunk."""
+    a, op, b, _ = built["hpcg_ell"]
+    inside, failed = jit_names(torch, "jit_ell_f32", op, b,
+                               ("pipe_pr_cg", "hs_cg"), iters=JIT_ITERS,
+                               probes=JIT_PROBES)
+    rec, ok, got = solve_pair(torch, "jit_ell_f32", op, b, "pipe_pr_cg",
+                              None, "natural", ELL_RTOL, ELL_MAX_ITER,
+                              card=card)
+    add_counts(inside, got)
+    failed += [] if ok and rec["converged"] else [rec]
+    t, ok = jit_timed(torch, "jit_ell_f32", op, b, "pipe_pr_cg", card,
+                      JIT_ELL_ITERS, n=op.n)
+    timings["jit_ell_f32"] = t
+    hold("jit_ell_f32", failed + ([] if ok else [t]))
+    return inside
+
+
+def jit_bf16(torch, card, built, timings):
+    """bf16 storage captured: main_bf16's problem (pipe-PR-CG with the true
+    residual, timed both ways; every name), dia_bf16's (every name, the
+    split formulation) and ell_bf16's operator (pipe-PR-CG, hs-CG), use_jit
+    True against False."""
+    from new_cg_variants_tpu_torch import VARIANT_NAMES
+
+    op, b, _ = model_bf16(torch, "symdia")
+    rec, ok, inside = run_pair(torch, "jit_bf16", "pipe_pr_cg", op, b,
+                               JIT_ITERS, fields={"storage": "bfloat16"})
+    failed = [] if ok else [rec]
+    got, f2 = jit_names(torch, "jit_bf16", op, b, VARIANT_NAMES,
+                        entry=sym_entry)
+    add_counts(inside, got)
+    t, ok = jit_timed(torch, "jit_bf16", op, b, "pipe_pr_cg", card,
+                      eager=timings["main_bf16"], n=N, k=K_BAND,
+                      storage="bfloat16")
+    timings["jit_bf16"] = t
+    failed += f2 + ([] if ok else [t])
+    del op
+    dop, db, _ = model_bf16(torch, "dia")
+    got, f2 = jit_names(torch, "jit_bf16", dop, db, VARIANT_NAMES,
+                        entry=dia_entry)
+    add_counts(inside, got)
+    failed += f2
+    got, f2 = jit_names(torch, "jit_bf16", dop, db, ("pipe_pr_cg",),
+                        probes=JIT_PROBES)
+    add_counts(inside, got)
+    failed += f2
+    inv = 1.0 / dop.diagonal().float()
+    got, f2 = jit_names(torch, "jit_bf16", dop, db, ("pipe_pr_pcg",),
+                        precond=lambda name, op: (None, lambda v: inv * v))
+    add_counts(inside, got)
+    failed += f2
+    del dop
+    _, eop, eb, _ = built["hpcg_ell"]
+    got, f2 = jit_names(torch, "jit_bf16", eop.astype(torch.bfloat16), eb,
+                        ("pipe_pr_cg", "hs_cg"), probes=JIT_PROBES)
+    add_counts(inside, got)
+    failed += f2
+    hold("jit_bf16", failed)
+    return inside
+
+
+def jit_solve(torch, card):
+    """Tolerance solves captured (JIT_SOLVES on main_f32's problem): use_jit
+    True against False, the same iterations, norm, convergence, bits of x
+    and launches; ms/iter of each beside the other."""
+    model, bm, _ = model_f32(torch, "symdia")
+    band, bs = scaled_band(torch, CONV_BAND_N, K_BAND)
+    problems = {"model": (model, bm),
+                "scaled": (band.astype(torch.float32).to("cuda"),
+                           torch.as_tensor(bs, dtype=torch.float32,
+                                           device="cuda"))}
+    inside, failed = {}, []
+    for problem, variant, precond, norm_type, rtol, max_iter in JIT_SOLVES:
+        op, b = problems[problem]
+        rec, ok, got = solve_pair(torch, "jit_solve", op, b, variant,
+                                  precond, norm_type, rtol, max_iter,
+                                  card=card, problem=problem, n=op.n,
+                                  k=K_BAND)
+        add_counts(inside, got)
+        if not ok:
+            failed.append(rec)
+    hold("jit_solve", failed)
+    return inside
+
+
+def jit_convergence_f64(torch):
+    """convergence_f64's table through ``run``: its nine names on its two
+    matrices (HPCG 32^3 permuted, ELL; the scaled band, half-band) in
+    float64 with Jacobi and the suite's probes, use_jit True against
+    False (every probe row and x the same bits, so the same table); hs-PCG
+    on the post-hoc run's 24^3 operator."""
+    from new_cg_variants_tpu_torch import as_operator, from_coo
+    from new_cg_variants_tpu_torch.harness import convergence as hc
+    from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
+
+    inside, failed = {}, []
+    cases = (("hpcg27", stencil27(CONV_GRID, PERM_SEED), hc.DEFAULT_VARIANTS,
+              CONV_ITERS, None),
+             ("scaled_band", scaled_band(torch, CONV_BAND_N, K_BAND)[0],
+              hc.DEFAULT_VARIANTS, CONV_ITERS, sym_entry),
+             ("posthoc", stencil27(POSTHOC_GRID, PERM_SEED), ("hs_pcg",),
+              POSTHOC_ITERS, None))
+    for label, a, names, iters, entry in cases:
+        # the post-hoc run's operator as convergence_f64 builds it (at 24^3
+        # the auto route would pick another format)
+        op = (from_coo(coo_from_scipy(a), fmt="ell", device="cuda")
+              if label == "posthoc" else
+              as_operator(a.tocsr(), dtype=torch.float64, device="cuda"))
+        n = op.n
+        x_true = np.ones(n) / np.sqrt(n)
+        b = np.asarray(a.tocsr() @ x_true)
+        got, f2 = jit_names(torch, "jit_convergence_f64", op, b, names,
+                            iters=iters, probes=hc.PROBES,
+                            precond=lambda name, op: (None, "jacobi"),
+                            entry=entry, x_true=x_true,
+                            fields={"matrix": label})
+        add_counts(inside, got)
+        failed += f2
+    hold("jit_convergence_f64", failed)
+    return inside
+
+
+def bits_equal(torch, a, b):
+    """Whether two tensors hold the same bits (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return bool(torch.equal(a, b))
+
+
+def tensors_of(out):
+    """The tensors of a nested tuple / list, in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensors_of(o)]
+    return [out]
+
+
+def capture_check(torch, fn):
+    """``fn()`` eagerly, then captured once (graphs.CudaCapture, as a loop
+    captures) and replayed: whether every output has the eager bits."""
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    want = tensors_of(fn())
+    got = []
+    replay = graphs.CudaCapture(torch.device("cuda")).capture(
+        lambda: got.extend(tensors_of(fn())))
+    replay()
+    torch.cuda.synchronize()
+    return len(got) == len(want) and all(
+        bits_equal(torch, g, w) for g, w in zip(got, want))
+
+
+def capture_dist(torch, built):
+    """The entries the row partition runs (the dist_* phases; its loops
+    stay eager in this port) at the shapes dist_f32, dist_f32x2 and
+    dist_ell_f32 give them, each held to one capture of itself: the
+    replay's outputs the eager call's bits."""
+    from new_cg_variants_tpu_torch.ops import df_spmv as ds
+    from new_cg_variants_tpu_torch.ops import ell_spmv as es
+    from new_cg_variants_tpu_torch.ops import fused_step as fs
+    from new_cg_variants_tpu_torch.ops import spmv_dia as sp
+    from new_cg_variants_tpu_torch.ops import sym_dia as sd
+    from new_cg_variants_tpu_torch.parallel.dist import _ell_locality_shard
+
+    rng = np.random.default_rng(15)
+    f32 = dict(dtype=torch.float32, device="cuda")
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n), **f32)
+
+    sym_offs = tuple(range(K_BAND))
+    band = random_band(torch, sym_offs, DIST_EXT_N, torch.float32, rng)
+    v, w = vec(DIST_EXT_N), vec(DIST_EXT_N)
+    offs = DIA_MAIN_OFFSETS
+    h = max(abs(o) for o in offs)
+    shard = torch.as_tensor(rng.uniform(-1.0, 1.0, (len(offs), N)), **f32)
+    vx, wx = vec(N + 2 * h), vec(N + 2 * h)
+    vecs = [vec(N) for _ in range(10)]
+    a1, beta = (torch.tensor(SCALAR_VALUES[k], **f32) for k in ("a1", "beta"))
+    # three O(1) words a value: the kernel's steps do not depend on their
+    # sizes, and the comparison is the eager call's bits
+    words = [torch.as_tensor(rng.uniform(-1.0, 1.0, (len(offs), N)), **f32)
+             for _ in range(3)]
+    xw = [vec(N + 2 * h) for _ in range(4)]
+    _, op, _, _ = built["hpcg_ell"]
+    lval_t, lidx_t, q, cols = _ell_locality_shard(op, 0, op.n, "cuda")
+    cv, cw = vec(op.n), vec(op.n)
+    calls = {
+        "sym_dia_spmv": lambda: sd.sym_dia_spmv(sym_offs, band, v),
+        "sym_dia_spmv2": lambda: sd.sym_dia_spmv2(sym_offs, band, v, w),
+        "dia_spmv_ext": lambda: sp.dia_spmv_ext(offs, shard, vx),
+        "dia_spmv2_ext": lambda: sp.dia_spmv2_ext(offs, shard, vx, wx),
+        "fused_pipe_vector_phase": lambda: fs.fused_pipe_vector_phase(
+            *vecs[:6], a1, beta),
+        "fused_pipe_vector_phase_prec":
+            lambda: fs.fused_pipe_vector_phase_prec(*vecs, a1, beta),
+        "df_dia_spmv_ext": lambda: ds.df_dia_spmv_ext(
+            offs, *words, tuple(xw[:2])),
+        "df_dia_spmv2_ext": lambda: ds.df_dia_spmv2_ext(
+            offs, *words, tuple(xw[:2]), tuple(xw[2:])),
+        "ell_spmv_cache": lambda: es.ell_spmv_cache(
+            lval_t.T, lidx_t.T, cv, q, cols),
+        "ell_spmv2_cache": lambda: es.ell_spmv2_cache(
+            lval_t.T, lidx_t.T, cv, cw, q, cols),
+    }
+    reset_counts()
+    same = {name: capture_check(torch, fn) for name, fn in calls.items()}
+    inside = nonzero(GRAPH["replayed"])
+    emit("capture_dist", same_bits=same, graph_launches=inside)
+    hold("capture_dist", [k for k, ok in same.items() if not ok])
+    return inside
+
+
+#: the phases that run a path's shapes inside captured graphs (use_jit=True
+#: against False, or, for the row partition's entries, each captured once)
+GRAPH_PATHS = {
+    "main_f32": ("jit_main_f32", "jit_solve"),
+    "variants_f32": ("jit_variants_f32",),
+    "dia_f32": ("jit_dia_f32",), "dia_wide_f32": ("jit_dia_wide_f32",),
+    "df_f32x2": ("jit_f32x2",), "df_dense_f32x2": ("jit_df_dense",),
+    "ell_f32": ("jit_ell_f32",),
+    "convergence_f64": ("jit_convergence_f64",),
+    "posthoc_f64": ("jit_convergence_f64",),
+    "main_bf16": ("jit_bf16",), "dia_bf16": ("jit_bf16",),
+    "ell_bf16": ("jit_bf16",),
+    "dist_f32": ("capture_dist",), "dist_f32x2": ("capture_dist",),
+    "dist_ell_f32": ("capture_dist",),
+}
+
+
 def kernel_records(timings, launches):
     """The ``kernels`` line: one record per kernel entry and shape a driven
     path gives it, with the entry's launches on the paths of that shape
-    (``launches``: path -> entry -> count); a shape checked and timed that
-    no path runs (the ELL shards of 2 and 4 ranks) has no path and no
-    launches."""
+    (``launches``: path -> entry -> count) and inside captured graphs on
+    the phases of GRAPH_PATHS (``graph_launches``); a shape checked and
+    timed that no path runs (the ELL shards of 2 and 4 ranks) has no path
+    and no launches."""
     jax_ops = "new_cg_variants_tpu/ops/"
     sym = ("main_f32", "variants_f32", "cli_f32", "trace_f32")
     records = {
@@ -4711,11 +5439,14 @@ def kernel_records(timings, launches):
             extra["natural_order"] = {
                 key: timings[name + NATURAL][key]
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        gpaths = sorted({g for p in paths for g in GRAPH_PATHS.get(p, ())})
         kernels.append(dict(
             name=name, route="cuda",
             source="new_cg_variants_tpu_torch/csrc/" + source,
             replaces=jax_ops + replaces, n=t["n"], paths=list(paths),
             launches=sum(launches[p].get(entry, 0) for p in paths),
+            graph_paths=gpaths,
+            graph_launches=sum(launches[g].get(entry, 0) for g in gpaths),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], **extra))
@@ -4748,6 +5479,7 @@ def main():
     card = card_line()
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
+    install_graph_counts()
 
     # built: what a phase makes for a later one (ell_f32's operator)
     timings, launches, built = {}, {}, {}
@@ -4765,29 +5497,40 @@ def main():
     phase("check_dia", check_dia, torch, card, timings)
     phase("check_df", check_df, torch, card, timings)
     phase("main_f32", main_path_f32, torch, timings)
+    phase("jit_main_f32", jit_main_f32, torch, card, timings)
     phase("main_f64", main_path_f64, torch)
     phase("variants_f32", variants_f32, torch)
+    phase("jit_variants_f32", jit_variants_f32, torch, card)
+    phase("jit_solve", jit_solve, torch, card)
     phase("variants_f64", variants_f64, torch)
     phase("dia_f32", dia_path_f32, torch, timings)
     phase("dia_wide_f32", dia_wide_f32, torch)
+    phase("jit_dia_f32", jit_dia_f32, torch, card, timings)
+    phase("jit_dia_wide_f32", jit_dia_wide_f32, torch)
     phase("dia_f64", dia_f64, torch)
-    phase("df_f32x2", df_f32x2, torch)
-    phase("df_dense_f32x2", df_dense_f32x2, torch)
+    phase("df_f32x2", df_f32x2, torch, built)
+    phase("df_dense_f32x2", df_dense_f32x2, torch, built)
+    phase("jit_f32x2", jit_f32x2, torch, card, built, timings)
+    phase("jit_df_dense", jit_df_dense, torch, built)
     phase("df_card_vs_cpu", df_card_vs_cpu, torch)
     phase("df_accuracy", df_accuracy, torch)
     phase("check_ell", check_ell, torch, card, timings)
     phase("check_bf16", check_bf16, torch, card, timings)
     phase("ell_f32", ell_f32, torch, built)
+    phase("jit_ell_f32", jit_ell_f32, torch, card, built, timings)
     phase("ell_bf16", ell_bf16, torch, built)
     phase("main_bf16", main_bf16, torch, timings)
     phase("dia_bf16", dia_bf16, torch)
+    phase("jit_bf16", jit_bf16, torch, card, built, timings)
     phase("bf16_accuracy", bf16_accuracy, torch)
     phase("formats_f32", formats_f32, torch, built)
     phase("sparse_f64", sparse_f64, torch)
     phase("convergence_f64", convergence_f64, torch, card, timings, launches)
+    phase("jit_convergence_f64", jit_convergence_f64, torch)
     phase("cli_f32", cli_f32, torch, timings, launches)
     phase("trace_f32", trace_f32, torch, launches)
     phase("check_dist", check_dist, torch, card, timings)
+    phase("capture_dist", capture_dist, torch, built)
     with dist_world() as mesh:
         phase("dist_f32", dist_f32, torch, mesh, timings)
         phase("dist_f64", dist_f64, torch, mesh)
@@ -4802,6 +5545,10 @@ def main():
                   if k["paths"] and k["launches"] < 1]
     if unlaunched:
         raise AssertionError(f"no launch on its driven path: {unlaunched}")
+    uncaptured = [k["name"] for k in kernels
+                  if k["paths"] and k["graph_launches"] < 1]
+    if uncaptured:
+        raise AssertionError(f"no launch inside a graph: {uncaptured}")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,11 @@ configuration, the reduction the reference's plot scripts apply
 Timing protocol: each trial starts from ``x0 = 0`` and chains ``max_iter``
 steps (on a mesh: ``max_iter // chunk_iters`` chunks of ``chunk_iters``),
 the state of one step feeding the next; the warm-up trial is excluded; one
-``torch.cuda.synchronize()`` per trial closes its timer on the card.
+``torch.cuda.synchronize()`` per trial closes its timer on the card.  On
+one card the steps are replays of captured CUDA graphs
+(:mod:`..solvers.graphs`), as the JAX package jits its ``fori_loop``
+chunk: the warm-up trial captures them, every trial replays them; on the
+CPU, and on a mesh, each step is launched from the host.
 Per-kernel breakdowns come from :mod:`..utils.profiling` traces, not from
 host timers.
 """
@@ -124,16 +128,31 @@ def time_variant(
     """
     dev = resolve_device(device)
     if mesh is None:
+        from ..solvers.graphs import runner
+
         ctx, init_fn, step_fn, b, x0, x_out = _pieces(
             variant, op, b, preconditioner, dtype, dev)
         steps = max_iter if chunk_iters is None \
             else (max_iter // chunk_iters) * chunk_iters
+        replays = runner(dev, use_jit=steps > 0)
+        loop = None
 
         def one_trial():
+            nonlocal loop
             s = init_fn(ctx, b, x0)
+            if loop is not None:
+                loop.load(s)
             t0 = time.perf_counter()
-            for _ in range(steps):
-                s = step_fn(ctx, s)
+            if replays is None:
+                for _ in range(steps):
+                    s = step_fn(ctx, s)
+            else:
+                if loop is None:  # the first trial captures
+                    loop = replays.start(ctx, step_fn, s, horizon=steps - 1)
+                    loop.advance(steps - 1)
+                else:
+                    loop.advance(steps)
+                s = loop.state()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             return time.perf_counter() - t0, s

@@ -239,16 +239,39 @@ def df_dense_spmv2(a, lo, lo2, v, w):
 #: The vector phase's ticket counters, one ``int32`` for each (device,
 #: stream), zero between launches (csrc/df_pipe.cu)
 _TICKETS: dict = {}
+#: the counters of the streams that capture a CUDA graph now
+#: (:class:`CaptureTickets`), by the same key
+_CAPTURING: dict = {}
 
 
 def _tickets(device, stream):
-    """The ticket counter of launches on ``stream`` of ``device``, allocated
+    """The ticket counter of launches on ``stream`` of ``device``: a
+    capture's own (:class:`CaptureTickets`), else the stream's, allocated
     zeroed at first use."""
     key = (device, stream.cuda_stream)
-    t = _TICKETS.get(key)
+    t = _CAPTURING.get(key)
+    if t is None:
+        t = _TICKETS.get(key)
     if t is None:  # zeroed on the current stream, which is ``stream``
         t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return t
+
+
+class CaptureTickets:
+    """Within the block, launches on ``stream``, which captures a CUDA
+    graph, take ``counter`` (zeroed, made before the capture): the graph's
+    launches then share it with no eager launch, which takes its stream's
+    counter, and its replays run one after another."""
+
+    def __init__(self, stream, counter):
+        self.key = (counter.device, stream.cuda_stream)
+        self.counter = counter
+
+    def __enter__(self):
+        _CAPTURING[self.key] = self.counter
+
+    def __exit__(self, *exc):
+        del _CAPTURING[self.key]
 
 
 def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):

@@ -97,7 +97,10 @@ class DF:
     def _coerce(self, other):
         if isinstance(other, DF):
             return other
-        o = torch.as_tensor(other, dtype=self.hi.dtype, device=self.hi.device)
+        if isinstance(other, torch.Tensor):
+            o = other.to(device=self.hi.device, dtype=self.hi.dtype)
+        else:  # a number: filled on the device, no copy from the host
+            o = self.hi.new_full((), other)
         return DF(o, torch.zeros_like(o))
 
     def __add__(self, other):

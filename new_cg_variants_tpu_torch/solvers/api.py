@@ -19,6 +19,11 @@ take ``preconditioner=None | "jacobi" | object with .apply | callable`` (a
 ``dtype="f32x2"`` runs the whole solve in double words
 (:mod:`..ops.doublefloat`).
 
+``use_jit=True`` (the default) runs the iteration loop on the card as
+replays of captured CUDA graphs (:mod:`.graphs`), as the JAX package runs it
+under ``jax.jit``; the bits are the eager loop's.  ``use_jit=False``, and
+every run on the CPU, launches each step's kernels from the host.
+
 A block-banded operator holds the reordered system ``P A P^T``; both entry
 points solve in that basis (:func:`~..ops.block_banded.solver_basis`):
 ``b``, ``x0`` and ``x_true`` are permuted once per solve, and ``x`` and the
@@ -46,6 +51,7 @@ from ..ops.block_banded import solver_basis
 from ..ops.operators import as_operator, torch_dtype
 from ..probes.probes import resolve_probes
 from .context import Context
+from . import graphs
 from .engine import history_scan, tolerance_loop
 from .families import FAMILIES, family_of, make_gv_step
 from .precond import IdentityPreconditioner, make_preconditioner
@@ -63,6 +69,18 @@ VARIANT_NAMES = tuple(
 def is_double_word(dtype) -> bool:
     """Whether ``dtype`` names the double-word mode (``"f32x2"``)."""
     return isinstance(dtype, str) and dtype == "f32x2"
+
+
+def _loop_runner(dev, use_jit, w_replace, w_replace_init):
+    """``(runner, w_replace)`` of a loop on ``dev``: the graph runner (or
+    ``None``, the eager loop) and the hook as the loop calls it, checked
+    to answer with a tensor under capture (:func:`.graphs.checked_hook`)."""
+    hooked = w_replace is not None
+    runner = graphs.runner(dev, use_jit, hooked=hooked)
+    if runner is not None and hooked:
+        w_replace = graphs.checked_hook(w_replace,
+                                        stateful=w_replace_init is not None)
+    return runner, w_replace
 
 
 def _gv_replace_hooks(key, init_fn, step_fn, w_replace, w_replace_init):
@@ -170,20 +188,27 @@ def run(
 
     ``w_replace`` is the gv residual-replacement hook and ``w_replace_init``
     switches it to the stateful protocol (:func:`.families.make_gv_step`).
+    Under ``use_jit=True`` on the card the hook is called at capture, with
+    ``k`` a 0-d int64 device tensor, and must answer with a bool tensor (a
+    Python answer raises ``TypeError``; ``use_jit=False`` branches in
+    Python); a stateful hook's state rides the graph as device tensors.
     ``print_every=K`` prints a progress line every K iterations.
 
     ``dtype="f32x2"`` runs the whole solve in double-word arithmetic
     (:mod:`..ops.doublefloat`): ~48 significant bits from float32 words.
     Probe rows come back single-word; ``'x'`` is ``hi + lo`` in float64.
 
-    ``use_jit`` is accepted for the JAX package's signature and ignored: the
-    port runs its steps eagerly either way (a later change may give it the
-    meaning of capturing the loop in a CUDA graph).
+    ``use_jit=True`` runs the loop on the card as replays of captured
+    chunks of steps (:mod:`.graphs`), the counterpart of the JAX package's
+    ``jax.jit`` over ``lax.scan``, with the eager loop's bits; ``use_jit=
+    False``, and any run on the CPU, launches every step from the host.
     """
     dev = resolve_device(device)
+    runner, w_replace = _loop_runner(dev, use_jit, w_replace, w_replace_init)
     if is_double_word(dtype):
         return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
-                       x_true, print_every, w_replace, w_replace_init, dev)
+                       x_true, print_every, w_replace, w_replace_init, dev,
+                       runner)
     op = _operator(A, dtype, dev)
     b, x0 = _vectors(op, b, x0, dev)
     probe_fns = resolve_probes(probes)
@@ -200,7 +225,8 @@ def run(
             torch.as_tensor(x_true, dtype=b.dtype, device=dev))
     ctx = Context(op, precond, compensated=compensated)
     final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
-                               max_iter, aux, print_every=print_every)
+                               max_iter, aux, print_every=print_every,
+                               runner=runner)
     output = {"name": variant, "max_iter": max_iter,
               "x": from_basis(final["x"])}
     for name in probe_fns:
@@ -279,7 +305,7 @@ def _df_selfcheck(dev):
 
 
 def _run_df(variant, A, b, x0, max_iter, preconditioner, probes, x_true,
-            print_every, w_replace, w_replace_init, dev):
+            print_every, w_replace, w_replace_init, dev, runner):
     """Fixed-iteration history run in double-word arithmetic."""
     op, b_df, x0_df, init_fn, step_fn, precond = _df_pieces(
         variant, A, b, x0, preconditioner, dev, w_replace, w_replace_init)
@@ -293,7 +319,8 @@ def _run_df(variant, A, b, x0, max_iter, preconditioner, probes, x_true,
         aux["x_true"] = df_split(_host64(x_true), device=dev)
     ctx = DoubleFloatContext(op, precond)
     final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b_df, x0_df,
-                               max_iter, aux, print_every=print_every)
+                               max_iter, aux, print_every=print_every,
+                               runner=runner)
     output = {"name": variant, "max_iter": max_iter,
               "x": final["x"].value64()}
     for name in probe_fns:
@@ -332,16 +359,25 @@ def solve(
     convergence test and no host sync inside the loop (the scaling
     configuration, ``-ksp_norm_type none``).  For an unpreconditioned
     variant the first three coincide.  ``dtype="f32x2"`` solves in double
-    words (:func:`run`); ``x`` is then ``hi + lo`` in float64.  ``use_jit``
-    is accepted and ignored, as in :func:`run`.
+    words (:func:`run`); ``x`` is then ``hi + lo`` in float64.
+
+    ``use_jit=True`` runs the loop on the card as replays of captured chunks
+    of steps (:mod:`.graphs`), as the JAX package's ``jax.jit`` over
+    ``lax.while_loop``: each chunk's norms are read back at once, one host
+    sync a chunk (none with ``norm_type='none'``), and it stops at the
+    eager loop's iteration with its bits.  ``use_jit=False``, and any solve
+    on the CPU, launches every step from the host and reads the norm back
+    once per iteration.
     """
     dev = resolve_device(device)
+    runner = graphs.runner(dev, use_jit)
     if is_double_word(dtype):
         op, b, x0, init_fn, step_fn, precond = _df_pieces(
             variant, A, b, x0, preconditioner, dev)
         ctx = DoubleFloatContext(op, precond)
         s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0,
-                                        max_iter, rtol, atol, norm_type)
+                                        max_iter, rtol, atol, norm_type,
+                                        runner=runner)
         return SolveResult(
             x=s["x"].value64(), iterations=int(k), norm=float(nrm),
             converged=bool(norm_type == "none" or float(nrm) <= float(tol)))
@@ -353,7 +389,7 @@ def solve(
     ctx = Context(op, precond, compensated=compensated)
     s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, to_basis(b),
                                     to_basis(x0), max_iter, rtol, atol,
-                                    norm_type)
+                                    norm_type, runner=runner)
     return SolveResult(
         x=from_basis(s["x"]),
         iterations=int(k),

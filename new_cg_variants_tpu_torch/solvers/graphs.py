@@ -1,0 +1,361 @@
+"""CUDA graphs of the solver loops: the port's counterpart of ``jax.jit``
+over ``lax.scan`` / ``fori_loop`` / ``while_loop``.
+
+The JAX package hands each iteration loop to XLA as one program: the host
+dispatches once per chunk, not once per kernel.  Here ``use_jit=True`` on
+the card (the default of :func:`~.api.run`, :func:`~.api.solve` and
+:func:`~..harness.scaling.time_variant`) captures a chunk of :data:`CHUNK`
+steps as a CUDA graph once and replays it; the kernels, their order and
+their arguments are those of the eager loop, so the bits are too.  On the
+CPU, or with ``use_jit=False``, the loops of :mod:`.engine` run eagerly.
+
+A :class:`Loop` holds the solver state in static buffers, which every
+captured step reads and the end of every captured chunk writes:
+
+* *Warm-up.*  The loop's first step runs eagerly, on the stream that then
+  captures, so that what a step builds at first use (a kernel library,
+  cuBLAS' workspace of that stream, row 11's ticket counter) exists
+  outside the graphs' memory pool.  That step is the run's own first
+  step, not a throwaway one.
+* *Buffer handoff.*  A step returns fresh tensors; a captured chunk copies
+  its last state into the buffers it read, one copy of each state tensor a
+  chunk (:data:`CHUNK` steps), inside the graph.  Two graphs alternating
+  between two buffer sets would need the same copy, since a captured step
+  cannot be told where to write.
+* *``k``.*  The iteration counter stays a host integer, advanced by the
+  steps a replay makes.  A gv replacement hook is called with ``k`` at
+  capture, so under capture it gets ``k`` as a 0-d int64 device tensor that
+  the graph advances, and must answer with a tensor (:func:`checked_hook`).
+* *Rows.*  A chunk writes each step's probe rows (or its convergence norm)
+  into preallocated ``(chunk, ...)`` device buffers; the caller copies them
+  out after the replay, on the device.
+
+A capture, instantiation or replay that fails raises with its CUDA error;
+nothing runs eagerly in its place.  :class:`Runner` takes the capture as an
+object (:class:`CudaCapture` on the card), so that the chunk logic of
+:mod:`.engine` is tested on the CPU with one that calls the chunk's body
+directly (``tests/test_torch_capture_loops.py``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+from ..ops import df_spmv
+from ..ops.doublefloat import DF
+
+__all__ = ["CHUNK", "Runner", "Loop", "CudaCapture", "runner",
+           "checked_hook"]
+
+#: steps a captured chunk makes (the fewer when the loop has fewer left)
+CHUNK = 32
+
+
+def runner(device, use_jit, hooked=False):
+    """The :class:`Runner` of a loop on ``device``, or ``None`` (the eager
+    loop) on the CPU or with ``use_jit=False``.  ``hooked``: the step calls
+    a gv replacement hook, so the graph carries ``k`` on the device."""
+    if not use_jit or device.type != "cuda":
+        return None
+    return Runner(lambda: CudaCapture(device), k_on_device=hooked)
+
+
+def checked_hook(w_replace, stateful):
+    """``w_replace`` as a captured loop calls it: with ``k`` a 0-d int64
+    device tensor, its answer (the first of a stateful hook's pair) a
+    tensor, else ``TypeError``.  A captured step runs the hook once, at
+    capture, so a Python answer would be frozen into every replay."""
+
+    def hook(k, view, *rep):
+        out = w_replace(k, view, *rep)
+        answer = out[0] if stateful else out
+        if not isinstance(answer, torch.Tensor):
+            raise TypeError(
+                f"w_replace answered {type(answer).__name__} under "
+                "use_jit=True: a captured loop calls it once, at capture, "
+                "with k a device tensor, so it must answer with a bool "
+                "tensor (the step selects with torch.where); pass "
+                "use_jit=False to branch in Python")
+        return out
+
+    return hook
+
+
+# ---------------------------------------------------------------------------
+# the state as a flat list of tensors
+# ---------------------------------------------------------------------------
+
+
+def _flatten(x, leaves):
+    """Append ``x``'s tensors to ``leaves``; return its structure."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return None
+    if isinstance(x, DF):
+        return (DF, (_flatten(x.hi, leaves), _flatten(x.lo, leaves)))
+    if isinstance(x, dict):
+        keys = sorted(x, key=str)
+        return (dict, tuple(keys), tuple(_flatten(x[k], leaves)
+                                         for k in keys))
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_flatten(v, leaves) for v in x))
+    raise TypeError(
+        f"a captured loop carries tensors, not {type(x).__name__}: pass "
+        "use_jit=False")
+
+
+def _unflatten(spec, it):
+    if spec is None:
+        return next(it)
+    if spec[0] is DF:
+        return DF(*(_unflatten(s, it) for s in spec[1]))
+    if spec[0] is dict:
+        return {k: _unflatten(s, it) for k, s in zip(spec[1], spec[2])}
+    return spec[0](_unflatten(s, it) for s in spec[1])
+
+
+def _on_device(x, device):
+    """Every number of a hook's state a 0-d tensor on ``device`` (as a JAX
+    loop carries them as arrays)."""
+    if isinstance(x, dict):
+        return {k: _on_device(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on_device(v, device) for v in x)
+    if isinstance(x, (torch.Tensor, DF)):
+        return x
+    return torch.as_tensor(x, device=device)
+
+
+# ---------------------------------------------------------------------------
+# captures
+# ---------------------------------------------------------------------------
+
+
+class CudaCapture:
+    """Captures CUDA graphs on a stream of its own, into one memory pool.
+
+    Replays run on the caller's current stream, one after another.  Row 11's
+    launches in a graph take this object's own ticket counter
+    (:class:`..ops.df_spmv.CaptureTickets`), allocated zeroed before any
+    capture: no eager launch on any stream uses it, so none can run while a
+    replay does.  ``capture_seconds`` / ``instantiate_seconds`` add up the
+    host time of the captures' bodies and of ending them (which instantiates
+    the graph)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        self.tickets = None
+        self.capture_seconds = 0.0
+        self.instantiate_seconds = 0.0
+
+    @contextlib.contextmanager
+    def side(self):
+        """Work on the capture stream, after the caller's pending work and
+        before its next (the warm-up step and the buffers)."""
+        main = self.main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            yield
+        main.wait_stream(self.stream)
+
+    def keep(self, t):
+        """A tensor made on the capture stream (within :meth:`side`) that
+        the caller's stream uses: its memory is not reused before that
+        use."""
+        t.record_stream(self.main)
+        return t
+
+    def capture(self, body):
+        """Capture ``body`` (which reads and writes only the loop's buffers)
+        as a graph; return its replay."""
+        if self.tickets is None:
+            with self.side():
+                self.tickets = self.keep(torch.zeros(
+                    1, dtype=torch.int32, device=self.device))
+        g = torch.cuda.CUDAGraph()
+        with self.side(), df_spmv.CaptureTickets(self.stream, self.tickets):
+            t0 = time.perf_counter()
+            g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                body()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    g.capture_end()  # an invalidated capture raises again
+                raise
+            t1 = time.perf_counter()
+            g.capture_end()
+            self.capture_seconds += t1 - t0
+            self.instantiate_seconds += time.perf_counter() - t1
+        self.graphs.append(g)
+        return g.replay
+
+
+class Runner:
+    """Starts :class:`Loop` objects: ``capture()`` makes each loop's capture
+    (:class:`CudaCapture` on the card: ``side()``, ``keep(t)``,
+    ``capture(body)``), ``chunk`` steps a captured chunk."""
+
+    def __init__(self, capture, chunk=CHUNK, k_on_device=False):
+        self.capture = capture
+        self.chunk = chunk
+        self.k_on_device = k_on_device
+
+    def start(self, ctx, step_fn, state, rows=None, horizon=0,
+              checkpoint=False):
+        """A :class:`Loop` from ``state``, after its first step."""
+        return Loop(self, ctx, step_fn, state, rows or {}, horizon,
+                    checkpoint)
+
+
+class Loop:
+    """``step_fn`` from ``state``, advanced by replays of captured chunks.
+
+    The first step runs eagerly (the warm-up); ``first_rows`` holds its
+    rows.  ``rows`` maps a name to ``fn(ctx, state) -> tensor``, evaluated
+    after every step.  ``horizon``: the steps the caller may still take,
+    which bounds the chunk (:attr:`chunk`).  With ``checkpoint`` a chunk
+    first copies the state it starts from aside, so that :meth:`restore`
+    can take it back (the tolerance loop's overshoot).
+    """
+
+    def __init__(self, runner, ctx, step_fn, state, rows, horizon,
+                 checkpoint):
+        self.cap = runner.capture()
+        self.ctx, self.step_fn, self.rows = ctx, step_fn, rows
+        self.chunk = max(1, min(runner.chunk, horizon))
+        self.k_on_device = runner.k_on_device
+        self._replay = {}  # steps -> replay
+        self._row_bufs = {}
+        state = dict(state)
+        self.k = state.pop("k")
+        if self.k_on_device and "wrep" in state:
+            state["wrep"] = _on_device(state["wrep"], _device_of(state))
+        with self.cap.side():
+            state["k"] = (torch.tensor(self.k, dtype=torch.int64,
+                                       device=_device_of(state))
+                          if self.k_on_device else self.k)
+            s = step_fn(ctx, state)
+            k1 = s.pop("k")
+            self.k += 1
+            keep = self.cap.keep
+            self.first_rows = {name: keep(fn(ctx, s))
+                               for name, fn in rows.items()}
+            if self.k_on_device:
+                s["k"] = k1
+            leaves = []
+            self.spec = _flatten(s, leaves)
+            self.bufs = [keep(t.clone()) for t in leaves]
+            self.saved = ([keep(torch.empty_like(t)) for t in leaves]
+                          if checkpoint else None)
+        self._state = state  # read on the capture stream: keep it alive
+
+    def _body(self, steps):
+        """The chunk: ``steps`` steps from the buffers and back into them
+        (the state it starts from copied aside first, for a checkpointed
+        loop's chunk)."""
+        bufs, rows = self.bufs, self._row_bufs[steps]
+        save = self.saved is not None and steps == self.chunk
+
+        def body():
+            if save:
+                for d, t in zip(self.saved, bufs):
+                    d.copy_(t)
+            s = _unflatten(self.spec, iter(bufs))
+            if not self.k_on_device:
+                s["k"] = self.k  # the host counter; nothing reads it
+            for i in range(steps):
+                s = self.step_fn(self.ctx, s)
+                for name, fn in self.rows.items():
+                    rows[name][i].copy_(fn(self.ctx, s))
+            if not self.k_on_device:
+                s.pop("k")
+            leaves = []
+            if _flatten(s, leaves) != self.spec:
+                raise TypeError("a step changed the state's structure: "
+                                "pass use_jit=False")
+            # a value passed through unchanged is one of the buffers: read
+            # it before the buffers are overwritten
+            held = {b.data_ptr() for b in bufs}
+            leaves = [t.clone() if t.data_ptr() in held else t
+                      for t in leaves]
+            for d, t in zip(bufs, leaves):
+                d.copy_(t)
+
+        return body
+
+    def _run(self, steps):
+        replay = self._replay.get(steps)
+        if replay is None:
+            with self.cap.side():
+                self._row_bufs[steps] = {
+                    name: self.cap.keep(r.new_empty((steps, *r.shape)))
+                    for name, r in self.first_rows.items()}
+            replay = self._replay[steps] = self.cap.capture(
+                self._body(steps))
+        replay()
+        self.k += steps
+        return self._row_bufs[steps]
+
+    def replay_chunk(self):
+        """:attr:`chunk` steps (one replay); returns the rows, ``(chunk,
+        ...)`` buffers that the next replay of the chunk overwrites."""
+        return self._run(self.chunk)
+
+    def replay_one(self):
+        """One step (one replay of a one-step graph); returns its rows as
+        ``(1, ...)`` buffers."""
+        return self._run(1)
+
+    def restore(self):
+        """Back to the state the last chunk started from."""
+        for d, t in zip(self.bufs, self.saved):
+            d.copy_(t)
+        self.k -= self.chunk
+
+    def advance(self, steps, sink=None):
+        """``steps`` more steps: whole chunks, then single steps.  After
+        each replay ``sink(k, rows, m)`` gets its ``m`` rows, of the steps
+        that end at iterations ``k + 1 .. k + m``."""
+        while steps > 0:
+            m = self.chunk if steps >= self.chunk else 1
+            k = self.k
+            rows = self._run(m)
+            if sink is not None:
+                sink(k, rows, m)
+            steps -= m
+
+    def load(self, state):
+        """Start again from ``state`` (of the same structure)."""
+        state = dict(state)
+        k = state.pop("k")
+        if self.k_on_device:
+            state["k"] = torch.as_tensor(k, dtype=torch.int64,
+                                         device=self.bufs[0].device)
+            if "wrep" in state:
+                state["wrep"] = _on_device(state["wrep"],
+                                           self.bufs[0].device)
+        leaves = []
+        if _flatten(state, leaves) != self.spec:
+            raise ValueError("the state to load has another structure")
+        for d, t in zip(self.bufs, leaves):
+            d.copy_(t)
+        self.k = int(k)
+
+    def state(self):
+        """The state in the buffers (``k`` a host integer); a later replay
+        overwrites it."""
+        s = _unflatten(self.spec, iter(self.bufs))
+        s["k"] = self.k
+        return s
+
+
+def _device_of(state):
+    leaves = []
+    _flatten({k: v for k, v in state.items() if k != "wrep"}, leaves)
+    return leaves[0].device
