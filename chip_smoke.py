@@ -108,17 +108,24 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     one (the permuted pattern's RCM order; a random order for the small
     shapes where RCM does not narrow the band), in a locality order: storage
     reordered, the gather in (``ell_gather``), the product scattering out,
-    whose results must equal the given order's bit for bit.  Timed in
-    float32 at HPCG's pattern, with the plain versions, cuSPARSE CSR through
-    torch, ``torch.index_select`` beside the gather and the bound;
+    whose results must equal the given order's bit for bit; and, on the
+    reordered storage with no order (the product a solve in the
+    operator's basis runs), the gathered vectors' product, which must be
+    the given order's results permuted, bit for bit (``ell_spmv_basis``
+    lines, also in bf16 under ``check_bf16``).  Timed in float32 at HPCG's
+    pattern (permuted: the basis's product, the locality order's and the
+    given order's beside it), with the plain versions, cuSPARSE CSR
+    through torch, ``torch.index_select`` beside the gather and the
+    bound;
 18. ``ell_f32`` — general sparse input through the auto route: HPCG's
     operator (27-point, 104^3; diagonal 26, -1 to each neighbour) under a
     random symmetric permutation, handed over as scipy CSR in float32; the
     route must pick ELL in the RCM order and warn; pipe-PR-CG for 300
     iterations (launches, the profiler's kernels per iteration and busy
-    share), the other 17 names for 100 (row 12 once per product of each
-    generic body, each after one gather in), one solve to rtol 1e-6 that
-    converges; the host seconds of the operator's build;
+    share of the step on the stored ``B``), the other 17 names for 100
+    (each solved in the operator's basis: row 12 once per product of each
+    generic body with no gather, two gathers a solve), one solve to rtol
+    1e-6 that converges; the host seconds of the operator's build;
 19. ``formats_f32`` — the model problem of 4 as scipy CSR: permuted, the
     auto route must pick the block-banded packing (bs = 128); unpermuted,
     the stencil (and ``banded_model(fmt="stencil")``); pipe-PR-CG for 300
@@ -138,10 +145,11 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     Jacobi again on the card and on the CPU, stopped before the rounding
     floor: iterations to 1e-5 within 1, log10 of the best error within
     0.05, the oracle's columns identical; launch counts of every run (row
-    12 once per product of each generic body and each probe product, after
-    one gather; each name's family entry once per step; nothing on the
-    CPU); then ``updated_error_A_norm`` (against ``spsolve``) and
-    ``lanczos_recurrence`` on a card run of ``hs_pcg`` on 24^3.  Row 12 and
+    12 once per product of each generic body and each probe product, in
+    the operator's basis, and three gathers a run; each name's family entry
+    once per step; nothing on the CPU); then ``updated_error_A_norm``
+    (against ``spsolve``) and ``lanczos_recurrence`` on a card run of
+    ``hs_pcg`` on 24^3.  Row 12 and
     the half-band kernels are checked and timed in float64 at these shapes
     first;
 22. ``cli_f32`` — ``cli.main`` in-process at the main path's width:
@@ -162,7 +170,8 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     bit for bit, to the float32 entry on the widened data, timed beside it
     with its bound (2 bytes a band value); ``ell_bf16`` (after
     ``ell_f32``): that operator ``.astype(torch.bfloat16)``, pipe-PR-CG and
-    hs-PCG with Jacobi, one gather and one row-12 launch a product, and
+    hs-PCG with Jacobi in its basis, one row-12 launch a product and two
+    gathers a solve, and
     what the auto route picks for it in bf16; ``main_bf16``: main_f32's
     problem with its band in bf16, pipe-PR-CG and hs-CG under the bench
     protocol (kernels per iteration equal to main_f32's), the other 17
@@ -208,9 +217,10 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     rows and caches; the whole permuted operator at one rank) to theirs
     (1e-5 / 1e-12), timed against the bound and cuSPARSE on the (m, c)
     shard; ``dist_ell_f32``: pipe_pr_cg on the ELL row context (ell_f32's
-    operator, the cache gathered whole) against the single-device run
-    (1e-4 through iteration 15), row 12 once per product, one all-gather a
-    matvec phase, one all-reduce a sync phase; ``dist_f32x2``: pipe_pr_cg
+    operator, solved in its basis: ``B``'s storage, the cache gathered
+    whole) against the single-device run (1e-4 through iteration 15), row
+    12 once per product with no gather, one all-gather a matvec phase, one
+    all-reduce a sync phase; ``dist_f32x2``: pipe_pr_cg
     and hs_cg in f32x2 on the double-word row context (n = 655,360, 63
     diagonals, 200 iterations) against the single-device f32x2 run (1e-5),
     the ``_ext`` entries once per product, one all-gather a sync phase;
@@ -237,11 +247,13 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     solves, natural norm, a ``_pcg`` name, the generic body, ``norm_type=
     "none"``), ``jit_dia_f32`` / ``jit_dia_wide_f32`` (full DIA, the split
     formulations), ``jit_f32x2`` / ``jit_df_dense`` (rows 9-11),
-    ``jit_ell_f32`` (row 12 with its gather, a tolerance solve that stops
-    inside a chunk), ``jit_bf16`` (bf16 storage on half-band, DIA and ELL)
-    and ``jit_convergence_f64`` (``convergence_f64``'s table through
-    ``run``); the entries only the row partition runs, whose loops stay
-    eager, are each captured once at their shapes (``capture_dist``).  The
+    ``jit_ell_f32`` (row 12 in the operator's basis, an object
+    preconditioner in the original order whose gather runs inside the
+    graph, a tolerance solve that stops inside a chunk), ``jit_bf16``
+    (bf16 storage on half-band, DIA and ELL) and ``jit_convergence_f64``
+    (``convergence_f64``'s table through ``run``); the entries only the
+    row partition runs, whose loops stay eager, are each captured once at
+    their shapes (``capture_dist``).  The
     main paths are timed both ways under the bench protocol (ELL with
     2000-iteration chunks, f32x2 and each name with 200; the eager times of
     main_f32, dia_f32 and main_bf16 from those phases' own benches), with
@@ -1004,7 +1016,10 @@ def protocol_ms(begin, advance, read_nu, chunk_iters, max_trials):
 
 def profile_window(torch, advance, steps=PROFILE_STEPS):
     """Device busy share, CUDA events and kernel time by name over
-    ``advance(steps)`` (a warm-up call of one step first)."""
+    ``advance(steps)`` (a warm-up call of one step first): the six longest
+    kernels as ``[name, us a step]`` pairs, each name cut to 160
+    characters (cut to 60 as the keys of a dict, two template instances
+    of one kernel collided and the shorter hid the longer)."""
     from torch.profiler import ProfilerActivity, profile
 
     advance(1)
@@ -1023,7 +1038,8 @@ def profile_window(torch, advance, steps=PROFILE_STEPS):
             "device_busy_ms_per_iter": busy / steps / 1e3,
             "device_busy_share": busy / wall_us,
             "kernels_per_iter": nspans / steps,
-            "top_kernels_us_per_iter": {k[:60]: v / steps for k, v in top}}
+            "top_kernels_us_per_iter": [[k[:160], v / steps]
+                                        for k, v in top]}
 
 
 def profile_steps(torch, ctx, step_fn, state, steps=PROFILE_STEPS):
@@ -2129,12 +2145,17 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
     given order and, with ``perm``, in that locality order (storage
     reordered, gather in, scatter out): the locality order's products must
     equal the given order's bit for bit, and its gather in ``v[perm]``;
-    every product also the witness's (``ELL_WITNESS``, where built).
-    Timed (with the plain versions, cuSPARSE and the bound) when
-    ``timings``, into records named with ``sfx`` (default: none for a
-    permuted pattern, NATURAL else).  bf16 values (with float32 vectors)
-    are also held to the float32 entries on the widened values, bit for
-    bit in both orders, and timed beside them (no library call)."""
+    every product also the witness's (``ELL_WITNESS``, where built).  With
+    ``perm`` also the product a solve in the operator's basis runs (an
+    ``ell_spmv_basis`` line): ``B`` with no order on ``v[perm]`` (and
+    ``w[perm]``), the given order's results permuted, bit for bit.  Timed
+    (with the plain versions, cuSPARSE and the bound) when ``timings``,
+    into records named with ``sfx`` (default: none for a permuted pattern,
+    NATURAL else): the basis's product where there is an order (the
+    locality order's, gather and scatter included, and the given order's
+    beside it).  bf16 values (with float32 vectors) are also held to the
+    float32 entries on the widened values, bit for bit in both orders, and
+    timed beside them (no library call)."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
 
     val, idx, csr = ell_arrays(torch, a, rng, dtype)
@@ -2182,7 +2203,16 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
         gather_same = bool(torch.equal(gathered, gather_want))
         rec.update(orders=["given", "locality"], same_bits_as_given=same,
                    gather_bitwise=gather_same)
-        ok = same and gather_same
+        # the product a solve in the operator's basis runs: B with no order
+        # on v[perm] gives the given order's y[perm], the same terms in the
+        # same slot order
+        bv, bw = gather_want, w[p.long()]
+        basis_same = same_bits(torch, (
+            es.ell_spmv(bval, bidx, bv), *es.ell_spmv2(bval, bidx, bv, bw)),
+            (y[p.long()], y2[p.long()], z2[p.long()]))
+        report(dict(kernel="ell_spmv_basis", shape=label, dtype=dn, n=n, L=L,
+                    same_bits_as_given_permuted=basis_same))
+        ok = same and gather_same and basis_same
     torch.cuda.synchronize()
     errs = [cw_err(torch, g, want, sc) for g, want, sc in got]
     abs_err = max(float((g - want).abs().max()) for g, want, _ in got)
@@ -2225,43 +2255,63 @@ def check_ell_shape(torch, label, a, rng, dtype, rate, timings, report,
         if perm is None:
             ms, ms2 = given["ms"], given["spmv2_ms"]
             if bf16:
-                f32 = (wide, idx, ())
+                f32 = (wide, idx, v, w)
         else:
-            ms = time_ms(torch, lambda: es.ell_spmv(bval, bidx, v, p), 50)
-            ms2 = time_ms(torch, lambda: es.ell_spmv2(bval, bidx, v, w, p),
+            # the record is the product a solve runs, B's in the basis; the
+            # product of A from B's storage (gather in, scatter out) and the
+            # given order beside it
+            ms = time_ms(torch, lambda: es.ell_spmv(bval, bidx, bv), 50)
+            ms2 = time_ms(torch, lambda: es.ell_spmv2(bval, bidx, bv, bw),
                           50)
+            locality = dict(
+                ms=time_ms(torch, lambda: es.ell_spmv(bval, bidx, v, p), 50),
+                spmv2_ms=time_ms(
+                    torch, lambda: es.ell_spmv2(bval, bidx, v, w, p), 50),
+                plain_ms=time_ms(torch, lambda: es._ell_reordered_plain(
+                    bval, bidx, p, [v]), 5))
             if bf16:
-                f32 = (bwide, bidx, (p,))
+                f32 = (bwide, bidx, bv, bw)
+            else:
+                bcsr = device_csr(torch, bval.T, bidx.T, n)
+                bvw = torch.stack([bv, bw], dim=1)
+                lib_ms = time_ms(torch, lambda: bcsr @ bv, 50)
+                lib2_ms = time_ms(torch, lambda: bcsr @ bvw, 50)
+                common["library"] = ("cuSPARSE CSR of B through torch "
+                                     "(csr @ v[perm], csr @ [v w][perm])")
+                rec.update(library_ms=lib_ms, library2_ms=lib2_ms)
+                del bcsr, bvw
             plain_ms = time_ms(
-                torch, lambda: es._ell_reordered_plain(bval, bidx, p, [v]), 5)
-            plain2_ms = time_ms(torch, lambda: es._ell_reordered_plain(
-                bval, bidx, p, [v, w]), 5)
+                torch, lambda: es._ell_mv_plain(bval, bidx, bv), 5)
+            plain2_ms = time_ms(
+                torch, lambda: es._ell_mv2_plain(bval, bidx, bv, bw), 5)
             g_ms = time_ms(torch, lambda: es.ell_gather(p, [v]), 50)
             g2_ms = time_ms(torch, lambda: es.ell_gather(p, [v, w]), 50)
             g_plain_ms = time_ms(torch, lambda: es._ell_gather_plain(p, [v]),
                                  50)
             g_lib_ms = time_ms(torch, lambda: torch.index_select(v, 0, p), 50)
             g_ms_bound, g_by = bound(n * (4 + 2 * isz), 0, dn, rate)
-            rec.update(ms=ms, spmv2_ms=ms2, locality_plain_ms=plain_ms,
-                       locality_plain2_ms=plain2_ms, gather_ms=g_ms,
-                       gather2_ms=g2_ms)
+            rec.update(ms=ms, spmv2_ms=ms2, basis_plain_ms=plain_ms,
+                       basis_plain2_ms=plain2_ms, locality_ms=locality["ms"],
+                       locality_spmv2_ms=locality["spmv2_ms"],
+                       gather_ms=g_ms, gather2_ms=g2_ms)
             timings["ell_gather" + (sfx or "")] = dict(
                 n=n, max_abs_err=gather_err,
                 ms=g_ms, ms_2rhs=g2_ms, plain_ms=g_plain_ms,
                 library_ms=g_lib_ms, library="torch.index_select(v, 0, perm)",
                 bound_ms=g_ms_bound, bound_by=g_by)
             common["given_order"] = given
+            common["locality_order"] = locality
         f32_ms = {}
         if bf16:
-            fv, fi, fp = f32
+            fv, fi, fx, fy = f32
             f32_ms = dict(
-                f32_ms=time_ms(torch, lambda: es.ell_spmv(fv, fi, v, *fp), 50),
+                f32_ms=time_ms(torch, lambda: es.ell_spmv(fv, fi, fx), 50),
                 f32_spmv2_ms=time_ms(
-                    torch, lambda: es.ell_spmv2(fv, fi, v, w, *fp), 50))
+                    torch, lambda: es.ell_spmv2(fv, fi, fx, fy), 50))
             rec.update(f32_ms)
-            del f32, fv, fi, fp
+            del f32, fv, fi, fx, fy
         if perm is not None:
-            del bval, bidx, p
+            del bval, bidx, p, bv, bw
         if sfx is None:
             sfx = "" if "permuted" in label else NATURAL
         timings["ell_spmv" + sfx] = dict(
@@ -2336,17 +2386,20 @@ def check_ell(torch, card, timings):
         raise AssertionError(f"{len(failed)} ELL checks disagree: {failed}")
 
 
-def ell_expected(name, iters):
+def ell_expected(name, iters, moved=2):
     """Launches a name makes on an ``EllOperator`` in a locality order (as
-    both ELL phases build it): every fused phase declines, so the generic
-    body: ``ell_spmv2`` once per iteration for the pipe names that
-    recompute, else ``ell_spmv`` once per product (and the products of
-    init), each after one gather in (``ell_gather``)."""
+    both ELL phases build it): the solve runs in the operator's basis
+    (``solver_basis``), on its stored ``B`` with no order, and every fused
+    phase declines, so the generic body: ``ell_spmv2`` once per iteration
+    for the pipe names that recompute, else ``ell_spmv`` once per product
+    (and the products of init), none of them gathering; ``ell_gather`` once
+    for each of the ``moved`` vectors taken into the basis (``b`` and
+    ``x0``; ``x_true`` too under an error probe)."""
     split, _ = split_expected(name, iters)
     counts = {"ell_spmv": split["dia_spmv"]}
     if "dia_spmv2" in split:
         counts["ell_spmv2"] = split["dia_spmv2"]
-    counts["ell_gather"] = sum(counts.values())
+    counts["ell_gather"] = moved
     return counts, "ell_spmv"
 
 
@@ -2412,9 +2465,11 @@ def ell_pack_seconds(a):
 def ell_f32(torch, built):
     """HPCG's operator (27-point, 104^3) under a random symmetric
     permutation, handed over as scipy CSR in float32: the auto route must
-    pick ELL (with its warning); all 18 names on the one operator, each
-    product one row-12 launch; one solve that converges.  The operator is
-    left in ``built`` for ell_bf16 and dist_ell_f32."""
+    pick ELL (with its warning); all 18 names on the one operator, solved
+    in its RCM basis: each product one row-12 launch with no gather, two
+    gathers a solve (``b`` and ``x0`` into the basis); the profile of the
+    step on ``B``; one solve that converges.  The operator is left in
+    ``built`` for ell_bf16 and dist_ell_f32."""
     import warnings
 
     from new_cg_variants_tpu_torch import (
@@ -2423,6 +2478,7 @@ def ell_f32(torch, built):
         as_operator,
         solve,
     )
+    from new_cg_variants_tpu_torch.ops.block_banded import solver_basis
     from new_cg_variants_tpu_torch.solvers.context import Context
     from new_cg_variants_tpu_torch.solvers.families import FAMILIES
 
@@ -2452,10 +2508,14 @@ def ell_f32(torch, built):
     launches, failed = solve_names(
         torch, "ell_f32", op, b, x_true, ("pipe_pr_cg",), ell_expected,
         iters=ELL_ITERS, n=n)
+    # the step the solve runs: on B in the operator's basis
+    basis_op, to_basis, _ = solver_basis(op)
     init_fn, step_fn = FAMILIES["pipe_pr"]
-    ctx = Context(op)
+    ctx = Context(basis_op)
+    bb = to_basis(b)
     emit("ell_f32", variant="pipe_pr_cg", profile=profile_steps(
-        torch, ctx, step_fn, init_fn(ctx, b, torch.zeros_like(b))))
+        torch, ctx, step_fn, init_fn(ctx, bb, torch.zeros_like(bb))))
+    del ctx, bb
     names = [nm for nm in VARIANT_NAMES if nm != "pipe_pr_cg"]
     more, failed2 = solve_names(torch, "ell_f32", op, b, x_true, names,
                                 ell_expected, iters=GENERIC_ITERS, n=n)
@@ -2656,10 +2716,11 @@ def dia_bf16(torch):
 def ell_bf16(torch, built):
     """ell_f32's operator (HPCG 27-point, 104^3, permuted, ELL in RCM order)
     with its values stored in bf16 (``astype``): pipe-PR-CG and hs-PCG with
-    Jacobi for 100 iterations, one gather in and one row-12 launch a
-    product; what the auto route picks for this matrix in bf16.  Returns
-    the launches by entry."""
+    Jacobi for 100 iterations in the operator's basis, one row-12 launch a
+    product and two gathers a solve; what the auto route picks for this
+    matrix in bf16.  Returns the launches by entry."""
     from new_cg_variants_tpu_torch import EllOperator
+    from new_cg_variants_tpu_torch.ops.block_banded import solver_basis
     from new_cg_variants_tpu_torch.ops.operators import (
         choose_format,
         coo_from_scipy,
@@ -2681,11 +2742,13 @@ def ell_bf16(torch, built):
     launches, failed = solve_names(
         torch, "ell_bf16", op, b, x_true, ("pipe_pr_cg", "hs_pcg"),
         ell_expected, iters=GENERIC_ITERS, n=op.n, storage="bfloat16")
+    basis_op, to_basis, _ = solver_basis(op)
     init_fn, step_fn = FAMILIES["pipe_pr"]
-    ctx = Context(op)
+    ctx = Context(basis_op)
+    bb = to_basis(b)
     rec, ok = storage_check(torch, op, b, "pipe_pr_cg")
     emit("ell_bf16", profile=profile_steps(
-        torch, ctx, step_fn, init_fn(ctx, b, torch.zeros_like(b))), **rec)
+        torch, ctx, step_fn, init_fn(ctx, bb, torch.zeros_like(bb))), **rec)
     if not ok:
         failed.append(rec)
     if failed:
@@ -3165,7 +3228,12 @@ def convergence_f64(torch, card, timings, launches):
 
         suite = dict(variants=names, table_variants=table, matrix_dir=d,
                      make_plots=False, verbose=False, fig_dir=d / "figures")
-        ell_product = {"ell_spmv": 1, "ell_gather": 1}
+        # a product in the basis gathers nothing; a history run takes b, x0
+        # and x_true (its error probes) into the basis: three gathers
+        ell_product = {"ell_spmv": 1}
+
+        def ell_run_expected(name, iters):
+            return ell_expected(name, iters, moved=3)
         failed, path = [], {}
 
         def run_suite(label, configs, expected, product, **kw):
@@ -3218,8 +3286,8 @@ def convergence_f64(torch, card, timings, launches):
         sec_a, counts_a = run_suite(
             "hpcg27", [("hpcg27", CONV_ITERS, "jacobi"),
                        ("hpcg27", CONV_ITERS, None)],
-            ell_expected, ell_product, data_dir=data, include_exact=True,
-            device="cuda")
+            ell_run_expected, ell_product, data_dir=data,
+            include_exact=True, device="cuda")
         sec_b, counts_b = run_suite(
             "scaled_band", [("scaled_band", CONV_BAND_ITERS, "jacobi")],
             sym_expected, {"sym_dia_spmv": 1}, data_dir=data,
@@ -4095,8 +4163,10 @@ def check_ell_ag_shard(torch, op, p, r, rate, timings, sfx, report):
     bf16 storage: the locality order's products the given order's bits,
     and the witness build's; both against the plain version.  Timed in
     float32 into ``timings[entry + sfx]`` (the locality order with its
-    gather in; the given order beside it; at one rank also the gather in,
-    ``ell_gather`` + sfx)."""
+    gather in; at one rank, dist_ell_f32's shape, the product of ``B`` with
+    no order on the gathered cache that ``dist_run`` in the operator's basis
+    runs, the locality order's beside it; the given order beside both; at
+    one rank also the gather in, ``ell_gather`` + sfx)."""
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
     from new_cg_variants_tpu_torch.parallel.dist import _ell_locality_shard
 
@@ -4150,6 +4220,31 @@ def check_ell_ag_shard(torch, op, p, r, rate, timings, sfx, report):
             common = dict(n=m, L=L, cache=n, columns=k, max_abs_err=abs_err,
                           library="cuSPARSE CSR of the (m, n) shard "
                           "through torch (csr @ cache, csr @ [cv cw])")
+            # one rank: dist_run solves in the operator's basis, so the
+            # path's product is B's storage (the shard's own at one rank)
+            # with no order on the gathered vector; at more ranks no path
+            # runs these shapes
+            basis = {}
+            if p == 1:
+                bcv, bcw = cv[cols.long()], cw[cols.long()]
+                bcsr = device_csr(torch, lval_t.to(dtype), lidx_t, k)
+                bvw = torch.stack([bcv, bcw], dim=1)
+                for entry, fn, plain, lib in (
+                        ("ell_spmv_cache",
+                         lambda: es.ell_spmv_cache(lval, lidx, bcv),
+                         lambda: es._ell_mv_plain(lval, lidx, bcv),
+                         lambda: bcsr @ bcv),
+                        ("ell_spmv2_cache",
+                         lambda: es.ell_spmv2_cache(lval, lidx, bcv, bcw),
+                         lambda: es._ell_mv2_plain(lval, lidx, bcv, bcw),
+                         lambda: bcsr @ bvw)):
+                    basis[entry] = dict(
+                        ms=time_ms(torch, fn, 50),
+                        plain_ms=time_ms(torch, plain, 5),
+                        library_ms=time_ms(torch, lib, 50),
+                        library="cuSPARSE CSR of B through torch (csr @ "
+                        "cache[perm], csr @ [cv cw][perm])")
+                del bcv, bcw, bcsr, bvw
             for entry, fn, given_fn, plain, lib, nrhs in (
                     ("ell_spmv_cache",
                      lambda: es.ell_spmv_cache(lval, lidx, cv, q, cols),
@@ -4173,6 +4268,11 @@ def check_ell_ag_shard(torch, op, p, r, rate, timings, sfx, report):
                     plain_ms=time_ms(torch, plain, 5),
                     library_ms=time_ms(torch, lib, 50), bound_ms=b_ms,
                     bound_by=b_by)
+                if basis:
+                    t = timings[entry + sfx]
+                    t["locality_order"] = {key: t[key] for key in (
+                        "ms", "plain_ms", "library_ms")}
+                    t.update(basis[entry])
             t1, t2 = (timings[e + sfx] for e in ("ell_spmv_cache",
                                                  "ell_spmv2_cache"))
             rec.update(ms=t1["ms"], spmv2_ms=t2["ms"],
@@ -4339,19 +4439,20 @@ def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
 
 def dist_ell_f32(torch, mesh, built):
     """pipe-PR-CG on the ELL row context at world size 1: ell_f32's
-    operator (HPCG 27-point, 104^3, permuted; the context takes its rows
-    and columns in the operator's RCM order), the cache gathered whole (the
-    planner's choice at one rank): row 12 once per product, after one
-    gather in (``ell_gather``) into that order, one all-gather per matvec
-    phase, one all-reduce per sync phase; nu and alpha within 1e-4 of the
+    operator (HPCG 27-point, 104^3, permuted), which ``dist_run`` solves in
+    its RCM basis (the context takes ``B``'s storage as it is, no order),
+    the cache gathered whole (the planner's choice at one rank): row 12
+    once per product with no gather, ``b`` and ``x0`` gathered into the
+    basis once a run (``ell_gather``), one all-gather per matvec phase,
+    one all-reduce per sync phase; nu and alpha within 1e-4 of the
     single-device run through iteration 15.  Returns the launches."""
     a, op, b, x_true = built.pop("hpcg_ell")
     rec, path, failed = dist_case(
         torch, "dist_ell_f32", mesh, "pipe_pr_cg", op, b,
         fields=dict(n=op.n, operator="ELL, HPCG 104^3 permuted"),
         want_run={"ell_spmv_cache": 3, "ell_spmv2_cache": DIST_ROWS - 1,
-                  "ell_gather": DIST_ROWS + 2},
-        want_step={"ell_spmv2_cache": 1, "ell_gather": 1},
+                  "ell_gather": 2},
+        want_step={"ell_spmv2_cache": 1},
         want_coll={"all_reduce": 1.0, "all_gather": 1.0})
     if failed:
         raise AssertionError(f"ELL row context failed: {failed}")
@@ -4873,6 +4974,7 @@ def jit_timed(torch, phase, op, b, variant, card, chunk_iters=ITERS_PER_CHUNK,
               eager=None, **fields):
     """jit_timing of ``variant`` on ``op`` (single-word or, for a
     ``DFOperator``, double-word), emitted with the card's line."""
+    from new_cg_variants_tpu_torch.ops.block_banded import solver_basis
     from new_cg_variants_tpu_torch.ops.doublefloat import (
         DFOperator,
         DoubleFloatContext,
@@ -4888,6 +4990,10 @@ def jit_timed(torch, phase, op, b, variant, card, chunk_iters=ITERS_PER_CHUNK,
         b = df_split(b.cpu().numpy(), device="cuda")
         x0 = df_split(np.zeros(op.n), device="cuda")
     else:
+        # the step a solve runs: in the operator's basis (ELL in a locality
+        # order, block-banded), the identity's for any other
+        op, to_basis, _ = solver_basis(op)
+        b = to_basis(b)
         init_fn, step_fn, prec = _resolve(variant, op, precond)
         ctx = Context(op, prec)
         x0 = torch.zeros_like(b)
@@ -5075,16 +5181,68 @@ def jit_df_dense(torch, built):
     return inside
 
 
+class OriginalOrderDiagonal:
+    """An object preconditioner ``v -> inv * v`` whose diagonal ``inv`` is
+    in the matrix's original numbering.  A solve in an ELL operator's basis
+    hands it vectors in that order (``GivenOrderPreconditioner``): a
+    scatter out, then one ``ell_gather`` back into the basis, each time it
+    is applied inside the loop."""
+
+    def __init__(self, inv):
+        self.inv = inv
+
+    def apply(self, v):
+        return self.inv * v
+
+
+def distinct_inverse_diagonal(torch, a, dtype, seed=16):
+    """The inverse of ``a``'s diagonal, each entry scaled by its own random
+    factor in [0.5, 2] (distinct entries: applied to the wrong rows, they
+    would give another solve), on the card in ``dtype``."""
+    d = a.diagonal().astype(np.float64) * np.random.default_rng(seed).uniform(
+        0.5, 2.0, a.shape[0])
+    return torch.as_tensor(1.0 / d, dtype=dtype, device="cuda")
+
+
+def original_order_diagonal(torch, a, dtype, seed=16):
+    """:class:`OriginalOrderDiagonal` of :func:`distinct_inverse_diagonal`:
+    applied in the basis without the wrapper, it would scale the wrong
+    rows."""
+    return OriginalOrderDiagonal(distinct_inverse_diagonal(torch, a, dtype,
+                                                           seed))
+
+
 def jit_ell_f32(torch, card, built, timings):
-    """The ELL path captured (HPCG 104^3 permuted, RCM order, row 12 with
-    its gather): pipe-PR-CG with the true residual and hs-CG, use_jit True
+    """The ELL path captured (HPCG 104^3 permuted, solved in its RCM basis:
+    row 12 with no gather): pipe-PR-CG with the true residual and hs-CG,
+    and pipe-PR-PCG with an object preconditioner in the original order
+    (the one gather inside the loop) and with a ``JacobiPreconditioner``
+    of the same diagonal (moved into the basis once a solve: b, x0 and the
+    diagonal the run's 3 gathers, none inside a graph), use_jit True
     against False; pipe-PR-CG timed both ways (JIT_ELL_ITERS-iteration
-    chunks); the tolerance solve of ell_f32, which stops inside a
-    chunk."""
+    chunks); the tolerance solve of ell_f32, which stops inside a chunk."""
+    from new_cg_variants_tpu_torch.solvers.precond import (
+        JacobiPreconditioner,
+    )
+
     a, op, b, _ = built["hpcg_ell"]
     inside, failed = jit_names(torch, "jit_ell_f32", op, b,
                                ("pipe_pr_cg", "hs_cg"), iters=JIT_ITERS,
                                probes=JIT_PROBES)
+    rec, ok, got = run_pair(
+        torch, "jit_ell_f32", "pipe_pr_pcg", op, b, JIT_ITERS,
+        preconditioner=original_order_diagonal(torch, a, torch.float32),
+        fields={"preconditioner": "diagonal object, original order"})
+    add_counts(inside, got)
+    failed += [] if ok and got.get("ell_gather") else [rec]
+    rec, ok, got = run_pair(
+        torch, "jit_ell_f32", "pipe_pr_pcg", op, b, JIT_ITERS,
+        preconditioner=JacobiPreconditioner(distinct_inverse_diagonal(
+            torch, a, torch.float32)),
+        fields={"preconditioner": "JacobiPreconditioner, original order"})
+    add_counts(inside, got)
+    failed += [] if (ok and not got.get("ell_gather")
+                     and rec["launches"].get("ell_gather") == 3) else [rec]
     rec, ok, got = solve_pair(torch, "jit_ell_f32", op, b, "pipe_pr_cg",
                               None, "natural", ELL_RTOL, ELL_MAX_ITER,
                               card=card)
@@ -5170,7 +5328,9 @@ def jit_convergence_f64(torch):
     matrices (HPCG 32^3 permuted, ELL; the scaled band, half-band) in
     float64 with Jacobi and the suite's probes, use_jit True against
     False (every probe row and x the same bits, so the same table); hs-PCG
-    on the post-hoc run's 24^3 operator."""
+    on the post-hoc run's 24^3 operator; on both ELL operators hs-PCG with
+    an object preconditioner in the original order too (its gather inside
+    the graph)."""
     from new_cg_variants_tpu_torch import as_operator, from_coo
     from new_cg_variants_tpu_torch.harness import convergence as hc
     from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
@@ -5198,6 +5358,16 @@ def jit_convergence_f64(torch):
                             fields={"matrix": label})
         add_counts(inside, got)
         failed += f2
+        if entry is None:  # ELL
+            rec, ok, got = run_pair(
+                torch, "jit_convergence_f64", "hs_pcg", op, b, iters,
+                probes=hc.PROBES, x_true=x_true,
+                preconditioner=original_order_diagonal(torch, a,
+                                                       torch.float64),
+                fields={"matrix": label,
+                        "preconditioner": "diagonal object, original order"})
+            add_counts(inside, got)
+            failed += [] if ok and got.get("ell_gather") else [rec]
     hold("jit_convergence_f64", failed)
     return inside
 
@@ -5428,7 +5598,8 @@ def kernel_records(timings, launches):
         extra = {key: t[key] for key in ("f64_counterpart_ms",
                                          "f64_counterpart", "bound_bytes_ms",
                                          "bound_ops_ms", "L", "library",
-                                         "given_order", "ms_2rhs",
+                                         "given_order", "locality_order",
+                                         "ms_2rhs",
                                          "launches_per_call", "f32_ms",
                                          "cache", "columns")
                  if key in t}

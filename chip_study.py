@@ -11,9 +11,11 @@
     python3 chip_study.py bf16opts  # rows 1, 2 and 2b's bf16 entries: the
                                     # design options and the isolating
                                     # edits, in turns
-    python3 chip_study.py against DIR [sym|ell]  # rows 1, 2 and 2b in f32
-                                    # and f64, row 12 in f32, f64 and bf16
-                                    # against DIR's sources: bits, times
+    python3 chip_study.py against DIR [sym|ell|path]  # rows 1, 2 and 2b
+                                    # in f32 and f64, row 12 in f32, f64
+                                    # and bf16 against DIR's sources: bits,
+                                    # times; path: the ELL pipe-PR step of
+                                    # this tree against DIR's, in turns
     python3 chip_study.py ellopts   # row 12's design options, timed in turns
     python3 chip_study.py denseopts # row 10's dense design options, the same
     python3 chip_study.py pipeopts  # row 11's design options, the same
@@ -1899,7 +1901,10 @@ def study_against(torch, card, other, family=None):
     12 in f32, f64 and bf16 storage, in the given and the locality order,
     at every check_ell shape, timed at its paths' shapes as ``ellopts``
     times them but for the shards, whose caller hands the kernel a second
-    vector the parent did not read); default both."""
+    vector the parent did not read); default both.  ``path``:
+    :func:`against_path`."""
+    if family == "path":
+        return against_path(other)
     theirs = Path(other) / "new_cg_variants_tpu_torch" / "csrc"
     variants = {"this tree": [],
                 "other tree": [(f.name, None, f.read_text())
@@ -1946,6 +1951,92 @@ def study_against(torch, card, other, family=None):
         emit("against", case=c,
              median_ms={v: round(float(np.median(ts)), 5)
                         for v, ts in times[c].items()})
+
+
+#: one process of against_path, run from a tree's root with that tree's
+#: package and chip_smoke.py: the captured ELL pipe-PR step as jit_timed
+#: times it (HPCG 104^3 permuted, as ell_f32 builds it), the row context at
+#: world size 1 (dist_case) and an eager step's kernels by full name
+PATH_ONE = r'''
+import json, os, sys, warnings
+sys.path.insert(0, os.getcwd())
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from new_cg_variants_tpu_torch import as_operator
+from new_cg_variants_tpu_torch.ops import _kernels
+from new_cg_variants_tpu_torch.solvers.context import Context
+from new_cg_variants_tpu_torch.ops.block_banded import solver_basis
+from new_cg_variants_tpu_torch.solvers.families import FAMILIES
+
+_kernels.build()
+card = cs.card_line()
+cs.install_graph_counts()
+a = cs.stencil27(cs.HPCG_GRID, cs.PERM_SEED).astype(np.float32)
+b = torch.from_numpy(a @ np.ones(a.shape[0], dtype=np.float32)).cuda()
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    op = as_operator(a, dtype=torch.float32, device="cuda")
+rec, ok = cs.jit_timed(torch, "path", op, b, "pipe_pr_cg", card,
+                       cs.JIT_ELL_ITERS, n=op.n)
+with cs.dist_world() as mesh:
+    drec, _, _ = cs.dist_case(torch, "path", mesh, "pipe_pr_cg", op, b)
+# the step a solve runs: the tree's own solver_basis decides its basis
+step_op, to_basis, _ = solver_basis(op)
+step_b = to_basis(b)
+init_fn, step_fn = FAMILIES["pipe_pr"]
+ctx = Context(step_op)
+s = init_fn(ctx, step_b, torch.zeros_like(step_b))
+for _ in range(5):
+    s = step_fn(ctx, s)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(20):
+        s = step_fn(ctx, s)
+    torch.cuda.synchronize()
+kernels = {}
+for e in prof.events():
+    if e.device_type.name == "CUDA":
+        k = kernels.setdefault(e.name[:160], [0.0, 0.0])
+        k[0] += 1 / 20
+        k[1] += e.time_range.elapsed_us() / 20
+jit = rec["jit"]["profile"]
+print(json.dumps(dict(
+    card=card, ms_per_iter_jit=rec["ms_per_iter_jit"],
+    ms_per_iter_eager=rec["ms_per_iter_eager"],
+    busy_ms_per_iter_jit=jit.get("device_busy_ms_per_iter"),
+    events_per_iter_jit=jit.get("kernels_per_iter"),
+    dist_busy_ms_per_iter=drec["profile"].get("device_busy_ms_per_iter"),
+    dist_kernels_per_iter=drec["profile"].get("kernels_per_iter"),
+    dist_launches=drec["launches"],
+    eager_step_kernels={k: [round(c, 3), round(us, 4)] for k, (c, us) in
+                        sorted(kernels.items(), key=lambda kv: -kv[1][1])})),
+    flush=True)
+'''
+
+
+def against_path(other):
+    """``against DIR path``: the ELL pipe-PR path of this tree against
+    ``other``'s (a tree's ``chip_smoke.py`` and package, e.g. the parent
+    commit's unpacked with ``git archive``), in turns (other, this, this,
+    other), each a process of its own run from its tree (PATH_ONE):
+    captured ms/iter and device time a step, the row context's device time
+    at world size 1, an eager step's kernels by full name (launches and us
+    a step)."""
+    import os
+    import subprocess
+
+    here = str(Path(__file__).resolve().parent)
+    for label, root in (("other tree", other), ("this tree", here),
+                        ("this tree", here), ("other tree", other)):
+        p = subprocess.run([sys.executable, "-c", PATH_ONE], cwd=root,
+                           capture_output=True, text=True,
+                           env=dict(os.environ, PYTHONPATH=root))
+        if p.returncode:
+            print(p.stderr[-4000:], file=sys.stderr, flush=True)
+            raise RuntimeError(f"{label} ({root}) failed: rc {p.returncode}")
+        emit("against", family="path", tree=label, root=root,
+             **json.loads(p.stdout.strip().splitlines()[-1]))
 
 
 def ell_shape_cases(torch):
@@ -2447,8 +2538,8 @@ def main(argv):
             and argv[2] in ("dia", "sym", "df", "ell", "bf16")
             or argv[1:2] == ["distcheck"] and set(argv[2:]) <= DIST_PHASES
             or argv[1:2] == ["against"] and (
-                len(argv) == 3 or len(argv) == 4 and argv[3] in ("sym",
-                                                                 "ell"))):
+                len(argv) == 3 or len(argv) == 4
+                and argv[3] in ("sym", "ell", "path"))):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

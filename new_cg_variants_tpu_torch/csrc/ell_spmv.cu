@@ -7,10 +7,15 @@
 // The storage may hold the rows in a locality order instead: the matrix
 // B = P A P^T, row i of B being row perm[i] of A with its slots in the same
 // order and its column indices mapped through the inverse permutation.  A
-// product is then y[perm] = B v[perm]: ell_gather_kernel gathers v (and w)
-// into that order, and the product kernel gathers locally and writes
-// y[perm[i]] directly.  Every row's terms are the same products added in
-// the same slot order, so both orders give the same bits.
+// solve iterates on B itself, in that order's basis (ops/block_banded.py:
+// solver_basis): its products take the given-order path (PERM = false) on
+// B's storage, and ell_gather_kernel moves the solve's vectors into the
+// basis once a solve (and applies a preconditioner given in the original
+// order).  A single product of A from that storage (PERM = true) is
+// y[perm] = B v[perm]: ell_gather_kernel gathers v (and w) into that order,
+// and the product kernel gathers locally and writes y[perm[i]] directly.
+// Every row's terms are the same products added in the same slot order, so
+// both orders give the same bits.
 //
 // Replaces the TPU kernel new_cg_variants_tpu/ops/ell_pallas.py:_ell_kernel
 // (entry points ell_spmv, ell_spmv2).  That kernel tiles 512 rows and keeps
@@ -34,8 +39,10 @@
 //
 // What the design does about it:
 // * The operator keeps its rows in the reverse Cuthill-McKee order its
-//   format policy computes anyway (ops/operators.py); the two permute passes
-//   of that order cost n scattered 4-byte reads and n scattered writes.
+//   format policy computes anyway (ops/operators.py).  The two permute
+//   passes of that order cost n scattered 4-byte reads and n scattered
+//   writes, a 32-byte sector each, so a solve pays them once, outside its
+//   loop (solver_basis), not on every product.
 // * A row shard of that operator whose cache is the whole vector (the
 //   all-gather route of parallel/contexts.py:EllRowShardContext) keeps its
 //   rows in the same order, and its columns compacted in that order

@@ -76,11 +76,12 @@ def _pieces(variant, op, b, preconditioner, dtype, dev):
     """``(ctx, init_fn, step_fn, b, x0, x_out)`` of a variant's step loop on
     ``dev``, as :func:`~..solvers.api.run` builds them; ``x_out`` maps the
     final ``x`` to a single-word vector in the original order (a
-    block-banded operator steps in its reordered basis)."""
-    from ..ops.block_banded import solver_basis
+    block-banded operator, or ELL in a locality order, steps in its
+    reordered basis)."""
     from ..ops.operators import as_operator, torch_dtype
     from ..solvers.api import (
         _df_pieces,
+        _in_basis,
         _resolve,
         _vector_dtype,
         is_double_word,
@@ -96,7 +97,8 @@ def _pieces(variant, op, b, preconditioner, dtype, dev):
                 lambda x: x.value64())
     op = as_operator(op, dtype=torch_dtype(dtype), device=dev)
     b = torch.as_tensor(b, dtype=_vector_dtype(op), device=dev)
-    op, to_basis, from_basis = solver_basis(op)
+    op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
+                                                         preconditioner)
     init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
     return (Context(op, precond), init_fn, step_fn, to_basis(b),
             to_basis(torch.zeros_like(b)), from_basis)

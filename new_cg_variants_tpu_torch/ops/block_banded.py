@@ -15,7 +15,8 @@ The packed blocks store ``3 bs n`` values whatever the nonzero count.  The
 JAX package leaves the batched product to XLA (``jnp.einsum``, no Pallas
 kernel); here it is ``torch.matmul``.  The system held is the reordered one,
 ``P A P^T``: :func:`solver_basis` moves ``b`` into that basis and ``x`` back,
-once per solve.
+once per solve (and does the same for an ELL operator in a locality
+order).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from . import ell_spmv
+from .operators import EllOperator
 
 __all__ = ["BlockBandedOperator", "PermutedBlockBandedOperator",
            "block_banded_from_coo", "rcm_band_probe", "solver_basis"]
@@ -192,15 +195,34 @@ class PermutedBlockBandedOperator:
 
 
 def solver_basis(op):
-    """Take a :class:`PermutedBlockBandedOperator`'s permutation out of the
-    iteration loop.
+    """Take an operator's permutation out of the iteration loop.
 
-    Returns ``(inner_op, to_basis, from_basis)``: solve ``inner_op @ y =
+    A :class:`PermutedBlockBandedOperator` holds the reordered system
+    ``P A P^T`` behind a permute in and out on every product, and an
+    :class:`~.operators.EllOperator` with a locality order ``perm`` stores
+    ``B = P A P^T`` itself (:func:`.ell_spmv.reorder`).  Returns
+    ``(inner_op, to_basis, from_basis)``: solve ``inner_op @ y =
     to_basis(b)`` and recover ``x = from_basis(y)``.  Both act on the first
-    axis.  Iteration norms do not depend on the order, and pad rows carry a
-    unit diagonal with a zero right-hand side, so their iterates stay zero.
-    For any other operator all three are the identity's.
+    axis.  For the ELL operator ``inner_op`` is ``B`` on the same storage
+    with no order, so no product gathers in or scatters out;
+    ``to_basis(v) = v[perm]`` is row 12's gather in (:func:`.ell_spmv.
+    gather_rows`: ``ell_gather`` on a CUDA vector), ``from_basis`` scatters
+    ``out[perm] = y`` (:func:`.ell_spmv.scatter_rows`).  Iteration norms do not depend on the order, and
+    block-banded pad rows carry a unit diagonal with a zero right-hand
+    side, so their iterates stay zero.  For any other operator all three
+    are the identity's.
     """
+    if isinstance(op, EllOperator) and op.perm is not None:
+        perm = op.perm
+
+        def to_basis(v):
+            return ell_spmv.gather_rows(perm, v)
+
+        def from_basis(y):
+            return ell_spmv.scatter_rows(perm, y)
+
+        inner = EllOperator._stored(op.val_t, op.idx_t, op.nnz_stored, None)
+        return inner, to_basis, from_basis
     if not isinstance(op, PermutedBlockBandedOperator):
         def ident(v):
             return v

@@ -22,11 +22,17 @@ slots in the same order, its columns mapped through the inverse
 permutation), and the product is ``y[perm] = B v[perm]``: :func:`ell_gather`
 gathers the vectors into the order, the product writes ``y[perm[i]]``.  The
 terms of each row are the same products added in the same slot order, so
-the result is the given order's, bit for bit.  The cache entries take the
-order as two arrays, ``perm`` for the shard's rows and ``cols`` for the
-columns they touch (``parallel/dist.py:_ell_locality_shard``): the indices
-then point into ``cache[cols]``, which the gather in builds, ``len(cols)``
-long whatever the cache's length.
+the result is the given order's, bit for bit.  That is what a single
+product of :class:`~.operators.EllOperator` in a locality order does; a
+solve takes the permutation out of its loop instead
+(:func:`~.block_banded.solver_basis`): it iterates on ``B`` with no order,
+whose products neither gather in nor scatter out, and moves its vectors in
+with :func:`gather_rows` (``ell_gather``) and out with :func:`scatter_rows`
+once a solve.  The cache entries
+take the order as two arrays, ``perm`` for the shard's rows and ``cols``
+for the columns they touch (``parallel/dist.py:_ell_locality_shard``): the
+indices then point into ``cache[cols]``, which the gather in builds,
+``len(cols)`` long whatever the cache's length.
 
 On CUDA tensors each launches the hand-written kernels of
 ``csrc/ell_spmv.cu``, which take float32, float64 or bf16 values (bf16
@@ -53,7 +59,8 @@ import torch
 
 from ._kernels import check_ell, check_vectors, compute_dtype
 
-__all__ = ["check_index", "check_perm", "reorder", "ELL_WRAPPERS"]
+__all__ = ["check_index", "check_perm", "reorder", "gather_rows",
+           "ELL_WRAPPERS"]
 
 
 def check_index(idx, n):
@@ -132,6 +139,23 @@ def _ell_reordered_plain(val, idx, perm, vecs, cols=None):
         z = torch.empty_like(y)
         z[p] = y
         out.append(z)
+    return out
+
+
+def gather_rows(perm, v):
+    """``v[perm]``: a CUDA vector through :func:`ell_gather` (one launch), a
+    CPU tensor through its plain version (along the first axis)."""
+    if v.device.type == "cpu" and perm.device.type == "cpu":
+        return _ell_gather_plain(perm, [v])[0]
+    return ell_gather(perm, [v.contiguous()])
+
+
+def scatter_rows(perm, y):
+    """``out`` with ``out[perm] = y`` along the first axis: the inverse of
+    :func:`gather_rows`, indexing with the int32 ``perm`` itself (no int64
+    copy of it is kept)."""
+    out = torch.empty_like(y)
+    out[perm] = y
     return out
 
 

@@ -187,13 +187,16 @@ class EllOperator:
     neighbouring rows is then one coalesced read (``csrc/ell_spmv.cu``).
     With ``perm`` (a permutation of ``range(n)``) that copy holds the rows in
     this locality order instead, ``B = P A P^T`` (:func:`.ell_spmv.reorder`),
-    and every product gathers in and scatters out through ``perm``: the same
-    terms in the same order, so the same bits as the given order.
-    :func:`from_coo` passes the reverse Cuthill-McKee order when it narrows
-    the band.  ``val`` / ``idx`` are the JAX package's ``(n, L)`` layout in
-    the original numbering: views of the copy in the given order, rebuilt
-    from it on each call in a locality order (for host-side uses:
-    ``todense``, ``tocsr``, the double-word split).
+    and ``mv`` / ``mv2`` gather in and scatter out through ``perm``: the
+    same terms in the same order, so the same bits as the given order.  A
+    solve does not pay that on every product: it iterates on ``B`` itself
+    with no order, its vectors moved into the basis and back once a solve
+    (:func:`~.block_banded.solver_basis`).  :func:`from_coo` passes the
+    reverse Cuthill-McKee order when it narrows the band.  ``val`` /
+    ``idx`` are the JAX package's ``(n, L)`` layout in the original
+    numbering: views of the copy in the given order, rebuilt from it on
+    each call in a locality order (for host-side uses: ``todense``,
+    ``tocsr``, the double-word split).
     """
 
     def __init__(self, val: torch.Tensor, idx: torch.Tensor,

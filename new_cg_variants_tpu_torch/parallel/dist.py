@@ -58,6 +58,7 @@ from ..solvers.api import (
     _compute_x_true,
     _df_selfcheck,
     _host64,
+    _in_basis,
     _needs_x_true,
     _resolve,
     _vectors,
@@ -224,7 +225,11 @@ def _ell_locality_shard(op, rank, m, dev):
     row that row i is, ``cols`` the columns those rows touch in the same
     order (indices into the whole vector) and ``idx`` the rows' indices
     into ``cache[cols]``.  At one rank these are the operator's own storage
-    and order."""
+    and order.  :func:`dist_run` and :func:`dist_solve` do not reach it:
+    they hand the context the operator in its basis
+    (:func:`~..ops.block_banded.solver_basis`: ``B`` with no order, split
+    into contiguous row blocks); a permuted operator given to
+    :func:`_local_ctx_factory` itself does."""
     if m == op.n:
         return (op.val_t.to(dev), op.idx_t.to(dev), op.perm.to(dev),
                 op.perm.to(dev))
@@ -245,7 +250,9 @@ def _ell_shard(op, p, rank, m, dev):
     the all-gather (the planner's ``None``).  On that route an operator in
     a locality order hands over its rows in that order (``order``: the
     rows' and the columns' order, :func:`_ell_locality_shard`); otherwise
-    the rows come in the original numbering and ``order`` is ``()``."""
+    the rows come in the operator's own numbering and ``order`` is ``()``
+    (the entry points' case: their operator is ``B`` in its basis, and the
+    planner chooses the route on ``B``'s pattern)."""
     # one rank: nothing to exchange, and plan_or_none gives None for any
     # pattern (no traffic can undercut an all-gather of nothing)
     given = plan = None
@@ -280,6 +287,8 @@ def _local_ctx_factory(op, mesh, precond, compensated=False, partition="row",
     p, rank, m, dev = _shard_shape(op, mesh)
     if isinstance(precond, JacobiPreconditioner):
         precond = JacobiPreconditioner(_rows(precond.inv_diag, rank, m, dev))
+    elif hasattr(precond, "to"):
+        precond = precond.to(dev)
     group = mesh.get_group()
     common = dict(precond=precond, compensated=compensated)
     if partition == "col":
@@ -365,14 +374,16 @@ def _single_word(variant, op, b, x0, mesh, partition, preconditioner,
     ``(mesh, None, None)`` on a rank outside the mesh.  Every refusal raises
     before the mesh (and a process group) is made."""
     op, b, x0, dev = _pieces(op, b, x0, dtype, device)
-    op0, b0 = op, b
-    op, to_basis, from_basis = solver_basis(op)
-    partition = _check_partition(op, partition)
+    partition = _check_partition(solver_basis(op)[0], partition)
     mesh = _mesh_for(mesh, dev)
     if not _in_mesh(mesh):
         return mesh, None, None
     if need_x_true and x_true is None:
-        x_true = _compute_x_true(op0, b0)
+        x_true = _compute_x_true(op, b)
+    # ELL in a locality order, or block-banded: each rank takes a block of
+    # the basis's rows; past one rank a preconditioner acts on a rank's rows
+    op, to_basis, from_basis, preconditioner = _in_basis(
+        variant, op, preconditioner, shard_local=mesh.size() > 1)
     init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
                                          w_replace, w_replace_init)
     ctx = _local_ctx_factory(op, mesh, precond, compensated, partition,

@@ -24,10 +24,18 @@ replays of captured CUDA graphs (:mod:`.graphs`), as the JAX package runs it
 under ``jax.jit``; the bits are the eager loop's.  ``use_jit=False``, and
 every run on the CPU, launches each step's kernels from the host.
 
-A block-banded operator holds the reordered system ``P A P^T``; both entry
-points solve in that basis (:func:`~..ops.block_banded.solver_basis`):
-``b``, ``x0`` and ``x_true`` are permuted once per solve, and ``x`` and the
-vector probe rows come back in the original order and dimension.
+A block-banded operator holds the reordered system ``P A P^T``, and so does
+an ELL operator in a locality order (the RCM order ``from_coo`` keeps);
+both entry points solve in that basis
+(:func:`~..ops.block_banded.solver_basis`): ``b``, ``x0`` and ``x_true`` are
+permuted once per solve (on an ELL operator by row 12's gather in), every
+product of the loop runs on the reordered storage with no permutation, and
+``x`` and the vector probe rows come back in the original order and
+dimension.  A preconditioner of a ``_pcg`` name on such an ELL operator
+acts as in the JAX package's given-order ELL solve (:func:`_in_basis`):
+Jacobi is the basis's diagonal, and any other object or callable sees
+vectors in the original order (:class:`.precond.GivenOrderPreconditioner`);
+on a block-banded operator it acts in the basis, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,13 +56,18 @@ from ..ops.doublefloat import (
     df_split3,
 )
 from ..ops.block_banded import solver_basis
-from ..ops.operators import as_operator, torch_dtype
+from ..ops.operators import EllOperator, as_operator, torch_dtype
 from ..probes.probes import resolve_probes
 from .context import Context
 from . import graphs
 from .engine import history_scan, tolerance_loop
 from .families import FAMILIES, family_of, make_gv_step
-from .precond import IdentityPreconditioner, make_preconditioner
+from .precond import (
+    GivenOrderPreconditioner,
+    IdentityPreconditioner,
+    JacobiPreconditioner,
+    make_preconditioner,
+)
 
 __all__ = ["run", "solve", "SolveResult", "VARIANT_NAMES",
            "is_double_word"]
@@ -125,6 +138,38 @@ def _resolve(variant, op, preconditioner, w_replace=None,
         if hasattr(precond, "to"):
             precond = precond.to(op.device)
     return init_fn, step_fn, precond
+
+
+def _in_basis(variant, op, preconditioner, shard_local=False):
+    """``(op, to_basis, from_basis, preconditioner)`` of a solve on ``op``
+    in its basis (:func:`~..ops.block_banded.solver_basis`), the
+    preconditioner spec of a ``_pcg`` name moved into that basis with it.
+
+    On an ELL operator in a locality order ``perm``: ``"jacobi"`` is built
+    later from the basis's diagonal; a :class:`.precond.JacobiPreconditioner`
+    has its ``inv_diag`` gathered into the basis here, once; any other
+    object or callable is wrapped to see and return vectors in the original
+    order (:class:`.precond.GivenOrderPreconditioner`), as the JAX package's
+    given-order ELL solve applies it.  ``shard_local`` (a mesh of more than
+    one rank) leaves those as they are: each rank applies them to its own
+    rows, which must then act row by row with no state of the order (the
+    identity, a pointwise function), as the JAX package's ``dist_run``
+    requires.  A block-banded operator's preconditioner acts in its basis,
+    as in the JAX package; a spec of a name that is not ``_pcg`` is left
+    for :func:`_resolve` to ignore."""
+    inner, to_basis, from_basis = solver_basis(op)
+    spec = preconditioner
+    if (isinstance(op, EllOperator) and op.perm is not None
+            and family_of(variant)[1] and spec is not None
+            and not isinstance(spec, (str, IdentityPreconditioner))):
+        if isinstance(spec, JacobiPreconditioner):
+            spec = JacobiPreconditioner(to_basis(
+                spec.inv_diag.to(device=op.device,
+                                 dtype=_vector_dtype(op))))
+        elif not shard_local:
+            spec = GivenOrderPreconditioner(make_preconditioner(spec, op),
+                                            op.perm)
+    return inner, to_basis, from_basis, spec
 
 
 def _operator(A, dtype, device):
@@ -214,8 +259,10 @@ def run(
     probe_fns = resolve_probes(probes)
     if _needs_x_true(probe_fns) and x_true is None:
         x_true = _compute_x_true(op, b)
-    # a block-banded operator: solve in its reordered basis
-    op, to_basis, from_basis = solver_basis(op)
+    # a block-banded operator, or ELL in a locality order: solve in its
+    # reordered basis
+    op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
+                                                         preconditioner)
     b, x0 = to_basis(b), to_basis(x0)
     init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
                                          w_replace, w_replace_init)
@@ -383,13 +430,15 @@ def solve(
             converged=bool(norm_type == "none" or float(nrm) <= float(tol)))
     op = _operator(A, dtype, dev)
     b, x0 = _vectors(op, b, x0, dev)
-    # a block-banded operator: solve in its reordered basis
-    op, to_basis, from_basis = solver_basis(op)
+    # a block-banded operator, or ELL in a locality order: solve in its
+    # reordered basis
+    op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
+                                                         preconditioner)
+    b, x0 = to_basis(b), to_basis(x0)
     init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
     ctx = Context(op, precond, compensated=compensated)
-    s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, to_basis(b),
-                                    to_basis(x0), max_iter, rtol, atol,
-                                    norm_type, runner=runner)
+    s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter,
+                                    rtol, atol, norm_type, runner=runner)
     return SolveResult(
         x=from_basis(s["x"]),
         iterations=int(k),

@@ -18,8 +18,11 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.ell_spmv import gather_rows, scatter_rows
+
 __all__ = ["JacobiPreconditioner", "FunctionPreconditioner",
-           "IdentityPreconditioner", "make_preconditioner"]
+           "IdentityPreconditioner", "GivenOrderPreconditioner",
+           "make_preconditioner"]
 
 
 @dataclass
@@ -75,6 +78,35 @@ class FunctionPreconditioner:
 
     def to(self, device):
         return self
+
+
+class GivenOrderPreconditioner:
+    """A preconditioner of a matrix's original numbering inside a solve
+    that iterates in the basis of an ELL operator's locality order ``perm``
+    (:func:`~..ops.block_banded.solver_basis`): ``M^-1 r =
+    (inner.apply(r_orig))[perm]`` with ``r_orig[perm] = r``, so ``inner``
+    sees and returns vectors in the original order.  For opaque objects and
+    callables only: a Jacobi diagonal is moved into the basis once instead
+    (:func:`~.api._in_basis`)."""
+
+    def __init__(self, inner, perm):
+        self.inner, self.perm = inner, perm
+
+    def apply(self, v):
+        return gather_rows(self.perm,
+                           self.inner.apply(scatter_rows(self.perm, v)))
+
+    def astype(self, dtype):
+        inner = self.inner
+        if hasattr(inner, "astype"):
+            inner = inner.astype(dtype)
+        return GivenOrderPreconditioner(inner, self.perm)
+
+    def to(self, device):
+        inner = self.inner
+        if hasattr(inner, "to"):
+            inner = inner.to(device)
+        return GivenOrderPreconditioner(inner, self.perm.to(device))
 
 
 def make_preconditioner(spec, op):
