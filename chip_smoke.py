@@ -200,7 +200,8 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     the kernels per iteration by entry and the device busy share, and
     ``dist_solve`` ms/iter beside ``solve``'s; pipe_pr_cg on half-band
     under the bench protocol of 4 with 1000-iteration chunks,
-    single-device and row contexts in turns;
+    single-device and row contexts replayed in turns, the row context
+    eagerly;
     ``dist_f64``: the same names and storages at n = 65,536 in float64,
     the card against the CPU over 25 iterations (rtol 1e-10).  ``ell_f32``
     also times the padded-ELL packing (``build_ell`` against the native
@@ -220,9 +221,9 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     operator, solved in its basis: ``B``'s storage, the cache gathered
     whole) against the single-device run (1e-4 through iteration 15), row
     12 once per product with no gather, one all-gather a matvec phase, one
-    all-reduce a sync phase; ``dist_f32x2``: pipe_pr_cg
+    all-reduce a sync phase (hs_cg too); ``dist_f32x2``: pipe_pr_cg
     and hs_cg in f32x2 on the double-word row context (n = 655,360, 63
-    diagonals, 200 iterations) against the single-device f32x2 run (1e-5),
+    diagonals, 100 iterations) against the single-device f32x2 run (1e-5),
     the ``_ext`` entries once per product, one all-gather a sync phase;
     ``dist_formats_f32``: pipe_pr_cg on the block-banded (formats_f32's
     permuted operator), stencil and column contexts (a dense SPD n = 8192,
@@ -232,7 +233,15 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     ``scaling_run``'s file keys, ``cli solve --devices 1 --partition
     row``, and ``--devices 2`` raising the error that names ``torchrun``.
     Each prints its collectives and kernels per iteration and ms/iter
-    beside the single-device run;
+    beside the single-device run.  The mesh loops replay captured CUDA
+    graphs with the NCCL collectives inside (``dist_run``, ``dist_solve``,
+    ``time_variant(mesh=)``, ``cli solve --devices``): every pair of
+    ``dist_case`` holds them to an eager witness (``parallel/dist.py``'s
+    private bodies with no runner) in bits, launches, collectives, and
+    kernels and collectives per iteration, and times ``dist_solve``
+    captured, eagerly and the single-device ``solve`` in turns, and the
+    replays alone against the single-device loop's; ``dist_f64`` holds
+    the captured run to its eager witness too;
 26. the compiled loop (``solvers/graphs.py``): ``run`` / ``solve`` take
     ``use_jit=True`` by default, which on the card replays captured CUDA
     graphs of chunks of steps, so every phase above that calls them runs
@@ -252,8 +261,9 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     graph, a tolerance solve that stops inside a chunk), ``jit_bf16``
     (bf16 storage on half-band, DIA and ELL) and ``jit_convergence_f64``
     (``convergence_f64``'s table through ``run``); the entries only the
-    row partition runs, whose loops stay eager, are each captured once at
-    their shapes (``capture_dist``).  The
+    row partition runs are also each captured alone once at their shapes
+    (``capture_dist``), and collective calls, like launches, count once
+    for each replay of a captured graph.  The
     main paths are timed both ways under the bench protocol (ELL with
     2000-iteration chunks, f32x2 and each name with 200; the eager times of
     main_f32, dia_f32 and main_bf16 from those phases' own benches), with
@@ -263,8 +273,11 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
 27. ``kernels`` — one JSON line over all kernel entries: one record per entry
     and shape that a driven path gives it, with the entry's launches on the
     paths of that shape and inside captured graphs (``graph_launches``; a
-    record whose path runs has at least one of each) (bf16 entries with the
-    float32 entry's time from the same call beside theirs).
+    record whose path runs has at least one of each; the row partition's
+    records also ``mesh_graph_launches``, those of the mesh phases' own
+    captured loops, at least one but for ``ell_gather``, which runs
+    outside the loop) (bf16 entries with the float32 entry's time from the
+    same call beside theirs).
 
 Every phase prints one JSON line.  Any failed check raises, and the script
 exits nonzero; it also exits nonzero, printing no result, when no CUDA device
@@ -3544,6 +3557,8 @@ DIST_ROWS = 16
 DIST_RTOL = 1e-4
 DIST_SOLVE_ITERS = 300
 DIST_STEPS = 20
+#: the chunk of a mesh case's replays under the bench protocol
+DIST_REPLAY_ITERS = 200
 #: the bench protocol's chunk in dist_f32 (the row context runs ~1 ms/iter
 #: at world size 1: 2 x 5000-iteration chunks would take ~10 s a trial)
 DIST_CHUNK_ITERS = 1000
@@ -3587,12 +3602,6 @@ def dist_world():
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = val
-
-
-def collectives():
-    from new_cg_variants_tpu_torch.parallel import contexts
-
-    return contexts.all_reduce, contexts.halo_exchange
 
 
 def dist_expected(name, fmt, steps):
@@ -3760,115 +3769,67 @@ def collective_host_us(torch, mesh, v, calls=1000):
 def dist_f32(torch, mesh, timings):
     """The row partition on the card at world size 1 (NCCL), n = 655,360,
     k = 32, float32, half-band and full DIA: for pipe_pr_cg, hs_cg and
-    pipe_pr_pcg (Jacobi), ``dist_run``'s nu and alpha against the
-    single-device ``run`` to DIST_RTOL through iteration 15, the launches of
-    the run, the all-reduces and halo exchanges per iteration, the kernels
-    per iteration by entry and the device busy share (profiler), and
+    pipe_pr_pcg (Jacobi), dist_case: the captured ``dist_run`` and
+    ``dist_solve`` beside their eager witnesses (the same bits, launches
+    and collectives), nu and alpha against the single-device ``run`` to
+    DIST_RTOL through iteration 15, the launches of the run and of the
+    solve, the all-reduces and halo exchanges and the kernels per
+    iteration, eager and replayed, with the profiler's busy share, and
     ms/iter of ``dist_solve`` beside ``solve`` (norm none, 300
-    iterations); pipe_pr_cg on half-band also under the bench protocol
-    (DIST_CHUNK_ITERS-iteration chunks), both contexts in this process, in
-    turns.  Returns the launches by wrapper."""
-    from new_cg_variants_tpu_torch import run, solve
-    from new_cg_variants_tpu_torch.parallel import dist_run, dist_solve
+    iterations).  Then pipe_pr_cg on half-band under the bench protocol
+    (DIST_CHUNK_ITERS-iteration chunks): the single-device context and
+    this rank's row context replayed, in turns, and the row context
+    eagerly.  Returns the launches by wrapper."""
     from new_cg_variants_tpu_torch.parallel.dist import _local_ctx_factory
     from new_cg_variants_tpu_torch.solvers.api import _resolve
     from new_cg_variants_tpu_torch.solvers.context import Context
 
-    reduce_, halo = collectives()
     path, failed = {}, []
-
-    def counted(fn, *args, **kw):
-        """``fn``'s output and launches; a row-partition call's launches
-        count to the path."""
-        reset_counts()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        counts = nonzero(read_counts())
-        if fn in (dist_run, dist_solve):
-            add_counts(path, counts)
-        return out, counts
-
-    def timed(fn, *args, **kw):
-        fn(*args, **{**kw, "max_iter": 5})  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, counts = counted(fn, *args, **kw)
-        return out, counts, (time.perf_counter() - t0) / kw["max_iter"] * 1e3
-
     for fmt in ("symdia", "dia"):
         for name in DIST_NAMES:
             op, b = dist_problem(torch, name, fmt, N, torch.float32)
             op = op.to("cuda")
             b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
-            pre = "jacobi" if name.endswith("pcg") else None
-            kw = dict(max_iter=DIST_ROWS, probes=("nu", "alpha"),
-                      preconditioner=pre, device="cuda")
-            got, counts = counted(dist_run, name, op, b, mesh=mesh, **kw)
-            want = run(name, op, b, **kw)
-            errs = {p: float(np.max(np.abs(got[p] - want[p])
-                                    / np.abs(want[p]))) for p in ("nu", "alpha")}
-            expected = dist_expected(name, fmt, DIST_ROWS - 1)
-            # per iteration: steps on this rank's context
-            init_fn, step_fn, precond = _resolve(name, op, pre)
-            ctx = _local_ctx_factory(op, mesh, precond)
-            state = init_fn(ctx, b, torch.zeros_like(b))
-            torch.cuda.synchronize()
-            reset_counts()
-            reduce_.calls = halo.calls = 0
-            for _ in range(DIST_STEPS):
-                state = step_fn(ctx, state)
-            torch.cuda.synchronize()
-            step_counts = nonzero(read_counts())
-            add_counts(path, step_counts)
-            per_iter = dict(
-                all_reduce=reduce_.calls / DIST_STEPS,
-                halo_exchange=halo.calls / DIST_STEPS,
-                kernels={k: v / DIST_STEPS for k, v in step_counts.items()})
-            profile = profile_steps(torch, ctx, step_fn, state)
-            sk = dict(variant=name, norm_type="none", max_iter=DIST_SOLVE_ITERS,
-                      preconditioner=pre, device="cuda")
-            res, solve_counts, dist_ms = timed(dist_solve, op, b, mesh=mesh,
-                                               **sk)
-            ref, _, single_ms = timed(solve, op, b, **sk)
-            rec = dict(variant=name, storage=fmt, n=N, k=K_BAND,
-                       problem="scaled_band" if pre else "banded_model",
-                       rows=DIST_ROWS, max_rel_diff=errs, rtol=DIST_RTOL,
-                       launches=counts, expected_launches=expected,
-                       per_iteration=per_iter, profile=profile,
-                       dist_solve_ms_per_iter=dist_ms,
-                       solve_ms_per_iter=single_ms,
-                       dist_solve_launches=solve_counts,
-                       dist_solve_finite=bool(torch.isfinite(res.x).all()))
-            emit("dist_f32", **rec)
             family = name.rsplit("_", 1)[0]
-            if not (max(errs.values()) <= DIST_RTOL and counts == expected
-                    and per_iter["all_reduce"] == DIST_SYNCS[family]
-                    and per_iter["halo_exchange"] == 1
-                    and step_counts == dist_steps(name, fmt, DIST_STEPS)
-                    and solve_counts == dist_expected(name, fmt,
-                                                      DIST_SOLVE_ITERS)
-                    and rec["dist_solve_finite"]
-                    and res.iterations == ref.iterations):
-                failed.append(rec)
-            del op, b, ctx, state, res, ref
+            _, counts, bad = dist_case(
+                torch, "dist_f32", mesh, name, op, b,
+                fields=dict(storage=fmt, n=N, k=K_BAND, problem=(
+                    "scaled_band" if name.endswith("pcg")
+                    else "banded_model")),
+                want_run=dist_expected(name, fmt, DIST_ROWS - 1),
+                want_step=dist_steps(name, fmt, 1),
+                want_coll={"all_reduce": DIST_SYNCS[family],
+                           "halo_exchange": 1},
+                want_solve=dist_expected(name, fmt, DIST_SOLVE_ITERS))
+            add_counts(path, counts)
+            failed += bad
+            del op, b
             torch.cuda.empty_cache()
     # the main path's name under the bench protocol (1000-iteration
-    # chunks): the single-device context and this rank's row context, in
-    # turns
+    # chunks): the single-device context and this rank's row context
+    # replayed, in turns, and the row context eagerly
     op, b = dist_problem(torch, "pipe_pr_cg", "symdia", N, torch.float32)
     op = op.to("cuda")
     b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
     init_fn, step_fn, _ = _resolve("pipe_pr_cg", op, None)
     bench = {}
-    for label, ctx in (("single", Context(op)),
-                       ("dist", _local_ctx_factory(op, mesh, None)),
-                       ("dist again", _local_ctx_factory(op, mesh, None)),
-                       ("single again", Context(op))):
+    for label in ("single", "dist", "dist eager", "dist again",
+                  "single again"):
+        ctx = (Context(op) if label.startswith("single")
+               else _local_ctx_factory(op, mesh, None))
         reset_counts()
-        ms, trials, nu_final, _ = chained_ms(torch, ctx, init_fn, step_fn, b,
-                                             DIST_CHUNK_ITERS)
+        if label == "dist eager":
+            ms, trials, nu_final, _ = chained_ms(torch, ctx, init_fn,
+                                                 step_fn, b, DIST_CHUNK_ITERS)
+        else:
+            ms, trials, nu_final, _, _ = replay_protocol(
+                torch, ctx, init_fn, step_fn, b, torch.zeros_like(b),
+                DIST_CHUNK_ITERS, MAX_TRIALS)
+        torch.cuda.synchronize()
         if label.startswith("dist"):
             add_counts(path, nonzero(read_counts()))
+            add_counts(MESH_GRAPHS.setdefault("dist_f32", {}),
+                       nonzero(GRAPH["replayed"]))
         bench[label] = dict(ms_per_iter=ms, trial_seconds=trials,
                             nu_final=nu_final)
     timings["dist_f32"] = bench
@@ -3878,42 +3839,89 @@ def dist_f32(torch, mesh, timings):
     if not all(np.isfinite(v["nu_final"]) and v["nu_final"] > 0
                for v in bench.values()):
         failed.append(bench)
+    failed += dist_hook(torch, mesh, op, b)
     if failed:
         raise AssertionError(f"{len(failed)} row-partition runs failed: "
                              f"{failed}")
     return path
 
 
+def dist_hook(torch, mesh, op, b):
+    """gv's replacement hook in the captured mesh loop (as jit_hook holds
+    it for ``run``): ``k % 10 == 0`` answers a bool tensor for the device
+    ``k`` of ``dist_run`` on the card and a Python bool for the eager
+    witness's host ``k``: the same bits; a hook answering a Python bool on
+    the card raises ``TypeError``.  Returns the failed records."""
+    from new_cg_variants_tpu_torch.parallel import dist_run
+    from new_cg_variants_tpu_torch.parallel.dist import _dist_history, _setup
+    from new_cg_variants_tpu_torch.probes.probes import resolve_probes
+
+    def hook(k, view):
+        return k % 10 == 0
+
+    probes = ("nu", "alpha")
+    kw = dict(max_iter=JIT_NAME_ITERS + 1, probes=probes, device="cuda")
+    got = counted_call(torch, lambda: dist_run(
+        "gv_cg", op, b, mesh=mesh, w_replace=hook, **kw))
+    local = _setup("gv_cg", op, b, None, mesh, "auto", None, None, False,
+                   True, "cuda", w_replace=hook)[1]
+    eager = _dist_history("gv_cg", local, resolve_probes(probes),
+                          kw["max_iter"], None, None)
+    same = same_output(got["out"], eager, ("x",) + probes)
+    try:
+        dist_run("gv_cg", op, b, mesh=mesh, w_replace=lambda k, v: True,
+                 **kw)
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    rec = dict(variant="gv_cg", hook="k % 10 == 0", same_bits=same,
+               graph_launches=got["graph_launches"],
+               python_bool_refused=refused)
+    emit("dist_f32", **rec)
+    ok = (all(same.values()) and bool(got["graph_launches"])
+          and refused is not None and "dist_run" in refused)
+    return [] if ok else [rec]
+
+
 def dist_f64(torch, mesh):
     """The row partition in float64 at n = 65,536: ``dist_run`` on the card
-    (NCCL) against ``dist_run`` on the CPU (gloo, the same process group's
-    CPU backend), nu and alpha to F64_RTOL over 25 iterations, for
-    pipe_pr_cg, hs_cg and pipe_pr_pcg (Jacobi) on half-band and full DIA,
-    with the card's launches."""
+    (NCCL, captured) against its eager witness on the card (the same bits
+    of x, nu and alpha) and against ``dist_run`` on the CPU (gloo, the same
+    process group's CPU backend), nu and alpha to F64_RTOL over 25
+    iterations, for pipe_pr_cg, hs_cg and pipe_pr_pcg (Jacobi) on
+    half-band and full DIA, with the card's launches."""
     from new_cg_variants_tpu_torch.parallel import dist_run, make_mesh
+    from new_cg_variants_tpu_torch.parallel.dist import _dist_history, _setup
+    from new_cg_variants_tpu_torch.probes.probes import resolve_probes
 
     cpu_mesh = make_mesh(device="cpu")
     failed = []
     for fmt in ("symdia", "dia"):
         for name in DIST_NAMES:
             op, b = dist_problem(torch, name, fmt, DIST_F64_N, torch.float64)
+            pre = "jacobi" if name.endswith("pcg") else None
             kw = dict(max_iter=F64_ITERS + 1, probes=("nu", "alpha"),
-                      preconditioner="jacobi" if name.endswith("pcg")
-                      else None)
-            reset_counts()
-            gpu = dist_run(name, op, b, mesh=mesh, device="cuda", **kw)
-            torch.cuda.synchronize()
-            counts = nonzero(read_counts())
+                      preconditioner=pre)
+            c = counted_call(torch, lambda: dist_run(
+                name, op, b, mesh=mesh, device="cuda", **kw))
+            gpu, counts = c["out"], c["launches"]
+            local = _setup(name, op, b, None, mesh, "auto", pre, None, False,
+                           True, "cuda")[1]
+            eager = _dist_history(name, local, resolve_probes(kw["probes"]),
+                                  kw["max_iter"], None, None)
+            same = same_output(gpu, eager, ("x", "nu", "alpha"))
             cpu = dist_run(name, op, b, mesh=cpu_mesh, device="cpu", **kw)
             errs = {p: float(np.max(np.abs(gpu[p] - cpu[p]) / np.abs(cpu[p])))
                     for p in ("nu", "alpha")}
             expected = dist_expected(name, fmt, F64_ITERS)
             rec = dict(variant=name, storage=fmt, n=DIST_F64_N,
                        iterations=F64_ITERS, max_rel_diff=errs,
-                       rtol=F64_RTOL, launches=counts,
+                       rtol=F64_RTOL, same_bits_as_eager=same,
+                       launches=counts, graph_launches=c["graph_launches"],
                        expected_launches=expected)
             emit("dist_f64", **rec)
-            if not (max(errs.values()) <= F64_RTOL and counts == expected):
+            if not (max(errs.values()) <= F64_RTOL and counts == expected
+                    and all(same.values()) and c["graph_launches"]):
                 failed.append(rec)
     if failed:
         raise AssertionError(f"{len(failed)} f64 row-partition comparisons "
@@ -3936,7 +3944,10 @@ AG_SHARD = " (all-gather shard p={} rank {})"
 #: row 9's shard shapes: the row partition's rows (m = 655,360, 63
 #: diagonals, h = 31) and the dense path's n
 DF_EXT_MS = (N, DF_DENSE_N)
-DIST_DF_ITERS = 200
+DIST_DF_ITERS = 100
+#: the chunk of the double-word context's replays under the bench protocol
+#: (one graph chunk: the step takes ~3.9 ms replayed)
+DIST_DF_REPLAY_ITERS = 32
 DIST_DF_NAMES = ("pipe_pr_cg", "hs_cg")
 #: f32x2 on the mesh against f32x2 on one device, every row.  At world size
 #: 1 the mesh context's arithmetic is the single-device mode's with the
@@ -3963,17 +3974,35 @@ SCALING_KEYS = {"variant", "n", "max_iter", "n_devices", "times", "best",
                 "time_per_iter", "error"}
 
 
+#: the collectives a captured graph makes, as GRAPH holds its launches: the
+#: wrappers' calls at a capture, and the same calls once for each replay of
+#: that graph (install_graph_counts); cleared by reset_collectives
+GRAPH_COLL = {"captured": {}, "replayed": {}}
+
+
+def raw_collectives():
+    from new_cg_variants_tpu_torch.parallel import contexts
+
+    return {fn.__name__: fn.calls for fn in contexts.COLLECTIVES}
+
+
 def reset_collectives():
     from new_cg_variants_tpu_torch.parallel import contexts
 
     for fn in contexts.COLLECTIVES:
         fn.calls = 0
+    for tally in GRAPH_COLL.values():
+        tally.clear()
 
 
 def collective_counts():
-    from new_cg_variants_tpu_torch.parallel import contexts
-
-    return {fn.__name__: fn.calls for fn in contexts.COLLECTIVES if fn.calls}
+    """Collective calls since reset_collectives: the eager ones, and each
+    call of a captured graph once for every replay of that graph (a
+    wrapper counts a host call, so a capture's calls count once, when it
+    is captured)."""
+    return nonzero({name: n - GRAPH_COLL["captured"].get(name, 0)
+                    + GRAPH_COLL["replayed"].get(name, 0)
+                    for name, n in raw_collectives().items()})
 
 
 def check_df_ext(torch, card, timings, report):
@@ -4342,118 +4371,236 @@ def check_ell_shards(torch, card, timings, report):
     return failed
 
 
-def timed_call(torch, fn, *args, **kw):
-    """``fn``'s output, its launches and ms per iteration (a warm-up call
-    of 5 iterations first)."""
-    fn(*args, **{**kw, "max_iter": 5})
+#: launches inside the mesh paths' captured graphs, by phase (dist_case,
+#: dist_f32's bench protocol, dist_scaling): the kernels line's
+#: graph_launches of the row partition's records
+MESH_GRAPHS = {}
+
+
+def counted_call(torch, fn):
+    """``fn()`` after a synchronize, with its counts reset first: a dict of
+    its output (``out``), host seconds to a synchronize after it, launches
+    and collective calls (a captured graph's once for every replay), the
+    launches and collective calls inside graphs (``graph_launches``,
+    ``graph_collectives``) and the captures' host seconds."""
     torch.cuda.synchronize()
     reset_counts()
+    reset_collectives()
     t0 = time.perf_counter()
-    out = fn(*args, **kw)
+    out = fn()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / kw["max_iter"] * 1e3
-    return out, nonzero(read_counts()), ms
+    return dict(out=out, seconds=time.perf_counter() - t0,
+                launches=nonzero(read_counts()),
+                collectives=collective_counts(),
+                graph_launches=nonzero(GRAPH["replayed"]),
+                graph_collectives=nonzero(GRAPH_COLL["replayed"]),
+                capture_seconds=dict(GRAPH["seconds"]))
+
+
+def per_step(counts, steps=DIST_STEPS):
+    return {k: v / steps for k, v in counts.items()}
 
 
 def dist_case(torch, phase, mesh, name, op, b, single_op=None, kw=None,
               fields=None, want_run=None, want_step=None, want_coll=None,
-              rtol=DIST_RTOL, rows=DIST_ROWS, iters=DIST_SOLVE_ITERS,
-              want=None):
+              want_solve=None, rtol=DIST_RTOL, rows=DIST_ROWS,
+              iters=DIST_SOLVE_ITERS, want=None, rounds=2,
+              replay_iters=DIST_REPLAY_ITERS):
     """One name on a mesh context at world size 1 (``kw``: ``dist_run``'s
     ``partition``, ``col_packed``, ``dtype``; ``fields``: the record's
-    labels) against the single-device entry points on ``single_op``
-    (default ``op``): nu and alpha of ``rows`` rows within ``rtol`` of
-    ``want`` (default the single-device ``run``); the launches of the
-    ``dist_run`` (``want_run``), the kernels (``want_step``) and
-    collectives (``want_coll``) per iteration over DIST_STEPS steps; the
-    profiler's kernels per iteration and busy share; ``dist_solve``'s
-    ms/iter beside ``solve``'s.  Returns ``(record, launches on the path, failed)``."""
+    labels), its loops captured as the entry points run them on the card,
+    each beside its eager witness (``parallel/dist.py``'s private bodies
+    with no runner):
+
+    * ``dist_run`` of ``rows`` rows: x, nu and alpha the witness's bits,
+      the same launches and collectives (``want_run``: its launches); nu
+      and alpha within ``rtol`` of ``want`` (default the single-device
+      ``run`` on ``single_op``, default ``op``);
+    * DIST_STEPS steps eagerly, then replayed: the same kernels
+      (``want_step``) and collectives (``want_coll``) per iteration; the
+      profiler's busy share and CUDA events a step of each;
+    * ``dist_solve`` (norm none, ``iters`` iterations) captured, eagerly
+      and the single-device captured ``solve``, ``rounds`` times in turns:
+      ms/iter (a call's capture included), the captures' host seconds, the
+      same iterations, x the witness's bits, the same launches
+      (``want_solve``) and collectives;
+    * the replays alone under the bench protocol (``replay_iters``-
+      iteration chunks), the mesh context and the single-device one in
+      turns, and the replayed step's busy share of that ms/iter.
+
+    The launches inside the graphs go to MESH_GRAPHS[phase].  Returns
+    ``(record, launches on the path, failed)``."""
     from new_cg_variants_tpu_torch import run, solve
     from new_cg_variants_tpu_torch.parallel import dist_run, dist_solve
-    from new_cg_variants_tpu_torch.parallel.dist import _setup
+    from new_cg_variants_tpu_torch.parallel.dist import (
+        _dist_history,
+        _dist_tolerance,
+        _setup,
+    )
+    from new_cg_variants_tpu_torch.probes.probes import resolve_probes
+    from new_cg_variants_tpu_torch.solvers import graphs
 
     single_op = op if single_op is None else single_op
     kw = kw or {}
     pre = "jacobi" if name.endswith("pcg") else None
     dtype = kw.get("dtype")
-    rk = dict(probes=("nu", "alpha"), preconditioner=pre, device="cuda")
+    probes = ("nu", "alpha")
+    rk = dict(probes=probes, preconditioner=pre, device="cuda")
+
+    def local():
+        return _setup(name, op, b, None, mesh, kw.get("partition", "auto"),
+                      pre, dtype, False, kw.get("col_packed", True),
+                      "cuda")[1]
+
     dist_run(name, op, b, mesh=mesh, max_iter=2, **rk, **kw)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    got = dist_run(name, op, b, mesh=mesh, max_iter=rows, **rk, **kw)
-    torch.cuda.synchronize()
-    path = nonzero(read_counts())
+    run_c = counted_call(torch, lambda: dist_run(
+        name, op, b, mesh=mesh, max_iter=rows, **rk, **kw))
+    run_e = counted_call(torch, lambda: _dist_history(
+        name, local(), resolve_probes(probes), rows, None, None))
+    got = run_c["out"]
+    same = same_output(got, run_e["out"], ("x", "nu") + probes)
+    path = dict(run_c["launches"])
+    inside = dict(run_c["graph_launches"])
     if want is None:
         want = run(name, single_op, b, max_iter=rows, dtype=dtype, **rk)
     errs = {p: float(np.max(np.abs(got[p] - want[p]) / np.abs(want[p])))
-            for p in ("nu", "alpha")}
-    _, local, _ = _setup(name, op, b, None, mesh, kw.get("partition", "auto"),
-                         pre, dtype, False, kw.get("col_packed", True),
-                         "cuda")
-    ctx, step_fn = local.ctx, local.step_fn
-    state = local.init_fn(ctx, local.b, local.x0)
-    torch.cuda.synchronize()
-    reset_counts()
-    reset_collectives()
-    for _ in range(DIST_STEPS):
-        state = step_fn(ctx, state)
-    torch.cuda.synchronize()
-    steps = nonzero(read_counts())
-    add_counts(path, steps)
-    coll = {k: v / DIST_STEPS for k, v in collective_counts().items()}
+            for p in probes}
+    # DIST_STEPS steps eagerly, then DIST_STEPS replayed
+    lc = local()
+    ctx, step_fn = lc.ctx, lc.step_fn
+    st = {"s": lc.init_fn(ctx, lc.b, lc.x0)}
+
+    def advance(m):
+        for _ in range(m):
+            st["s"] = step_fn(ctx, st["s"])
+
+    e_steps = counted_call(torch, lambda: advance(DIST_STEPS))
+    profile = profile_window(torch, advance, DIST_STEPS - 1)
+    loop = graphs.runner(torch.device("cuda"), True).start(
+        ctx, step_fn, st["s"], horizon=DIST_STEPS)
+    c_steps = counted_call(torch, lambda: loop.advance(DIST_STEPS))
     # a short window: the double-word context launches ~2,200 kernels a step
-    profile = profile_steps(torch, ctx, step_fn, state, steps=DIST_STEPS)
-    sk = dict(variant=name, norm_type="none", max_iter=iters,
-              preconditioner=pre, device="cuda")
-    res, solve_counts, dist_ms = timed_call(torch, dist_solve, op, b,
-                                            mesh=mesh, **sk, **kw)
-    add_counts(path, solve_counts)
-    ref, _, single_ms = timed_call(torch, solve, single_op, b, dtype=dtype,
-                                   **sk)
+    c_profile = profile_window(torch, loop.advance, DIST_STEPS)
+    c_profile.update(capture_seconds=loop.cap.capture_seconds,
+                     instantiate_seconds=loop.cap.instantiate_seconds)
+    for c in (e_steps, c_steps):
+        add_counts(path, c["launches"])
+    add_counts(inside, c_steps["graph_launches"])
+    steps = {"eager": dict(kernels=per_step(e_steps["launches"]),
+                           collectives=per_step(e_steps["collectives"])),
+             "captured": dict(kernels=per_step(c_steps["launches"]),
+                              collectives=per_step(c_steps["collectives"]))}
+    del loop, st
+    # dist_solve captured, eagerly and the single-device solve, in turns
+    sk = dict(variant=name, norm_type="none", preconditioner=pre,
+              device="cuda")
+    solves = {
+        "captured": lambda m: dist_solve(op, b, mesh=mesh, max_iter=m, **sk,
+                                         **kw),
+        "eager": lambda m: _dist_tolerance(local(), m, 1e-8, 0.0, "none",
+                                           None),
+        "single": lambda m: solve(single_op, b, dtype=dtype, max_iter=m,
+                                  **sk)}
+    for fn in solves.values():
+        fn(5)  # warm-up
+    res = {label: [] for label in solves}
+    for _ in range(rounds):
+        for label, fn in solves.items():
+            res[label].append(counted_call(torch, lambda: fn(iters)))
+    sc, se, ss = (res[k][-1] for k in ("captured", "eager", "single"))
+    for c in res["captured"]:
+        add_counts(path, c["launches"])
+        add_counts(inside, c["graph_launches"])
+    solve_same = dict(
+        iterations=sc["out"].iterations == se["out"].iterations
+        == ss["out"].iterations == iters,
+        x=bits_equal(torch, sc["out"].x, se["out"].x),
+        launches=sc["launches"] == se["launches"],
+        collectives=sc["collectives"] == se["collectives"])
+    ms = {label: [c["seconds"] / iters * 1e3 for c in r]
+          for label, r in res.items()}
+    # the replays alone, the mesh context and one device in turns
+    pieces = {"dist": (ctx, lc.init_fn, step_fn, lc.b, lc.x0),
+              "single": single_pieces(torch, single_op, b, name, pre,
+                                      dtype)}
+    replays = {}
+    for label in ("dist", "single", "dist", "single"):
+        t = replay_protocol(torch, *pieces[label], replay_iters,
+                            MIN_TRIALS)
+        replays.setdefault(label, []).append(t[0])
+    busy = c_profile.get("device_busy_ms_per_iter")
+    c_profile["busy_share_of_replay_ms_per_iter"] = (
+        None if busy is None else busy / min(replays["dist"]))
+    add_counts(MESH_GRAPHS.setdefault(phase, {}), inside)
     rec = dict(variant=name, **(fields or {}), rows=rows,
-               max_rel_diff=errs, rtol=rtol,
-               context=type(ctx).__name__, launches=nonzero(path),
-               per_iteration=dict(
-                   collectives=coll,
-                   kernels={k: v / DIST_STEPS for k, v in steps.items()}),
-               profile=profile, dist_solve_ms_per_iter=dist_ms,
-               solve_ms_per_iter=single_ms, iterations=res.iterations,
-               finite=bool(torch.isfinite(res.x).all()))
+               max_rel_diff=errs, rtol=rtol, context=type(ctx).__name__,
+               run_same_bits=same, launches=nonzero(path),
+               run_launches=run_c["launches"],
+               run_eager_launches=run_e["launches"],
+               run_collectives=run_c["collectives"],
+               run_eager_collectives=run_e["collectives"],
+               run_capture_seconds=run_c["capture_seconds"],
+               run_graph_collectives=run_c["graph_collectives"],
+               graph_launches=inside,
+               per_iteration=steps["eager"],
+               per_iteration_captured=steps["captured"],
+               profile=profile, profile_captured=c_profile,
+               dist_solve_ms_per_iter=min(ms["captured"]),
+               dist_solve_eager_ms_per_iter=min(ms["eager"]),
+               solve_ms_per_iter=min(ms["single"]), solve_ms_turns=ms,
+               solve_capture_seconds=sc["capture_seconds"],
+               solve_same=solve_same, solve_launches=sc["launches"],
+               solve_collectives=sc["collectives"],
+               replay_ms_per_iter={k: min(v) for k, v in replays.items()},
+               replay_ms_turns=replays, iterations=sc["out"].iterations,
+               finite=bool(torch.isfinite(sc["out"].x).all()))
     ok = (max(errs.values()) <= rtol and rec["finite"]
-          and res.iterations == ref.iterations == iters)
+          and all(same.values()) and all(solve_same.values())
+          and run_c["launches"] == run_e["launches"]
+          and run_c["collectives"] == run_e["collectives"]
+          and steps["captured"] == steps["eager"]
+          and bool(run_c["graph_collectives"]))
     if want_coll is not None:
         rec["expected_collectives"] = want_coll
-        ok = ok and coll == want_coll
+        ok = ok and steps["eager"]["collectives"] == want_coll
     if want_step is not None:
         rec["expected_step_kernels"] = want_step
-        ok = ok and steps == nonzero(
-            {k: v * DIST_STEPS for k, v in want_step.items()})
+        ok = ok and steps["eager"]["kernels"] == want_step
     if want_run is not None:
-        got_run = nonzero({k: path.get(k, 0) - steps.get(k, 0)
-                           - solve_counts.get(k, 0) for k in path})
-        rec.update(run_launches=got_run, expected_run_launches=want_run)
-        ok = ok and got_run == want_run
+        rec["expected_run_launches"] = want_run
+        ok = ok and run_c["launches"] == want_run
+    if want_solve is not None:
+        rec["expected_solve_launches"] = want_solve
+        ok = ok and sc["launches"] == want_solve
     emit(phase, **rec)
     return rec, path, [] if ok else [rec]
 
 
 def dist_ell_f32(torch, mesh, built):
-    """pipe-PR-CG on the ELL row context at world size 1: ell_f32's
-    operator (HPCG 27-point, 104^3, permuted), which ``dist_run`` solves in
-    its RCM basis (the context takes ``B``'s storage as it is, no order),
-    the cache gathered whole (the planner's choice at one rank): row 12
-    once per product with no gather, ``b`` and ``x0`` gathered into the
-    basis once a run (``ell_gather``), one all-gather per matvec phase,
-    one all-reduce per sync phase; nu and alpha within 1e-4 of the
-    single-device run through iteration 15.  Returns the launches."""
+    """pipe-PR-CG and hs-CG on the ELL row context at world size 1:
+    ell_f32's operator (HPCG 27-point, 104^3, permuted), which ``dist_run``
+    solves in its RCM basis (the context takes ``B``'s storage as it is,
+    no order), the cache gathered whole (the planner's choice at one
+    rank): row 12 once per product with no gather, ``b`` and ``x0``
+    gathered into the basis once a run (``ell_gather``), one all-gather
+    per matvec phase, one all-reduce per sync phase (hs-CG: two); nu and
+    alpha within 1e-4 of the single-device run through iteration 15.
+    Returns the launches."""
     a, op, b, x_true = built.pop("hpcg_ell")
-    rec, path, failed = dist_case(
-        torch, "dist_ell_f32", mesh, "pipe_pr_cg", op, b,
-        fields=dict(n=op.n, operator="ELL, HPCG 104^3 permuted"),
-        want_run={"ell_spmv_cache": 3, "ell_spmv2_cache": DIST_ROWS - 1,
-                  "ell_gather": 2},
-        want_step={"ell_spmv2_cache": 1},
-        want_coll={"all_reduce": 1.0, "all_gather": 1.0})
+    path, failed = {}, []
+    for name, want_run, want_step, syncs in (
+            ("pipe_pr_cg", {"ell_spmv_cache": 3,
+                            "ell_spmv2_cache": DIST_ROWS - 1},
+             {"ell_spmv2_cache": 1}, 1),
+            ("hs_cg", {"ell_spmv_cache": 2 + DIST_ROWS - 1},
+             {"ell_spmv_cache": 1}, 2)):
+        _, counts, bad = dist_case(
+            torch, "dist_ell_f32", mesh, name, op, b,
+            fields=dict(n=op.n, operator="ELL, HPCG 104^3 permuted"),
+            want_run=dict(want_run, ell_gather=2), want_step=want_step,
+            want_coll={"all_reduce": syncs, "all_gather": 1})
+        add_counts(path, counts)
+        failed += bad
     if failed:
         raise AssertionError(f"ELL row context failed: {failed}")
     return path
@@ -4543,7 +4690,7 @@ def df_witness(torch, mesh, dop, b):
 def dist_f32x2(torch, mesh):
     """pipe-PR-CG and hs-CG in f32x2 on the double-word row context at
     world size 1: the model problem (n = 655,360, 63 diagonals built in
-    float64 and split on the host), 200 iterations; every row's nu and
+    float64 and split on the host), 100 iterations; every row's nu and
     alpha within 1e-5 of the single-device f32x2 run with the same dot
     order (hs-CG: ``run``; pipe-PR-CG: the generic vector phase, with row
     11's run as the witness, df_witness); row 9's ``_ext`` entries once per
@@ -4571,7 +4718,8 @@ def dist_f32x2(torch, mesh):
             want_run=want_run,
             want_step={"df_dia_spmv_ext" if hs else "df_dia_spmv2_ext": 1},
             want_coll={"all_gather": 2.0 if hs else 1.0,
-                       "halo_exchange": 1.0})
+                       "halo_exchange": 1.0}, rounds=1,
+            replay_iters=DIST_DF_REPLAY_ITERS)
         add_counts(path, counts)
         failed += bad
     if failed:
@@ -4685,12 +4833,13 @@ def dist_scaling(torch, mesh, built):
     col_x = np.ones(COL_N)
     for part, op, rhs, xt in (("row", sym, b, x_true),
                               ("col", col_op, col_b, col_x)):
-        reset_counts()
-        got = time_variant("pipe_pr_cg", op, rhs, x_true=xt,
-                           max_iter=SCALING_ITERS, trials=2, mesh=mesh,
-                           partition=part, chunk_iters=SCALING_CHUNK)
-        torch.cuda.synchronize()
-        add_counts(path, nonzero(read_counts()))
+        c = counted_call(torch, lambda: time_variant(
+            "pipe_pr_cg", op, rhs, x_true=xt, max_iter=SCALING_ITERS,
+            trials=2, mesh=mesh, partition=part, chunk_iters=SCALING_CHUNK))
+        got = c["out"]
+        add_counts(path, c["launches"])
+        add_counts(MESH_GRAPHS.setdefault("dist_scaling", {}),
+                   c["graph_launches"])
         one = time_variant("pipe_pr_cg", op, rhs, x_true=xt,
                            max_iter=SCALING_ITERS, trials=2)
         rec = dict(call="time_variant", partition=part, n=got.n,
@@ -4698,12 +4847,17 @@ def dist_scaling(torch, mesh, built):
                    chunk_iters=SCALING_CHUNK,
                    mesh_ms_per_iter=got.time_per_iter * 1e3,
                    single_ms_per_iter=one.time_per_iter * 1e3,
-                   mesh_error=got.error, single_error=one.error)
+                   mesh_error=got.error, single_error=one.error,
+                   graph_launches=c["graph_launches"],
+                   graph_collectives=c["graph_collectives"],
+                   collectives=c["collectives"],
+                   capture_seconds=c["capture_seconds"])
         emit("dist_scaling", **rec)
         # the same size of error (two summation orders over 1000 float32
-        # iterations: the digits differ)
+        # iterations: the digits differ); the trials replayed
         if not (np.isfinite(got.error) and got.n_devices == 1
-                and abs(got.error - one.error) <= 0.05 * one.error):
+                and abs(got.error - one.error) <= 0.05 * one.error
+                and c["graph_collectives"]):
             failed.append(rec)
     del col_op, col_b
     with tempfile.TemporaryDirectory() as tmp:
@@ -4719,21 +4873,28 @@ def dist_scaling(torch, mesh, built):
             and all(set(k) == SCALING_KEYS for k in keys.values())):
         failed.append(rec)
     buf = io.StringIO()
-    reset_counts()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["solve", "-n", str(N), "-k", str(K_BAND), "--dtype",
-                       "f32", "--devices", "1", "--partition", "row",
-                       "--ksp-norm-type", "none", "--max-iter", "300"])
-    torch.cuda.synchronize()
-    counts = nonzero(read_counts())
+
+    def cli_solve():
+        with contextlib.redirect_stdout(buf):
+            return cli.main(["solve", "-n", str(N), "-k", str(K_BAND),
+                             "--dtype", "f32", "--devices", "1",
+                             "--partition", "row", "--ksp-norm-type",
+                             "none", "--max-iter", "300"])
+
+    c = counted_call(torch, cli_solve)
+    rc, counts = c["out"], c["launches"]
     add_counts(path, counts)
+    add_counts(MESH_GRAPHS.setdefault("dist_scaling", {}),
+               c["graph_launches"])
     lines = buf.getvalue().splitlines()
     rec = dict(call="cli solve --devices 1 --partition row", rc=rc,
-               lines=lines, launches=counts)
+               lines=lines, launches=counts,
+               graph_launches=c["graph_launches"])
     emit("dist_scaling", **rec)
-    # through dist_solve: the half-band SpMV of the extended slice, no
-    # fused family kernel
+    # through dist_solve, replayed: the half-band SpMV of the extended
+    # slice, no fused family kernel
     if not (rc == 0 and len(lines) == 4 and counts.get("sym_dia_spmv2")
+            and c["graph_launches"].get("sym_dia_spmv2")
             and not any(k.startswith("fused") for k in counts)):
         failed.append(rec)
     try:
@@ -4797,19 +4958,23 @@ def raw_counts():
 
 
 def install_graph_counts():
-    """Count the launches a captured graph makes: each capture's launches
-    (the wrappers' counts around it), once for every replay."""
+    """Count the launches and the collective calls a captured graph makes:
+    each capture's (the wrappers' counts around it), once for every
+    replay."""
     from new_cg_variants_tpu_torch.solvers import graphs
 
     capture = graphs.CudaCapture.capture
 
     def counted(self, body):
-        before = raw_counts()
+        before, coll = raw_counts(), raw_collectives()
         seconds = (self.capture_seconds, self.instantiate_seconds)
         replay = capture(self, body)
         inside = {k: v - before[k] for k, v in raw_counts().items()
                   if v != before[k]}
+        calls = {k: v - coll[k] for k, v in raw_collectives().items()
+                 if v != coll[k]}
         add_counts(GRAPH["captured"], inside)
+        add_counts(GRAPH_COLL["captured"], calls)
         add_counts(GRAPH["seconds"], {
             "capture": self.capture_seconds - seconds[0],
             "instantiate": self.instantiate_seconds - seconds[1]})
@@ -4817,6 +4982,7 @@ def install_graph_counts():
         def counted_replay():
             replay()
             add_counts(GRAPH["replayed"], inside)
+            add_counts(GRAPH_COLL["replayed"], calls)
 
         return counted_replay
 
@@ -4910,6 +5076,33 @@ def solve_pair(torch, phase, op, b, variant, precond, norm_type, rtol,
     return rec, all(same.values()) and launches_ok, inside
 
 
+def replay_protocol(torch, ctx, init_fn, step_fn, b, x0, chunk_iters,
+                    max_trials):
+    """protocol_ms over replays of captured chunks (graphs.Runner, as
+    use_jit=True runs the loop; the loop made at the warm-up chunk, each
+    trial loading its init state): ``(ms/iter, trial seconds, nu at the
+    end, advance, loop)``."""
+    from new_cg_variants_tpu_torch.ops.doublefloat import collapse
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    runner = graphs.runner(torch.device("cuda"), use_jit=True)
+    loop = {}
+
+    def begin(scale):
+        s = init_fn(ctx, b * scale, x0)
+        if not loop:
+            loop["l"] = runner.start(ctx, step_fn, s, horizon=chunk_iters)
+        loop["l"].load(s)
+
+    def advance(m):
+        loop["l"].advance(m)
+
+    ms, times, nu = protocol_ms(
+        begin, advance, lambda: float(collapse(loop["l"].state()["nu"])),
+        chunk_iters, max_trials)
+    return ms, times, nu, advance, loop["l"]
+
+
 def jit_timing(torch, ctx, init_fn, step_fn, b, x0,
                chunk_iters=ITERS_PER_CHUNK, max_trials=JIT_TRIALS,
                profile_chunks=JIT_PROFILE_CHUNKS, eager=None):
@@ -4922,7 +5115,6 @@ def jit_timing(torch, ctx, init_fn, step_fn, b, x0,
     ``eager``: the eager loop's ``{"ms_per_iter", "profile"}`` as the
     phase's own bench_protocol measured it earlier in the run (not measured
     again)."""
-    from new_cg_variants_tpu_torch.ops.doublefloat import collapse
     from new_cg_variants_tpu_torch.solvers import graphs
 
     steps = profile_chunks * min(graphs.CHUNK, chunk_iters)
@@ -4934,29 +5126,16 @@ def jit_timing(torch, ctx, init_fn, step_fn, b, x0,
                      profile=profile_window(torch, advance, steps))
     else:
         eager = dict(eager, measured_in="the phase's bench_protocol")
-    runner = graphs.runner(torch.device("cuda"), use_jit=True)
-    loop = {}
-
-    def gbegin(scale):
-        s = init_fn(ctx, b * scale, x0)
-        if not loop:
-            loop["l"] = runner.start(ctx, step_fn, s, horizon=chunk_iters)
-        loop["l"].load(s)
-
-    def gadvance(m):
-        loop["l"].advance(m)
-
-    ms, times, nu = protocol_ms(
-        gbegin, gadvance, lambda: float(collapse(loop["l"].state()["nu"])),
-        chunk_iters, max_trials)
+    ms, times, nu, gadvance, loop = replay_protocol(
+        torch, ctx, init_fn, step_fn, b, x0, chunk_iters, max_trials)
     replayed = dict(ms_per_iter=ms, trial_seconds=times, nu_final=nu,
                     profile=profile_window(torch, gadvance, steps))
     for rec in (eager, replayed):
         busy = rec["profile"].get("device_busy_ms_per_iter")
         rec["busy_share_of_ms_per_iter"] = (None if busy is None
                                             else busy / rec["ms_per_iter"])
-    cap = loop["l"].cap
-    rec = dict(chunk_iters=chunk_iters, graph_chunk=loop["l"].chunk,
+    cap = loop.cap
+    rec = dict(chunk_iters=chunk_iters, graph_chunk=loop.chunk,
                ms_per_iter_eager=eager["ms_per_iter"],
                ms_per_iter_jit=replayed["ms_per_iter"],
                speedup=eager["ms_per_iter"] / replayed["ms_per_iter"],
@@ -4969,37 +5148,40 @@ def jit_timing(torch, ctx, init_fn, step_fn, b, x0,
     return rec, ok
 
 
-def jit_timed(torch, phase, op, b, variant, card, chunk_iters=ITERS_PER_CHUNK,
-              max_trials=JIT_TRIALS, precond=None, profile_chunks=None,
-              eager=None, **fields):
-    """jit_timing of ``variant`` on ``op`` (single-word or, for a
-    ``DFOperator``, double-word), emitted with the card's line."""
+def single_pieces(torch, op, b, variant, precond=None, dtype=None):
+    """``(ctx, init_fn, step_fn, b, x0)`` of ``variant``'s single-device
+    step loop on ``op`` as a solve runs it: double-word for a
+    ``DFOperator`` (or ``dtype="f32x2"``), else in the operator's basis
+    (ELL in a locality order, block-banded)."""
     from new_cg_variants_tpu_torch.ops.block_banded import solver_basis
     from new_cg_variants_tpu_torch.ops.doublefloat import (
         DFOperator,
         DoubleFloatContext,
         df_split,
     )
-    from new_cg_variants_tpu_torch.solvers.api import _resolve
+    from new_cg_variants_tpu_torch.solvers.api import _df_pieces, _resolve
     from new_cg_variants_tpu_torch.solvers.context import Context
-    from new_cg_variants_tpu_torch.solvers.families import FAMILIES, family_of
 
-    if isinstance(op, DFOperator):
-        init_fn, step_fn = FAMILIES[family_of(variant)[0]]
-        ctx = DoubleFloatContext(op)
-        b = df_split(b.cpu().numpy(), device="cuda")
-        x0 = df_split(np.zeros(op.n), device="cuda")
-    else:
-        # the step a solve runs: in the operator's basis (ELL in a locality
-        # order, block-banded), the identity's for any other
-        op, to_basis, _ = solver_basis(op)
-        b = to_basis(b)
-        init_fn, step_fn, prec = _resolve(variant, op, precond)
-        ctx = Context(op, prec)
-        x0 = torch.zeros_like(b)
-    rec, ok = jit_timing(torch, ctx, init_fn, step_fn, b, x0, chunk_iters,
-                         max_trials, profile_chunks or JIT_PROFILE_CHUNKS,
-                         eager)
+    if isinstance(op, DFOperator) or dtype == "f32x2":
+        op, b, x0, init_fn, step_fn, prec = _df_pieces(
+            variant, op, b.cpu().numpy(), None, precond,
+            torch.device("cuda"))
+        return DoubleFloatContext(op, prec), init_fn, step_fn, b, x0
+    op, to_basis, _ = solver_basis(op)
+    b = to_basis(b)
+    init_fn, step_fn, prec = _resolve(variant, op, precond)
+    return Context(op, prec), init_fn, step_fn, b, torch.zeros_like(b)
+
+
+def jit_timed(torch, phase, op, b, variant, card, chunk_iters=ITERS_PER_CHUNK,
+              max_trials=JIT_TRIALS, precond=None, profile_chunks=None,
+              eager=None, **fields):
+    """jit_timing of ``variant`` on ``op`` (single-word or, for a
+    ``DFOperator``, double-word), emitted with the card's line."""
+    rec, ok = jit_timing(torch, *single_pieces(torch, op, b, variant,
+                                               precond),
+                         chunk_iters, max_trials,
+                         profile_chunks or JIT_PROFILE_CHUNKS, eager)
     emit(phase, variant=variant, timing=rec, card=card, **fields)
     return rec, ok
 
@@ -5406,9 +5588,9 @@ def capture_check(torch, fn):
 
 
 def capture_dist(torch, built):
-    """The entries the row partition runs (the dist_* phases; its loops
-    stay eager in this port) at the shapes dist_f32, dist_f32x2 and
-    dist_ell_f32 give them, each held to one capture of itself: the
+    """The entries the row partition runs (the dist_* phases, whose loops
+    replay captured graphs) at the shapes dist_f32, dist_f32x2 and
+    dist_ell_f32 give them, each held to one capture of itself alone: the
     replay's outputs the eager call's bits."""
     from new_cg_variants_tpu_torch.ops import df_spmv as ds
     from new_cg_variants_tpu_torch.ops import ell_spmv as es
@@ -5466,8 +5648,11 @@ def capture_dist(torch, built):
     return inside
 
 
+#: suffix of a mesh phase's launches inside its captured loops (MESH_GRAPHS)
+MESH = " (graphs)"
 #: the phases that run a path's shapes inside captured graphs (use_jit=True
-#: against False, or, for the row partition's entries, each captured once)
+#: against False; for the row partition's entries, each captured once and
+#: the mesh phases' own captured loops)
 GRAPH_PATHS = {
     "main_f32": ("jit_main_f32", "jit_solve"),
     "variants_f32": ("jit_variants_f32",),
@@ -5478,8 +5663,9 @@ GRAPH_PATHS = {
     "posthoc_f64": ("jit_convergence_f64",),
     "main_bf16": ("jit_bf16",), "dia_bf16": ("jit_bf16",),
     "ell_bf16": ("jit_bf16",),
-    "dist_f32": ("capture_dist",), "dist_f32x2": ("capture_dist",),
-    "dist_ell_f32": ("capture_dist",),
+    "dist_f32": ("capture_dist", "dist_f32" + MESH),
+    "dist_f32x2": ("capture_dist", "dist_f32x2" + MESH),
+    "dist_ell_f32": ("capture_dist", "dist_ell_f32" + MESH),
 }
 
 
@@ -5611,6 +5797,9 @@ def kernel_records(timings, launches):
                 key: timings[name + NATURAL][key]
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         gpaths = sorted({g for p in paths for g in GRAPH_PATHS.get(p, ())})
+        if any(p + MESH in launches for p in paths):
+            extra["mesh_graph_launches"] = sum(
+                launches.get(p + MESH, {}).get(entry, 0) for p in paths)
         kernels.append(dict(
             name=name, route="cuda",
             source="new_cg_variants_tpu_torch/csrc/" + source,
@@ -5709,6 +5898,7 @@ def main():
         phase("dist_f32x2", dist_f32x2, torch, mesh)
         phase("dist_formats_f32", dist_formats_f32, torch, mesh, built)
         phase("dist_scaling", dist_scaling, torch, mesh, built)
+    launches.update({p + MESH: v for p, v in MESH_GRAPHS.items()})
 
     kernels = kernel_records(timings, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5716,8 +5906,12 @@ def main():
                   if k["paths"] and k["launches"] < 1]
     if unlaunched:
         raise AssertionError(f"no launch on its driven path: {unlaunched}")
+    # the mesh paths' loops replay rows 1, 3, 4, 5, 9 and 12 (ell_gather,
+    # the change of basis, runs outside the loop)
     uncaptured = [k["name"] for k in kernels
-                  if k["paths"] and k["graph_launches"] < 1]
+                  if k["paths"] and k["graph_launches"] < 1
+                  or k.get("mesh_graph_launches", 1) < 1
+                  and not k["name"].startswith("ell_gather")]
     if uncaptured:
         raise AssertionError(f"no launch inside a graph: {uncaptured}")
     print(card, flush=True)

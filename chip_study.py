@@ -31,6 +31,10 @@
                                     # check_dist, dist_f32, dist_f64,
                                     # dist_ell_f32, dist_f32x2,
                                     # dist_formats_f32, dist_scaling
+    python3 chip_study.py meshtrace [DIR]  # the mesh loop's captured
+                                    # graph at world size 1: its nodes
+                                    # (DOT dumps into DIR, default
+                                    # meshtrace_dot), one replay traced
 
 Each study edits throw-away copies of ``new_cg_variants_tpu_torch/csrc`` in a
 temporary directory (the sources in the checkout are never touched), builds
@@ -1639,6 +1643,7 @@ def study_distcheck(torch, card, *only):
     def wanted(name):
         return not only or name in only
 
+    cs.install_graph_counts()  # the mesh loops replay captured graphs
     timings, built, launches = {}, {}, {}
     if wanted("checks"):
         cs.check_dia(torch, card, timings)
@@ -1675,6 +1680,131 @@ def study_distcheck(torch, card, *only):
                                                    "plain_ms", "library_ms")}
                 for name, t in timings.items()
                 if name.endswith(cs.DIST) or "(shard" in name})
+
+
+#: the mesh contexts ``meshtrace`` captures: (label, problem, kw of the
+#: entry points); the column context unpacked starts its all-reduce before
+#: a reduce-scatter, the double-word one its all-gather before the products
+MESH_TRACES = (("half-band", "symdia", {}),
+               ("column unpacked", "dense",
+                {"partition": "col", "col_packed": False}),
+               ("f32x2", "dia", {"dtype": "f32x2"}))
+#: steps in a traced chunk
+MESH_TRACE_STEPS = 2
+
+
+def _graph_nodes(dot):
+    """Node counts of a CUDA graph's DOT dump by kind (kernel names with
+    ``nccl`` in them apart)."""
+    import re
+
+    kinds = {}
+    for label in re.findall(r'label="([^"]*)"', dot):
+        head = label.split("|")[0].split("\\n")[0].strip("{ ").upper()
+        kind = head.split()[0] if head else "?"
+        if kind.startswith("KERNEL") and "nccl" in label.lower():
+            kind = "KERNEL (nccl)"
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
+def study_meshtrace(torch, card, out="meshtrace_dot"):
+    """The mesh loop's graph at world size 1 (NCCL): pipe-PR-CG on the
+    half-band row context (n = 655,360, k = 32), the unpacked column
+    context (dense n = 8192) and the double-word row context (63
+    diagonals), each a chunk of MESH_TRACE_STEPS steps captured in debug
+    mode and kept: the graph's nodes by kind from its DOT dump (written
+    under ``out``), the collective calls the capture made,
+    and one replay profiled: each CUDA event's name, stream and span, and
+    which spans overlap the first product's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from new_cg_variants_tpu_torch import banded_model, df_operator
+    from new_cg_variants_tpu_torch.parallel.dist import _setup
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    out_dir = Path(out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cs.install_graph_counts()
+    made = []
+
+    real_graph = torch.cuda.CUDAGraph
+
+    def debug_graph():
+        # kept, so that its DOT dump can be written after the capture (it
+        # is then instantiated at its first replay)
+        g = real_graph(keep_graph=True)
+        g.enable_debug_mode()
+        made.append(g)
+        return g
+
+    torch.cuda.CUDAGraph = debug_graph
+    with cs.dist_world() as mesh:
+        for label, fmt, kw in MESH_TRACES:
+            if fmt == "dense":
+                a = cs.dense_spd(torch, cs.COL_N, seed=5, device="cuda")
+                op = a.astype(np.float32)
+                b = torch.from_numpy(a @ np.ones(cs.COL_N)).float().cuda()
+            else:
+                op, b64, _ = banded_model(cs.N, k=cs.K_BAND, fmt="dia",
+                                          device="cpu")
+                if fmt == "symdia":
+                    op, b64, _ = banded_model(cs.N, k=cs.K_BAND,
+                                              device="cpu")
+                op = (df_operator(op, device="cuda") if kw.get("dtype")
+                      else op.astype(torch.float32).to("cuda"))
+                b = torch.from_numpy(b64).cuda()
+                if not kw.get("dtype"):
+                    b = b.float()
+            local = _setup("pipe_pr_cg", op, b, None, mesh,
+                           kw.get("partition", "auto"), None, kw.get("dtype"),
+                           False, kw.get("col_packed", True), "cuda")[1]
+            state = local.init_fn(local.ctx, local.b, local.x0)
+            runner = graphs.Runner(
+                lambda: graphs.CudaCapture(torch.device("cuda")),
+                chunk=MESH_TRACE_STEPS)
+            loop = runner.start(local.ctx, local.step_fn, state,
+                                horizon=MESH_TRACE_STEPS)
+            del made[:]
+            cs.reset_collectives()
+            loop.replay_chunk()  # captures, then replays
+            torch.cuda.synchronize()
+            calls = dict(cs.GRAPH_COLL["captured"])
+            graph = made[-1]
+            path = out_dir / (label.replace(" ", "_") + ".dot")
+            graph.debug_dump(str(path))
+            nodes = _graph_nodes(path.read_text())
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                loop.replay_chunk()
+                torch.cuda.synchronize()
+            events = sorted(
+                ((e.time_range.start, e.time_range.end, e.name[:80],
+                  getattr(e, "device_resource_id", None))
+                 for e in prof.events() if e.device_type.name == "CUDA"))
+            t0 = events[0][0] if events else 0.0
+            product = next((e for e in events if "spmv" in e[2].lower()
+                            or "sym_dia" in e[2] or "gemm" in e[2].lower()
+                            or "df_dia" in e[2]), None)
+            overlap = [] if product is None else [
+                e[2] for e in events if e is not product
+                and e[0] < product[1] and e[1] > product[0]]
+            emit("meshtrace", context=label, steps=MESH_TRACE_STEPS,
+                 captured_collective_calls=calls, graph_nodes=nodes,
+                 dot=str(path), events_per_step=len(events)
+                 / MESH_TRACE_STEPS,
+                 streams=sorted({str(e[3]) for e in events}),
+                 nccl_events=[e[2] for e in events
+                              if "nccl" in e[2].lower()],
+                 product=None if product is None else product[2],
+                 overlapping_the_product=overlap,
+                 first_step=[[e[2], round(e[0] - t0, 2),
+                              round(e[1] - t0, 2), e[3]]
+                             for e in events[:len(events)
+                                             // MESH_TRACE_STEPS]],
+                 card=card)
+            del loop, local, state, op, b
+            torch.cuda.empty_cache()
+    torch.cuda.CUDAGraph = real_graph
 
 
 def study_check(torch, card):
@@ -2532,11 +2662,13 @@ def main(argv):
                "denseopts": study_denseopts, "pipeopts": study_pipeopts,
                "mutants": study_mutants,
                "bounds": study_bounds, "halo": study_halo,
-               "floors": study_floors, "distcheck": study_distcheck}
+               "floors": study_floors, "distcheck": study_distcheck,
+               "meshtrace": study_meshtrace}
     if not (len(argv) == 2 and argv[1] in studies
             or len(argv) == 3 and argv[1] == "mutants"
             and argv[2] in ("dia", "sym", "df", "ell", "bf16")
             or argv[1:2] == ["distcheck"] and set(argv[2:]) <= DIST_PHASES
+            or argv[1:2] == ["meshtrace"] and len(argv) == 3
             or argv[1:2] == ["against"] and (
                 len(argv) == 3 or len(argv) == 4
                 and argv[3] in ("sym", "ell", "path"))):

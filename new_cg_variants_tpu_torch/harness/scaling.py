@@ -23,10 +23,12 @@ Timing protocol: each trial starts from ``x0 = 0`` and chains ``max_iter``
 steps (on a mesh: ``max_iter // chunk_iters`` chunks of ``chunk_iters``),
 the state of one step feeding the next; the warm-up trial is excluded; one
 ``torch.cuda.synchronize()`` per trial closes its timer on the card.  On
-one card the steps are replays of captured CUDA graphs
-(:mod:`..solvers.graphs`), as the JAX package jits its ``fori_loop``
-chunk: the warm-up trial captures them, every trial replays them; on the
-CPU, and on a mesh, each step is launched from the host.
+the card the steps are replays of captured CUDA graphs
+(:mod:`..solvers.graphs`), on one device and on each rank of a mesh (the
+collectives inside the graphs), as the JAX package jits its ``fori_loop``
+chunk and its ``shard_map``: the warm-up trial captures them, every trial
+replays them, in chunks of :data:`~..solvers.graphs.CHUNK` steps; on the
+CPU each step is launched from the host.
 Per-kernel breakdowns come from :mod:`..utils.profiling` traces, not from
 host timers.
 """
@@ -104,6 +106,37 @@ def _pieces(variant, op, b, preconditioner, dtype, dev):
             to_basis(torch.zeros_like(b)), from_basis)
 
 
+def _chained(ctx, init_fn, step_fn, b, x0, steps, replays, dev):
+    """``one_trial() -> (seconds, state)``: the init, then ``steps``
+    chained steps, the timer closed by one synchronize of ``dev``.  With a
+    :class:`~..solvers.graphs.Runner` (``replays``) the first trial
+    captures, and every later one loads its init state into the loop and
+    replays; with ``None`` every step is launched from the host."""
+    loop = None
+
+    def one_trial():
+        nonlocal loop
+        s = init_fn(ctx, b, x0)
+        if loop is not None:
+            loop.load(s)
+        t0 = time.perf_counter()
+        if replays is None:
+            for _ in range(steps):
+                s = step_fn(ctx, s)
+        else:
+            if loop is None:  # the first trial captures
+                loop = replays.start(ctx, step_fn, s, horizon=steps - 1)
+                loop.advance(steps - 1)
+            else:
+                loop.advance(steps)
+            s = loop.state()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, s
+
+    return one_trial
+
+
 def time_variant(
     variant,
     op,
@@ -124,55 +157,38 @@ def time_variant(
     Returns a :class:`ScalingResult`.  ``op`` is any operator or matrix the
     solvers take, cast to ``dtype`` (a torch dtype or ``"f32x2"``) when
     given.  With ``mesh`` (:func:`~..parallel.dist.make_mesh`) every rank of
-    it runs its part under ``partition`` (``dist_run``'s), chained in
-    chunks of ``chunk_iters`` steps (default ``max_iter``); a rank outside
-    the mesh returns ``None``.
+    it runs its part under ``partition`` (``dist_run``'s) for ``max_iter
+    // chunk_iters`` (at least one) times ``chunk_iters`` steps (default
+    ``max_iter``); a rank outside the mesh returns ``None``.
     """
+    from ..solvers.graphs import runner
+
     dev = resolve_device(device)
     if mesh is None:
-        from ..solvers.graphs import runner
-
         ctx, init_fn, step_fn, b, x0, x_out = _pieces(
             variant, op, b, preconditioner, dtype, dev)
         steps = max_iter if chunk_iters is None \
             else (max_iter // chunk_iters) * chunk_iters
-        replays = runner(dev, use_jit=steps > 0)
-        loop = None
-
-        def one_trial():
-            nonlocal loop
-            s = init_fn(ctx, b, x0)
-            if loop is not None:
-                loop.load(s)
-            t0 = time.perf_counter()
-            if replays is None:
-                for _ in range(steps):
-                    s = step_fn(ctx, s)
-            else:
-                if loop is None:  # the first trial captures
-                    loop = replays.start(ctx, step_fn, s, horizon=steps - 1)
-                    loop.advance(steps - 1)
-                else:
-                    loop.advance(steps)
-                s = loop.state()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            return time.perf_counter() - t0, s
 
         def final_x(state):
             return x_out(state["x"]).detach().to("cpu", torch.float64).numpy()
 
-        n_devices = 1
+        n_devices, loop_dev = 1, dev
     else:
-        from ..parallel.dist import _dist_chunked
+        from ..parallel.dist import _dist_chunked, _rank_device
 
-        trial = _dist_chunked(variant, op, b, mesh, partition,
-                              preconditioner, max_iter,
-                              chunk_iters or max_iter, dtype, dev)
-        if trial is None:
+        pieces = _dist_chunked(variant, op, b, mesh, partition,
+                               preconditioner, dtype, dev)
+        if pieces is None:
             return None
-        one_trial, final_x = trial
-        n_devices = mesh.size()
+        local, final_x = pieces
+        ctx, init_fn, step_fn = local.ctx, local.init_fn, local.step_fn
+        b, x0 = local.b, local.x0
+        chunk_iters = chunk_iters or max_iter
+        steps = max(1, max_iter // chunk_iters) * chunk_iters
+        n_devices, loop_dev = mesh.size(), _rank_device(mesh)
+    one_trial = _chained(ctx, init_fn, step_fn, b, x0, steps,
+                         runner(loop_dev, use_jit=steps > 0), loop_dev)
 
     # warm-up (kernel build and first launches) + timed trials
     _, state = one_trial()

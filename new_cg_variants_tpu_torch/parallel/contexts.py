@@ -53,7 +53,12 @@ in one :func:`all_reduce` (packed) or by :func:`reduce_scatter` beside it.
 Every collective is a module function that counts its calls
 (``all_reduce.calls``, ``halo_exchange.calls``, ``index_exchange.calls``,
 ``all_gather.calls``, ``reduce_scatter.calls``), as the kernel wrappers
-count their launches.
+count their launches: host calls, so a step captured into a CUDA graph
+counts once, at capture, however often the graph is replayed.  A step
+reads nothing back to the host and builds every index tensor at the
+context's construction (the planned exchange's ``send_idx``), which is
+what lets the mesh loops capture it (``tests/test_torch_dist_capture.py``
+holds that for every context).
 """
 
 from __future__ import annotations

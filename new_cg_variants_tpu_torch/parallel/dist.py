@@ -28,12 +28,22 @@ bf16 storage; the column partition dense and DIA operators (densified);
 half-band expanded on the host, or a ``DFOperator``).  Every entry point
 takes ``device`` (default the CUDA card, which is then NCCL's); without a
 card it raises.
+
+The JAX package jits its mesh loops (``jax.jit`` over ``shard_map``).  Here
+the loops of :func:`dist_run`, :func:`dist_solve` and the scaling
+harness's ``time_variant(mesh=)`` run on the card as replays of captured
+CUDA graphs, each step's NCCL collectives inside them
+(:mod:`~..solvers.graphs`, the runner of the rank's device), with the
+eager loop's iterations and bits; they take no ``use_jit`` (JAX's take
+none either) and run eagerly on the CPU.  A failed capture raises.  The
+bodies after the set-up (:func:`_dist_history`, :func:`_dist_tolerance`)
+take the runner, so that a caller can run the eager loop on the card as a
+witness.
 """
 
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -53,12 +63,14 @@ from ..ops.operators import (
 from ..ops.stencil import BandedStencilOperator
 from ..ops.sym_dia import SymDiaOperator
 from ..probes.probes import resolve_probes
+from ..solvers import graphs
 from ..solvers.api import (
     SolveResult,
     _compute_x_true,
     _df_selfcheck,
     _host64,
     _in_basis,
+    _loop_runner,
     _needs_x_true,
     _resolve,
     _vectors,
@@ -520,8 +532,21 @@ def dist_run(
     ``None``.  ``col_packed`` picks the column partition's combine
     (:class:`~.contexts.ColShardContext`); ``dtype="f32x2"`` runs the
     double-word mode (:class:`~.contexts.DFRowShardContext`).
+
+    On the card the loop replays captured CUDA graphs, every collective of
+    a step inside them (:mod:`~..solvers.graphs`), as the JAX package jits
+    its ``shard_map``; a gv replacement hook is then called at capture,
+    with ``k`` a device tensor, and must answer with a tensor, as under
+    :func:`~..solvers.api.run`'s ``use_jit=True``.  On the CPU the loop is
+    eager.
     """
     probe_fns = resolve_probes(probes)
+    # the hook is wired into the step at set-up, so the runner comes first:
+    # for the device's kind, whose current device is the rank's
+    # (_rank_device) when the loop starts
+    runner, w_replace = _loop_runner(
+        torch.device(resolve_device(device).type), True, w_replace,
+        w_replace_init)
     mesh, local, aux_x_true = _setup(
         variant, op, b, x0, mesh, partition, preconditioner, dtype,
         compensated, col_packed, device, w_replace=w_replace,
@@ -529,11 +554,20 @@ def dist_run(
         need_x_true=_needs_x_true(probe_fns))
     if local is None:
         return None
+    return _dist_history(variant, local, probe_fns, max_iter, aux_x_true,
+                         runner)
+
+
+def _dist_history(variant, local, probe_fns, max_iter, aux_x_true, runner):
+    """:func:`dist_run` after its set-up: the history loop on ``local``
+    (eager with ``runner=None``), then ``x`` and the vector probe rows
+    gathered once."""
     aux = {"b": local.b}
     if aux_x_true is not None:
         aux["x_true"] = aux_x_true
     final, hist = history_scan(local.ctx, local.init_fn, local.step_fn,
-                               probe_fns, local.b, local.x0, max_iter, aux)
+                               probe_fns, local.b, local.x0, max_iter, aux,
+                               runner=runner)
     nu = final["nu"]
     output = {"name": variant, "max_iter": max_iter,
               "x": local.gather(final["x"]),
@@ -567,15 +601,25 @@ def dist_solve(
     """Distributed tolerance solve: the mesh analogue of
     :func:`~..solvers.api.solve`, on ``device`` (default the CUDA card).
     ``x`` is gathered on every rank of the mesh (float64 ``hi + lo`` in
-    f32x2); a rank outside a sub-mesh returns ``None``."""
+    f32x2); a rank outside a sub-mesh returns ``None``.  On the card the
+    loop replays captured chunks of steps, each chunk's norms read back at
+    once: every rank reads the same all-reduced norms, so every rank stops
+    at the same step."""
     mesh, local, _ = _setup(variant, op, b, x0, mesh, partition,
                             preconditioner, dtype, compensated, col_packed,
                             device)
     if local is None:
         return None
+    return _dist_tolerance(local, max_iter, rtol, atol, norm_type,
+                           graphs.runner(_rank_device(mesh), True))
+
+
+def _dist_tolerance(local, max_iter, rtol, atol, norm_type, runner):
+    """:func:`dist_solve` after its set-up: the tolerance loop on
+    ``local`` (eager with ``runner=None``), then ``x`` gathered."""
     s, k, nrm, tol = tolerance_loop(local.ctx, local.init_fn, local.step_fn,
                                     local.b, local.x0, max_iter, rtol, atol,
-                                    norm_type)
+                                    norm_type, runner=runner)
     return SolveResult(
         x=local.gather(s["x"]),
         iterations=int(k),
@@ -584,34 +628,23 @@ def dist_solve(
     )
 
 
-def _dist_chunked(variant, op, b, mesh, partition, preconditioner, max_iter,
-                  chunk_iters, dtype=None, device=None):
-    """The scaling harness's timed trial on a mesh (the analogue of the
-    mpi4py timed loop, ``scaling_experiments_mpi4py/cg_variants/hs_cg.py:
-    31-64``).  Returns ``(one_trial, final_x)``: ``one_trial() -> (seconds,
-    state)`` runs the init, then ``max_iter // chunk_iters`` (at least one)
-    chained chunks of ``chunk_iters`` steps, and closes its timer with one
-    synchronize of the rank's device; ``final_x(state)`` gathers the
-    iterate, float64 on the host (a collective: every rank of the mesh
-    calls it).  ``None`` on a rank outside the mesh."""
+def _dist_chunked(variant, op, b, mesh, partition, preconditioner,
+                  dtype=None, device=None):
+    """The scaling harness's pieces of a timed trial on a mesh (the
+    analogue of the mpi4py timed loop, ``scaling_experiments_mpi4py/
+    cg_variants/hs_cg.py:31-64``): ``(local, final_x)``, this rank's
+    :class:`_Local` and ``final_x(state)``, which gathers the iterate,
+    float64 on the host (a collective: every rank of the mesh calls it).
+    ``None`` on a rank outside the mesh.  The trials themselves are
+    :func:`~..harness.scaling.time_variant`'s, captured on the card as on
+    one device."""
     _, local, _ = _setup(variant, op, b, None, mesh, partition,
                          preconditioner, dtype, False, True, device)
     if local is None:
         return None
-    rdev = _rank_device(mesh)
-
-    def one_trial():
-        s = local.init_fn(local.ctx, local.b, local.x0)
-        t0 = time.perf_counter()
-        for _ in range(max(1, max_iter // chunk_iters)):
-            for _ in range(chunk_iters):
-                s = local.step_fn(local.ctx, s)
-        if rdev.type == "cuda":
-            torch.cuda.synchronize(rdev)
-        return time.perf_counter() - t0, s
 
     def final_x(state):
         return local.gather(state["x"]).detach().to("cpu",
                                                     torch.float64).numpy()
 
-    return one_trial, final_x
+    return local, final_x

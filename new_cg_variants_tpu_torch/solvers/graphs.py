@@ -8,15 +8,27 @@ the card (the default of :func:`~.api.run`, :func:`~.api.solve` and
 steps as a CUDA graph once and replays it; the kernels, their order and
 their arguments are those of the eager loop, so the bits are too.  On the
 CPU, or with ``use_jit=False``, the loops of :mod:`.engine` run eagerly.
+The mesh loops (:func:`~..parallel.dist.dist_run`,
+:func:`~..parallel.dist.dist_solve`, ``time_variant(mesh=)``) take the
+same runner on the card, as the JAX package jits its ``shard_map``: a
+step's NCCL collectives are captured into the graph with its kernels.
 
 A :class:`Loop` holds the solver state in static buffers, which every
 captured step reads and the end of every captured chunk writes:
 
 * *Warm-up.*  The loop's first step runs eagerly, on the stream that then
   captures, so that what a step builds at first use (a kernel library,
-  cuBLAS' workspace of that stream, row 11's ticket counter) exists
-  outside the graphs' memory pool.  That step is the run's own first
-  step, not a throwaway one.
+  cuBLAS' workspace of that stream, row 11's ticket counter, NCCL's
+  communicator at a group's first collective) exists outside the graphs'
+  memory pool and before any capture begins.  That step is the run's own
+  first step, not a throwaway one.
+* *Collectives.*  ``torch.distributed`` on NCCL captures a collective: its
+  stream joins the capture through the events it waits on and records,
+  and a started all-reduce's ``wait()`` becomes an edge of the graph, not
+  a host wait.  The captures run in ``thread_local`` mode, so that NCCL's
+  watchdog thread may query the events of earlier eager work meanwhile.
+  Every collective of a step is waited for inside the step, so no replay
+  leaves one running when the next begins.
 * *Buffer handoff.*  A step returns fresh tensors; a captured chunk copies
   its last state into the buffers it read, one copy of each state tensor a
   chunk (:data:`CHUNK` steps), inside the graph.  Two graphs alternating
@@ -74,11 +86,12 @@ def checked_hook(w_replace, stateful):
         answer = out[0] if stateful else out
         if not isinstance(answer, torch.Tensor):
             raise TypeError(
-                f"w_replace answered {type(answer).__name__} under "
-                "use_jit=True: a captured loop calls it once, at capture, "
-                "with k a device tensor, so it must answer with a bool "
-                "tensor (the step selects with torch.where); pass "
-                "use_jit=False to branch in Python")
+                f"w_replace answered {type(answer).__name__} in a captured "
+                "loop (use_jit=True, or dist_run on the card): it is called "
+                "once, at capture, with k a device tensor, so it must "
+                "answer with a bool tensor (the step selects with "
+                "torch.where); pass use_jit=False (dist_run: "
+                "device='cpu') to branch in Python")
         return out
 
     return hook

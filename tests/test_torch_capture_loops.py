@@ -2,8 +2,9 @@
 ``solvers/engine.py``).
 
 On the card ``use_jit=True`` replays captured CUDA graphs of chunks of
-steps; here a host capture stands in for ``graphs.CudaCapture``: a capture
-hands back the chunk's body, and a replay calls it.  The body reads and
+steps; here a host capture stands in for ``graphs.CudaCapture``
+(``tests/torch_host_capture.py``): a capture hands back the chunk's body,
+and a replay calls it.  The body reads and
 writes the same static buffers a graph would, so what is held here is the
 loops' bookkeeping: the first step run eagerly, whole chunks, the rest a
 step a replay, the rows copied out after each replay, the tolerance
@@ -35,6 +36,7 @@ from new_cg_variants_tpu_torch.solvers import api as tapi
 from new_cg_variants_tpu_torch.solvers import engine, graphs
 from new_cg_variants_tpu_torch.solvers.context import Context
 from test_torch_variants import scaled_band
+from torch_host_capture import host_runner
 
 CHUNKS = (1, 2, 7, 64)
 RTOL = 1e-10
@@ -47,41 +49,6 @@ NORM_TYPES = ("natural", "unpreconditioned", "preconditioned")
 #: chunk i of c steps, other T fall inside one
 TARGETS = (0, 2, 8, 9, 15, 65)
 NAMES = ("pipe_pr_pcg", "hs_cg")
-
-
-class HostCapture:
-    """A stand-in for ``graphs.CudaCapture``: ``capture(body)`` returns a
-    replay that calls the body."""
-
-    def __init__(self):
-        self.captured, self.replays = [], 0
-
-    def side(self):
-        return contextlib.nullcontext()
-
-    def keep(self, t):
-        return t
-
-    def capture(self, body):
-        self.captured.append(body)
-
-        def replay():
-            body()
-            self.replays += 1
-
-        return replay
-
-
-def host_runner(chunk, hooked=False, made=None):
-    """A ``graphs.Runner`` of host captures (appended to ``made``)."""
-
-    def make():
-        cap = HostCapture()
-        if made is not None:
-            made.append(cap)
-        return cap
-
-    return graphs.Runner(make, chunk=chunk, k_on_device=hooked)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """One rank of the port's distributed tests (``test_torch_distributed.py``,
 ``test_torch_distributed_formats.py``, ``test_torch_distributed_f32x2.py``,
-``test_torch_dist_harness.py``).
+``test_torch_dist_harness.py``, ``test_torch_dist_capture.py``).
 
 The test spawns a group of these processes per world size; each joins a gloo
 group through a ``FileStore``, runs every case of the list it is handed in
@@ -28,7 +28,12 @@ A case is a dict with ``key`` and ``kind``:
 * ``"raises"`` — ``dist_run`` expected to raise: the exception's type name
   and message;
 * ``"call"`` — a function of :data:`CALLS` (the harness, the command line,
-  sub-meshes): what it returns.
+  sub-meshes): what it returns;
+* ``"captured"`` — ``dist_run``, ``dist_solve`` or ``time_variant`` with
+  the mesh loop captured by host captures, and eagerly (``tests/
+  test_torch_dist_capture.py``); ``"chained"`` — the harness's trials on a
+  mesh both ways; ``"reads"`` — one mesh step and its probe rows under
+  ``HostReads``.
 
 ``case["kw"]`` holds the entry point's keyword arguments (``partition``,
 ``col_packed``, ``compensated``, ``dtype``, ...); the ``"counts"``,
@@ -425,9 +430,166 @@ def _call(case):
     return CALLS[case["fn"]](case)
 
 
+def _every3_tensor(k, view):
+    """A gv replacement hook answering a bool tensor (capturable)."""
+    return torch.as_tensor(k % 3 == 0)
+
+
+def _every3_bool(k, view):
+    """A gv replacement hook answering a Python bool (refused under
+    capture)."""
+    return bool(k % 3 == 0)
+
+
+HOOKS = {"tensor": _every3_tensor, "bool": _every3_bool}
+
+
+def _entry(case):
+    """The public mesh entry point ``case["entry"]`` (``"run"``,
+    ``"solve"``, ``"time_variant"``) on the case's problem, on the CPU: its
+    output as numpy arrays and numbers."""
+    from new_cg_variants_tpu_torch.harness.scaling import time_variant
+    from new_cg_variants_tpu_torch.parallel import dist_run, dist_solve
+
+    op, b = problem(case["problem"], case["fmt"])
+    kw = dict(case["kw"])
+    if "hook" in kw:
+        kw["w_replace"] = HOOKS[kw.pop("hook")]
+    entry = case["entry"]
+    if entry == "run":
+        out = dist_run(case["variant"], op, b, mesh=_mesh(case),
+                       device="cpu", **kw)
+        return {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in out.items()}
+    if entry == "solve":
+        res = dist_solve(op, b, variant=case["variant"], mesh=_mesh(case),
+                         device="cpu", **kw)
+        return dict(x=res.x.numpy(), iterations=res.iterations,
+                    norm=res.norm, converged=res.converged)
+    res = time_variant(case["variant"], op, b, mesh=_mesh(case),
+                       device="cpu", **kw)
+    return res.to_dict()
+
+
+def _captured(case):
+    """The case's entry point with the mesh loop captured by host captures
+    of ``case["chunk"]`` steps (``graphs.runner`` answering a
+    :func:`torch_host_capture.host_runner` on the CPU, as ``CudaCapture``
+    on the card), then eagerly: ``{"captured", "eager", "captures"}``, the
+    last ``(graphs captured, replays)`` of each loop.  A ``"solve"`` case
+    with ``case["target"]`` first finds, eagerly, the norm at that
+    iteration and stops there (``atol``); with ``"how": "max_iter"`` it
+    runs that many iterations."""
+    import torch_host_capture as hc
+
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    case = dict(case, kw=dict(case["kw"]))
+    target = case.get("target")
+    if target is not None:
+        if target == 0:
+            case["kw"].update(rtol=2.0, max_iter=100)
+        elif case["how"] == "max_iter":
+            case["kw"].update(rtol=0.0, atol=0.0, max_iter=target)
+        else:
+            norm = _entry(dict(case, kw=dict(case["kw"], rtol=0.0, atol=0.0,
+                                             max_iter=target)))["norm"]
+            case["kw"].update(rtol=0.0, atol=norm, max_iter=100)
+    made, real = [], graphs.runner
+
+    def runner(device, use_jit, hooked=False):
+        assert device.type == "cpu"
+        if not use_jit:
+            return None
+        return hc.host_runner(case["chunk"], hooked=hooked, made=made)
+
+    graphs.runner = runner
+    try:
+        got = _entry(case)
+    except TypeError as e:  # a hook's Python answer
+        got = ("TypeError", str(e))
+    finally:
+        graphs.runner = real
+    return dict(captured=got, eager=_entry(case),
+                captures=[(len(c.captured), c.replays) for c in made])
+
+
+def _chained(case):
+    """``time_variant``'s trials on a mesh through the harness's own
+    pieces: the final ``x`` of ``case["trials"]`` chained trials replayed
+    by host captures of ``case["chunk"]`` steps, and eagerly."""
+    from new_cg_variants_tpu_torch.harness import scaling
+    from new_cg_variants_tpu_torch.parallel import dist as pdist
+
+    import torch_host_capture as hc
+
+    op, b = problem(case["problem"], case["fmt"])
+    kw = case["kw"]
+    mesh = _mesh(case)
+    out = {}
+    for label, runner in (("captured", hc.host_runner(case["chunk"])),
+                          ("eager", None)):
+        local, final_x = pdist._dist_chunked(
+            case["variant"], op, b, mesh, kw.get("partition", "auto"), None,
+            kw.get("dtype"), "cpu")
+        trial = scaling._chained(local.ctx, local.init_fn, local.step_fn,
+                                 local.b, local.x0, case["steps"], runner,
+                                 torch.device("cpu"))
+        for _ in range(case["trials"]):
+            _, state = trial()
+        out[label] = final_x(state)
+    return out
+
+
+def _reads(case):
+    """One step of the case's name on the mesh context of the case's
+    problem, and its probe rows, under ``HostReads``
+    (``tests/test_torch_capture_reads.py``): what would read back to the
+    host, make a tensor from host data or have a shape that depends on the
+    data (a pcg name also with a norm riding the dot batch, a gv name with
+    its hook as a captured loop calls it, but in f32x2, which takes
+    none)."""
+    from test_torch_capture_reads import HostReads, _rows
+
+    from new_cg_variants_tpu_torch.parallel import dist as pdist
+    from new_cg_variants_tpu_torch.solvers import graphs
+
+    op, b = problem(case["problem"], case["fmt"])
+    kw = case.get("kw", {})
+    name = case["variant"]
+    hook = None
+    if name.startswith("gv") and kw.get("dtype") != "f32x2":
+        hook = graphs.checked_hook(_every3_tensor, stateful=False)
+    mesh, local, x_true = pdist._setup(
+        name, op, b, None, _mesh(case), kw.get("partition", "auto"),
+        "jacobi", kw.get("dtype"), kw.get("compensated", False),
+        kw.get("col_packed", True), "cpu", w_replace=hook,
+        x_true=np.ones(op.n), need_x_true=True)
+    ctx, step_fn = local.ctx, local.step_fn
+    aux = {"b": local.b, "x_true": x_true}
+    state = local.init_fn(ctx, local.b, local.x0)
+    if hook is not None:
+        state["k"] = torch.tensor(2)
+    reads = []
+    with HostReads() as mode:
+        s = step_fn(ctx, state)
+        _rows(ctx, s, aux)
+    reads += mode.reads
+    if name.endswith("pcg"):
+        ctx.extra_norm = "rt"
+        (state["rho"],) = ctx.dots((state["rt"], state["rt"]))
+        with HostReads() as mode:
+            s = step_fn(ctx, state)
+            _rows(ctx, s, aux)
+        reads += mode.reads
+    return dict(reads=reads, context=type(ctx).__name__,
+                shifts=getattr(ctx, "shifts", ()))
+
+
 CASES = {"run": _run, "solve": _solve, "halo": _halo, "counts": _counts,
          "split": _split, "mvdots": _mvdots, "mode": _mode,
-         "raises": _raises, "call": _call}
+         "raises": _raises, "call": _call, "captured": _captured,
+         "chained": _chained, "reads": _reads}
 
 
 def main(rank, world, store_path, out_path, cases):
