@@ -37,6 +37,7 @@ import torch
 
 from .._device import resolve_device
 from ..matio.matrix_market import CooMatrix
+from ..utils.profiling import span
 from . import ell_spmv, spmv_dia
 
 __all__ = ["DenseOperator", "DiaOperator", "EllOperator", "from_coo",
@@ -527,8 +528,14 @@ def from_coo(coo, fmt: str = "auto", dtype=torch.float64,
     that is no constant band.  ``'block_banded'`` returns a
     :class:`~.block_banded.PermutedBlockBandedOperator` (original
     coordinates outside, the reordered band inside); ``'ell'`` an
-    :class:`EllOperator` that keeps its rows in :func:`ell_order`.
+    :class:`EllOperator` that keeps its rows in :func:`ell_order`.  The
+    build is a ``build`` span (:mod:`..utils.profiling`).
     """
+    with span("build", fmt=fmt, n=coo.shape[0]):
+        return _from_coo(coo, fmt, dtype, dia_max_diags, device)
+
+
+def _from_coo(coo, fmt, dtype, dia_max_diags, device):
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
     if fmt == "auto":

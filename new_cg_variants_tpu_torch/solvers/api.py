@@ -58,9 +58,10 @@ from ..ops.doublefloat import (
 from ..ops.block_banded import solver_basis
 from ..ops.operators import EllOperator, as_operator, torch_dtype
 from ..probes.probes import resolve_probes
+from ..utils.profiling import span
 from .context import Context
 from . import graphs
-from .engine import history_scan, tolerance_loop
+from .engine import history_scan, host_value, tolerance_loop
 from .families import FAMILIES, family_of, make_gv_step
 from .precond import (
     GivenOrderPreconditioner,
@@ -248,40 +249,43 @@ def run(
     ``jax.jit`` over ``lax.scan``, with the eager loop's bits; ``use_jit=
     False``, and any run on the CPU, launches every step from the host.
     """
-    dev = resolve_device(device)
-    runner, w_replace = _loop_runner(dev, use_jit, w_replace, w_replace_init)
-    if is_double_word(dtype):
-        return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
-                       x_true, print_every, w_replace, w_replace_init, dev,
-                       runner)
-    op = _operator(A, dtype, dev)
-    b, x0 = _vectors(op, b, x0, dev)
-    probe_fns = resolve_probes(probes)
-    if _needs_x_true(probe_fns) and x_true is None:
-        x_true = _compute_x_true(op, b)
-    # a block-banded operator, or ELL in a locality order: solve in its
-    # reordered basis
-    op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
-                                                         preconditioner)
-    b, x0 = to_basis(b), to_basis(x0)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
-                                         w_replace, w_replace_init)
-    aux = {"b": b}
-    if _needs_x_true(probe_fns):
-        aux["x_true"] = to_basis(
-            torch.as_tensor(x_true, dtype=b.dtype, device=dev))
-    ctx = Context(op, precond, compensated=compensated)
-    final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
-                               max_iter, aux, print_every=print_every,
-                               runner=runner)
-    output = {"name": variant, "max_iter": max_iter,
-              "x": from_basis(final["x"])}
-    for name in probe_fns:
-        h = hist[name]
-        if h.ndim == 2 and h.shape[1] == op.n:
-            h = from_basis(h.T).T  # vector probe rows, original order
-        output[name] = h.cpu().numpy()
-    return output
+    with span("solve"):
+        dev = resolve_device(device)
+        runner, w_replace = _loop_runner(dev, use_jit, w_replace,
+                                         w_replace_init)
+        if is_double_word(dtype):
+            return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
+                           x_true, print_every, w_replace, w_replace_init, dev,
+                           runner)
+        op = _operator(A, dtype, dev)
+        b, x0 = _vectors(op, b, x0, dev)
+        probe_fns = resolve_probes(probes)
+        if _needs_x_true(probe_fns) and x_true is None:
+            x_true = _compute_x_true(op, b)
+        # a block-banded operator, or ELL in a locality order: solve in its
+        # reordered basis
+        op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
+                                                             preconditioner)
+        b, x0 = to_basis(b), to_basis(x0)
+        init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
+                                             w_replace, w_replace_init)
+        aux = {"b": b}
+        if _needs_x_true(probe_fns):
+            aux["x_true"] = to_basis(
+                torch.as_tensor(x_true, dtype=b.dtype, device=dev))
+        ctx = Context(op, precond, compensated=compensated)
+        final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
+                                   max_iter, aux, print_every=print_every,
+                                   runner=runner)
+        output = {"name": variant, "max_iter": max_iter,
+                  "x": from_basis(final["x"])}
+        for name in probe_fns:
+            h = hist[name]
+            if h.ndim == 2 and h.shape[1] == op.n:
+                h = from_basis(h.T).T  # vector probe rows, original order
+            with span("readback", "host_syncs"):
+                output[name] = h.cpu().numpy()
+        return output
 
 
 def _df_pieces(variant, A, b, x0, preconditioner, dev, w_replace=None,
@@ -371,7 +375,8 @@ def _run_df(variant, A, b, x0, max_iter, preconditioner, probes, x_true,
     output = {"name": variant, "max_iter": max_iter,
               "x": final["x"].value64()}
     for name in probe_fns:
-        output[name] = hist[name].cpu().numpy()
+        with span("readback", "host_syncs"):
+            output[name] = hist[name].cpu().numpy()
     return output
 
 
@@ -416,32 +421,35 @@ def solve(
     on the CPU, launches every step from the host and reads the norm back
     once per iteration.
     """
-    dev = resolve_device(device)
-    runner = graphs.runner(dev, use_jit)
-    if is_double_word(dtype):
-        op, b, x0, init_fn, step_fn, precond = _df_pieces(
-            variant, A, b, x0, preconditioner, dev)
-        ctx = DoubleFloatContext(op, precond)
-        s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0,
-                                        max_iter, rtol, atol, norm_type,
-                                        runner=runner)
+    with span("solve"):
+        dev = resolve_device(device)
+        runner = graphs.runner(dev, use_jit)
+        if is_double_word(dtype):
+            op, b, x0, init_fn, step_fn, precond = _df_pieces(
+                variant, A, b, x0, preconditioner, dev)
+            ctx = DoubleFloatContext(op, precond)
+            s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0,
+                                            max_iter, rtol, atol, norm_type,
+                                            runner=runner)
+            return SolveResult(
+                x=s["x"].value64(), iterations=int(k), norm=host_value(nrm),
+                converged=bool(norm_type == "none"
+                               or host_value(nrm) <= host_value(tol)))
+        op = _operator(A, dtype, dev)
+        b, x0 = _vectors(op, b, x0, dev)
+        # a block-banded operator, or ELL in a locality order: solve in its
+        # reordered basis
+        op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
+                                                             preconditioner)
+        b, x0 = to_basis(b), to_basis(x0)
+        init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
+        ctx = Context(op, precond, compensated=compensated)
+        s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter,
+                                        rtol, atol, norm_type, runner=runner)
         return SolveResult(
-            x=s["x"].value64(), iterations=int(k), norm=float(nrm),
-            converged=bool(norm_type == "none" or float(nrm) <= float(tol)))
-    op = _operator(A, dtype, dev)
-    b, x0 = _vectors(op, b, x0, dev)
-    # a block-banded operator, or ELL in a locality order: solve in its
-    # reordered basis
-    op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
-                                                         preconditioner)
-    b, x0 = to_basis(b), to_basis(x0)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
-    ctx = Context(op, precond, compensated=compensated)
-    s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter,
-                                    rtol, atol, norm_type, runner=runner)
-    return SolveResult(
-        x=from_basis(s["x"]),
-        iterations=int(k),
-        norm=float(nrm),
-        converged=bool(norm_type == "none" or float(nrm) <= float(tol)),
-    )
+            x=from_basis(s["x"]),
+            iterations=int(k),
+            norm=host_value(nrm),
+            converged=bool(norm_type == "none"
+                           or host_value(nrm) <= host_value(tol)),
+        )

@@ -18,6 +18,10 @@ the device; the tolerance loop reads each chunk's norms back at once, and
 where the tolerance fell within a chunk it takes the chunk's starting
 state back and replays that many single steps.  Both give the eager loop's
 iterations and bits.
+
+Each loop counts in ``solves``, and each read back to the host in
+``host_syncs`` under a ``readback`` span (:func:`host_value`,
+:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -25,8 +29,16 @@ from __future__ import annotations
 import torch
 
 from ..ops.doublefloat import collapse
+from ..utils.profiling import count, span
 
-__all__ = ["history_scan", "tolerance_loop"]
+__all__ = ["history_scan", "tolerance_loop", "host_value"]
+
+
+def host_value(t, convert=float):
+    """``convert(t)``: ``t`` read back to the host, a read that waits for
+    the card, counted in ``host_syncs``."""
+    with span("readback", "host_syncs"):
+        return convert(t)
 
 
 def _progress(s):
@@ -50,6 +62,7 @@ def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux,
 
     Returns ``(final_state, {name: stacked tensor})``.
     """
+    count("solves")
     state = init_fn(ctx, b, x0)
 
     def probe_row(s):
@@ -62,7 +75,7 @@ def history_scan(ctx, init_fn, step_fn, probe_fns, b, x0, length, aux,
     for _ in range(length - 1):
         state = step_fn(ctx, state)
         if print_every and state["k"] % print_every == 0:
-            _print_progress(state["k"], float(_progress(state)))
+            _print_progress(state["k"], host_value(_progress(state)))
         rows.append(probe_row(state))
     hist = {name: torch.stack([row[name] for row in rows])
             for name in probe_fns}
@@ -92,7 +105,8 @@ def _history_replayed(ctx, step_fn, probe_fns, state, length, aux,
         for name in probe_fns:
             hist[name][k + 1 - k0:k + 1 - k0 + m].copy_(buf[name][:m])
         if print_every:
-            values = buf["_progress"][:m].tolist()  # one read a replay
+            values = host_value(buf["_progress"][:m],
+                                torch.Tensor.tolist)  # one read a replay
             for i in range(m):
                 if (k + 1 + i) % print_every == 0:
                     _print_progress(k + 1 + i, values[i])
@@ -125,6 +139,7 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
     if norm_type not in ("natural", "unpreconditioned", "preconditioned",
                          "none"):
         raise ValueError(f"unknown norm_type {norm_type!r}")
+    count("solves")
 
     in_batch = (norm_type in ("unpreconditioned", "preconditioned")
                 and ctx.has_prec)
@@ -163,13 +178,13 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
         return state, max(max_iter, 0), iter_norm(state), tol
     k = 0
     nrm = iter_norm(state)
-    tol_host = float(tol)
+    tol_host = host_value(tol)
     if runner is not None:
-        if k < max_iter and float(nrm) > tol_host:
+        if k < max_iter and host_value(nrm) > tol_host:
             return _tolerance_replayed(ctx, step_fn, state, max_iter,
                                        tol_host, iter_norm, runner) + (tol,)
         return state, k, nrm, tol
-    while k < max_iter and float(nrm) > tol_host:
+    while k < max_iter and host_value(nrm) > tol_host:
         state = step_fn(ctx, state)
         k += 1
         nrm = iter_norm(state)
@@ -191,11 +206,11 @@ def _tolerance_replayed(ctx, step_fn, state, max_iter, tol_host, iter_norm,
                         horizon=max_iter - 1, checkpoint=True)
     k = 1
     nrm = loop.first_rows["norm"]
-    if k < max_iter and float(nrm) > tol_host:
+    if k < max_iter and host_value(nrm) > tol_host:
         while True:
             buf = loop.replay_chunk()["norm"]
             c = loop.chunk
-            norms = buf.tolist()  # one read a chunk
+            norms = host_value(buf, torch.Tensor.tolist)  # one read a chunk
             stop = next((i + 1 for i, v in enumerate(norms)
                          if not v > tol_host), c + 1)
             j = min(stop, max_iter - k)

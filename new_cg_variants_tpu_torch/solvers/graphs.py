@@ -41,6 +41,10 @@ captured step reads and the end of every captured chunk writes:
 * *Rows.*  A chunk writes each step's probe rows (or its convergence norm)
   into preallocated ``(chunk, ...)`` device buffers; the caller copies them
   out after the replay, on the device.
+* *Counters.*  Replays, captures, their seconds, the capture pool's
+  growth and the steps :meth:`Loop.restore` takes back count in
+  :mod:`..utils.profiling`, under the spans ``loop.start``, ``capture``,
+  ``replay`` and ``restore``.
 
 A capture, instantiation or replay that fails raises with its CUDA error;
 nothing runs eagerly in its place.  :class:`Runner` takes the capture as an
@@ -58,6 +62,7 @@ import torch
 
 from ..ops import df_spmv
 from ..ops.doublefloat import DF
+from ..utils.profiling import count, span
 
 __all__ = ["CHUNK", "Runner", "Loop", "CudaCapture", "runner",
            "checked_hook"]
@@ -156,7 +161,9 @@ class CudaCapture:
     capture: no eager launch on any stream uses it, so none can run while a
     replay does.  ``capture_seconds`` / ``instantiate_seconds`` add up the
     host time of the captures' bodies and of ending them (which instantiates
-    the graph)."""
+    the graph); each capture also adds its two to the counter
+    ``capture_s``, and the growth of the card's reserved memory over it to
+    ``pool_bytes`` (:mod:`..utils.profiling`)."""
 
     def __init__(self, device):
         self.device = device
@@ -192,6 +199,7 @@ class CudaCapture:
                 self.tickets = self.keep(torch.zeros(
                     1, dtype=torch.int32, device=self.device))
         g = torch.cuda.CUDAGraph()
+        reserved = _reserved(self.device)
         with self.side(), df_spmv.CaptureTickets(self.stream, self.tickets):
             t0 = time.perf_counter()
             g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
@@ -203,10 +211,23 @@ class CudaCapture:
                 raise
             t1 = time.perf_counter()
             g.capture_end()
+            t2 = time.perf_counter()
             self.capture_seconds += t1 - t0
-            self.instantiate_seconds += time.perf_counter() - t1
+            self.instantiate_seconds += t2 - t1
+        count("capture_s", (t1 - t0) + (t2 - t1))
+        grown = _reserved(self.device) - reserved
+        if grown > 0:
+            count("pool_bytes", grown)
         self.graphs.append(g)
         return g.replay
+
+
+def _reserved(device):
+    """``torch.cuda.memory_reserved(device)`` without flattening every
+    statistic into a sorted dict (on an H100's host 21 us a call against
+    136)."""
+    stats = torch.cuda.memory_stats_as_nested_dict(device)
+    return stats["reserved_bytes"]["all"]["current"]
 
 
 class Runner:
@@ -222,8 +243,9 @@ class Runner:
     def start(self, ctx, step_fn, state, rows=None, horizon=0,
               checkpoint=False):
         """A :class:`Loop` from ``state``, after its first step."""
-        return Loop(self, ctx, step_fn, state, rows or {}, horizon,
-                    checkpoint)
+        with span("loop.start"):
+            return Loop(self, ctx, step_fn, state, rows or {}, horizon,
+                        checkpoint)
 
 
 class Loop:
@@ -309,9 +331,12 @@ class Loop:
                 self._row_bufs[steps] = {
                     name: self.cap.keep(r.new_empty((steps, *r.shape)))
                     for name, r in self.first_rows.items()}
-            replay = self._replay[steps] = self.cap.capture(
-                self._body(steps))
-        replay()
+            with span("capture", steps=steps):
+                replay = self._replay[steps] = self.cap.capture(
+                    self._body(steps))
+            count("captures")
+        with span("replay", "replays", steps=steps):
+            replay()
         self.k += steps
         return self._row_bufs[steps]
 
@@ -326,10 +351,13 @@ class Loop:
         return self._run(1)
 
     def restore(self):
-        """Back to the state the last chunk started from."""
-        for d, t in zip(self.bufs, self.saved):
-            d.copy_(t)
+        """Back to the state the last chunk started from; its steps count
+        in ``steps_taken_back``."""
+        with span("restore"):
+            for d, t in zip(self.bufs, self.saved):
+                d.copy_(t)
         self.k -= self.chunk
+        count("steps_taken_back", self.chunk)
 
     def advance(self, steps, sink=None):
         """``steps`` more steps: whole chunks, then single steps.  After

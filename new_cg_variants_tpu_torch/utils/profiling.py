@@ -1,4 +1,4 @@
-"""Profiling and derived performance metrics.
+"""Profiling: counters and spans of the solve loop, and the trace.
 
 The port of the JAX package's ``utils/profiling.py``.  The reference's
 tracing layer is (a) barrier-synchronized ``MPI.Wtime`` buckets around the
@@ -7,13 +7,41 @@ and (b) PETSc ``-log_view`` XML event timing parsed by
 ``strong_scaling_plots.py:43-59``.  On the card the per-kernel timeline
 comes from ``torch.profiler`` (CUPTI), so this module provides:
 
+* :func:`count` / :func:`counters` — a process-wide table of counters,
+  always on, which the solve loop adds to where the work happens: host
+  syncs, replays, captures, the capture pool's growth, the steps a
+  tolerance solve takes back (the table below).
+* :class:`span` — a named stretch of the program.  While a
+  ``torch.profiler`` session records, it opens
+  ``record_function(name, args="solve=<id> k=v ...")``: a host event on the
+  profiler's clock, the timeline of the CUDA events, so that an idle gap of
+  the card can be put down to the span around it.  (PyTorch 2.11 and 2.13
+  keep the event's name and drop a string ``args``; there the nesting ties
+  a span to its ``solve``.)  Given a counter, it adds one to it and its
+  host seconds to ``<name>_s`` whether or not a profiler records.  With no
+  profiler and no counter it costs one check.
 * :func:`trace` — context manager around ``torch.profiler`` (host and CUDA
   activities) writing a Chrome trace (the ``-log_view`` analog), which
   :mod:`.trace_analysis` parses into per-phase times.
-* :func:`derived_metrics` — nnz/s, GFLOP/s, effective bytes/s and
-  time/iteration from a timed run.
-* :class:`Timer` — accumulating wall timer whose :meth:`Timer.sync` waits
-  for the card before the clock is read.
+
+The counters (cumulative over the process; seconds are host seconds):
+
+=====================  ====================================================
+``solves``             loops started (``engine.tolerance_loop``,
+                       ``engine.history_scan``)
+``host_syncs``         reads that wait for the card (``readback`` spans),
+                       ``readback_s`` their seconds
+``replays``            graph launches (``replay`` spans), ``replay_s``
+``captures``           graphs captured (one a chunk length a loop)
+``capture_s``          seconds of capturing and instantiating them
+``pool_bytes``         growth of the card's reserved memory over captures
+``steps_taken_back``   steps of a chunk run and then discarded, where a
+                       tolerance solve stopped inside it
+=====================  ====================================================
+
+The spans: ``solve`` (``api.solve`` / ``api.run``), ``build``
+(``ops.operators.from_coo``), ``loop.start`` (``graphs.Runner.start``),
+``capture``, ``replay`` and ``restore`` (``graphs.Loop``), ``readback``.
 """
 
 from __future__ import annotations
@@ -22,12 +50,71 @@ import contextlib
 import os
 import socket
 import time
-from dataclasses import dataclass, field
 
-import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
-__all__ = ["trace", "trace_path", "derived_metrics", "Timer"]
+__all__ = ["count", "counters", "span", "trace", "trace_path"]
+
+_COUNTS = {}
+#: the ``solves`` value of the ``solve`` span that is open, while a
+#: profiler records
+_OPEN_SOLVE = [None]
+_recording = torch.autograd._profiler_enabled
+_clock = time.perf_counter_ns
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters():
+    """A snapshot of every counter."""
+    return dict(_COUNTS)
+
+
+def _event(name, attrs):
+    """The profiler's host event of a span, entered, and its solve's id."""
+    solves = _COUNTS.get("solves", 0)
+    sid = solves + 1 if name == "solve" else _OPEN_SOLVE[0] or solves
+    args = " ".join([f"solve={sid}"] + [f"{k}={v}" for k, v in attrs.items()])
+    event = record_function(name, args)
+    event.__enter__()
+    return event, sid
+
+
+class span:
+    """``with span(name, counter=None, **attrs):`` — see the module
+    docstring.
+
+    A ``solve`` span's id is the next value of ``solves`` (the loop inside
+    counts it); the spans inside it carry that id."""
+
+    __slots__ = ("name", "counter", "attrs", "_event", "_prev", "_t0")
+
+    def __init__(self, name, counter=None, **attrs):
+        self.name, self.counter, self.attrs = name, counter, attrs
+
+    def __enter__(self):
+        self._event = None
+        if _recording():
+            self._event, sid = _event(self.name, self.attrs)
+            if self.name == "solve":
+                self._prev, _OPEN_SOLVE[0] = _OPEN_SOLVE[0], sid
+        if self.counter is not None:
+            self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        if self.counter is not None:
+            seconds = (_clock() - self._t0) * 1e-9
+            count(self.counter)
+            count(f"{self.name}_s", seconds)
+        if self._event is not None:
+            if self.name == "solve":
+                _OPEN_SOLVE[0] = self._prev
+            self._event.__exit__(*exc)
 
 
 def _activities():
@@ -62,63 +149,3 @@ def trace(log_dir: str):
         if ProfilerActivity.CUDA in acts and torch.cuda.is_initialized():
             torch.cuda.synchronize()
     prof.export_chrome_trace(trace_path(log_dir))
-
-
-def derived_metrics(
-    op, seconds: float, iterations: int, matvecs_per_iter: int = 1,
-    dtype_bytes: int = 4,
-) -> dict:
-    """Throughput numbers for a timed fixed-iteration run.
-
-    ``matvecs_per_iter``: 1 for hs/cg/gv/pr families, 2 for the
-    recomputing pipelined variants (pipe_pr*, which apply A to both st
-    and rt each iteration — ``cg_impls/pipeprcg.c:162-170``).
-    """
-    nnz = int(op.nnz)
-    t_iter = seconds / max(iterations, 1)
-    flops = 2.0 * nnz * matvecs_per_iter  # multiply+add per stored entry
-    data_bytes = nnz * dtype_bytes * matvecs_per_iter
-    return {
-        "time_per_iter_s": t_iter,
-        "nnz_per_s": nnz * matvecs_per_iter / t_iter,
-        "gflops": flops / t_iter / 1e9,
-        "spmv_gbytes_per_s": data_bytes / t_iter / 1e9,
-    }
-
-
-@dataclass
-class Timer:
-    """Accumulating wall timer.
-
-    >>> t = Timer()
-    >>> with t.measure():
-    ...     out = step(...)          # launches return at once
-    ...     t.sync(out["nu"])        # wait for the card, read the value
-    """
-
-    times: list = field(default_factory=list)
-    _t0: float = 0.0
-
-    @contextlib.contextmanager
-    def measure(self):
-        self._t0 = time.perf_counter()
-        yield self
-        self.times.append(time.perf_counter() - self._t0)
-
-    @staticmethod
-    def sync(x) -> float:
-        """Wait for ``x``'s card (a CUDA tensor) and return ``x`` as a
-        float."""
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-            return float(x.detach().cpu())
-        return float(np.asarray(x))
-
-    @property
-    def best(self) -> float:
-        return min(self.times) if self.times else float("nan")
-
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else float("nan")

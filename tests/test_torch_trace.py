@@ -8,9 +8,8 @@
   vector), nothing in "other";
 * the same parser on a real CPU-only trace of a few solver steps written by
   ``profiling.trace``: events parse, the breakdown's fractions sum to one;
-* ``derived_metrics`` equals the JAX package's; ``Timer``; ``env_info``
-  holds torch's, the card's and the host's long double fields and no JAX
-  ones.
+* ``env_info`` holds torch's, the card's and the host's long double
+  fields and no JAX ones.
 """
 
 import json
@@ -21,9 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from new_cg_variants_tpu.utils.profiling import (
-    derived_metrics as jax_derived_metrics,
-)
 import new_cg_variants_tpu_torch as port
 from new_cg_variants_tpu_torch.utils import env_info, profiling
 from new_cg_variants_tpu_torch.utils import trace_analysis as ta
@@ -183,22 +179,6 @@ def test_host_fallback_counts_outermost_operators():
     bd = ta.phase_breakdown(ev)
     assert bd["total_us"] == 18.0 and bd["events"] == 3
     assert bd["phases"]["dots/reduce"]["us"] == 5.0
-
-
-def test_derived_metrics_match_jax():
-    op, _, _ = port.banded_model(1000, k=4, device="cpu")
-    got = profiling.derived_metrics(op, 0.5, 100, matvecs_per_iter=2)
-    assert got == jax_derived_metrics(op, 0.5, 100, matvecs_per_iter=2)
-
-
-def test_timer():
-    t = profiling.Timer()
-    for _ in range(2):
-        with t.measure():
-            v = profiling.Timer.sync(torch.tensor(2.5))
-    assert v == 2.5 and len(t.times) == 2
-    assert t.best <= t.mean
-    assert profiling.Timer.sync(np.float64(1.5)) == 1.5
 
 
 def test_env_info(tmp_path):
