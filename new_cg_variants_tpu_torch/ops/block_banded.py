@@ -221,7 +221,12 @@ def solver_basis(op):
         def from_basis(y):
             return ell_spmv.scatter_rows(perm, y)
 
-        inner = EllOperator._stored(op.val_t, op.idx_t, op.nnz_stored, None)
+        # the same object on every call, so that a later solve on ``op``
+        # replays the graphs an earlier one captured (``graphs.Store``)
+        inner = op.__dict__.get("_basis_op")
+        if inner is None:
+            inner = op._basis_op = EllOperator._stored(
+                op.val_t, op.idx_t, op.nnz_stored, None)
         return inner, to_basis, from_basis
     if not isinstance(op, PermutedBlockBandedOperator):
         def ident(v):

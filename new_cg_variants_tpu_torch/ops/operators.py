@@ -623,7 +623,12 @@ def as_operator(a, dtype=None, device=None):
     # (a tensor has ``mv`` and ``diagonal`` too, and is an array here)
     if (hasattr(a, "mv") and hasattr(a, "diagonal")
             and not isinstance(a, torch.Tensor)):
-        op = a if a.device == dev else a.to(dev)
+        # one already there passes as itself (``cuda`` is the current card),
+        # so that a later solve on it replays the graphs an earlier one
+        # captured (``solvers.graphs.Store``)
+        here = (torch.device("cuda", torch.cuda.current_device())
+                if dev.type == "cuda" and dev.index is None else dev)
+        op = a if a.device == here else a.to(dev)
         return op if dtype is None or dtype == op.dtype else op.astype(dtype)
     if hasattr(a, "tocoo") and not isinstance(a, np.ndarray):
         a = coo_from_scipy(a)

@@ -9,13 +9,15 @@ explicit (one phase per pipe iteration).
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..ops import fused_family, fused_step, sym_fused
 from ..ops.compensated import comp_dot
 from ..ops.operators import DiaOperator
 from ..ops.sym_dia import SymDiaOperator
-from .precond import JacobiPreconditioner
+from .precond import IdentityPreconditioner, JacobiPreconditioner
 
 __all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step"]
 
@@ -65,6 +67,29 @@ class Context:
     @property
     def has_prec(self) -> bool:
         return self.precond is not None
+
+    def graph_key(self):
+        """What a captured step reads of this context, as a hashable key
+        (:func:`~.graphs.capture_key`): the operator by weak reference, its
+        attributes (a tensor by its address, shape, strides and dtype; a
+        number, string or tuple by value), the preconditioner's kind,
+        :attr:`compensated` and :attr:`extra_norm`.  ``None`` where that is
+        not all a step reads: a preconditioner other than the identity (a
+        Jacobi diagonal, an object, a callable), an operator attribute of
+        another kind, or a subclass."""
+        if type(self) is not Context or not (
+                self.precond is None
+                or type(self.precond) is IdentityPreconditioner):
+            return None
+        attrs = getattr(self.op, "__dict__", None)
+        if attrs is None or type(self.op).__hash__ is None:
+            return None
+        attrs = _named(tuple(sorted(attrs.items())))
+        if attrs is _UNNAMED:
+            return None
+        op = weakref.ref(self.op)
+        return (op, attrs, type(self.precond), self.compensated,
+                self.extra_norm)
 
     def mv(self, v):
         return self.op.mv(v)
@@ -223,6 +248,24 @@ class Context:
         return fused_step.fused_pipe_vector_phase_prec(
             s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
             s_["rt"], s_["st"], s_["wt"], s_["ut"], a1, beta)
+
+
+#: what :func:`_named` answers for a value of another kind
+_UNNAMED = object()
+
+
+def _named(v):
+    """A value as :meth:`Context.graph_key` names it: a tensor by its
+    address, shape, strides, dtype and device, a number, string or ``None``
+    as it is, a tuple by its items; else :data:`_UNNAMED`."""
+    if isinstance(v, torch.Tensor):
+        return (v.data_ptr(), v.shape, v.stride(), v.dtype, v.device)
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, tuple):
+        named = tuple(_named(x) for x in v)
+        return _UNNAMED if any(x is _UNNAMED for x in named) else named
+    return _UNNAMED
 
 
 def generic_pipe_vector_phase(ctx, x, r, w, u, p, s, a1, beta):

@@ -17,7 +17,10 @@ rest one step a replay.  The history's rows are copied out of each chunk on
 the device; the tolerance loop reads each chunk's norms back at once, and
 where the tolerance fell within a chunk it takes the chunk's starting
 state back and replays that many single steps.  Both give the eager loop's
-iterations and bits.
+iterations and bits.  The tolerance loop names its rows by the norm type,
+so that a later solve of the same operator and shapes replays the graphs
+an earlier one captured (:class:`~.graphs.Store`); the history's probe
+rows read ``aux``, which is the call's own, and it captures its own.
 
 Each loop counts in ``solves``, and each read back to the host in
 ``host_syncs`` under a ``readback`` span (:func:`host_value`,
@@ -145,6 +148,9 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
                 and ctx.has_prec)
     if in_batch:
         ctx.extra_norm = "r" if norm_type == "unpreconditioned" else "rt"
+    # what the loop's rows read besides the state: a runner with a store
+    # replays an earlier solve's graphs of the same key
+    rows_key = (norm_type, in_batch)
 
     def iter_norm(s):
         if norm_type == "none":
@@ -169,7 +175,8 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
                       min=atol).to(b.dtype)
     if norm_type == "none":
         if runner is not None and max_iter > 0:
-            loop = runner.start(ctx, step_fn, state, horizon=max_iter - 1)
+            loop = runner.start(ctx, step_fn, state, horizon=max_iter - 1,
+                                rows_key=rows_key)
             loop.advance(max_iter - 1)
             state = loop.state()
         else:
@@ -182,7 +189,8 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
     if runner is not None:
         if k < max_iter and host_value(nrm) > tol_host:
             return _tolerance_replayed(ctx, step_fn, state, max_iter,
-                                       tol_host, iter_norm, runner) + (tol,)
+                                       tol_host, iter_norm, runner,
+                                       rows_key) + (tol,)
         return state, k, nrm, tol
     while k < max_iter and host_value(nrm) > tol_host:
         state = step_fn(ctx, state)
@@ -192,7 +200,7 @@ def tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter, rtol, atol,
 
 
 def _tolerance_replayed(ctx, step_fn, state, max_iter, tol_host, iter_norm,
-                        runner):
+                        runner, rows_key):
     """The loop of :func:`tolerance_loop` by replays, from a state that
     takes at least one step: ``(state, iterations, norm)``.
 
@@ -203,7 +211,8 @@ def _tolerance_replayed(ctx, step_fn, state, max_iter, tol_host, iter_norm,
     is taken back and the steps up to that one replayed singly."""
     loop = runner.start(ctx, step_fn, state,
                         {"norm": lambda c, s: iter_norm(s)},
-                        horizon=max_iter - 1, checkpoint=True)
+                        horizon=max_iter - 1, checkpoint=True,
+                        rows_key=rows_key)
     k = 1
     nrm = loop.first_rows["norm"]
     if k < max_iter and host_value(nrm) > tol_host:

@@ -41,10 +41,18 @@ captured step reads and the end of every captured chunk writes:
 * *Rows.*  A chunk writes each step's probe rows (or its convergence norm)
   into preallocated ``(chunk, ...)`` device buffers; the caller copies them
   out after the replay, on the device.
+* *Store.*  A loop whose graphs read nothing outside its buffers but what
+  a key names (:func:`capture_key`: the context's own key, the step, the
+  state's shapes and dtypes, the rows, the chunk) leaves them in its
+  device's :class:`Store`, and a later loop of the same key replays them
+  instead of capturing: repeated solves on one operator capture once.
+  Only ``engine.tolerance_loop`` names its rows; every other loop, and a
+  context that names nothing (a mesh, double words, a Jacobi diagonal),
+  captures its own, as before.
 * *Counters.*  Replays, captures, their seconds, the capture pool's
-  growth and the steps :meth:`Loop.restore` takes back count in
-  :mod:`..utils.profiling`, under the spans ``loop.start``, ``capture``,
-  ``replay`` and ``restore``.
+  growth, the loops that found their graphs stored and the steps
+  :meth:`Loop.restore` takes back count in :mod:`..utils.profiling`, under
+  the spans ``loop.start``, ``capture``, ``replay`` and ``restore``.
 
 A capture, instantiation or replay that fails raises with its CUDA error;
 nothing runs eagerly in its place.  :class:`Runner` takes the capture as an
@@ -55,8 +63,10 @@ directly (``tests/test_torch_capture_loops.py``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
+import weakref
 
 import torch
 
@@ -64,20 +74,34 @@ from ..ops import df_spmv
 from ..ops.doublefloat import DF
 from ..utils.profiling import count, span
 
-__all__ = ["CHUNK", "Runner", "Loop", "CudaCapture", "runner",
-           "checked_hook"]
+__all__ = ["CHUNK", "STORE_SIZE", "Runner", "Loop", "CudaCapture", "Store",
+           "capture_key", "runner", "checked_hook"]
 
 #: steps a captured chunk makes (the fewer when the loop has fewer left)
 CHUNK = 32
+#: captured loops a device's :class:`Store` keeps
+STORE_SIZE = 4
+
+#: the :class:`Store` of each CUDA device
+_STORES = {}
+#: captures under way: no store destroys an entry meanwhile
+_CAPTURING = [0]
 
 
 def runner(device, use_jit, hooked=False):
-    """The :class:`Runner` of a loop on ``device``, or ``None`` (the eager
-    loop) on the CPU or with ``use_jit=False``.  ``hooked``: the step calls
-    a gv replacement hook, so the graph carries ``k`` on the device."""
+    """The :class:`Runner` of a loop on ``device``, with the device's
+    :class:`Store`, or ``None`` (the eager loop) on the CPU or with
+    ``use_jit=False``.  ``hooked``: the step calls a gv replacement hook,
+    so the graph carries ``k`` on the device."""
     if not use_jit or device.type != "cuda":
         return None
-    return Runner(lambda: CudaCapture(device), k_on_device=hooked)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    store = _STORES.get(device)
+    if store is None:
+        store = _STORES[device] = Store()
+    return Runner(lambda: CudaCapture(device), k_on_device=hooked,
+                  store=store)
 
 
 def checked_hook(w_replace, stateful):
@@ -145,6 +169,106 @@ def _on_device(x, device):
     if isinstance(x, (torch.Tensor, DF)):
         return x
     return torch.as_tensor(x, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the store of captured loops
+# ---------------------------------------------------------------------------
+
+
+def capture_key(ctx, step_fn, state, *parts):
+    """The key of what a captured step reads outside the loop's buffers:
+    the context's own key (``ctx.graph_key()``), ``step_fn`` (by weak
+    reference), the state's structure, shapes and dtypes, and ``parts``;
+    ``None`` where the context names none (it has no ``graph_key``, or
+    answers ``None``), or the step or the state cannot be named."""
+    graph_key = getattr(ctx, "graph_key", None)
+    if graph_key is None:
+        return None
+    leaves = []
+    try:
+        ctx_key = graph_key()
+        key = (ctx_key, weakref.ref(step_fn), _flatten(state, leaves),
+               tuple((t.shape, t.dtype, t.device) for t in leaves), parts)
+        hash(key)
+    except TypeError:  # no weak reference to the operator or the step, a
+        return None    # number in the state
+    return None if ctx_key is None else key
+
+
+class _Graphs:
+    """A loop's capture and the buffers its graphs read and write: the
+    state's, the checkpoint's, the rows' and the replays (both by step
+    count).  ``lessee`` is a weak reference to the loop that replays them:
+    the bodies read that loop's context, step and rows, never the one that
+    captured."""
+
+    def __init__(self, cap, spec, bufs, saved, loop):
+        self.cap, self.spec, self.bufs, self.saved = cap, spec, bufs, saved
+        self.row_bufs, self.replay = {}, {}
+        self.lessee = weakref.ref(loop)
+        self.finalizer = None
+
+    def tensors(self):
+        """Every buffer (a later loop marks each for its own stream)."""
+        yield from self.bufs
+        yield from self.saved or ()
+        for rows in self.row_bufs.values():
+            yield from rows.values()
+
+
+class Store:
+    """Captured loops kept for later loops of the same :func:`capture_key`:
+    at most :data:`STORE_SIZE`, the least recently used out.
+
+    An entry is leased to one live loop at a time.  It holds no strong
+    reference to the operator or the context it was captured on: when the
+    operator is freed its entries go, and where that happens during a
+    capture, at the store's next lease, so that nothing is destroyed inside
+    a capture."""
+
+    def __init__(self):
+        self._entries = collections.OrderedDict()
+        self._dead = []
+
+    def __len__(self):
+        return len(self._entries)
+
+    def lease(self, key, loop):
+        """The entry of ``key``, leased to ``loop``; ``None`` where there is
+        none or a live loop holds it."""
+        while self._dead:
+            self._entries.pop(self._dead.pop(), None)
+        g = self._entries.get(key)
+        if g is None or g.lessee() is not None:
+            return None
+        self._entries.move_to_end(key)
+        g.lessee = weakref.ref(loop)
+        return g
+
+    def put(self, key, g, owner):
+        """Keep ``g`` under ``key`` until ``owner`` is freed; ``False``
+        where a live loop holds an entry of ``key``."""
+        if key in self._entries:
+            return False
+        self._entries[key] = g
+        g.finalizer = weakref.finalize(owner, self._forget, key)
+        while len(self._entries) > STORE_SIZE:
+            self._entries.popitem(last=False)[1].finalizer.detach()
+        return True
+
+    def discard(self, g):
+        """Forget ``g`` (its capture failed)."""
+        for key, entry in list(self._entries.items()):
+            if entry is g:
+                del self._entries[key]
+                g.finalizer.detach()
+
+    def _forget(self, key):
+        if _CAPTURING[0]:
+            self._dead.append(key)
+        else:
+            self._entries.pop(key, None)
 
 
 # ---------------------------------------------------------------------------
@@ -233,19 +357,25 @@ def _reserved(device):
 class Runner:
     """Starts :class:`Loop` objects: ``capture()`` makes each loop's capture
     (:class:`CudaCapture` on the card: ``side()``, ``keep(t)``,
-    ``capture(body)``), ``chunk`` steps a captured chunk."""
+    ``capture(body)``), ``chunk`` steps a captured chunk.  Given a
+    :class:`Store`, a loop whose caller names its rows keeps its graphs
+    there, or replays those of an earlier loop of its key."""
 
-    def __init__(self, capture, chunk=CHUNK, k_on_device=False):
+    def __init__(self, capture, chunk=CHUNK, k_on_device=False, store=None):
         self.capture = capture
         self.chunk = chunk
         self.k_on_device = k_on_device
+        self.store = store
 
     def start(self, ctx, step_fn, state, rows=None, horizon=0,
-              checkpoint=False):
-        """A :class:`Loop` from ``state``, after its first step."""
+              checkpoint=False, rows_key=None):
+        """A :class:`Loop` from ``state``, after its first step.
+        ``rows_key``: a key of ``rows`` (two calls' rows of one key compute
+        the same from the context and the state), or ``None``: the loop's
+        graphs are then its own."""
         with span("loop.start"):
             return Loop(self, ctx, step_fn, state, rows or {}, horizon,
-                        checkpoint)
+                        checkpoint, rows_key)
 
 
 class Loop:
@@ -256,19 +386,28 @@ class Loop:
     after every step.  ``horizon``: the steps the caller may still take,
     which bounds the chunk (:attr:`chunk`).  With ``checkpoint`` a chunk
     first copies the state it starts from aside, so that :meth:`restore`
-    can take it back (the tolerance loop's overshoot).
+    can take it back (the tolerance loop's overshoot).  With a
+    ``rows_key`` and the runner's store, the graphs, buffers and capture
+    may be an earlier loop's of the same :func:`capture_key` (the warm-up
+    step's state is then copied into its buffers: ``capture_hits``), and
+    stay in the store for a later one.
     """
 
     def __init__(self, runner, ctx, step_fn, state, rows, horizon,
-                 checkpoint):
-        self.cap = runner.capture()
+                 checkpoint, rows_key=None):
         self.ctx, self.step_fn, self.rows = ctx, step_fn, rows
         self.chunk = max(1, min(runner.chunk, horizon))
         self.k_on_device = runner.k_on_device
-        self._replay = {}  # steps -> replay
-        self._row_bufs = {}
         state = dict(state)
         self.k = state.pop("k")
+        store = runner.store
+        key = (None if store is None or rows_key is None
+               else capture_key(ctx, step_fn, state, rows_key, self.chunk,
+                                checkpoint, self.k_on_device))
+        g = store.lease(key, self) if key is not None else None
+        if g is not None:
+            count("capture_hits")
+        self.cap = runner.capture() if g is None else g.cap
         if self.k_on_device and "wrep" in state:
             state["wrep"] = _on_device(state["wrep"], _device_of(state))
         with self.cap.side():
@@ -284,34 +423,51 @@ class Loop:
             if self.k_on_device:
                 s["k"] = k1
             leaves = []
-            self.spec = _flatten(s, leaves)
-            self.bufs = [keep(t.clone()) for t in leaves]
-            self.saved = ([keep(torch.empty_like(t)) for t in leaves]
-                          if checkpoint else None)
+            spec = _flatten(s, leaves)
+            if g is None:
+                g = _Graphs(self.cap, spec, [keep(t.clone()) for t in leaves],
+                            ([keep(torch.empty_like(t)) for t in leaves]
+                             if checkpoint else None), self)
+                kept = key is not None and store.put(key, g, ctx.op)
+            else:
+                if spec != g.spec:
+                    raise TypeError("a step changed the state's structure: "
+                                    "pass use_jit=False")
+                for t in g.tensors():
+                    keep(t)
+                for d, t in zip(g.bufs, leaves):
+                    d.copy_(t)
+                kept = True
+        self._g, self._store = g, store if kept else None
+        self.spec, self.bufs, self.saved = g.spec, g.bufs, g.saved
+        self._replay, self._row_bufs = g.replay, g.row_bufs  # by steps
         self._state = state  # read on the capture stream: keep it alive
 
     def _body(self, steps):
         """The chunk: ``steps`` steps from the buffers and back into them
         (the state it starts from copied aside first, for a checkpointed
-        loop's chunk)."""
-        bufs, rows = self.bufs, self._row_bufs[steps]
-        save = self.saved is not None and steps == self.chunk
+        loop's chunk), by the context, step and rows of the loop that
+        replays it."""
+        g, rows = self._g, self._row_bufs[steps]
+        bufs = g.bufs
+        save = g.saved is not None and steps == self.chunk
 
         def body():
+            loop = g.lessee()
             if save:
-                for d, t in zip(self.saved, bufs):
+                for d, t in zip(g.saved, bufs):
                     d.copy_(t)
-            s = _unflatten(self.spec, iter(bufs))
-            if not self.k_on_device:
-                s["k"] = self.k  # the host counter; nothing reads it
+            s = _unflatten(g.spec, iter(bufs))
+            if not loop.k_on_device:
+                s["k"] = loop.k  # the host counter; nothing reads it
             for i in range(steps):
-                s = self.step_fn(self.ctx, s)
-                for name, fn in self.rows.items():
-                    rows[name][i].copy_(fn(self.ctx, s))
-            if not self.k_on_device:
+                s = loop.step_fn(loop.ctx, s)
+                for name, fn in loop.rows.items():
+                    rows[name][i].copy_(fn(loop.ctx, s))
+            if not loop.k_on_device:
                 s.pop("k")
             leaves = []
-            if _flatten(s, leaves) != self.spec:
+            if _flatten(s, leaves) != g.spec:
                 raise TypeError("a step changed the state's structure: "
                                 "pass use_jit=False")
             # a value passed through unchanged is one of the buffers: read
@@ -332,8 +488,16 @@ class Loop:
                     name: self.cap.keep(r.new_empty((steps, *r.shape)))
                     for name, r in self.first_rows.items()}
             with span("capture", steps=steps):
-                replay = self._replay[steps] = self.cap.capture(
-                    self._body(steps))
+                _CAPTURING[0] += 1
+                try:
+                    replay = self._replay[steps] = self.cap.capture(
+                        self._body(steps))
+                except BaseException:
+                    if self._store is not None:
+                        self._store.discard(self._g)
+                    raise
+                finally:
+                    _CAPTURING[0] -= 1
             count("captures")
         with span("replay", "replays", steps=steps):
             replay()
@@ -389,9 +553,12 @@ class Loop:
         self.k = int(k)
 
     def state(self):
-        """The state in the buffers (``k`` a host integer); a later replay
-        overwrites it."""
-        s = _unflatten(self.spec, iter(self.bufs))
+        """The state in the buffers (``k`` a host integer), which a later
+        replay overwrites; a copy of it where a store keeps the buffers for
+        a later loop."""
+        bufs = (self.bufs if self._store is None
+                else [t.clone() for t in self.bufs])
+        s = _unflatten(self.spec, iter(bufs))
         s["k"] = self.k
         return s
 

@@ -35,6 +35,8 @@ The counters (cumulative over the process; seconds are host seconds):
 ``captures``           graphs captured (one a chunk length a loop)
 ``capture_s``          seconds of capturing and instantiating them
 ``pool_bytes``         growth of the card's reserved memory over captures
+``capture_hits``       loops that replay a stored loop's graphs
+                       (``graphs.Store``) instead of capturing
 ``steps_taken_back``   steps of a chunk run and then discarded, where a
                        tolerance solve stopped inside it
 =====================  ====================================================
