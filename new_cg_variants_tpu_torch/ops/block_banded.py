@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.profiling import span
 from . import ell_spmv
 from .operators import EllOperator
 
@@ -209,31 +210,34 @@ def solver_basis(op):
     gather_rows`: ``ell_gather`` on a CUDA vector), ``from_basis`` scatters
     ``out[perm] = y`` (:func:`.ell_spmv.scatter_rows`).  Iteration norms do not depend on the order, and
     block-banded pad rows carry a unit diagonal with a zero right-hand
-    side, so their iterates stay zero.  For any other operator all three
-    are the identity's.
+    side, so their iterates stay zero.  Each move of either operator is a
+    ``basis`` span with the counter ``basis_moves``
+    (:mod:`..utils.profiling`).  For any other operator all three are the
+    identity's, and open no span.
     """
     if isinstance(op, EllOperator) and op.perm is not None:
         perm = op.perm
-
-        def to_basis(v):
-            return ell_spmv.gather_rows(perm, v)
-
-        def from_basis(y):
-            return ell_spmv.scatter_rows(perm, y)
-
         # the same object on every call, so that a later solve on ``op``
         # replays the graphs an earlier one captured (``graphs.Store``)
         inner = op.__dict__.get("_basis_op")
         if inner is None:
             inner = op._basis_op = EllOperator._stored(
                 op.val_t, op.idx_t, op.nnz_stored, None)
-        return inner, to_basis, from_basis
+        return (inner, _move(lambda v: ell_spmv.gather_rows(perm, v)),
+                _move(lambda y: ell_spmv.scatter_rows(perm, y)))
     if not isinstance(op, PermutedBlockBandedOperator):
         def ident(v):
             return v
         return op, ident, ident
-    inner = op.inner
-    return inner, op._permute_in, op._permute_out
+    return op.inner, _move(op._permute_in), _move(op._permute_out)
+
+
+def _move(change):
+    """``change`` of basis, each call a ``basis`` span."""
+    def move(v):
+        with span("basis", "basis_moves"):
+            return change(v)
+    return move
 
 
 def rcm_band_probe(coo) -> int:
@@ -247,19 +251,22 @@ def rcm_band_probe(coo) -> int:
 
 
 def _rcm_probe_full(coo):
-    """``(min_bw, bw_natural, bw_rcm, rcm_perm)``, memoised on ``coo``."""
+    """``(min_bw, bw_natural, bw_rcm, rcm_perm)``, memoised on ``coo``;
+    computing it is an ``rcm`` span (counter ``rcm``), once a ``coo``."""
     cached = getattr(coo, "_rcm_probe_cache", None)
     if cached is not None:
         return cached
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    csr = coo.tocsr()
-    row = np.asarray(coo.row)
-    col = np.asarray(coo.col)
-    bw = int(np.abs(row - col).max()) if len(row) else 0
-    p = np.ascontiguousarray(reverse_cuthill_mckee(csr, symmetric_mode=True))
-    a2 = csr[p][:, p].tocoo()
-    bw_rcm = int(np.abs(a2.row - a2.col).max()) if a2.nnz else 0
+    with span("rcm", "rcm"):
+        csr = coo.tocsr()
+        row = np.asarray(coo.row)
+        col = np.asarray(coo.col)
+        bw = int(np.abs(row - col).max()) if len(row) else 0
+        p = np.ascontiguousarray(reverse_cuthill_mckee(csr,
+                                                       symmetric_mode=True))
+        a2 = csr[p][:, p].tocoo()
+        bw_rcm = int(np.abs(a2.row - a2.col).max()) if a2.nnz else 0
     result = (min(bw, bw_rcm), bw, bw_rcm, p)
     if hasattr(coo, "__dict__"):
         coo._rcm_probe_cache = result

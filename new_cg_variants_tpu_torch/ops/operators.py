@@ -485,14 +485,17 @@ def choose_format(coo, dia_max_diags: int = 256,
     n = int(coo.shape[0])
     if n <= 512:
         return "dense"
-    diags = np.unique(np.asarray(coo.col) - np.asarray(coo.row))
-    if len(diags) <= dia_max_diags:
-        half_band = int(np.abs(diags).max()) if len(diags) else 0
-        if 0 < half_band < _SYMDIA_MAX_HALF_BAND and _is_symmetric(coo):
-            if _stencil_probe(coo) is not None:
-                return "stencil"
-            return "symdia"
-        return "dia"
+    # the diagonal count and the probes it leads to; the RCM probe below
+    # is its own span (``rcm``), so the two add up
+    with span("format", "format"):
+        diags = np.unique(np.asarray(coo.col) - np.asarray(coo.row))
+        if len(diags) <= dia_max_diags:
+            half_band = int(np.abs(diags).max()) if len(diags) else 0
+            if 0 < half_band < _SYMDIA_MAX_HALF_BAND and _is_symmetric(coo):
+                if _stencil_probe(coo) is not None:
+                    return "stencil"
+                return "symdia"
+            return "dia"
     from .block_banded import rcm_band_probe
 
     bw = int(rcm_band_probe(coo))
@@ -529,7 +532,9 @@ def from_coo(coo, fmt: str = "auto", dtype=torch.float64,
     :class:`~.block_banded.PermutedBlockBandedOperator` (original
     coordinates outside, the reordered band inside); ``'ell'`` an
     :class:`EllOperator` that keeps its rows in :func:`ell_order`.  The
-    build is a ``build`` span (:mod:`..utils.profiling`).
+    build is a ``build`` span (:mod:`..utils.profiling`); inside it,
+    :func:`choose_format`'s probes are ``format`` and ``rcm`` spans and the
+    ELL packing an ``ell.pack`` span.
     """
     with span("build", fmt=fmt, n=coo.shape[0]):
         return _from_coo(coo, fmt, dtype, dia_max_diags, device)
@@ -576,7 +581,8 @@ def _from_coo(coo, fmt, dtype, dia_max_diags, device):
         offsets, data = build_dia(coo)
         return DiaOperator(offsets, tensor(data))
     if fmt == "ell":
-        val, idx, nnz = build_ell(coo)
+        with span("ell.pack", "ell.pack"):
+            val, idx, nnz = build_ell(coo)
         return EllOperator(tensor(val.T).T,
                            torch.from_numpy(idx.T).to(dev).T, nnz,
                            perm=ell_order(coo))

@@ -39,11 +39,24 @@ The counters (cumulative over the process; seconds are host seconds):
                        (``graphs.Store``) instead of capturing
 ``steps_taken_back``   steps of a chunk run and then discarded, where a
                        tolerance solve stopped inside it
+``format``             ``format`` spans, ``format_s`` their seconds:
+                       ``operators.choose_format``'s diagonal count and
+                       the symmetry and stencil probes it leads to
+``rcm``                ``rcm`` spans, ``rcm_s``: the reverse
+                       Cuthill-McKee probe
+                       (``block_banded._rcm_probe_full``), once a COO
+``ell.pack``           ``ell.pack`` spans, ``ell.pack_s``: the ELL
+                       storage's sort and packing (``build_ell``)
+``basis_moves``        vectors moved into or out of an operator's
+                       reordered basis (``block_banded.solver_basis``:
+                       ELL in a locality order, block-banded), ``basis_s``
 =====================  ====================================================
 
 The spans: ``solve`` (``api.solve`` / ``api.run``), ``build``
-(``ops.operators.from_coo``), ``loop.start`` (``graphs.Runner.start``),
-``capture``, ``replay`` and ``restore`` (``graphs.Loop``), ``readback``.
+(``ops.operators.from_coo``) with ``format``, ``rcm`` and ``ell.pack``
+inside it (``format`` and ``rcm`` do not overlap), ``loop.start``
+(``graphs.Runner.start``), ``capture``, ``replay`` and ``restore``
+(``graphs.Loop``), ``readback``, ``basis``.
 """
 
 from __future__ import annotations
