@@ -49,7 +49,9 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
    ``csrc/pipe_vector.cu`` and the eleven entries of ``csrc/dia_family.cu``
    (as in 3), each against its plain version, at n = 655,360 with 63
    diagonals and at small and ragged shapes; the SpMV and the vector phases
-   also at the shape of 10 (n = 4,194,304), timed there too;
+   also at the shape of 10 (n = 4,194,304), timed there too, and the
+   unpreconditioned vector phase (row 4) at HPCG's n = 104^3 = 1,124,864,
+   where the pipe step of 18 (ELL in its RCM basis) runs it, timed there;
 9. ``dia_f32`` — the full-DIA path at full width: ``banded_model(655_360,
    k=32, fmt="dia")`` in float32; pipe-PR-CG under the bench protocol of 4,
    then the other 17 names for 300 iterations each, with the launch counts
@@ -65,7 +67,7 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
 11. ``dia_f64`` — card against CPU in float64 over 25 iterations at
     n = 65,536 on full-DIA storage, one name per family entry (the model
     problem, and the scaled band for the Jacobi runs), and one run on a dense
-    512 x 512 operator;
+    512 x 512 operator (row 4 once per iteration);
 12. ``check`` lines of the double-word kernels (``check_df``, run after
     ``check_dia``): the DIA product of ``csrc/df_spmv.cu`` (1 and 2
     right-hand sides; 63 diagonals at n = 655,360, the wide grid band, small,
@@ -124,17 +126,20 @@ Builds the port's CUDA kernels from ``new_cg_variants_tpu_torch/csrc`` (with
     iterations (launches, the profiler's kernels per iteration and busy
     share of the step on the stored ``B``), the other 17 names for 100
     (each solved in the operator's basis: row 12 once per product of each
-    generic body with no gather, two gathers a solve), one solve to rtol
+    generic body with no gather, two gathers a solve, row 4 once per
+    iteration of the unpreconditioned pipe names), one solve to rtol
     1e-6 that converges; the host seconds of the operator's build;
 19. ``formats_f32`` — the model problem of 4 as scipy CSR: permuted, the
     auto route must pick the block-banded packing (bs = 128); unpermuted,
     the stencil (and ``banded_model(fmt="stencil")``); pipe-PR-CG for 300
-    iterations on each, no kernel launched, the block-banded residual (in
+    iterations on each, no kernel launched but row 4 once per iteration
+    (the vector phase), the block-banded residual (in
     the original order) within 10x of the half-band path's;
 20. ``sparse_f64`` — card against CPU in float64 over 25 iterations on ELL
     (the permuted 27-point operator on 32^3), block-banded (the permuted
     model problem, n = 65,536) and stencil operators, one name per family
-    and a Jacobi ``_pcg`` name on each; pipe-PR-CG in f32x2 on an ELL inner;
+    and a Jacobi ``_pcg`` name on each (row 4 once per iteration of the
+    unpreconditioned pipe names); pipe-PR-CG in f32x2 on an ELL inner;
 21. ``convergence_f64`` — the ``figure_gen`` flow on the card in float64
     (``harness.convergence``): HPCG's operator on 32^3 under a random
     permutation (n = 32,768; the auto route picks ELL) and the scaled band
@@ -934,14 +939,18 @@ def check_dia_spmv(torch, card, timings, report=emit_check,
 
 def dia_checks(torch, card, timings, report):
     """The checks of every full-DIA kernel entry, at the shapes of both
-    full-DIA paths; returns the failed ones."""
+    full-DIA paths, and of row 4 at the ELL path's; returns the failed
+    ones."""
     from new_cg_variants_tpu_torch.ops import fused_family as ff
     from new_cg_variants_tpu_torch.ops import fused_step as fs
 
     failed = check_dia_spmv(torch, card, timings, report)
     for module, table, shapes, suffix in (
             (fs, DIA_STEP, DIA_SHAPES, ""), (ff, DIA_FAMILY, DIA_SHAPES, ""),
-            (fs, VECTOR_PHASES, (WIDE_SHAPE,), WIDE)):
+            (fs, VECTOR_PHASES, (WIDE_SHAPE,), WIDE),
+            (fs, {"fused_pipe_vector_phase":
+                  VECTOR_PHASES["fused_pipe_vector_phase"]},
+             (HPCG_VECTOR_SHAPE,), HPCG_VEC)):
         failed += check_entries(torch, card, timings, module, table, shapes,
                                 random_dia, 2, suffix, report)
     return failed
@@ -1496,7 +1505,8 @@ def variants_f64(torch):
 
 def dia_f64(torch):
     """Card against CPU in float64 on full-DIA storage, and one run on a
-    dense operator (no kernel: the matrix product is torch's)."""
+    dense operator (the matrix product is torch's; the vector phase row 4's,
+    on the columns of the 2-RHS product)."""
     from new_cg_variants_tpu_torch import DiaOperator, as_operator, banded_model
 
     n = VARIANTS_F64_N
@@ -1515,7 +1525,7 @@ def dia_f64(torch):
     dense = as_operator(dense_spd(torch, DENSE_N), device="cpu")
     compare_f64(torch, "dia_f64",
                 [("pipe_pr_cg", dense, dense.todense() @ np.ones(DENSE_N),
-                  "dense_spd")], lambda name, iters: ({}, None))
+                  "dense_spd")], vector_phase_expected)
 
 
 def dense_spd(torch, n, seed=0, device="cpu"):
@@ -2011,6 +2021,11 @@ def df_accuracy(torch):
 
 #: HPCG's standard local grid: the 27-point operator on 104^3 points
 HPCG_GRID = 104
+#: (n, label, offsets) of row 4's check at the shape ell_f32's pipe step
+#: gives it (the offsets draw a band the vector phase does not read)
+HPCG_VECTOR_SHAPE = (HPCG_GRID ** 3, "hpcg", (0,))
+#: suffix of row 4's record (timings, the kernels line) at that shape
+HPCG_VEC = " (HPCG 104^3)"
 #: the 27-point operator of sparse_f64 (small enough for the CPU side)
 HPCG_SMALL_GRID = 32
 #: seed of the symmetric permutation that stands in for an unstructured
@@ -2403,15 +2418,18 @@ def ell_expected(name, iters, moved=2):
     """Launches a name makes on an ``EllOperator`` in a locality order (as
     both ELL phases build it): the solve runs in the operator's basis
     (``solver_basis``), on its stored ``B`` with no order, and every fused
-    phase declines, so the generic body: ``ell_spmv2`` once per iteration
-    for the pipe names that recompute, else ``ell_spmv`` once per product
-    (and the products of init), none of them gathering; ``ell_gather`` once
-    for each of the ``moved`` vectors taken into the basis (``b`` and
-    ``x0``; ``x_true`` too under an error probe)."""
+    phase that reads the band declines, so the generic body: ``ell_spmv2``
+    once per iteration for the pipe names that recompute, else ``ell_spmv``
+    once per product (and the products of init), none of them gathering;
+    the unpreconditioned pipe step (``pipe_*_cg``) takes the vector-phase
+    kernel (row 4) once per iteration; ``ell_gather`` once for each of the
+    ``moved`` vectors taken into the basis (``b`` and ``x0``; ``x_true``
+    too under an error probe)."""
     split, _ = split_expected(name, iters)
     counts = {"ell_spmv": split["dia_spmv"]}
     if "dia_spmv2" in split:
         counts["ell_spmv2"] = split["dia_spmv2"]
+    counts.update(vector_phase_expected(name, iters)[0])
     counts["ell_gather"] = moved
     return counts, "ell_spmv"
 
@@ -2860,7 +2878,14 @@ def host_residual(a, b, x):
     return float(np.linalg.norm(b - a @ x64) / np.linalg.norm(b))
 
 
-def no_kernel(name, iters):
+def vector_phase_expected(name, iters):
+    """Launches a name makes on an operator no other kernel serves (dense,
+    stencil, block-banded): the unpreconditioned pipe step (``pipe_*_cg``;
+    a ``_pcg`` name keeps its preconditioned body, with M = I too) takes
+    the vector-phase kernel (row 4) once per iteration, which reads no
+    operator; nothing else launches."""
+    if name.startswith("pipe_") and name.endswith("_cg"):
+        return {"fused_pipe_vector_phase": iters}, "fused_pipe_vector_phase"
     return {}, None
 
 
@@ -2871,8 +2896,9 @@ def formats_f32(torch, built):
     original order, its residual within 10x of the half-band path's on the
     unpermuted problem.  (b) The same problem unpermuted: the auto route must
     pick the stencil; it and ``banded_model(fmt="stencil")`` for 300
-    iterations.  No path here reaches a kernel.  The block-banded operator
-    is left in ``built`` for dist_formats_f32."""
+    iterations.  No path here reaches a kernel but the vector phase's (row
+    4), once per iteration.  The block-banded operator is left in ``built``
+    for dist_formats_f32."""
     from new_cg_variants_tpu_torch import (
         BandedStencilOperator,
         as_operator,
@@ -2887,10 +2913,10 @@ def formats_f32(torch, built):
 
     def timed(op, b, label, a_host, b_host, kernels=False, **fields):
         """pipe-PR-CG for FORMATS_ITERS iterations; without ``kernels`` no
-        kernel may launch."""
-        reset_counts()
+        kernel may launch but row 4, once per iteration."""
         solve(op, b, variant="pipe_pr_cg", max_iter=5, norm_type="none")
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         res = solve(op, b, variant="pipe_pr_cg", max_iter=FORMATS_ITERS,
                     norm_type="none")
@@ -2903,7 +2929,9 @@ def formats_f32(torch, built):
                    rel_residual=host_residual(a_host, b_host, res.x),
                    launches=counts, **fields)
         emit("formats_f32", **rec)
-        if (counts and not kernels) or not np.isfinite(rec["rel_residual"]):
+        want = vector_phase_expected("pipe_pr_cg", FORMATS_ITERS)[0]
+        if ((counts != want and not kernels)
+                or not np.isfinite(rec["rel_residual"])):
             failed.append(rec)
         return rec
 
@@ -2994,7 +3022,7 @@ def sparse_f64(torch):
     cases += [(nm, st, b_st, "model problem, stencil") for nm in names]
     cases.append(("pipe_pr_pcg", st_j, b_j,
                   "band of -0.016, stencil"))
-    compare_f64(torch, "sparse_f64", cases, no_kernel)
+    compare_f64(torch, "sparse_f64", cases, vector_phase_expected)
 
     dell = df_operator(coo_from_scipy(a27), fmt="ell", device="cpu")
     compare_f64(torch, "sparse_f64",
@@ -5691,9 +5719,12 @@ def kernel_records(timings, launches):
                 "pipe_vector.cu", "fused_step.py:160", (path,)),
         })
     # at the full-width band the unpreconditioned pipe names take the
-    # whole-iteration entry, so this one runs on the wide band only
+    # whole-iteration entry, so this one runs on the wide band, and on every
+    # operator no other kernel step serves: ELL at HPCG's n
     records["fused_pipe_vector_phase" + WIDE] = (
         "pipe_vector.cu", "fused_step.py:76", ("dia_wide_f32",))
+    records["fused_pipe_vector_phase" + HPCG_VEC] = (
+        "pipe_vector.cu", "fused_step.py:76", ("ell_f32",))
     for entry in DIA_STEP:
         if entry not in VECTOR_PHASES:
             line = "483" if "_prec" in entry else "329"

@@ -2,7 +2,8 @@
 full-DIA storage: the port of the JAX package's ``ops/fused_step.py``.
 
 * :func:`fused_pipe_vector_phase` — the unpreconditioned vector phase in one
-  pass (``csrc/pipe_vector.cu``):
+  pass (``csrc/pipe_vector.cu``), which reads no operator, so every
+  operator's split pipe step takes it (``Context.pipe_vector_phase``):
 
       x2 = x + a1 p;  r2 = r - a1 s;  w2 = w - a1 u;
       p2 = r2 + beta p;  s2 = w2 + beta s;
@@ -149,6 +150,8 @@ def _vector_phase(wrapper, plain, vecs, a1, beta, nout):
     if sfx is None:
         raise TypeError(f"{wrapper.__name__} takes float32 or float64, not "
                         f"{x.dtype}")
+    # a column of a dense 2-RHS product's output is strided
+    vecs = tuple(v.contiguous() for v in vecs)
     outs, dots = _launch("pipe_vector.cu", wrapper.__name__,
                          (int(nout == 8),), sfx, x, x.shape[0], vecs,
                          (a1, beta), nout)

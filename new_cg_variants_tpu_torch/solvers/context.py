@@ -14,9 +14,11 @@ import weakref
 import torch
 
 from ..ops import fused_family, fused_step, sym_fused
+from ..ops._kernels import KERNEL_DTYPES
 from ..ops.compensated import comp_dot
 from ..ops.operators import DiaOperator
 from ..ops.sym_dia import SymDiaOperator
+from ..utils.profiling import count
 from .precond import IdentityPreconditioner, JacobiPreconditioner
 
 __all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step"]
@@ -51,9 +53,13 @@ class Context:
       ``pipe_vector_phase_prec`` (kernel; any preconditioner, when no norm
       rides the dot batch), then ``mv2`` / ``mv`` (kernel).
     * Any other operator (dense, ELL, stencil, block-banded): every hook
-      returns ``None`` and ``pipe_vector_phase`` takes the generic
-      formulation, so every name runs its generic body over ``mv`` /
-      ``mv2`` (on ELL one launch of ``csrc/ell_spmv.cu`` per product).
+      returns ``None``, so every name runs its generic body over ``mv`` /
+      ``mv2`` (on ELL one launch of ``csrc/ell_spmv.cu`` per product);
+      the unpreconditioned pipe names take the split formulation with the
+      vector-phase kernel, as on a wide band.
+
+    ``pipe_vector_phase`` reads no operator: it takes the kernel unless the
+    dots are compensated or the vectors are neither float32 nor float64.
     """
 
     def __init__(self, op, precond=None, compensated=False):
@@ -133,12 +139,19 @@ class Context:
         return isinstance(self.op, DiaOperator)
 
     def pipe_vector_phase(self, x, r, w, u, p, s, a1, beta):
-        """Unpreconditioned pipe vector phase + its 4-dot batch: one kernel
-        pass on full-DIA storage, the generic formulation elsewhere (and with
-        compensated dots)."""
-        if self._dia and not self.compensated:
+        """Unpreconditioned pipe vector phase + its 4-dot batch, on any
+        operator: one pass of the vector-phase kernel
+        (:func:`~..ops.fused_step.fused_pipe_vector_phase`; on CPU tensors
+        its plain version, the generic formulation's bits), or the generic
+        formulation with compensated dots or vectors of a dtype the kernel
+        does not take (:data:`~..ops._kernels.KERNEL_DTYPES`).  Counts
+        ``vector_phases.kernel`` or ``vector_phases.generic``
+        (:mod:`..utils.profiling`) each time the step's Python runs."""
+        if not self.compensated and x.dtype in KERNEL_DTYPES:
+            count("vector_phases.kernel")
             return fused_step.fused_pipe_vector_phase(x, r, w, u, p, s, a1,
                                                       beta)
+        count("vector_phases.generic")
         return generic_pipe_vector_phase(self, x, r, w, u, p, s, a1, beta)
 
     def _fused(self, name, jacobi=False):

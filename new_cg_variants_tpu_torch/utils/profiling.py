@@ -50,6 +50,12 @@ The counters (cumulative over the process; seconds are host seconds):
 ``basis_moves``        vectors moved into or out of an operator's
                        reordered basis (``block_banded.solver_basis``:
                        ELL in a locality order, block-banded), ``basis_s``
+``vector_phases.*``    pipe vector phases ``Context.pipe_vector_phase``
+                       built on the one-pass kernel (``.kernel``:
+                       ``fused_step.fused_pipe_vector_phase``) or on the
+                       generic body (``.generic``), counted when the
+                       step's Python runs: each eager step and each
+                       capture, never a replay of a captured graph
 =====================  ====================================================
 
 The spans: ``solve`` (``api.solve`` / ``api.run``), ``build``

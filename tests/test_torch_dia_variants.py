@@ -338,13 +338,111 @@ def test_vector_phase_prec_serves_any_preconditioner(sband, kernel_calls):
                             "fused_pipe_vector_phase_prec": 4}
 
 
+#: the one entry a dense operator's step reaches: the vector-phase kernel of
+#: the unpreconditioned pipe names, which reads no operator
+DENSE_CALLS = {"pipe_pr_cg": {"fused_pipe_vector_phase": 5}}
+
+
 @pytest.mark.parametrize("name", ["hs_cg", "cg_pcg", "gv_cg", "pr_pcg",
                                   "pipe_pr_cg", "pipe_p_pcg"])
 def test_dense_operator_reaches_no_kernel(spd64, kernel_calls, name):
     _, top, b = spd64
     res = port.solve(top, b, variant=name, preconditioner=_jacobi(name),
                      max_iter=5, norm_type="none", device="cpu")
-    assert res.iterations == 5 and kernel_calls == {}
+    assert res.iterations == 5
+    assert kernel_calls == DENSE_CALLS.get(name, {})
+
+
+def hpcg27(grid=8, seed=5):
+    """HPCG's 27-point operator (26 on the diagonal, -1 to each neighbour)
+    on a grid^3 box under a seeded random numbering, as scipy CSR."""
+    import scipy.sparse as sp
+
+    t = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(grid, grid))
+    a = (27.0 * sp.identity(grid ** 3) - sp.kron(sp.kron(t, t), t)).tocsr()
+    p = np.random.default_rng(seed).permutation(grid ** 3)
+    return a[p][:, p].tocsr()
+
+
+def _route_operator(kind):
+    from new_cg_variants_tpu_torch.ops.operators import (
+        coo_from_scipy,
+        from_coo,
+    )
+
+    if kind == "stencil":
+        op, b, _ = port.banded_model(2048, k=4, kappa=100.0, fmt="stencil",
+                                     device="cpu")
+        return op, b
+    op = from_coo(coo_from_scipy(hpcg27()), fmt=kind, dtype=torch.float64,
+                  device="cpu")
+    assert kind != "ell" or op.perm is not None  # kept in its RCM order
+    return op, op.mv(torch.ones(op.n, dtype=torch.float64))
+
+
+def _grown(fn):
+    from new_cg_variants_tpu_torch.utils import profiling
+
+    before = profiling.counters()
+    out = fn()
+    after = profiling.counters()
+    return out, {k: v - before.get(k, 0) for k, v in after.items()
+                 if k.startswith("vector_phases.") and v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("kind", ["ell", "stencil", "block_banded"])
+@pytest.mark.parametrize("name", ["pipe_pr_cg", "pipe_p_cg"])
+def test_every_operator_takes_the_vector_phase_kernel(kernel_calls, kind,
+                                                      name, monkeypatch):
+    """ELL (in its RCM basis), stencil and block-banded operators: the
+    unpreconditioned pipe step's vector phase is the kernel's entry once a
+    step, counted as ``vector_phases.kernel``, and no DIA or half-band
+    entry runs; its plain version gives the generic body's bits."""
+    from new_cg_variants_tpu_torch.solvers import context
+
+    op, b = _route_operator(kind)
+    kw = dict(max_iter=STEPS + 1, probes=SCALARS + ("save_x",),
+              device="cpu")
+    got, grown = _grown(lambda: port.run(name, op, b, **kw))
+    assert kernel_calls == {"fused_pipe_vector_phase": STEPS}
+    assert grown == {"vector_phases.kernel": STEPS}
+    monkeypatch.setattr(context.Context, "pipe_vector_phase",
+                        context.generic_pipe_vector_phase)
+    want, grown = _grown(lambda: port.run(name, op, b, **kw))
+    assert kernel_calls == {"fused_pipe_vector_phase": STEPS} and not grown
+    for p in SCALARS + ("save_x",):
+        np.testing.assert_array_equal(got[p], want[p], err_msg=p)
+
+
+def test_compensated_dots_keep_the_generic_body(kernel_calls):
+    op, b = _route_operator("ell")
+    res, grown = _grown(lambda: port.solve(
+        op, b, variant="pipe_pr_cg", max_iter=STEPS, norm_type="none",
+        compensated=True, device="cpu"))
+    assert res.iterations == STEPS and kernel_calls == {}
+    assert grown == {"vector_phases.generic": STEPS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+def test_the_route_takes_what_the_kernel_takes(kernel_calls, dtype):
+    """Float32 or float64 vectors take the kernel's entry, strided columns
+    (a dense 2-RHS product's) too; any other dtype keeps the generic body
+    and never raises.  Either gives the generic formulation's bits."""
+    from new_cg_variants_tpu_torch.solvers import context
+
+    vecs = [torch.arange(1.0, 9.0, dtype=dtype) * (k + 1) for k in range(6)]
+    pair = torch.stack([vecs[3], vecs[5]], dim=1)
+    vecs[3], vecs[5] = pair[:, 0], pair[:, 1]
+    one = torch.tensor(0.5, dtype=dtype)
+    kernel = dtype != torch.bfloat16
+    got, grown = _grown(lambda: Context(None).pipe_vector_phase(
+        *vecs, one, one))
+    assert kernel_calls == ({"fused_pipe_vector_phase": 1} if kernel else {})
+    assert grown == {f"vector_phases.{'kernel' if kernel else 'generic'}": 1}
+    want = context.generic_pipe_vector_phase(Context(None), *vecs, one, one)
+    for g, w in zip(got[:5] + got[5], want[:5] + want[5]):
+        assert g.dtype == dtype and torch.equal(g, w)
 
 
 def test_context_choice_reads_the_operator_kind_only(sband, spd64):
