@@ -1973,7 +1973,7 @@ def df_card_vs_cpu(torch):
     from new_cg_variants_tpu_torch.solvers import api
 
     api._DF_CHECKED.discard("cuda")
-    api._df_selfcheck(torch.device("cuda"))
+    api.df_selfcheck(torch.device("cuda"))
     emit("df_card_vs_cpu", selfcheck="passed on the card")
     sym, b64, _ = banded_model(DF_CPU_N, k=K_BAND, device="cpu")
     band = scaled_band(torch, DF_CPU_N, K_BAND)
@@ -3809,7 +3809,7 @@ def dist_f32(torch, mesh, timings):
     this rank's row context replayed, in turns, and the row context
     eagerly.  Returns the launches by wrapper."""
     from new_cg_variants_tpu_torch.parallel.dist import _local_ctx_factory
-    from new_cg_variants_tpu_torch.solvers.api import _resolve
+    from new_cg_variants_tpu_torch.solvers.api import resolve
     from new_cg_variants_tpu_torch.solvers.context import Context
 
     path, failed = {}, []
@@ -3839,7 +3839,7 @@ def dist_f32(torch, mesh, timings):
     op, b = dist_problem(torch, "pipe_pr_cg", "symdia", N, torch.float32)
     op = op.to("cuda")
     b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
-    init_fn, step_fn, _ = _resolve("pipe_pr_cg", op, None)
+    init_fn, step_fn = resolve("pipe_pr_cg", op, None)[3:5]
     bench = {}
     for label in ("single", "dist", "dist eager", "dist again",
                   "single again"):
@@ -4663,7 +4663,7 @@ def df_witness(torch, mesh, dop, b):
     Returns ``(generic run's rows, failed)``."""
     from new_cg_variants_tpu_torch.ops.doublefloat import DoubleFloatContext
     from new_cg_variants_tpu_torch.parallel.dist import _setup
-    from new_cg_variants_tpu_torch.solvers.api import _df_pieces
+    from new_cg_variants_tpu_torch.solvers.api import prepare
     from new_cg_variants_tpu_torch.solvers.context import (
         generic_pipe_vector_phase)
 
@@ -4673,13 +4673,14 @@ def df_witness(torch, mesh, dop, b):
 
     runs = {}
     for name in DIST_DF_NAMES:
-        op, bw, x0, init_fn, step_fn, pre = _df_pieces(name, dop, b, None,
-                                                       None, "cuda")
-        runs[name] = df_rows(torch, DoubleFloatContext(op, pre), init_fn,
-                             step_fn, bw, x0, DIST_DF_ITERS)
+        p = prepare(name, dop, b, preconditioner=None, dtype="f32x2",
+                    compensated=False, device="cuda")
+        runs[name] = df_rows(torch, p.ctx, p.init_fn, p.step_fn, p.b, p.x0,
+                             DIST_DF_ITERS)
         if name == "pipe_pr_cg":
-            runs["generic"] = df_rows(torch, GenericPhase(op, pre), init_fn,
-                                      step_fn, bw, x0, DIST_DF_ITERS)
+            runs["generic"] = df_rows(
+                torch, GenericPhase(p.ctx.op, p.ctx.precond), p.init_fn,
+                p.step_fn, p.b, p.x0, DIST_DF_ITERS)
     _, local, _ = _setup("pipe_pr_cg", dop, b, None, mesh, "auto", None,
                          "f32x2", False, True, "cuda")
     runs["mesh"] = df_rows(torch, local.ctx, local.init_fn, local.step_fn,
@@ -5181,24 +5182,14 @@ def single_pieces(torch, op, b, variant, precond=None, dtype=None):
     step loop on ``op`` as a solve runs it: double-word for a
     ``DFOperator`` (or ``dtype="f32x2"``), else in the operator's basis
     (ELL in a locality order, block-banded)."""
-    from new_cg_variants_tpu_torch.ops.block_banded import solver_basis
-    from new_cg_variants_tpu_torch.ops.doublefloat import (
-        DFOperator,
-        DoubleFloatContext,
-        df_split,
-    )
-    from new_cg_variants_tpu_torch.solvers.api import _df_pieces, _resolve
-    from new_cg_variants_tpu_torch.solvers.context import Context
+    from new_cg_variants_tpu_torch.ops.doublefloat import DFOperator
+    from new_cg_variants_tpu_torch.solvers.api import prepare
 
-    if isinstance(op, DFOperator) or dtype == "f32x2":
-        op, b, x0, init_fn, step_fn, prec = _df_pieces(
-            variant, op, b.cpu().numpy(), None, precond,
-            torch.device("cuda"))
-        return DoubleFloatContext(op, prec), init_fn, step_fn, b, x0
-    op, to_basis, _ = solver_basis(op)
-    b = to_basis(b)
-    init_fn, step_fn, prec = _resolve(variant, op, precond)
-    return Context(op, prec), init_fn, step_fn, b, torch.zeros_like(b)
+    if isinstance(op, DFOperator):
+        dtype = "f32x2"
+    p = prepare(variant, op, b, preconditioner=precond, dtype=dtype,
+                compensated=False, device="cuda")
+    return p.ctx, p.init_fn, p.step_fn, p.b, p.x0
 
 
 def jit_timed(torch, phase, op, b, variant, card, chunk_iters=ITERS_PER_CHUNK,
@@ -5358,7 +5349,7 @@ def df_checked(torch):
     use_jit pair so that neither run's launches include it."""
     from new_cg_variants_tpu_torch.solvers import api
 
-    api._df_selfcheck(torch.device("cuda"))
+    api.df_selfcheck(torch.device("cuda"))
 
 
 def jit_f32x2(torch, card, built, timings):

@@ -74,38 +74,6 @@ class ScalingResult:
         }
 
 
-def _pieces(variant, op, b, preconditioner, dtype, dev):
-    """``(ctx, init_fn, step_fn, b, x0, x_out)`` of a variant's step loop on
-    ``dev``, as :func:`~..solvers.api.run` builds them; ``x_out`` maps the
-    final ``x`` to a single-word vector in the original order (a
-    block-banded operator, or ELL in a locality order, steps in its
-    reordered basis)."""
-    from ..ops.operators import as_operator, torch_dtype
-    from ..solvers.api import (
-        _df_pieces,
-        _in_basis,
-        _resolve,
-        _vector_dtype,
-        is_double_word,
-    )
-    from ..solvers.context import Context
-
-    if is_double_word(dtype):
-        from ..ops.doublefloat import DoubleFloatContext
-
-        op, b, x0, init_fn, step_fn, precond = _df_pieces(
-            variant, op, b, None, preconditioner, dev)
-        return (DoubleFloatContext(op, precond), init_fn, step_fn, b, x0,
-                lambda x: x.value64())
-    op = as_operator(op, dtype=torch_dtype(dtype), device=dev)
-    b = torch.as_tensor(b, dtype=_vector_dtype(op), device=dev)
-    op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
-                                                         preconditioner)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
-    return (Context(op, precond), init_fn, step_fn, to_basis(b),
-            to_basis(torch.zeros_like(b)), from_basis)
-
-
 def _chained(ctx, init_fn, step_fn, b, x0, steps, replays, dev):
     """``one_trial() -> (seconds, state)``: the init, then ``steps``
     chained steps, the timer closed by one synchronize of ``dev``.  With a
@@ -161,17 +129,22 @@ def time_variant(
     // chunk_iters`` (at least one) times ``chunk_iters`` steps (default
     ``max_iter``); a rank outside the mesh returns ``None``.
     """
+    from ..solvers.api import prepare
     from ..solvers.graphs import runner
 
     dev = resolve_device(device)
     if mesh is None:
-        ctx, init_fn, step_fn, b, x0, x_out = _pieces(
-            variant, op, b, preconditioner, dtype, dev)
+        # as run builds it: a block-banded operator, or ELL in a locality
+        # order, steps in its reordered basis
+        p = prepare(variant, op, b, preconditioner=preconditioner,
+                    dtype=dtype, compensated=False, device=dev)
+        ctx, init_fn, step_fn, b, x0 = p.ctx, p.init_fn, p.step_fn, p.b, p.x0
         steps = max_iter if chunk_iters is None \
             else (max_iter // chunk_iters) * chunk_iters
 
         def final_x(state):
-            return x_out(state["x"]).detach().to("cpu", torch.float64).numpy()
+            return p.x_out(state["x"]).detach().to("cpu",
+                                                   torch.float64).numpy()
 
         n_devices, loop_dev = 1, dev
     else:

@@ -51,7 +51,14 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ..ops.block_banded import BlockBandedOperator, solver_basis
-from ..ops.doublefloat import DF, DFJacobi, DFOperator, df_operator, df_split
+from ..ops.doublefloat import (
+    DF,
+    DFJacobi,
+    DFOperator,
+    _host64,
+    df_operator,
+    df_split,
+)
 from ..ops.ell_spmv import check_index
 from ..ops.operators import (
     DenseOperator,
@@ -65,20 +72,18 @@ from ..ops.sym_dia import SymDiaOperator
 from ..probes.probes import resolve_probes
 from ..solvers import graphs
 from ..solvers.api import (
-    SolveResult,
-    _compute_x_true,
-    _df_selfcheck,
-    _host64,
-    _in_basis,
-    _loop_runner,
-    _needs_x_true,
-    _resolve,
-    _vectors,
+    compute_x_true,
+    df_selfcheck,
     is_double_word,
+    loop_runner,
+    needs_x_true,
+    resolve,
+    solve_result,
+    vectors,
 )
 from ..solvers.engine import history_scan, tolerance_loop
-from ..solvers.families import FAMILIES, family_of
-from ..solvers.precond import IdentityPreconditioner, JacobiPreconditioner
+from ..solvers.families import family_of
+from ..solvers.precond import JacobiPreconditioner
 from .contexts import (
     BlockBandedRowShardContext,
     ColShardContext,
@@ -346,20 +351,6 @@ def _gather_df(v, mesh):
     return _gather(v.hi, mesh).double() + _gather(v.lo, mesh).double()
 
 
-def _pieces(op, b, x0, dtype, device):
-    """What both entry points do first: the global operator in ``dtype``
-    (left where the caller made it: each rank moves only its slice), ``b``
-    and ``x0`` in the solve's vector dtype (bf16 storage: float32), and the
-    resolved ``device``."""
-    dev = resolve_device(device)
-    is_op = (hasattr(op, "mv") and hasattr(op, "diagonal")
-             and not isinstance(op, torch.Tensor))
-    op = as_operator(op, dtype=torch_dtype(dtype),
-                     device=op.device if is_op else dev)
-    b, x0 = _vectors(op, b, x0, op.device)
-    return op, b, x0, dev
-
-
 def _mesh_for(mesh, dev):
     if mesh is None:
         return make_mesh(device=dev)
@@ -385,19 +376,25 @@ def _single_word(variant, op, b, x0, mesh, partition, preconditioner,
     """``(mesh, local, aux_x_true)`` of a single-word distributed solve, or
     ``(mesh, None, None)`` on a rank outside the mesh.  Every refusal raises
     before the mesh (and a process group) is made."""
-    op, b, x0, dev = _pieces(op, b, x0, dtype, device)
+    dev = resolve_device(device)
+    # the global operator in ``dtype``, left where the caller made it (each
+    # rank moves only its slice), ``b`` and ``x0`` in its vector dtype
+    is_op = (hasattr(op, "mv") and hasattr(op, "diagonal")
+             and not isinstance(op, torch.Tensor))
+    op = as_operator(op, dtype=torch_dtype(dtype),
+                     device=op.device if is_op else dev)
+    b, x0 = vectors(op, b, x0, op.device)
     partition = _check_partition(solver_basis(op)[0], partition)
     mesh = _mesh_for(mesh, dev)
     if not _in_mesh(mesh):
         return mesh, None, None
     if need_x_true and x_true is None:
-        x_true = _compute_x_true(op, b)
+        x_true = compute_x_true(op, b)
     # ELL in a locality order, or block-banded: each rank takes a block of
     # the basis's rows; past one rank a preconditioner acts on a rank's rows
-    op, to_basis, from_basis, preconditioner = _in_basis(
-        variant, op, preconditioner, shard_local=mesh.size() > 1)
-    init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
-                                         w_replace, w_replace_init)
+    op, to_basis, from_basis, init_fn, step_fn, precond = resolve(
+        variant, op, preconditioner, shard_local=mesh.size() > 1,
+        w_replace=w_replace, w_replace_init=w_replace_init)
     ctx = _local_ctx_factory(op, mesh, precond, compensated, partition,
                              col_packed)
     m, rank, rdev = op.n // mesh.size(), mesh.get_local_rank(), \
@@ -427,21 +424,6 @@ def _df_operator(op):
     return df_operator(op, fmt="dia", device="cpu")
 
 
-def _df_precond(prec_flag, preconditioner, op_df):
-    if not prec_flag:
-        return None
-    if preconditioner is None or (isinstance(preconditioner, str)
-                                  and preconditioner == "identity"):
-        return IdentityPreconditioner()
-    if isinstance(preconditioner, DFJacobi):
-        return preconditioner
-    if isinstance(preconditioner, str) and preconditioner == "jacobi":
-        return DFJacobi.from_operator(op_df)
-    raise NotImplementedError(
-        "distributed f32x2 supports preconditioner None|'jacobi'; got "
-        + repr(preconditioner))
-
-
 def _double_word(variant, op, b, x0, mesh, preconditioner, device,
                  x_true=None, need_x_true=False):
     """``(mesh, local, aux_x_true)`` of a double-word distributed solve
@@ -453,15 +435,20 @@ def _double_word(variant, op, b, x0, mesh, preconditioner, device,
         raise TypeError(
             "distributed f32x2 requires a DIA-representable operator (got "
             f"inner {type(op_df.inner).__name__})")
-    key, prec_flag = family_of(variant)
-    init_fn, step_fn = FAMILIES[key]
-    precond = _df_precond(prec_flag, preconditioner, op_df)
+    spec = preconditioner
+    if family_of(variant)[1] and not (
+            spec is None or isinstance(spec, DFJacobi)
+            or isinstance(spec, str) and spec in ("identity", "jacobi")):
+        raise NotImplementedError(
+            "distributed f32x2 supports preconditioner None|'jacobi'; got "
+            + repr(spec))
+    _, _, _, init_fn, step_fn, precond = resolve(variant, op_df, spec)
     mesh = _mesh_for(mesh, dev)
     if not _in_mesh(mesh):
         return mesh, None, None
     inner = op_df.inner
     p, rank, m, rdev = _shard_shape(inner, mesh)
-    _df_selfcheck(rdev)
+    df_selfcheck(rdev)
 
     def rows(v):
         return DF(_rows(v.hi, rank, m, rdev), _rows(v.lo, rank, m, rdev))
@@ -484,7 +471,7 @@ def _double_word(variant, op, b, x0, mesh, preconditioner, device,
     aux_x_true = None
     if need_x_true:
         if x_true is None:
-            x_true = _compute_x_true(op_df, _host64(b))
+            x_true = compute_x_true(op_df, _host64(b))
         aux_x_true = rows(df_split(_host64(x_true), device="cpu"))
     return mesh, local, aux_x_true
 
@@ -544,14 +531,14 @@ def dist_run(
     # the hook is wired into the step at set-up, so the runner comes first:
     # for the device's kind, whose current device is the rank's
     # (_rank_device) when the loop starts
-    runner, w_replace = _loop_runner(
+    runner, w_replace = loop_runner(
         torch.device(resolve_device(device).type), True, w_replace,
         w_replace_init)
     mesh, local, aux_x_true = _setup(
         variant, op, b, x0, mesh, partition, preconditioner, dtype,
         compensated, col_packed, device, w_replace=w_replace,
         w_replace_init=w_replace_init, x_true=x_true,
-        need_x_true=_needs_x_true(probe_fns))
+        need_x_true=needs_x_true(probe_fns))
     if local is None:
         return None
     return _dist_history(variant, local, probe_fns, max_iter, aux_x_true,
@@ -620,12 +607,7 @@ def _dist_tolerance(local, max_iter, rtol, atol, norm_type, runner):
     s, k, nrm, tol = tolerance_loop(local.ctx, local.init_fn, local.step_fn,
                                     local.b, local.x0, max_iter, rtol, atol,
                                     norm_type, runner=runner)
-    return SolveResult(
-        x=local.gather(s["x"]),
-        iterations=int(k),
-        norm=float(nrm),
-        converged=bool(norm_type == "none" or float(nrm) <= float(tol)),
-    )
+    return solve_result(local.gather(s["x"]), k, nrm, tol, norm_type)
 
 
 def _dist_chunked(variant, op, b, mesh, partition, preconditioner,

@@ -32,15 +32,20 @@ permuted once per solve (on an ELL operator by row 12's gather in), every
 product of the loop runs on the reordered storage with no permutation, and
 ``x`` and the vector probe rows come back in the original order and
 dimension.  A preconditioner of a ``_pcg`` name on such an ELL operator
-acts as in the JAX package's given-order ELL solve (:func:`_in_basis`):
+acts as in the JAX package's given-order ELL solve (:func:`resolve`):
 Jacobi is the basis's diagonal, and any other object or callable sees
 vectors in the original order (:class:`.precond.GivenOrderPreconditioner`);
 on a block-banded operator it acts in the basis, as in the JAX package.
+
+Every single-device entry point (:func:`run`, :func:`solve`, the scaling
+harness's ``time_variant``) is built by :func:`prepare`; every tolerance
+solve, on one device or a mesh, ends in :func:`solve_result`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +54,7 @@ from .._device import resolve_device
 from ..ops import df_spmv
 from ..ops.doublefloat import (
     DFJacobi,
+    DFOperator,
     DoubleFloatContext,
     _host64,
     df_operator,
@@ -71,7 +77,7 @@ from .precond import (
 )
 
 __all__ = ["run", "solve", "SolveResult", "VARIANT_NAMES",
-           "is_double_word"]
+           "is_double_word", "prepare", "resolve", "solve_result"]
 
 VARIANT_NAMES = tuple(
     f"{base}_{suffix}"
@@ -85,7 +91,7 @@ def is_double_word(dtype) -> bool:
     return isinstance(dtype, str) and dtype == "f32x2"
 
 
-def _loop_runner(dev, use_jit, w_replace, w_replace_init):
+def loop_runner(dev, use_jit, w_replace, w_replace_init):
     """``(runner, w_replace)`` of a loop on ``dev``: the graph runner (or
     ``None``, the eager loop) and the hook as the loop calls it, checked
     to answer with a tensor under capture (:func:`.graphs.checked_hook`)."""
@@ -119,62 +125,70 @@ def _gv_replace_hooks(key, init_fn, step_fn, w_replace, w_replace_init):
     return init_fn, step_fn
 
 
-def _resolve(variant, op, preconditioner, w_replace=None,
-             w_replace_init=None):
-    """``(init_fn, step_fn, precond)`` of a variant name on operator ``op``;
-    the preconditioner in the solve's vector dtype on the operator's device.
+def resolve(variant, op, preconditioner, *, shard_local=False,
+            w_replace=None, w_replace_init=None):
+    """``(op, to_basis, from_basis, init_fn, step_fn, precond)`` of a
+    solve of ``variant`` on ``op``: the operator in its basis
+    (:func:`~..ops.block_banded.solver_basis`), the family's functions with
+    the gv replacement hook wired in (:func:`_gv_replace_hooks`), and the
+    preconditioner of a ``_pcg`` name (a ``_cg`` name ignores the spec).
+
+    Single words: ``None`` is M = I (the reference's default
+    ``preconditioner=lambda x: x``), else :func:`.precond.make_preconditioner`
+    of the spec, cast to the solve's vector dtype on the operator's device.
+    On an ELL operator in a locality order ``perm``, ``"jacobi"`` is the
+    basis's diagonal, a :class:`.precond.JacobiPreconditioner` has its
+    ``inv_diag`` gathered into the basis once, and any other object or
+    callable sees and returns vectors in the original order
+    (:class:`.precond.GivenOrderPreconditioner`), as in the JAX package's
+    given-order ELL solve.  ``shard_local`` (a mesh of more than one rank)
+    leaves those as they are: each rank applies them to its own rows, so
+    they must act row by row (the identity, a pointwise function), as the
+    JAX package's ``dist_run`` requires.  A block-banded operator's
+    preconditioner acts in its basis, as in the JAX package.
+
+    Double words (a :class:`~..ops.doublefloat.DFOperator`, its own basis):
+    ``None`` or ``"identity"`` is M = I, ``"jacobi"`` the
+    :class:`~..ops.doublefloat.DFJacobi` of its diagonal, a ``DFJacobi``
+    moves to its device, and an object or callable maps double-word vectors
+    as it is.  The hook's view holds double-word values: a policy on
+    magnitudes collapses them with ``.value()``.
     """
     key, prec_flag = family_of(variant)
-    init_fn, step_fn = FAMILIES[key]
-    init_fn, step_fn = _gv_replace_hooks(key, init_fn, step_fn, w_replace,
+    init_fn, step_fn = _gv_replace_hooks(key, *FAMILIES[key], w_replace,
                                          w_replace_init)
-    precond = make_preconditioner(preconditioner if prec_flag else None, op)
-    if prec_flag and precond is None:
-        # a *_pcg variant with no preconditioner given degrades to M = I,
-        # like the reference's default `preconditioner=lambda x: x`
-        precond = IdentityPreconditioner()
-    if precond is not None:
-        if hasattr(precond, "astype"):
-            precond = precond.astype(_vector_dtype(op))
-        if hasattr(precond, "to"):
-            precond = precond.to(op.device)
-    return init_fn, step_fn, precond
-
-
-def _in_basis(variant, op, preconditioner, shard_local=False):
-    """``(op, to_basis, from_basis, preconditioner)`` of a solve on ``op``
-    in its basis (:func:`~..ops.block_banded.solver_basis`), the
-    preconditioner spec of a ``_pcg`` name moved into that basis with it.
-
-    On an ELL operator in a locality order ``perm``: ``"jacobi"`` is built
-    later from the basis's diagonal; a :class:`.precond.JacobiPreconditioner`
-    has its ``inv_diag`` gathered into the basis here, once; any other
-    object or callable is wrapped to see and return vectors in the original
-    order (:class:`.precond.GivenOrderPreconditioner`), as the JAX package's
-    given-order ELL solve applies it.  ``shard_local`` (a mesh of more than
-    one rank) leaves those as they are: each rank applies them to its own
-    rows, which must then act row by row with no state of the order (the
-    identity, a pointwise function), as the JAX package's ``dist_run``
-    requires.  A block-banded operator's preconditioner acts in its basis,
-    as in the JAX package; a spec of a name that is not ``_pcg`` is left
-    for :func:`_resolve` to ignore."""
     inner, to_basis, from_basis = solver_basis(op)
     spec = preconditioner
-    if (isinstance(op, EllOperator) and op.perm is not None
-            and family_of(variant)[1] and spec is not None
-            and not isinstance(spec, (str, IdentityPreconditioner))):
-        if isinstance(spec, JacobiPreconditioner):
-            spec = JacobiPreconditioner(to_basis(
-                spec.inv_diag.to(device=op.device,
-                                 dtype=_vector_dtype(op))))
-        elif not shard_local:
-            spec = GivenOrderPreconditioner(make_preconditioner(spec, op),
-                                            op.perm)
-    return inner, to_basis, from_basis, spec
-
-
-def _operator(A, dtype, device):
-    return as_operator(A, dtype=torch_dtype(dtype), device=device)
+    if not prec_flag:
+        precond = None
+    elif isinstance(op, DFOperator):
+        if spec is None or (isinstance(spec, str) and spec == "identity"):
+            precond = IdentityPreconditioner()
+        elif isinstance(spec, str) and spec == "jacobi":
+            precond = DFJacobi.from_operator(op)
+        elif isinstance(spec, DFJacobi):
+            precond = spec.to(op.device)
+        else:
+            precond = make_preconditioner(spec, op)
+    else:
+        vdt = _vector_dtype(op)
+        if (isinstance(op, EllOperator) and op.perm is not None
+                and spec is not None
+                and not isinstance(spec, (str, IdentityPreconditioner))):
+            if isinstance(spec, JacobiPreconditioner):
+                spec = JacobiPreconditioner(to_basis(
+                    spec.inv_diag.to(device=op.device, dtype=vdt)))
+            elif not shard_local:
+                spec = GivenOrderPreconditioner(
+                    make_preconditioner(spec, op), op.perm)
+        precond = make_preconditioner(spec, inner)
+        if precond is None:
+            precond = IdentityPreconditioner()
+        if hasattr(precond, "astype"):
+            precond = precond.astype(vdt)
+        if hasattr(precond, "to"):
+            precond = precond.to(inner.device)
+    return inner, to_basis, from_basis, init_fn, step_fn, precond
 
 
 def _vector_dtype(op):
@@ -187,7 +201,7 @@ def _vector_dtype(op):
 _SPARSE_SOLVE_MIN_N = 4096
 
 
-def _compute_x_true(op, b):
+def compute_x_true(op, b):
     """Host-side direct solve for the error probes (scipy, float64)."""
     b64 = np.asarray(torch.as_tensor(b).detach().cpu(), dtype=np.float64)
     if op.n >= _SPARSE_SOLVE_MIN_N:
@@ -197,16 +211,128 @@ def _compute_x_true(op, b):
     return np.linalg.solve(op.todense(), b64)
 
 
-def _needs_x_true(probe_fns):
+def needs_x_true(probe_fns):
     return any(name.startswith("error") for name in probe_fns)
 
 
-def _vectors(op, b, x0, device):
+def vectors(op, b, x0, device):
+    """``b`` and ``x0`` (default zeros) in ``op``'s vector dtype on
+    ``device``."""
     vdt = _vector_dtype(op)
     b = torch.as_tensor(b, dtype=vdt, device=device)
     x0 = (torch.zeros_like(b) if x0 is None
           else torch.as_tensor(x0, dtype=vdt, device=device))
     return b, x0
+
+
+#: devices on which the double-word transforms have passed df_selfcheck
+_DF_CHECKED = set()
+
+
+def df_selfcheck(dev):
+    """Once per device: the error words of a double-word product survive.
+
+    A tiny three-word DIA product through the path every double-word product
+    takes on ``dev`` (the kernel of ``csrc/df_spmv.cu`` on the card, the
+    plain version on the CPU) whose exact results need both words: row 0
+    needs 2Sum's error word (1 + 2^-30 (1 + 2^-12)), row 1 2Prod's ((1 +
+    2^-12)^2 = 1 + 2^-11 + 2^-24).  Arithmetic that contracts a multiply and
+    an add, or flushes a word, loses one of them; the mode would then run at
+    single precision while looking plausible, so this raises.
+    """
+    if str(dev) in _DF_CHECKED:
+        return
+    c = 1.0 + 2.0 ** -12
+    band = df_split3(np.array([[1.0, c], [2.0 ** -30, 0.0]]), device=dev)
+    v = df_split(np.array([1.0, c]), device=dev)
+    yh, yl = df_spmv.df_dia_spmv((0, 1), *band, (v.hi, v.lo))
+    got = (yh.double() + yl.double()).cpu().numpy()
+    want = np.array([1.0 + 2.0 ** -30 * c, c * c])
+    if not (np.array_equal(got, want) and bool((yl != 0).all())):
+        raise RuntimeError(
+            f"the double-word error words did not survive on {dev}: got "
+            f"{got.tolist()} (low words {yl.tolist()}), expected "
+            f"{want.tolist()}; dtype='f32x2' would collapse to single "
+            "precision")
+    _DF_CHECKED.add(str(dev))
+
+
+class Prepared(NamedTuple):
+    """A single-device solve as :func:`prepare` builds it: ``b`` and ``x0``
+    in its basis and words; ``x_out`` maps the final ``x`` to the original
+    order (double words: ``hi + lo`` in float64), ``rows_out`` vector probe
+    rows ``(T, n)``; ``aux_x_true`` places ``x_true`` (``None``:
+    :func:`compute_x_true`) as the error probes read it."""
+
+    ctx: object
+    init_fn: Callable
+    step_fn: Callable
+    b: object
+    x0: object
+    x_out: Callable
+    rows_out: Callable
+    aux_x_true: Callable
+
+
+def prepare(variant, A, b, x0=None, *, preconditioner, dtype, compensated,
+            device, w_replace=None, w_replace_init=None):
+    """The set-up of a single-device solve of ``variant`` on ``A`` for
+    either word format, as a :class:`Prepared`.
+
+    Single words: ``A`` as an operator in ``dtype`` on ``device``
+    (:func:`~..ops.operators.as_operator`), ``b`` and ``x0`` in its vector
+    dtype, moved into its basis with the preconditioner (:func:`resolve`),
+    and a :class:`.context.Context` (``compensated``: error-free-transform
+    dots).  ``dtype="f32x2"``: the double-word operator, ``b`` and ``x0``
+    split exactly from float64, and a
+    :class:`~..ops.doublefloat.DoubleFloatContext` (its dots are double-word
+    already: ``compensated`` is not read), after the once-per-device
+    :func:`df_selfcheck`.
+    """
+    dev = resolve_device(device)
+    hooks = dict(w_replace=w_replace, w_replace_init=w_replace_init)
+    if is_double_word(dtype):
+        df_selfcheck(dev)
+        op = df_operator(A, device=dev)
+        given = _host64(b)
+        b = df_split(given, device=dev)
+        x0 = df_split(np.zeros(op.n) if x0 is None else _host64(x0),
+                      device=dev)
+        op_, _, from_basis, init_fn, step_fn, precond = resolve(
+            variant, op, preconditioner, **hooks)
+        ctx = DoubleFloatContext(op_, precond)
+
+        def x_out(x):
+            return x.value64()
+
+        def place(x_true):
+            # split too, so the error probes subtract in double words (a
+            # single-word x_true would floor the error at float32 rounding)
+            return df_split(_host64(x_true), device=dev)
+    else:
+        op = as_operator(A, dtype=torch_dtype(dtype), device=dev)
+        given, x0 = vectors(op, b, x0, dev)
+        # a block-banded operator, or ELL in a locality order: solve in its
+        # reordered basis
+        op_, to_basis, from_basis, init_fn, step_fn, precond = resolve(
+            variant, op, preconditioner, **hooks)
+        ctx = Context(op_, precond, compensated=compensated)
+        b, x0 = to_basis(given), to_basis(x0)
+        x_out = from_basis
+
+        def place(x_true):
+            return to_basis(torch.as_tensor(x_true, dtype=given.dtype,
+                                            device=dev))
+
+    def rows_out(h):
+        # vector probe rows (T, n) of the basis (block-banded: padded)
+        return from_basis(h.T).T if h.ndim == 2 and h.shape[1] == op_.n else h
+
+    def aux_x_true(x_true):
+        return place(compute_x_true(op, given) if x_true is None else x_true)
+
+    return Prepared(ctx, init_fn, step_fn, b, x0, x_out, rows_out,
+                    aux_x_true)
 
 
 def run(
@@ -251,133 +377,25 @@ def run(
     """
     with span("solve"):
         dev = resolve_device(device)
-        runner, w_replace = _loop_runner(dev, use_jit, w_replace,
-                                         w_replace_init)
-        if is_double_word(dtype):
-            return _run_df(variant, A, b, x0, max_iter, preconditioner, probes,
-                           x_true, print_every, w_replace, w_replace_init, dev,
-                           runner)
-        op = _operator(A, dtype, dev)
-        b, x0 = _vectors(op, b, x0, dev)
+        runner, w_replace = loop_runner(dev, use_jit, w_replace,
+                                        w_replace_init)
+        p = prepare(variant, A, b, x0, preconditioner=preconditioner,
+                    dtype=dtype, compensated=compensated, device=dev,
+                    w_replace=w_replace, w_replace_init=w_replace_init)
         probe_fns = resolve_probes(probes)
-        if _needs_x_true(probe_fns) and x_true is None:
-            x_true = _compute_x_true(op, b)
-        # a block-banded operator, or ELL in a locality order: solve in its
-        # reordered basis
-        op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
-                                                             preconditioner)
-        b, x0 = to_basis(b), to_basis(x0)
-        init_fn, step_fn, precond = _resolve(variant, op, preconditioner,
-                                             w_replace, w_replace_init)
-        aux = {"b": b}
-        if _needs_x_true(probe_fns):
-            aux["x_true"] = to_basis(
-                torch.as_tensor(x_true, dtype=b.dtype, device=dev))
-        ctx = Context(op, precond, compensated=compensated)
-        final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b, x0,
-                                   max_iter, aux, print_every=print_every,
-                                   runner=runner)
+        aux = {"b": p.b}
+        if needs_x_true(probe_fns):
+            aux["x_true"] = p.aux_x_true(x_true)
+        final, hist = history_scan(p.ctx, p.init_fn, p.step_fn, probe_fns,
+                                   p.b, p.x0, max_iter, aux,
+                                   print_every=print_every, runner=runner)
         output = {"name": variant, "max_iter": max_iter,
-                  "x": from_basis(final["x"])}
+                  "x": p.x_out(final["x"])}
         for name in probe_fns:
-            h = hist[name]
-            if h.ndim == 2 and h.shape[1] == op.n:
-                h = from_basis(h.T).T  # vector probe rows, original order
+            h = p.rows_out(hist[name])
             with span("readback", "host_syncs"):
                 output[name] = h.cpu().numpy()
         return output
-
-
-def _df_pieces(variant, A, b, x0, preconditioner, dev, w_replace=None,
-               w_replace_init=None):
-    """The double-word mode's operator, right-hand side, initial guess,
-    family functions and preconditioner on ``dev``.
-
-    A ``_pcg`` name takes ``None`` or ``"identity"`` (M = I), ``"jacobi"``
-    (a :class:`~..ops.doublefloat.DFJacobi` of the operator's diagonal), a
-    ``DFJacobi``, an object with ``.apply`` or a callable; the last two map
-    double-word vectors to double-word vectors and are used as they are.
-    """
-    _df_selfcheck(dev)
-    op = df_operator(A, device=dev)
-    b_df = df_split(_host64(b), device=dev)
-    x0_df = df_split(np.zeros(op.n) if x0 is None else _host64(x0),
-                     device=dev)
-    key, prec_flag = family_of(variant)
-    init_fn, step_fn = FAMILIES[key]
-    # the replacement hook's view holds double-word values here: a policy
-    # that looks at magnitudes collapses them with .value()
-    init_fn, step_fn = _gv_replace_hooks(key, init_fn, step_fn, w_replace,
-                                         w_replace_init)
-    precond = None
-    if prec_flag:
-        spec = preconditioner
-        if spec is None or (isinstance(spec, str) and spec == "identity"):
-            precond = IdentityPreconditioner()
-        elif isinstance(spec, str) and spec == "jacobi":
-            precond = DFJacobi.from_operator(op)
-        elif isinstance(spec, DFJacobi):
-            precond = spec.to(dev)
-        else:
-            precond = make_preconditioner(spec, op)
-    return op, b_df, x0_df, init_fn, step_fn, precond
-
-
-#: devices on which the double-word transforms have passed _df_selfcheck
-_DF_CHECKED = set()
-
-
-def _df_selfcheck(dev):
-    """Once per device: the error words of a double-word product survive.
-
-    A tiny three-word DIA product through the path every double-word product
-    takes on ``dev`` (the kernel of ``csrc/df_spmv.cu`` on the card, the
-    plain version on the CPU) whose exact results need both words: row 0
-    needs 2Sum's error word (1 + 2^-30 (1 + 2^-12)), row 1 2Prod's ((1 +
-    2^-12)^2 = 1 + 2^-11 + 2^-24).  Arithmetic that contracts a multiply and
-    an add, or flushes a word, loses one of them; the mode would then run at
-    single precision while looking plausible, so this raises.
-    """
-    if str(dev) in _DF_CHECKED:
-        return
-    c = 1.0 + 2.0 ** -12
-    band = df_split3(np.array([[1.0, c], [2.0 ** -30, 0.0]]), device=dev)
-    v = df_split(np.array([1.0, c]), device=dev)
-    yh, yl = df_spmv.df_dia_spmv((0, 1), *band, (v.hi, v.lo))
-    got = (yh.double() + yl.double()).cpu().numpy()
-    want = np.array([1.0 + 2.0 ** -30 * c, c * c])
-    if not (np.array_equal(got, want) and bool((yl != 0).all())):
-        raise RuntimeError(
-            f"the double-word error words did not survive on {dev}: got "
-            f"{got.tolist()} (low words {yl.tolist()}), expected "
-            f"{want.tolist()}; dtype='f32x2' would collapse to single "
-            "precision")
-    _DF_CHECKED.add(str(dev))
-
-
-def _run_df(variant, A, b, x0, max_iter, preconditioner, probes, x_true,
-            print_every, w_replace, w_replace_init, dev, runner):
-    """Fixed-iteration history run in double-word arithmetic."""
-    op, b_df, x0_df, init_fn, step_fn, precond = _df_pieces(
-        variant, A, b, x0, preconditioner, dev, w_replace, w_replace_init)
-    probe_fns = resolve_probes(probes)
-    aux = {"b": b_df}
-    if _needs_x_true(probe_fns):
-        if x_true is None:
-            x_true = _compute_x_true(op, _host64(b))
-        # split too, so the error probes subtract in double words (a
-        # single-word x_true would floor the error at float32 rounding)
-        aux["x_true"] = df_split(_host64(x_true), device=dev)
-    ctx = DoubleFloatContext(op, precond)
-    final, hist = history_scan(ctx, init_fn, step_fn, probe_fns, b_df, x0_df,
-                               max_iter, aux, print_every=print_every,
-                               runner=runner)
-    output = {"name": variant, "max_iter": max_iter,
-              "x": final["x"].value64()}
-    for name in probe_fns:
-        with span("readback", "host_syncs"):
-            output[name] = hist[name].cpu().numpy()
-    return output
 
 
 @dataclass
@@ -386,6 +404,16 @@ class SolveResult:
     iterations: int
     norm: float
     converged: bool
+
+
+def solve_result(x, k, nrm, tol, norm_type):
+    """The :class:`SolveResult` of a finished tolerance loop: ``nrm`` read
+    back once, and ``tol`` once unless ``norm_type`` is ``'none'`` (which
+    converges by definition), each read counted (:func:`.engine.host_value`)."""
+    norm = host_value(nrm)
+    converged = norm_type == "none" or norm <= host_value(tol)
+    return SolveResult(x=x, iterations=int(k), norm=norm,
+                       converged=bool(converged))
 
 
 def solve(
@@ -424,32 +452,9 @@ def solve(
     with span("solve"):
         dev = resolve_device(device)
         runner = graphs.runner(dev, use_jit)
-        if is_double_word(dtype):
-            op, b, x0, init_fn, step_fn, precond = _df_pieces(
-                variant, A, b, x0, preconditioner, dev)
-            ctx = DoubleFloatContext(op, precond)
-            s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0,
-                                            max_iter, rtol, atol, norm_type,
-                                            runner=runner)
-            return SolveResult(
-                x=s["x"].value64(), iterations=int(k), norm=host_value(nrm),
-                converged=bool(norm_type == "none"
-                               or host_value(nrm) <= host_value(tol)))
-        op = _operator(A, dtype, dev)
-        b, x0 = _vectors(op, b, x0, dev)
-        # a block-banded operator, or ELL in a locality order: solve in its
-        # reordered basis
-        op, to_basis, from_basis, preconditioner = _in_basis(variant, op,
-                                                             preconditioner)
-        b, x0 = to_basis(b), to_basis(x0)
-        init_fn, step_fn, precond = _resolve(variant, op, preconditioner)
-        ctx = Context(op, precond, compensated=compensated)
-        s, k, nrm, tol = tolerance_loop(ctx, init_fn, step_fn, b, x0, max_iter,
-                                        rtol, atol, norm_type, runner=runner)
-        return SolveResult(
-            x=from_basis(s["x"]),
-            iterations=int(k),
-            norm=host_value(nrm),
-            converged=bool(norm_type == "none"
-                           or host_value(nrm) <= host_value(tol)),
-        )
+        p = prepare(variant, A, b, x0, preconditioner=preconditioner,
+                    dtype=dtype, compensated=compensated, device=dev)
+        s, k, nrm, tol = tolerance_loop(p.ctx, p.init_fn, p.step_fn, p.b,
+                                        p.x0, max_iter, rtol, atol,
+                                        norm_type, runner=runner)
+        return solve_result(p.x_out(s["x"]), k, nrm, tol, norm_type)

@@ -87,7 +87,7 @@ class GivenOrderPreconditioner:
     (inner.apply(r_orig))[perm]`` with ``r_orig[perm] = r``, so ``inner``
     sees and returns vectors in the original order.  For opaque objects and
     callables only: a Jacobi diagonal is moved into the basis once instead
-    (:func:`~.api._in_basis`)."""
+    (:func:`~.api.resolve`)."""
 
     def __init__(self, inner, perm):
         self.inner, self.perm = inner, perm

@@ -65,9 +65,8 @@ def _jacobi(name):
 
 
 def _pieces(top, name, w_replace=None, w_replace_init=None):
-    init_fn, step_fn, precond = tapi._resolve(name, top, _jacobi(name),
-                                              w_replace, w_replace_init)
-    return init_fn, step_fn, precond
+    return tapi.resolve(name, top, _jacobi(name), w_replace=w_replace,
+                        w_replace_init=w_replace_init)[3:]
 
 
 def _history(top, b, name, length, runner=None, print_every=0, **hooks):

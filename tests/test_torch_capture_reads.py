@@ -28,16 +28,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import new_cg_variants_tpu_torch as port
-from new_cg_variants_tpu_torch.ops.doublefloat import (
-    DoubleFloatContext,
-    collapse,
-    df_split,
-)
+from new_cg_variants_tpu_torch.ops.doublefloat import collapse
 from new_cg_variants_tpu_torch.ops.operators import coo_from_scipy
 from new_cg_variants_tpu_torch.probes.probes import PROBES
 from new_cg_variants_tpu_torch.solvers import api as tapi
 from new_cg_variants_tpu_torch.solvers import graphs
-from new_cg_variants_tpu_torch.solvers.context import Context
 
 N = 256
 K = 4
@@ -140,19 +135,16 @@ def _problem(kind, mode):
 
 
 def _setup(kind, mode, name, hook=None):
-    """``(ctx, init_fn, step_fn, b, x0, aux)`` of a name's step."""
+    """``(ctx, init_fn, step_fn, b, x0, aux)`` of a name's step, as a solve
+    builds it (a block-banded operator, or ELL in its locality order, steps
+    in its basis)."""
     op, b, x_true = _problem(kind, mode)
-    if mode == "f32x2":
-        op_, b_, x0, init_fn, step_fn, prec = tapi._df_pieces(
-            name, op, b, None, "jacobi", torch.device("cpu"), hook)
-        aux = {"b": b_, "x_true": df_split(x_true, device="cpu")}
-        return DoubleFloatContext(op_, prec), init_fn, step_fn, b_, x0, aux
-    init_fn, step_fn, prec = tapi._resolve(name, op, "jacobi", hook)
-    vdt = torch.float32 if mode in ("float32", "bf16") else torch.float64
-    b_ = torch.as_tensor(b, dtype=vdt)
-    ctx = Context(op, prec, compensated=mode == "compensated")
-    aux = {"b": b_, "x_true": torch.as_tensor(x_true, dtype=vdt)}
-    return ctx, init_fn, step_fn, b_, torch.zeros_like(b_), aux
+    p = tapi.prepare(name, op, b, preconditioner="jacobi",
+                     dtype="f32x2" if mode == "f32x2" else None,
+                     compensated=mode == "compensated", device="cpu",
+                     w_replace=hook)
+    aux = {"b": p.b, "x_true": p.aux_x_true(x_true)}
+    return p.ctx, p.init_fn, p.step_fn, p.b, p.x0, aux
 
 
 def _rows(ctx, s, aux):

@@ -182,7 +182,7 @@ def test_solve_on_dia_stops_where_jax_stops(sband, name, norm_type):
 
 
 def test_error_probe_works_out_x_true_on_each_kind(sband, spd64):
-    """``_compute_x_true`` goes through ``todense`` / ``tocsr`` of the
+    """``compute_x_true`` goes through ``todense`` / ``tocsr`` of the
     operator: small operators densely, n >= 4096 through scipy's sparse LU."""
     _, top, b = sband
     out = port.run("pr_cg", top, b, max_iter=3, probes=("error_A_norm",),

@@ -39,6 +39,7 @@ import torch_dist_groups as groups_
 import torch_dist_worker as worker
 from new_cg_variants_tpu_torch.parallel import dist as pdist
 from new_cg_variants_tpu_torch.solvers import graphs
+from new_cg_variants_tpu_torch.utils import profiling
 
 WORLDS = (1, 2)
 CHUNKS = (1, 2, 7)
@@ -190,6 +191,26 @@ def test_the_mesh_path_takes_the_eager_loop_on_the_cpu(monkeypatch, mesh):
     time_variant("pipe_pr_cg", op, b, max_iter=10, trials=1, mesh=mesh,
                  device="cpu")
     assert made == []
+
+
+@pytest.mark.parametrize("norm_type", ["natural", "none"])
+def test_dist_solve_counts_the_reads_of_solve(mesh, norm_type):
+    """``dist_solve`` reads its result back as ``solve`` does
+    (``api.solve_result``): with the same arguments on a world of one, the
+    same iterations and the same ``host_syncs``, so its norm and tolerance
+    reads are counted as ``solve``'s."""
+    op, b = worker.problem(("scaled", N, 4), "symdia")
+    kw = dict(variant="pipe_pr_pcg", preconditioner="jacobi", rtol=1e-6,
+              max_iter=40, norm_type=norm_type, device="cpu")
+    got = {}
+    for entry, fn in (("solve", lambda: port.solve(op, b, **kw)),
+                      ("dist_solve", lambda: pdist.dist_solve(
+                          op, b, mesh=mesh, **kw))):
+        before = profiling.counters().get("host_syncs", 0)
+        res = fn()
+        got[entry] = (res.iterations,
+                      profiling.counters().get("host_syncs", 0) - before)
+    assert got["dist_solve"] == got["solve"]
 
 
 @pytest.mark.parametrize("name", port.VARIANT_NAMES)

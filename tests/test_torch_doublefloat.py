@@ -346,7 +346,7 @@ def test_convert_carries_double_word_operators_and_states():
 def test_selfcheck_passes_on_the_cpu_and_raises_when_words_are_lost(
         monkeypatch):
     monkeypatch.setattr(api, "_DF_CHECKED", set())
-    api._df_selfcheck(torch.device("cpu"))
+    api.df_selfcheck(torch.device("cpu"))
     assert "cpu" in api._DF_CHECKED
 
     def contracted(a, b):  # what a fused multiply-add leaves of 2Prod
@@ -356,7 +356,7 @@ def test_selfcheck_passes_on_the_cpu_and_raises_when_words_are_lost(
     monkeypatch.setattr(api, "_DF_CHECKED", set())
     monkeypatch.setattr(df_spmv, "two_prod", contracted)
     with pytest.raises(RuntimeError, match="error words"):
-        api._df_selfcheck(torch.device("cpu"))
+        api.df_selfcheck(torch.device("cpu"))
     assert not api._DF_CHECKED
 
 

@@ -385,9 +385,8 @@ def test_a_step_in_the_basis_reads_nothing_back(ell_pair, name):
     out and gather in) reads no value back and makes no tensor from host
     data."""
     a, b, _, _, top = ell_pair
-    op, to_basis, _, spec = tapi._in_basis(
+    op, to_basis, _, init_fn, step_fn, prec = tapi.resolve(
         name, top, Diagonal(torch.from_numpy(1.0 / a.diagonal())))
-    init_fn, step_fn, prec = tapi._resolve(name, op, spec)
     ctx = Context(op, prec)
     bb = to_basis(torch.from_numpy(b))
     state = init_fn(ctx, bb, torch.zeros_like(bb))

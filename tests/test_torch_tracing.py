@@ -40,9 +40,9 @@ CHUNKS = (1, 2, 7, 64)
 TARGETS = (0, 2, 8, 9, 15, 65)
 NAMES = ("pipe_pr_pcg", "hs_cg")
 SPANS = ("solve", "loop.start", "capture", "replay", "readback", "restore")
-#: reads of ``solve`` after its loop: the norm, and the norm and the
-#: tolerance for ``converged``
-SOLVE_READS = 3
+#: reads of ``solve`` after its loop (``api.solve_result``): the norm, and
+#: the tolerance for ``converged``
+SOLVE_READS = 2
 
 
 @pytest.fixture(scope="module")

@@ -375,12 +375,12 @@ def test_hs_fused_phase_serves_any_preconditioner(sband, fused_calls):
 def test_preconditioner_is_cast_and_moved_with_the_operator(sband):
     _, top, b = sband
     pre = preconditioner_from_numpy(1.0 / top.data[0].numpy(), device="cpu")
-    _, _, got = tapi._resolve("pr_pcg", top.astype(torch.float32), pre)
+    got = tapi.resolve("pr_pcg", top.astype(torch.float32), pre)[5]
     assert isinstance(got, JacobiPreconditioner)
     assert got.inv_diag.dtype == torch.float32
-    assert isinstance(tapi._resolve("pr_pcg", top, None)[2],
+    assert isinstance(tapi.resolve("pr_pcg", top, None)[5],
                       IdentityPreconditioner)
-    assert tapi._resolve("pr_cg", top, "jacobi")[2] is None
+    assert tapi.resolve("pr_cg", top, "jacobi")[5] is None
     f32 = port.run("pr_pcg", top, b, preconditioner=pre, dtype=np.float32,
                    max_iter=4, probes=("nu",), device="cpu")
     assert f32["nu"].dtype == np.float32 and np.all(np.isfinite(f32["nu"]))
@@ -450,7 +450,8 @@ def test_gv_w_replace_stateful_matches_jax(spd64):
     assert res[-1] < 1e-4 * res[0]
     np.testing.assert_allclose(got["nu"][:SPD64_ROWS],
                                np.asarray(want["nu"])[:SPD64_ROWS], rtol=RTOL)
-    init_fn, step_fn, _ = tapi._resolve("gv_cg", top, None, port_policy, init)
+    init_fn, step_fn = tapi.resolve("gv_cg", top, None, w_replace=port_policy,
+                                    w_replace_init=init)[3:5]
     ctx = Context(top)
     tb = torch.from_numpy(b)
     st = init_fn(ctx, tb, torch.zeros_like(tb))
