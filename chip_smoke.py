@@ -771,6 +771,155 @@ def check_family(torch, card, timings, report=emit_check):
                          random_band, 4, report=report)
 
 
+#: the pipe entry with its scalar epilogue (ops/sym_fused.py:
+#: fused_sym_pipe_full_step_scalars; csrc/sym_family.cu:Scalars), the entry
+#: of the unpreconditioned pipe names on half-band storage: its wrapper (the
+#: key of its launches and of its records on the kernels line), and the
+#: previous state's nu, delta, gamma and alpha it starts from
+EPILOGUE = "fused_sym_pipe_full_step_scalars"
+EPILOGUE_PREV = (1.0, 0.5, 3.0, 0.37)
+#: suffix of its float64 records: main_f64's shape
+F64_MAIN = f" (f64, n={N:,})"
+#: suffix of its records by the band's dtype
+EPILOGUE_SUFFIX = {"float32": "", "float64": F64_MAIN, "bfloat16": BF16}
+
+
+def check_sym_epilogue(torch, card, timings, report=emit_check):
+    """The pipe entry with its scalar epilogue, for PR and Meurant
+    prediction with and without recompute, in float32, float64 and a bf16
+    band, at (N, K_BAND) and n = 1000: against the torch epilogue on the
+    same step (the entry without it, torch's sum of the partials and its
+    scalar kernels) the same vectors and beta bit for bit, the dots within
+    TOL of their terms' magnitudes, alpha the torch formula's bits on the
+    kernel's own dots; against the plain version the vectors within TOL of
+    their scales and the dots within TOL; a second launch the same bits;
+    one launch a call, counted on its own wrapper and none on the entry
+    without it.  PR prediction at (N, K_BAND) is timed in each dtype, with
+    and without recompute, in turns with the torch epilogue, into
+    ``timings[EPILOGUE + ("/no recompute") + EPILOGUE_SUFFIX[dtype]]`` (a
+    bf16 band also on the widened float32 band, ``f32_ms``).  Returns the
+    failed checks."""
+    from new_cg_variants_tpu_torch.ops import sym_fused as sf
+    from new_cg_variants_tpu_torch.ops.scalars import predict_nu, safe_div
+
+    rate = memory_rate(card)
+    offs = tuple(range(K_BAND))
+    names = "x r w u p s".split()
+    failed = []
+    for dn in ("float32", "float64", "bfloat16"):
+        dtype = getattr(torch, dn)
+        vdt = vector_dtype(torch, dtype)
+        tol = TOL[dn]
+        for n in (N, 1000):
+            rng = np.random.default_rng(11 * n + len(dn))
+            data = random_band(torch, offs, n, dtype, rng)
+            wide = data.float() if dtype == torch.bfloat16 else None
+            vecs = [torch.as_tensor(rng.standard_normal(n), dtype=vdt,
+                                    device="cuda") for _ in names]
+            prev = [torch.tensor(v, dtype=vdt, device="cuda")
+                    for v in EPILOGUE_PREV]
+            nu, delta, gamma, a1 = prev
+            for meurant in (False, True):
+                for recompute in (True, False):
+                    def epilogue(band=data, meurant=meurant,
+                                 recompute=recompute):
+                        return sf.fused_sym_pipe_full_step_scalars(
+                            offs, band, *vecs, *prev, meurant=meurant,
+                            recompute=recompute)
+
+                    def torch_epilogue(meurant=meurant, recompute=recompute):
+                        beta = safe_div(
+                            predict_nu(nu, delta, gamma, a1, meurant), nu)
+                        *out, dots = sf.fused_sym_pipe_full_step(
+                            offs, data, *vecs, a1, beta, recompute=recompute)
+                        return (*out, dots, safe_div(dots[3], dots[0]), beta)
+
+                    def entry(band, vs, scs, recompute=recompute):
+                        return sf.fused_sym_pipe_full_step(
+                            offs, band, *vs, *scs, recompute=recompute)
+
+                    before = (sf.fused_sym_pipe_full_step_scalars.launches,
+                              sf.fused_sym_pipe_full_step.launches)
+                    got, again = epilogue(), epilogue()
+                    launches = (sf.fused_sym_pipe_full_step_scalars.launches
+                                - before[0]) / 2
+                    others = sf.fused_sym_pipe_full_step.launches - before[1]
+                    want = torch_epilogue()
+                    plain = sf._pipe_step_scalars_plain(
+                        offs, data.cpu(), *[v.cpu() for v in vecs],
+                        *[v.cpu() for v in prev], meurant, recompute)
+                    plain = [v.to("cuda") for v in plain[:6]] + [
+                        [v.to("cuda") for v in plain[6]]]
+                    torch.cuda.synchronize()
+                    scales = family_scales(torch, entry, data, names, vecs,
+                                           {"a1": a1, "beta": want[8]})
+                    verrs = [cw_err(torch, g, w, sc)
+                             for g, w, sc in zip(got[:6], plain[:6], scales)]
+                    r2, p2, s2 = want[1], want[3], want[4]
+                    pairs = ((p2, s2), (r2, s2), (s2, s2), (r2, r2))
+                    derrs = [dot_err(torch, g, w, a, b)
+                             for g, w, (a, b) in zip(got[6], want[6], pairs)]
+                    perrs = [dot_err(torch, g, w, a, b)
+                             for g, w, (a, b) in zip(got[6], plain[6], pairs)]
+                    name = (EPILOGUE + ("" if recompute else "/no recompute")
+                            + EPILOGUE_SUFFIX[dn])
+                    rec = dict(
+                        kernel=name, dtype=dn, n=n, k=K_BAND,
+                        meurant=meurant, recompute=recompute,
+                        max_err=max(verrs), max_dot_err=max(derrs),
+                        max_plain_dot_err=max(perrs),
+                        max_abs_err=max(float((g - w).abs().max())
+                                        for g, w in zip(got[:6], plain[:6])),
+                        same_vectors_as_torch_epilogue=same_bits(
+                            torch, got[:6], want[:6]),
+                        same_beta=bool(torch.equal(got[8], want[8])),
+                        alpha_of_its_dots=bool(torch.equal(
+                            got[7], safe_div(got[6][3], got[6][0]))),
+                        repeats_its_bits=same_bits(
+                            torch, [*got[:6], *got[6], *got[7:]],
+                            [*again[:6], *again[6], *again[7:]]),
+                        launches_per_call=launches,
+                        launches_without_epilogue=others, tol=tol)
+                    if n == N and not meurant and timings is not None:
+                        ms = {"epilogue": [], "torch": []}
+                        for turn in ("epilogue", "torch", "torch",
+                                     "epilogue"):
+                            fn = epilogue if turn == "epilogue" \
+                                else torch_epilogue
+                            ms[turn].append(time_ms(torch, fn, 50))
+                        plain_ms = time_ms(torch, lambda: (
+                            sf._pipe_step_scalars_plain(
+                                offs, data, *vecs, *prev, False, recompute)),
+                            5)
+                        nmv = 2 if recompute else 1
+                        b_ms, b_by = bound(
+                            K_BAND * n * data.element_size()
+                            + 12 * n * vecs[0].element_size(),
+                            (4 * K_BAND * nmv + 18) * n, dn, rate)
+                        rec.update(ms=float(np.median(ms["epilogue"])),
+                                   torch_epilogue_ms=float(
+                                       np.median(ms["torch"])),
+                                   ms_in_turns=ms, plain_ms=plain_ms,
+                                   library_ms=None, bound_ms=b_ms,
+                                   bound_by=b_by)
+                        if wide is not None:
+                            rec["f32_ms"] = time_ms(
+                                torch, lambda: epilogue(band=wide), 50)
+                        timings[name] = rec
+                    report(rec)
+                    if not (rec["same_vectors_as_torch_epilogue"]
+                            and rec["same_beta"] and rec["alpha_of_its_dots"]
+                            and rec["repeats_its_bits"] and launches == 1
+                            and others == 0
+                            and max(verrs) <= tol and max(derrs) <= tol
+                            and max(perrs) <= tol):
+                        failed.append(rec)
+                    del got, again, want, plain, scales
+            del data, wide, vecs, prev
+            torch.cuda.empty_cache()
+    return failed
+
+
 def sym_checks(torch, card, timings, report):
     """The checks of both half-band kernels; returns the failed ones."""
     return (check_spmv(torch, card, timings, report)
@@ -780,7 +929,8 @@ def sym_checks(torch, card, timings, report):
 def check_sym(torch, card, timings):
     """Every half-band kernel entry against its plain version; raises after
     all checks ran."""
-    failed = sym_checks(torch, card, timings, emit_check)
+    failed = (sym_checks(torch, card, timings, emit_check)
+              + check_sym_epilogue(torch, card, timings))
     if failed:
         raise AssertionError(f"{len(failed)} half-band checks disagree: "
                              f"{failed}")
@@ -974,7 +1124,8 @@ def counted_wrappers():
     from new_cg_variants_tpu_torch.ops import sym_fused as sf
 
     return ((sd.sym_dia_spmv, sd.sym_dia_spmv2) + sf.FAMILY_WRAPPERS
-            + sp.DIA_WRAPPERS + fs.FUSED_STEP_WRAPPERS
+            + (sf.fused_sym_pipe_full_step_scalars,) + sp.DIA_WRAPPERS
+            + fs.FUSED_STEP_WRAPPERS
             + ff.FUSED_FAMILY_WRAPPERS + ds.DF_WRAPPERS + es.ELL_WRAPPERS)
 
 
@@ -1177,12 +1328,10 @@ def model_f32(torch, fmt):
 
 def main_path_f32(torch, timings):
     op, b, x_true = model_f32(torch, "symdia")
-    out = bench_protocol(torch, op, b, "fused_sym_pipe_full_step",
-                         "sym_dia_spmv")
+    out = bench_protocol(torch, op, b, EPILOGUE, "sym_dia_spmv")
     timings["main_f32"] = {"ms_per_iter": out["ms_per_iter"],
                            "profile": out["profile"]}
-    return emit_bench(torch, "main_f32", out, x_true,
-                      timings["fused_sym_pipe_full_step"]["ms"])
+    return emit_bench(torch, "main_f32", out, x_true, timings[EPILOGUE]["ms"])
 
 
 def main_path_f64(torch):
@@ -1202,8 +1351,8 @@ def main_path_f64(torch):
          max_rel_diff=errs, rtol=F64_RTOL, launches=counts)
     for p in ("nu", "alpha"):
         np.testing.assert_allclose(gpu[p], cpu[p], rtol=F64_RTOL)
-    if counts["sym_dia_spmv"] != 3 or \
-            counts["fused_sym_pipe_full_step"] != F64_ITERS:
+    if counts["sym_dia_spmv"] != 3 or counts[EPILOGUE] != F64_ITERS or \
+            counts["fused_sym_pipe_full_step"] != 0:
         raise AssertionError(f"launch counts {counts}")
 
 
@@ -1224,9 +1373,9 @@ VARIANT_ENTRY = {
     "pipe_pr_pcg": ("fused_sym_pipe_full_step_prec", 3),
     "pipe_p_m_pcg": ("fused_sym_pipe_full_step_prec/no recompute", 3),
     "pipe_pr_m_pcg": ("fused_sym_pipe_full_step_prec", 3),
-    "pipe_p_cg": ("fused_sym_pipe_full_step/no recompute", 3),
-    "pipe_p_m_cg": ("fused_sym_pipe_full_step/no recompute", 3),
-    "pipe_pr_m_cg": ("fused_sym_pipe_full_step", 3),
+    "pipe_p_cg": (EPILOGUE + "/no recompute", 3),
+    "pipe_p_m_cg": (EPILOGUE + "/no recompute", 3),
+    "pipe_pr_m_cg": (EPILOGUE, 3),
 }
 
 
@@ -1241,10 +1390,10 @@ def sym_expected(name, iters):
 def dia_expected(name, iters):
     """Launches a name makes on a ``DiaOperator`` whose band the family
     kernel takes: as on half-band storage, its own fused entry once per
-    iteration and the SpMV in init only."""
-    entry, init_spmvs = VARIANT_ENTRY.get(
-        name, ("fused_sym_pipe_full_step", 3))  # pipe_pr_cg
-    entry = entry.replace("fused_sym_", "fused_")
+    iteration and the SpMV in init only (the unpreconditioned pipe names:
+    the entry without the scalar epilogue, which torch forms there)."""
+    entry, init_spmvs = VARIANT_ENTRY.get(name, (EPILOGUE, 3))  # pipe_pr_cg
+    entry = entry.replace("fused_sym_", "fused_").replace("_scalars", "")
     return {"dia_spmv": init_spmvs, entry.split("/")[0]: iters}, entry
 
 
@@ -2675,7 +2824,7 @@ def main_bf16(torch, timings):
     op, b, x_true = model_bf16(torch, "symdia")
     launches, failed = {}, []
     for variant, entry, init in (
-            ("pipe_pr_cg", "fused_sym_pipe_full_step", 3),
+            ("pipe_pr_cg", EPILOGUE, 3),
             ("hs_cg", "fused_sym_hs_matvec_phase", 2)):
         out = bench_protocol(torch, op, b, entry, "sym_dia_spmv",
                              variant=variant, init_spmvs=init)
@@ -3447,7 +3596,7 @@ def cli_f32(torch, timings, launches):
          "none", "--max-iter", str(CLI_ITERS), "--num-repeat",
          str(CLI_REPEATS)])
     want = {"sym_dia_spmv": 3 * CLI_REPEATS,
-            "fused_sym_pipe_full_step": CLI_ITERS * CLI_REPEATS}
+            EPILOGUE: CLI_ITERS * CLI_REPEATS}
     fields = dict(kv.split("=", 1) for ln in lines[:3] for kv in ln.split()
                   if "=" in kv)
     fwd = float(fields.get("forward_error", "nan"))
@@ -3467,8 +3616,7 @@ def cli_f32(torch, timings, launches):
         runs = CLI_TRIALS + 1  # the warm-up trial too
         want = {}
         for name in CLI_SCALING_VARIANTS:
-            entry, init = VARIANT_ENTRY.get(name,
-                                            ("fused_sym_pipe_full_step", 3))
+            entry, init = VARIANT_ENTRY.get(name, (EPILOGUE, 3))
             add_counts(want, {"sym_dia_spmv": init * runs,
                               entry: CLI_SCALING_ITERS * runs})
         files = {p.name: js.loads(p.read_text())
@@ -3511,9 +3659,9 @@ def cli_f32(torch, timings, launches):
     rec = dict(command="solve --dtype bf16", rc=rc, lines=lines,
                seconds=seconds, launches=counts)
     emit("cli_f32", **rec)
-    half_band = {"sym_dia_spmv", "sym_dia_spmv2", "fused_sym_pipe_full_step"}
+    half_band = {"sym_dia_spmv", "sym_dia_spmv2", EPILOGUE}
     if not (rc == 0 and fields.get("converged") == "True"
-            and counts.get("fused_sym_pipe_full_step", 0) > 0
+            and counts.get(EPILOGUE, 0) > 0
             and set(counts) <= half_band):
         failed.append(rec)
     launches["cli_bf16"] = counts
@@ -3558,7 +3706,7 @@ def trace_f32(torch, launches):
                                KERNEL_PHASES[port.search(r["name"])[1]])
               for r in rows if port.search(r["name"])}
     family = [r for r in rows if "sym_family_kernel" in r["name"]]
-    want = {"fused_sym_pipe_full_step": TRACE_STEPS}
+    want = {EPILOGUE: TRACE_STEPS}
     rel = abs(bd["total_us"] - busy_us) / busy_us if busy_us else None
     rec = dict(steps=TRACE_STEPS, seconds=seconds,
                device_us_parsed=bd["total_us"], device_events=bd["events"],
@@ -5232,7 +5380,7 @@ def jit_names(torch, phase, op, b, names, iters=JIT_NAME_ITERS,
 
 
 def sym_entry(name):
-    return VARIANT_ENTRY.get(name, ("fused_sym_pipe_full_step",))[0]
+    return VARIANT_ENTRY.get(name, (EPILOGUE,))[0]
 
 
 def dia_entry(name):
@@ -5697,10 +5845,17 @@ def kernel_records(timings, launches):
     and no launches."""
     jax_ops = "new_cg_variants_tpu/ops/"
     sym = ("main_f32", "variants_f32", "cli_f32", "trace_f32")
+    # the unpreconditioned pipe names take the entry with its scalar
+    # epilogue, so no path runs the entry without it: checked and timed only
+    no_path = ("fused_sym_pipe_full_step",
+               "fused_sym_pipe_full_step/no recompute")
+    epilogues = (EPILOGUE, EPILOGUE + "/no recompute")
     records = {
         "sym_dia_spmv": ("sym_dia.cu", "sym_dia.py:47", sym),
+        **{entry: ("sym_family.cu", "sym_fused.py:184",
+                   () if entry in no_path else sym) for entry in FAMILY},
         **{entry: ("sym_family.cu", "sym_fused.py:184", sym)
-           for entry in FAMILY},
+           for entry in epilogues},
     }
     for sfx, path in (("", "dia_f32"), (WIDE, "dia_wide_f32")):
         records.update({
@@ -5747,6 +5902,10 @@ def kernel_records(timings, launches):
            for entry in CONV_SYM_ENTRIES},
         **{entry + F64_ELL: ("ell_spmv.cu", "ell_pallas.py:44", conv)
            for entry in ("ell_spmv", "ell_spmv2", "ell_gather")},
+        # main_f64 runs pipe_pr_cg's entry eagerly and counts its launches
+        # there; no phase captures it in float64
+        **{entry + F64_MAIN: ("sym_family.cu", "sym_fused.py:184", ())
+           for entry in epilogues},
         **{entry + F64_ELL_POSTHOC: ("ell_spmv.cu", "ell_pallas.py:44",
                                      ("posthoc_f64",))
            for entry in ("ell_spmv", "ell_gather")},
@@ -5756,8 +5915,9 @@ def kernel_records(timings, launches):
     bf_sym = ("main_bf16", "cli_bf16")
     records.update({
         "sym_dia_spmv" + BF16: ("sym_dia.cu", "sym_dia.py:47", bf_sym),
-        **{entry + BF16: ("sym_family.cu", "sym_fused.py:184", bf_sym)
-           for entry in FAMILY},
+        **{entry + BF16: ("sym_family.cu", "sym_fused.py:184",
+                          () if entry in no_path else bf_sym)
+           for entry in (*FAMILY, *epilogues)},
         "dia_spmv" + BF16: ("dia_spmv.cu", "spmv_pallas.py:58", ("dia_bf16",)),
         "dia_spmv2" + BF16: ("dia_spmv.cu", "spmv_pallas.py:58",
                              ("dia_bf16",)),
@@ -5809,7 +5969,8 @@ def kernel_records(timings, launches):
                                          "given_order", "locality_order",
                                          "ms_2rhs",
                                          "launches_per_call", "f32_ms",
-                                         "cache", "columns")
+                                         "cache", "columns",
+                                         "torch_epilogue_ms", "ms_in_turns")
                  if key in t}
         if name.endswith(BF16):
             extra["storage"] = "bf16 band / values, float32 vectors"

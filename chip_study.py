@@ -1161,9 +1161,10 @@ SYM_RING = [
      "  if (err != cudaSuccess) return int(err);\n"
      "  const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);\n"
      "  sym_family_kernel<T, D, S><<<grid, kTile, smem + ring, st>>>(\n"
-     "      data, o, ndiag, h, n, a, partials);\n",
+     "      data, o, ndiag, h, n, a, partials, e);\n",
      "  (void)smem;\n"
      "  (void)ring;\n"
+     "  (void)e;\n"
      "  const long long ntiles = (n + kTile - 1) / kTile;\n"
      "  const size_t staged = (2 * size_t(ndiag) * (kTile + band_pad<T>(h)) +\n"
      "                         size_t(S::kMv) * (kTile + 2 * h) +\n"
@@ -2427,7 +2428,6 @@ def study_mutants(torch, card, family=None):
     part in; each family of checks also runs on the committed kernels.
     ``family`` (dia, sym, df, ell or bf16): that family's mutants only."""
     from new_cg_variants_tpu_torch.ops import _kernels
-    from new_cg_variants_tpu_torch.ops import df_spmv as ds
 
     families = {"dia": ("", MUTANTS, dia_checks),
                 "sym": (" (half-band checks)", SYM_MUTANTS, sym_checks),
@@ -2457,7 +2457,8 @@ def study_mutants(torch, card, family=None):
                 witness = pool.submit(cs.build_ell_witness)
                 cs.ELL_WITNESS.update(witness.result())
         for (what, edit, checks), fut in zip(runs, built):
-            ds._TICKETS.clear()  # a mutant may leave its ticket counter set
+            # a mutant may leave a ticket counter set
+            _kernels._TICKETS.clear()
             with _kernels.using(fut.result()[0]):
                 emit("mutants", mutant=what, source=edit and edit[0],
                      **checks(torch, card))

@@ -48,9 +48,19 @@
 //   use a finished vector (r2.st2, st2.s2) are formed last.
 // * Dots leave the kernel as one (kDots,) partial per kTile rows, reduced in
 //   a fixed order (block_dots); the wrapper sums the (ceil(n / kTile), kDots)
-//   partials.  No atomics: runs repeat bit for bit.
+//   partials.  No atomics on the sums: runs repeat bit for bit.
 // * Scalars are read from device memory, so the host never waits for the
 //   previous iteration.
+// * The unpreconditioned pipe entries also come with their scalar epilogue
+//   (Scalars<PipeSpec<R>>, sym_family_pipe_scalars_*), which would otherwise
+//   be ~15 launches of tiny torch kernels a step: every thread forms beta
+//   from the previous state's nu, delta, gamma and alpha, and the block that
+//   finishes last (a ticket counter, as csrc/df_pipe.cu) sums the partials
+//   in a fixed order and writes mu, delta, gamma, nu, alpha and beta.  The
+//   formulas are those of solvers/families.py in torch's operation order,
+//   each operation rounded on its own (no contraction), so beta and alpha
+//   are the torch epilogue's bits on the same dots; only the partials' sum
+//   runs in another order than torch's.
 // * Shared memory holds only the windows (a few KB), so occupancy is set by
 //   the registers: see the launch bound at the kernel.
 
@@ -64,6 +74,123 @@ namespace ncgv {
 // memory more at h = 31 (bf16opts times 4, 6, 8 and none).
 template <typename D>
 constexpr int kMinBlocks = sizeof(D) == 8 ? 3 : 5;
+
+// The scalar epilogue of a pipe entry: the previous state's nu, delta,
+// gamma and alpha in; mu, delta, gamma, nu, alpha and beta out; the ticket
+// counter (0 before a launch and after it) and the prediction (PR or
+// Meurant).
+template <typename T>
+struct PipeScalars {
+  const T* prev[4];
+  T* out;
+  unsigned* tickets;
+  int meurant;
+};
+
+// A spec with the scalar epilogue: no scalar pointers of its own (a1 and
+// beta come from PipeScalars).
+template <typename S>
+struct Scalars : S {
+  static constexpr int kSc = 0;
+};
+template <typename S>
+constexpr bool kScalars = false;
+template <typename S>
+constexpr bool kScalars<Scalars<S>> = true;
+
+// Each operation rounded on its own, as torch's 0-d kernels round them.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+// solvers/families.py:_safe_div: num / den, 0 where den is exactly 0.
+template <typename T>
+__device__ __forceinline__ T safe_div(T num, T den) {
+  return den != T(0) ? div_rn(num, den) : T(0);
+}
+
+// beta = safe_div(nu_pred, nu1), nu_pred as solvers/families.py:_predict_nu:
+// PR (nu1 - (2 a1) delta1) + (a1 a1) gamma1, Meurant -nu1 + (a1 a1) gamma1.
+template <typename T>
+__device__ __forceinline__ T predicted_beta(const PipeScalars<T>& e, T a1) {
+  const T nu1 = *e.prev[0], delta1 = *e.prev[1], gamma1 = *e.prev[2];
+  const T tail = mul_rn(mul_rn(a1, a1), gamma1);
+  const T pred =
+      e.meurant ? add_rn(-nu1, tail)
+                : add_rn(sub_rn(nu1, mul_rn(mul_rn(T(2), a1), delta1)), tail);
+  return safe_div(pred, nu1);
+}
+
+// The block that draws the last ticket sums the partials (rows of kDots,
+// one per kTile rows): thread t the rows t, t + kTile, ... in turn, then
+// the threads as block_dots sums them; and writes the epilogue's scalars.
+// Every block calls it after its partials are written.
+template <typename T, int ND>
+__device__ __forceinline__ void pipe_epilogue(const PipeScalars<T>& e,
+                                              const T* partials, long long n,
+                                              T beta, T* sred) {
+  static_assert(ND == 4, "the pipe entries' dots: mu, delta, gamma, nu");
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  // the partials reach device memory before the block draws its ticket, so
+  // the block that draws the last one sees them all
+  if (t < ND) __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    last = atomicInc(e.tickets, gridDim.x - 1) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const long long rows = (n + kTile - 1) / kTile;
+  T sum[ND];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) sum[d] = T(0);
+#pragma unroll 4
+  for (long long j = t; j < rows; j += kTile) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) sum[d] += __ldcg(partials + j * ND + d);
+  }
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const T v = warp_sum(sum[d]);
+    if ((t & 31) == 0) sred[d * kWarps + t / 32] = v;
+  }
+  __syncthreads();
+  if (t == 0) {
+    T dot[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      T acc = sred[d * kWarps];
+      for (int k = 1; k < kWarps; ++k) acc += sred[d * kWarps + k];
+      dot[d] = acc;
+      e.out[d] = acc;  // mu, delta, gamma, nu
+    }
+    e.out[4] = safe_div(dot[3], dot[0]);  // alpha = nu / mu
+    e.out[5] = beta;
+  }
+}
 
 // Rows a thread owns (t + r kTile), and so rows a block owns
 // (ops/_kernels.py:SYM_FAMILY_TILE).  Two rows a thread halve the halo rows
@@ -107,7 +234,7 @@ template <typename T, typename D, typename S>
 __global__ void __launch_bounds__(kTile, kMinBlocks<D>) sym_family_kernel(
     const D* __restrict__ data, const __grid_constant__ Offsets o, int ndiag,
     int h, long long n, const __grid_constant__ FamilyArgs<T> a,
-    T* __restrict__ partials) {
+    T* __restrict__ partials, const __grid_constant__ PipeScalars<T> e) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int soff[kMaxDiags];
   const int vw = kFamilyTile + 2 * h;
@@ -120,8 +247,13 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<D>) sym_family_kernel(
   const int t = threadIdx.x;
   const long long i0 = (long long)blockIdx.x * kFamilyTile;
   T sc[2];
-  sc[0] = *a.sc[0];
-  sc[1] = S::kSc > 1 ? *a.sc[1] : T(0);
+  if constexpr (kScalars<S>) {
+    sc[0] = *e.prev[3];  // a1: the previous state's alpha
+    sc[1] = predicted_beta(e, sc[0]);
+  } else {
+    sc[0] = *a.sc[0];
+    sc[1] = S::kSc > 1 ? *a.sc[1] : T(0);
+  }
 
   load_offsets(o, ndiag, soff);
   if constexpr (kRingBand<D>)
@@ -155,13 +287,16 @@ __global__ void __launch_bounds__(kTile, kMinBlocks<D>) sym_family_kernel(
       block_dots(prod, sred + r * S::kDots * kWarps,
                  partials + size_t(blockIdx.x * kFamilyRows + r) * S::kDots);
   }
+  if constexpr (kScalars<S>)
+    pipe_epilogue<T, S::kDots>(e, partials, n, sc[1], sred);
 }
 
 template <typename T, typename D, typename S>
 int launch_spec(const D* data, const Offsets& o, int ndiag, int h,
                 long long n, const void* const* in, int nin,
                 const void* const* sc, int nsc, void* const* out, int nout,
-                T* partials, cudaStream_t st) {
+                T* partials, cudaStream_t st,
+                const PipeScalars<T>& e = PipeScalars<T>{}) {
   FamilyArgs<T> a;
   if (!family_args<T, S>(in, nin, sc, nsc, out, nout, &a))
     return int(cudaErrorInvalidValue);
@@ -175,7 +310,7 @@ int launch_spec(const D* data, const Offsets& o, int ndiag, int h,
   if (err != cudaSuccess) return int(err);
   const unsigned grid = unsigned((n + kFamilyTile - 1) / kFamilyTile);
   sym_family_kernel<T, D, S><<<grid, kTile, smem + ring, st>>>(
-      data, o, ndiag, h, n, a, partials);
+      data, o, ndiag, h, n, a, partials, e);
   return int(cudaGetLastError());
 }
 
@@ -218,6 +353,36 @@ int launch_sym_family(int entry, const void* data, const int* offsets,
   return int(cudaErrorInvalidValue);
 }
 
+// The pipe entry (recompute or not) with its scalar epilogue: in, out as
+// entries 9 and 10; prev: nu, delta, gamma, alpha of the previous state;
+// scalars: (6,) out, mu delta gamma nu alpha beta.
+template <typename T, typename D = T>
+int launch_pipe_scalars(int recompute, int meurant, const void* data,
+                        const int* offsets, int ndiag, int h, long long n,
+                        const void* const* in, int nin,
+                        const void* const* prev, void* const* out, int nout,
+                        void* partials, void* scalars, void* tickets,
+                        int device, void* stream) {
+  Offsets o;
+  if (!fill_offsets(offsets, ndiag, &o) || n <= 0 || h < 0)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  PipeScalars<T> e;
+  for (int k = 0; k < 4; ++k) e.prev[k] = static_cast<const T*>(prev[k]);
+  e.out = static_cast<T*>(scalars);
+  e.tickets = static_cast<unsigned*>(tickets);
+  e.meurant = meurant;
+  const D* d = static_cast<const D*>(data);
+  T* part = static_cast<T*>(partials);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (recompute)
+    return launch_spec<T, D, Scalars<PipeSpec<true>>>(
+        d, o, ndiag, h, n, in, nin, nullptr, 0, out, nout, part, st, e);
+  return launch_spec<T, D, Scalars<PipeSpec<false>>>(
+      d, o, ndiag, h, n, in, nin, nullptr, 0, out, nout, part, st, e);
+}
+
 }  // namespace ncgv
 
 extern "C" {
@@ -250,6 +415,46 @@ int sym_family_bf16(int entry, const void* data, const int* offsets,
   return ncgv::launch_sym_family<float, __nv_bfloat16>(
       entry, data, offsets, ndiag, h, n, in, nin, sc, nsc, out, nout,
       partials, device, stream);
+}
+
+// prev: the previous state's nu, delta, gamma, alpha (device pointers);
+// scalars: (6,) device buffer, mu delta gamma nu alpha beta; tickets: one
+// unsigned int, 0 before the launch and 0 after it; launches that may run at
+// once (on different streams) each need their own.
+int sym_family_pipe_scalars_f32(int recompute, int meurant,
+                                const void* data, const int* offsets,
+                                int ndiag, int h, long long n,
+                                const void* const* in, int nin,
+                                const void* const* prev, void* const* out,
+                                int nout, void* partials, void* scalars,
+                                void* tickets, int device, void* stream) {
+  return ncgv::launch_pipe_scalars<float>(
+      recompute, meurant, data, offsets, ndiag, h, n, in, nin, prev, out,
+      nout, partials, scalars, tickets, device, stream);
+}
+
+int sym_family_pipe_scalars_f64(int recompute, int meurant,
+                                const void* data, const int* offsets,
+                                int ndiag, int h, long long n,
+                                const void* const* in, int nin,
+                                const void* const* prev, void* const* out,
+                                int nout, void* partials, void* scalars,
+                                void* tickets, int device, void* stream) {
+  return ncgv::launch_pipe_scalars<double>(
+      recompute, meurant, data, offsets, ndiag, h, n, in, nin, prev, out,
+      nout, partials, scalars, tickets, device, stream);
+}
+
+int sym_family_pipe_scalars_bf16(int recompute, int meurant,
+                                 const void* data, const int* offsets,
+                                 int ndiag, int h, long long n,
+                                 const void* const* in, int nin,
+                                 const void* const* prev, void* const* out,
+                                 int nout, void* partials, void* scalars,
+                                 void* tickets, int device, void* stream) {
+  return ncgv::launch_pipe_scalars<float, __nv_bfloat16>(
+      recompute, meurant, data, offsets, ndiag, h, n, in, nin, prev, out,
+      nout, partials, scalars, tickets, device, stream);
 }
 
 }  // extern "C"

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build", "load", "library", "using", "nvcc_command",
            "KERNEL_TILE", "SYM_FAMILY_TILE", "MAX_DIAGS", "RING_VALUES",
            "RING_STAGES", "KERNEL_DTYPES",
            "STORAGE_DTYPES", "compute_dtype", "offsets_array", "check_band",
-           "check_ell", "check_vectors"]
+           "check_ell", "check_vectors", "tickets", "CaptureTickets"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,9 +53,15 @@ _SIGNATURES = {
                      "sym_dia_spmv_bf16")
     },
     "sym_family.cu": {
-        name: [_INT, _VP, _OFFS, _INT, _INT, _LL, _PTRS, _INT, _PTRS, _INT,
-               _PTRS, _INT, _VP, _INT, _VP]
-        for name in ("sym_family_f32", "sym_family_f64", "sym_family_bf16")
+        **{name: [_INT, _VP, _OFFS, _INT, _INT, _LL, _PTRS, _INT, _PTRS, _INT,
+                  _PTRS, _INT, _VP, _INT, _VP]
+           for name in ("sym_family_f32", "sym_family_f64",
+                        "sym_family_bf16")},
+        **{name: [_INT, _INT, _VP, _OFFS, _INT, _INT, _LL, _PTRS, _INT, _PTRS,
+                  _PTRS, _INT, _VP, _VP, _VP, _INT, _VP]
+           for name in ("sym_family_pipe_scalars_f32",
+                        "sym_family_pipe_scalars_f64",
+                        "sym_family_pipe_scalars_bf16")},
     },
     "dia_spmv.cu": {
         name: [_VP, _OFFS, _INT, _LL, _VP, _VP, _LL, _LL, _VP, _VP, _INT,
@@ -189,6 +195,47 @@ def check_vectors(ref, vecs, n):
         if v.shape != (n,) or not v.is_contiguous():
             raise ValueError(f"vector must be contiguous ({n},), "
                              f"got {tuple(v.shape)}")
+
+
+#: The ticket counters of the kernels whose last block sums the dot
+#: partials (csrc/df_pipe.cu; csrc/sym_family.cu: sym_family_pipe_scalars_*),
+#: one ``int32`` for each (device, stream), zero between launches
+_TICKETS: dict = {}
+#: the counters of the streams that capture a CUDA graph now
+#: (:class:`CaptureTickets`), by the same key
+_CAPTURING: dict = {}
+
+
+def tickets(device, stream):
+    """The ticket counter of launches on ``stream`` of ``device``: a
+    capture's own (:class:`CaptureTickets`), else the stream's, allocated
+    zeroed at first use.  Launches on one stream run one after the other and
+    share their stream's counter (each leaves it at zero), so launches on
+    different streams may run at once."""
+    key = (device, stream.cuda_stream)
+    t = _CAPTURING.get(key)
+    if t is None:
+        t = _TICKETS.get(key)
+    if t is None:  # zeroed on the current stream, which is ``stream``
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+class CaptureTickets:
+    """Within the block, launches on ``stream``, which captures a CUDA
+    graph, take ``counter`` (zeroed, made before the capture): the graph's
+    launches then share it with no eager launch, which takes its stream's
+    counter, and its replays run one after another."""
+
+    def __init__(self, stream, counter):
+        self.key = (counter.device, stream.cuda_stream)
+        self.counter = counter
+
+    def __enter__(self):
+        _CAPTURING[self.key] = self.counter
+
+    def __exit__(self, *exc):
+        del _CAPTURING[self.key]
 
 
 _lock = threading.Lock()

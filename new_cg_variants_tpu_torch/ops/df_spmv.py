@@ -41,7 +41,7 @@ from functools import partial
 
 import torch
 
-from ._kernels import KERNEL_TILE, check_band, offsets_array
+from ._kernels import KERNEL_TILE, check_band, offsets_array, tickets
 from ._shift import shift
 from .compensated import (
     _df_sum_axis1,
@@ -236,44 +236,6 @@ def df_dense_spmv2(a, lo, lo2, v, w):
     return y, z
 
 
-#: The vector phase's ticket counters, one ``int32`` for each (device,
-#: stream), zero between launches (csrc/df_pipe.cu)
-_TICKETS: dict = {}
-#: the counters of the streams that capture a CUDA graph now
-#: (:class:`CaptureTickets`), by the same key
-_CAPTURING: dict = {}
-
-
-def _tickets(device, stream):
-    """The ticket counter of launches on ``stream`` of ``device``: a
-    capture's own (:class:`CaptureTickets`), else the stream's, allocated
-    zeroed at first use."""
-    key = (device, stream.cuda_stream)
-    t = _CAPTURING.get(key)
-    if t is None:
-        t = _TICKETS.get(key)
-    if t is None:  # zeroed on the current stream, which is ``stream``
-        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return t
-
-
-class CaptureTickets:
-    """Within the block, launches on ``stream``, which captures a CUDA
-    graph, take ``counter`` (zeroed, made before the capture): the graph's
-    launches then share it with no eager launch, which takes its stream's
-    counter, and its replays run one after another."""
-
-    def __init__(self, stream, counter):
-        self.key = (counter.device, stream.cuda_stream)
-        self.counter = counter
-
-    def __enter__(self):
-        _CAPTURING[self.key] = self.counter
-
-    def __exit__(self, *exc):
-        del _CAPTURING[self.key]
-
-
 def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):
     """Double-word pipe vector phase: ``(x2, r2, w2, p2, s2, (mu, delta,
     gamma, nu))`` from the word pairs ``x r w u p s`` and the double-word
@@ -281,9 +243,7 @@ def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):
 
     On the card it is one launch on the current stream: the block that
     finishes last sums the tiles' dot partials, found by a ticket counter
-    that the launch leaves at zero (:func:`_tickets`).  Launches on one
-    stream run one after the other and share their stream's counter, so
-    launches on different streams may run at once."""
+    that the launch leaves at zero (:func:`.._kernels.tickets`)."""
     vecs = (x, r, w, u, p, s)
     words = [t for pair in vecs for t in pair]
     if _where(words) == "cpu":
@@ -308,7 +268,7 @@ def df_pipe_vector_phase(x, r, w, u, p, s, a1, beta):
     rc = library("df_pipe.cu").df_pipe_f32(
         n, _pointers(words), len(words), _pointers(scalars), len(scalars),
         _pointers(outs), len(outs), partials.data_ptr(), dots.data_ptr(),
-        _tickets(ref.device, stream).data_ptr(), ref.device.index,
+        tickets(ref.device, stream).data_ptr(), ref.device.index,
         stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -182,7 +182,7 @@ def df_where(cond, a: DF, b: DF) -> DF:
 
 
 def df_safe_div(num, den):
-    """The double-word form of :func:`..solvers.families._safe_div`: 0 where
+    """The double-word form of :func:`.scalars.safe_div`: 0 where
     the collapsed denominator is exactly 0."""
     if not isinstance(num, DF):
         num = den._coerce(num)

@@ -19,14 +19,22 @@ unpack them positionally) and the update order of its specs:
 
 All are entries of one kernel template over a family spec
 (``csrc/sym_family.cu``), with the band stored in float32, float64 or bf16
-(then with float32 vectors and scalars, as :mod:`.sym_dia`).
+(then with float32 vectors and scalars, as :mod:`.sym_dia`).  Beside those
+nine (``__all__``), which the JAX package has too,
+:func:`fused_sym_pipe_full_step_scalars` is the pipe iteration with its
+scalar epilogue: from the previous state's ``nu``, ``delta``, ``gamma`` and
+alpha ``a1`` it forms ``beta = safe_div(predict_nu(...), nu)`` before the
+update and ``alpha = safe_div(nu2, mu2)`` from the new dots
+(:mod:`.scalars`), in the same launch (the block that finishes last sums
+the dot partials).
 
 On CUDA tensors an entry point launches its hand-written kernel (one pass
 over device memory; scalars are read through device pointers, so no step
-waits for the host) and sums the kernel's per-block dot partials.  On CPU
-tensors it runs the plain PyTorch version beside it (``_*_plain``), which is
-also what the kernel is checked against on the card.  Outputs never alias
-inputs.  Each wrapper counts its launches in ``.launches``.
+waits for the host) and sums the kernel's per-block dot partials (the
+scalar epilogue's kernel sums its own).  On CPU tensors it runs the plain
+PyTorch version beside it (``_*_plain``), which is also what the kernel is
+checked against on the card.  Outputs never alias inputs.  Each wrapper
+counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import ctypes
 import torch
 
 from ._kernels import KERNEL_TILE, SYM_FAMILY_TILE, offsets_array
+from .scalars import predict_nu, safe_div
 from .sym_dia import _mv_plain, check_kernel_args
 
 __all__ = [
@@ -69,6 +78,14 @@ def _pipe_step_plain(offsets, data, x, r, w, u, p, s, a1, beta, recompute,
     dots = (torch.dot(p2, s2), torch.dot(r2, s2), torch.dot(s2, s2),
             torch.dot(r2, r2))
     return x2, r2, w_out, p2, s2, u2, dots
+
+
+def _pipe_step_scalars_plain(offsets, data, x, r, w, u, p, s, nu, delta,
+                             gamma, a1, meurant, recompute, mv=_mv_plain):
+    beta = safe_div(predict_nu(nu, delta, gamma, a1, meurant), nu)
+    *vecs, dots = _pipe_step_plain(offsets, data, x, r, w, u, p, s, a1, beta,
+                                   recompute, mv)
+    return (*vecs, dots, safe_div(dots[3], dots[0]), beta)
 
 
 def _scalar(v, like):
@@ -246,6 +263,69 @@ def fused_sym_pipe_full_step(offsets, data, x, r, w, u, p, s, a1, beta, *,
         offsets, data, (x, r, w, u, p, s), (a1, beta), bool(recompute))
 
 
+def _launch_pipe_scalars(offsets, data, vecs, prev, meurant, recompute):
+    """Launch the pipe entry with its scalar epilogue; returns the vector
+    outputs, the dots, alpha and beta (views of one device buffer)."""
+    from ._kernels import library, tickets
+
+    entry = _entry("fused_sym_pipe_full_step", recompute)
+    _, nout, ndots, nmv = _FAMILY_ENTRIES[entry]
+    n, h, sfx = check_kernel_args(offsets, data, vecs, nmv, entry=entry,
+                                  tile=SYM_FAMILY_TILE)
+    prev = [_scalar(v, vecs[0]) for v in prev]
+    outs = [torch.empty_like(vecs[0]) for _ in range(nout)]
+    partials = torch.empty(partials_shape(n, ndots), dtype=vecs[0].dtype,
+                           device=data.device)
+    scalars = torch.empty(6, dtype=vecs[0].dtype, device=data.device)
+    stream = torch.cuda.current_stream(data.device)
+    ins = (ctypes.c_void_p * len(vecs))(*[v.data_ptr() for v in vecs])
+    prevp = (ctypes.c_void_p * 4)(*[v.data_ptr() for v in prev])
+    outp = (ctypes.c_void_p * nout)(*[o.data_ptr() for o in outs])
+    fn = getattr(library("sym_family.cu"),
+                 f"sym_family_pipe_scalars_{sfx}")
+    rc = fn(int(recompute), int(meurant), data.data_ptr(),
+            offsets_array(tuple(offsets)), len(offsets), h, n, ins, len(vecs),
+            prevp, outp, nout, partials.data_ptr(), scalars.data_ptr(),
+            tickets(data.device, stream).data_ptr(), data.device.index,
+            stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel with its scalar epilogue: launch "
+                           f"failed: CUDA error {rc}")
+    mu, delta, gamma, nu, alpha, beta = scalars.unbind(0)
+    return (*outs, (mu, delta, gamma, nu), alpha, beta)
+
+
+def fused_sym_pipe_full_step_scalars(offsets, data, x, r, w, u, p, s, nu,
+                                     delta, gamma, a1, *, meurant,
+                                     recompute=True):
+    """One whole unpreconditioned pipe-P/PR iteration with its scalar
+    epilogue, from the previous state's ``nu``, ``delta``, ``gamma`` and
+    alpha ``a1``: ``beta = safe_div(predict_nu(nu, delta, gamma, a1,
+    meurant), nu)``, the iteration of :func:`fused_sym_pipe_full_step` with
+    ``a1`` and ``beta``, and ``alpha = safe_div(nu2, mu2)`` of its dots.
+
+    Returns ``(x2, r2, w_out, p2, s2, u2, (mu, delta, gamma, nu), alpha,
+    beta)``, the scalars 0-d tensors on the vectors' device.  On the card it
+    is one launch of :func:`fused_sym_pipe_full_step`'s kernel entry with
+    the epilogue, counted in this wrapper's own ``.launches``; beta and
+    alpha are the plain version's bits on the same dots, and only the dots'
+    sum over the blocks runs in another order (a fixed one: runs repeat bit
+    for bit).
+    """
+    vecs = (x, r, w, u, p, s)
+    prev = (nu, delta, gamma, a1)
+    if all(v.is_cuda for v in vecs):
+        out = _launch_pipe_scalars(offsets, data, vecs, prev, bool(meurant),
+                                   bool(recompute))
+        fused_sym_pipe_full_step_scalars.launches += 1
+        return out
+    if all(v.device.type == "cpu" for v in vecs) and data.device.type == "cpu":
+        return _pipe_step_scalars_plain(offsets, data, *vecs, *prev,
+                                        bool(meurant), bool(recompute))
+    raise ValueError(
+        f"vectors on {[str(v.device) for v in vecs]} with data on {data.device}")
+
+
 def fused_sym_hs_matvec_phase(offsets, data, r, p, beta):
     """Hestenes-Stiefel second phase: ``p2 = r + beta p; s2 = A p2``.
 
@@ -343,5 +423,5 @@ FAMILY_WRAPPERS = (
     fused_sym_pr_full_step_prec, fused_sym_cgcg_matvec_phase_prec,
     fused_sym_gv_matvec_phase_prec, fused_sym_pipe_full_step_prec,
 )
-for _fn in FAMILY_WRAPPERS:
+for _fn in FAMILY_WRAPPERS + (fused_sym_pipe_full_step_scalars,):
     _fn.launches = 0

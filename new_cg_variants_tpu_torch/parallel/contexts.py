@@ -77,7 +77,7 @@ from ..ops.fused_step import (
 from ..ops.spmv_dia import dia_spmv2_ext, dia_spmv_ext
 from ..ops.stencil import window_sum
 from ..ops.sym_dia import sym_dia_spmv, sym_dia_spmv2
-from ..solvers.context import generic_pipe_vector_phase
+from ..solvers.context import generic_pipe_vector_phase, with_torch_scalars
 
 __all__ = [
     "RowShardContext",
@@ -300,11 +300,17 @@ class _MeshContext:
     def pipe_vector_phase(self, x, r, w, u, p, s, a1, beta):
         return generic_pipe_vector_phase(self, x, r, w, u, p, s, a1, beta)
 
-    def pipe_full_step(self, s_, a1, beta, recompute):
+    def pipe_full_step(self, s_, meurant, recompute):
         """The unpreconditioned pipe iteration with its all-reduce under the
-        SpMV: the operations of
+        SpMV (:meth:`_pipe_iteration`), between torch's scalars
+        (:func:`~..solvers.context.with_torch_scalars`)."""
+        return with_torch_scalars(self._pipe_iteration, s_, meurant,
+                                  recompute)
+
+    def _pipe_iteration(self, s_, a1, beta, recompute):
+        """The operations of
         :func:`~..solvers.context.split_pipe_full_step`, in its return
-        order."""
+        order, with the dots' all-reduce started before the SpMV."""
         x, r, w, p, s, parts = self._pipe_vector_partials(
             s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1, beta)
         pending = self._start(parts, 4)
@@ -727,13 +733,13 @@ class ColShardContext(_MeshContext):
         out, dots = self._packed_reduce(partial.T.reshape(-1), pairs)
         return out[:n][self._rows], out[n:][self._rows], dots
 
-    def pipe_full_step(self, s_, a1, beta, recompute):
+    def _pipe_iteration(self, s_, a1, beta, recompute):
         """The unpreconditioned pipe iteration; packed, with the single
         all-reduce of the mpi4py ``pipe_pr_cg`` hot loop
         (``pipe_pr_cg.py:58-83``): vector updates, then one buffer with the
         2-RHS GEMM partials and the four scalars."""
         if not self.packed:
-            return super().pipe_full_step(s_, a1, beta, recompute)
+            return super()._pipe_iteration(s_, a1, beta, recompute)
         x = s_["x"] + a1 * s_["p"]
         r = s_["r"] - a1 * s_["s"]
         w = s_["w"] - a1 * s_["u"]

@@ -17,11 +17,13 @@ from ..ops import fused_family, fused_step, sym_fused
 from ..ops._kernels import KERNEL_DTYPES
 from ..ops.compensated import comp_dot
 from ..ops.operators import DiaOperator
+from ..ops.scalars import predict_nu, safe_div
 from ..ops.sym_dia import SymDiaOperator
 from ..utils.profiling import count
 from .precond import IdentityPreconditioner, JacobiPreconditioner
 
-__all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step"]
+__all__ = ["Context", "generic_pipe_vector_phase", "split_pipe_full_step",
+           "with_torch_scalars"]
 
 
 class Context:
@@ -40,9 +42,11 @@ class Context:
     the CPU and on the card:
 
     * :class:`~..ops.sym_dia.SymDiaOperator`: every unpreconditioned hook
-      applies (:mod:`..ops.sym_fused`); a preconditioned one when the
-      preconditioner is a :class:`~.precond.JacobiPreconditioner` (whose
-      ``inv_diag`` the kernel applies) and no extra norm rides the dot batch
+      applies (:mod:`..ops.sym_fused`; ``pipe_full_step`` forms the step's
+      alpha and beta in the same launch, which no other operator's kernel
+      does); a preconditioned one when the preconditioner is a
+      :class:`~.precond.JacobiPreconditioner` (whose ``inv_diag`` the
+      kernel applies) and no extra norm rides the dot batch
       (:attr:`extra_norm`, set by :func:`~.engine.tolerance_loop`).
     * :class:`~..ops.operators.DiaOperator` whose band qualifies
       (:func:`~..ops.fused_step.supports_full_step`, a function of the
@@ -173,17 +177,37 @@ class Context:
             return getattr(module, "fused_" + name)
         return None
 
-    def pipe_full_step(self, s_, a1, beta, recompute):
-        """Whole unpreconditioned pipe-P/PR iteration: vector phase, dots
-        and SpMV(s).  Returns ``(x2, r2, w_out, p2, s2, u2, (mu, delta,
-        gamma, nu))``, or ``None`` (the caller then takes the split
-        formulation, :func:`split_pipe_full_step`).
+    def pipe_full_step(self, s_, meurant, recompute):
+        """Whole unpreconditioned pipe-P/PR iteration with its scalars:
+        beta from the state's predicted nu, the vector phase, dots and
+        SpMV(s), alpha of the new dots.  Returns ``(x2, r2, w_out, p2, s2,
+        u2, (mu, delta, gamma, nu), alpha, beta)``, or ``None`` (the caller
+        then takes the split formulation, :func:`split_pipe_full_step`,
+        between torch's scalars).  On half-band storage one launch forms
+        the scalars too
+        (:func:`~..ops.sym_fused.fused_sym_pipe_full_step_scalars`, counted
+        ``scalar_epilogues.kernel``); on a full-DIA band torch forms them
+        around the kernel's pass (:func:`with_torch_scalars`).
         """
+        if self.compensated:
+            return None
+        if self._sym:
+            count("scalar_epilogues.kernel")
+            return sym_fused.fused_sym_pipe_full_step_scalars(
+                self.op.offsets, self.op.data,
+                s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"],
+                s_["nu"], s_["delta"], s_["gamma"], s_["a"],
+                meurant=meurant, recompute=recompute)
         fn = self._fused("pipe_full_step")
-        return fn and fn(
-            self.op.offsets, self.op.data,
-            s_["x"], s_["r"], s_["w"], s_["u"], s_["p"], s_["s"], a1, beta,
-            recompute=recompute)
+        if fn is None:
+            return None
+
+        def step(s_, a1, beta, recompute):
+            return fn(self.op.offsets, self.op.data, s_["x"], s_["r"],
+                      s_["w"], s_["u"], s_["p"], s_["s"], a1, beta,
+                      recompute=recompute)
+
+        return with_torch_scalars(step, s_, meurant, recompute)
 
     def pr_full_step(self, s_, a1, beta):
         """Whole unpreconditioned PR/Meurant iteration (beta is predicted,
@@ -290,6 +314,20 @@ def generic_pipe_vector_phase(ctx, x, r, w, u, p, s, a1, beta):
     s2 = w2 + beta * s
     dots = ctx.dots((p2, s2), (r2, s2), (s2, s2), (r2, r2))
     return x2, r2, w2, p2, s2, dots
+
+
+def with_torch_scalars(step, s_, meurant, recompute):
+    """The pipe iteration ``step(s_, a1, beta, recompute)``, which returns
+    its vectors and then its dots ``(mu, delta, gamma, nu)``, with its
+    scalars formed by torch: ``beta = safe_div(predict_nu(...), nu)`` from
+    the state before it, ``alpha = safe_div(nu2, mu2)`` after it
+    (:mod:`..ops.scalars`).  Returns the step's outputs, then alpha and
+    beta.  Counts ``scalar_epilogues.torch``."""
+    count("scalar_epilogues.torch")
+    beta = safe_div(predict_nu(s_["nu"], s_["delta"], s_["gamma"], s_["a"],
+                               meurant), s_["nu"])
+    *vecs, dots = step(s_, s_["a"], beta, recompute)
+    return (*vecs, dots, safe_div(dots[3], dots[0]), beta)
 
 
 def split_pipe_full_step(ctx, s_, a1, beta, recompute):

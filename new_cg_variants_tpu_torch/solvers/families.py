@@ -39,29 +39,17 @@ Python int.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..ops.doublefloat import DF, df_safe_div, df_where
-from .context import split_pipe_full_step
+from ..ops.doublefloat import DF, df_where
+from ..ops.scalars import predict_nu, safe_div
+from ..utils.profiling import count
+from .context import split_pipe_full_step, with_torch_scalars
 
 __all__ = ["FAMILIES", "family_of", "make_gv_step", "make_pipe_step",
            "make_pr_step"]
-
-
-def _safe_div(num, den):
-    """``num / den``, but 0 when ``den`` is exactly 0 — the
-    post-convergence stagnation guard.
-
-    A long fixed-iteration f32 solve underflows ``nu`` to exact zero; the
-    next ``beta = 0/0`` would poison the state with NaN.  With every
-    alpha/beta formed here an exact zero denominator yields 0 and the
-    iterate freezes, finite.  For nonzero denominators the quotient is the
-    plain division, bit for bit.  Double-word values take
-    :func:`~..ops.doublefloat.df_safe_div`.
-    """
-    if isinstance(num, DF) or isinstance(den, DF):
-        return df_safe_div(num, den)
-    return torch.where(den != 0, num / den, 0.0)
 
 
 def _select(cond, a, b):
@@ -75,7 +63,7 @@ def _common_scalars(nu, mu):
     # zeros built like nu, a tensor or a double-word value
     zero = (DF(torch.zeros_like(nu.hi), torch.zeros_like(nu.lo))
             if isinstance(nu, DF) else torch.zeros_like(nu))
-    return dict(nu=nu, mu=mu, a=_safe_div(nu, mu), a1=zero, a2=zero, b=zero,
+    return dict(nu=nu, mu=mu, a=safe_div(nu, mu), a1=zero, a2=zero, b=zero,
                 b1=zero, k=0)
 
 
@@ -131,7 +119,7 @@ def hs_step(ctx, s_):
     extra = _norm_pair(ctx, r, rt)
     out = ctx.dots((r, rt), *extra)  # sync 1
     nu = out[0]
-    beta = _safe_div(nu, s_["nu"])
+    beta = safe_div(nu, s_["nu"])
     # second sync phase fused: p update + SpMV + mu in one pass.  The phase
     # never touches M, so it serves hs_pcg (rt input) too.
     fused = None if extra else ctx.hs_matvec_phase(rt, s_["p"], beta)
@@ -141,7 +129,7 @@ def hs_step(ctx, s_):
         p = rt + beta * s_["p"]
         s = ctx.mv(p)
         (mu,) = ctx.dots((p, s))  # sync 2
-    new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, a=_safe_div(nu, mu), b=beta)
+    new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, a=safe_div(nu, mu), b=beta)
     if extra:
         new["rho"] = out[-1]
     if ctx.has_prec:
@@ -181,21 +169,21 @@ def cgcg_step(ctx, s_):
             pass  # the context has no such kernel: the generic body below
         elif not ctx.has_prec:
             x, r, w, (nu, eta) = fused
-            beta = _safe_div(nu, s_["nu"])
+            beta = safe_div(nu, s_["nu"])
             p = r + beta * s_["p"]  # rt = r (unpreconditioned)
             s = w + beta * s_["s"]
-            mu = eta - _safe_div(beta, a1) * nu
+            mu = eta - safe_div(beta, a1) * nu
             new = dict(x=x, r=r, w=w, p=p, s=s, nu=nu, eta=eta, mu=mu,
-                       a=_safe_div(nu, mu), b=beta)
+                       a=safe_div(nu, mu), b=beta)
             return _rotate(s_, new)
         else:
             x, r, rt, w, (nu, eta) = fused
-            beta = _safe_div(nu, s_["nu"])
+            beta = safe_div(nu, s_["nu"])
             p = rt + beta * s_["p"]
             s = w + beta * s_["s"]
-            mu = eta - _safe_div(beta, a1) * nu
+            mu = eta - safe_div(beta, a1) * nu
             new = dict(x=x, r=r, w=w, p=p, s=s, nu=nu, eta=eta, mu=mu,
-                       a=_safe_div(nu, mu), b=beta, rt=rt)
+                       a=safe_div(nu, mu), b=beta, rt=rt)
             return _rotate(s_, new)
     x = s_["x"] + a1 * s_["p"]
     r = s_["r"] - a1 * s_["s"]
@@ -204,12 +192,12 @@ def cgcg_step(ctx, s_):
     extra = _norm_pair(ctx, r, rt)
     out = ctx.dots((r, rt), (w, rt), *extra)  # the single fused sync
     nu, eta = out[0], out[1]
-    beta = _safe_div(nu, s_["nu"])
+    beta = safe_div(nu, s_["nu"])
     p = rt + beta * s_["p"]
     s = w + beta * s_["s"]
-    mu = eta - _safe_div(beta, a1) * nu  # scalar recurrence replaces the mu dot
+    mu = eta - safe_div(beta, a1) * nu  # scalar recurrence replaces the mu dot
     new = dict(x=x, r=r, w=w, p=p, s=s, nu=nu, eta=eta, mu=mu,
-               a=_safe_div(nu, mu), b=beta)
+               a=safe_div(nu, mu), b=beta)
     if extra:
         new["rho"] = out[-1]
     if ctx.has_prec:
@@ -276,24 +264,24 @@ def make_gv_step(w_replace=None, stateful=False):
                 pass  # no such kernel: the generic body below
             elif not ctx.has_prec:
                 x, r, w, t, (nu, eta) = fused
-                beta = _safe_div(nu, s_["nu"])
+                beta = safe_div(nu, s_["nu"])
                 p = r + beta * s_["p"]  # rt = r (unpreconditioned)
                 s = w + beta * s_["s"]
                 u = t + beta * s_["u"]
-                mu = eta - _safe_div(beta, a1) * nu
+                mu = eta - safe_div(beta, a1) * nu
                 new = dict(x=x, r=r, w=w, p=p, s=s, u=u, nu=nu, eta=eta,
-                           mu=mu, a=_safe_div(nu, mu), b=beta)
+                           mu=mu, a=safe_div(nu, mu), b=beta)
                 return _rotate(s_, new)
             else:
                 x, r, rt, w, wt, t, (nu, eta) = fused
-                beta = _safe_div(nu, s_["nu"])
+                beta = safe_div(nu, s_["nu"])
                 p = rt + beta * s_["p"]
                 s = w + beta * s_["s"]
                 u = t + beta * s_["u"]
                 st = wt + beta * s_["st"]
-                mu = eta - _safe_div(beta, a1) * nu
+                mu = eta - safe_div(beta, a1) * nu
                 new = dict(x=x, r=r, w=w, p=p, s=s, u=u, nu=nu, eta=eta,
-                           mu=mu, a=_safe_div(nu, mu), b=beta, rt=rt, wt=wt,
+                           mu=mu, a=safe_div(nu, mu), b=beta, rt=rt, wt=wt,
                            st=st)
                 return _rotate(s_, new)
         x = s_["x"] + a1 * s_["p"]
@@ -320,13 +308,13 @@ def make_gv_step(w_replace=None, stateful=False):
         extra = _norm_pair(ctx, r, rt)
         t, out = ctx.mv_dots(wt, ((r, rt), (w, rt)) + extra)
         nu, eta = out[0], out[1]
-        beta = _safe_div(nu, s_["nu"])
+        beta = safe_div(nu, s_["nu"])
         p = rt + beta * s_["p"]
         s = w + beta * s_["s"]
         u = t + beta * s_["u"]
-        mu = eta - _safe_div(beta, a1) * nu
+        mu = eta - safe_div(beta, a1) * nu
         new = dict(x=x, r=r, w=w, p=p, s=s, u=u, nu=nu, eta=eta, mu=mu,
-                   a=_safe_div(nu, mu), b=beta)
+                   a=safe_div(nu, mu), b=beta)
         if new_wrep is not None:
             new["wrep"] = new_wrep
         if extra:
@@ -346,16 +334,9 @@ def make_gv_step(w_replace=None, stateful=False):
 
 
 def _predict_nu(meurant: bool, s_):
-    """Predicted nu_k from iteration-(k-1) scalars.
-
-    PR:      nu = nu1 - 2*a1*delta1 + a1^2*gamma1
-    Meurant: nu = -nu1 + a1^2*gamma1
-    (cf. cg_variants/pr_cg.py:62-63)
-    """
-    a1 = s_["a"]
-    if meurant:
-        return -s_["nu"] + a1 * a1 * s_["gamma"]
-    return s_["nu"] - 2.0 * a1 * s_["delta"] + a1 * a1 * s_["gamma"]
+    """Predicted nu_k from iteration-(k-1) scalars
+    (:func:`~..ops.scalars.predict_nu`)."""
+    return predict_nu(s_["nu"], s_["delta"], s_["gamma"], s_["a"], meurant)
 
 
 def pr_init(ctx, b, x0):
@@ -377,7 +358,7 @@ def make_pr_step(meurant: bool):
     def pr_step(ctx, s_):
         a1 = s_["a"]
         nu_pred = _predict_nu(meurant, s_)
-        beta_pred = _safe_div(nu_pred, s_["nu"])
+        beta_pred = safe_div(nu_pred, s_["nu"])
         if ctx.extra_norm is None:
             # beta is PREDICTED (known at entry), so the whole iteration is
             # one pass: x, r(, rt) updates + p update + s = A p (+ st =
@@ -390,12 +371,12 @@ def make_pr_step(meurant: bool):
             elif not ctx.has_prec:
                 x, r, p, s, (mu, delta, gamma, nu) = fused
                 new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, delta=delta,
-                           gamma=gamma, a=_safe_div(nu, mu), b=beta_pred)
+                           gamma=gamma, a=safe_div(nu, mu), b=beta_pred)
                 return _rotate(s_, new)
             else:
                 x, r, rt, p, s, st_, (mu, delta, gamma, nu) = fused
                 new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, delta=delta,
-                           gamma=gamma, a=_safe_div(nu, mu), b=beta_pred,
+                           gamma=gamma, a=safe_div(nu, mu), b=beta_pred,
                            rt=rt, st=st_)
                 return _rotate(s_, new)
         x = s_["x"] + a1 * s_["p"]
@@ -414,7 +395,7 @@ def make_pr_step(meurant: bool):
         out = ctx.dots((p, s), (r, st_), (st_, s), (rt, r), *extra)
         mu, delta, gamma, nu = out[:4]
         new = dict(x=x, r=r, p=p, s=s, nu=nu, mu=mu, delta=delta,
-                   gamma=gamma, a=_safe_div(nu, mu), b=beta)
+                   gamma=gamma, a=safe_div(nu, mu), b=beta)
         if extra:
             new["rho"] = out[-1]
         if ctx.has_prec:
@@ -452,21 +433,25 @@ def pipe_init(ctx, b, x0):
 
 def make_pipe_step(meurant: bool, recompute: bool):
     def pipe_step(ctx, s_):
+        if not ctx.has_prec:
+            # the whole iteration with its scalars (beta from the predicted
+            # nu before it, alpha after it): in one kernel pass when the
+            # context has one (Context.pipe_full_step), else the split
+            # formulation between torch's scalars; identical update order
+            # either way
+            fused = ctx.pipe_full_step(s_, meurant, recompute)
+            if fused is None:
+                fused = with_torch_scalars(
+                    functools.partial(split_pipe_full_step, ctx), s_,
+                    meurant, recompute)
+            x, r, w, p, s, u, (mu, delta, gamma, nu), a, beta = fused
+            new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
+                       delta=delta, gamma=gamma, a=a, b=beta)
+            return _rotate(s_, new)
+        count("scalar_epilogues.torch")
         a1 = s_["a"]
         nu_pred = _predict_nu(meurant, s_)
-        beta = _safe_div(nu_pred, s_["nu"])
-        if not ctx.has_prec:
-            # the whole iteration: vector phase + dot batch + SpMV(s) in one
-            # kernel pass (Context.pipe_full_step) when the context has one,
-            # else the split formulation: vector phase, then mv2 / mv;
-            # identical update order either way
-            fused = ctx.pipe_full_step(s_, a1, beta, recompute)
-            if fused is None:
-                fused = split_pipe_full_step(ctx, s_, a1, beta, recompute)
-            x, r, w, p, s, u, (mu, delta, gamma, nu) = fused
-            new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
-                       delta=delta, gamma=gamma, a=_safe_div(nu, mu), b=beta)
-            return _rotate(s_, new)
+        beta = safe_div(nu_pred, s_["nu"])
         # Preconditioned: the whole iteration with both PCApplies in one
         # pass when the context qualifies (the PETSc overlapped
         # MatMult + PCApply region, pipeprcg.c:162-170), then the fused
@@ -476,7 +461,7 @@ def make_pipe_step(meurant: bool, recompute: bool):
         if fused is not None:
             x, r, w, p, s, u, rt, st_, wt, ut, (mu, delta, gamma, nu) = fused
             new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
-                       delta=delta, gamma=gamma, a=_safe_div(nu, mu), b=beta,
+                       delta=delta, gamma=gamma, a=safe_div(nu, mu), b=beta,
                        rt=rt, st=st_, wt=wt, ut=ut)
             return _rotate(s_, new)
         vec = ctx.pipe_vector_phase_prec(s_, a1, beta)
@@ -489,7 +474,7 @@ def make_pipe_step(meurant: bool, recompute: bool):
                 u = ctx.mv(st_)
             ut = ctx.prec(u)
             new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu,
-                       delta=delta, gamma=gamma, a=_safe_div(nu, mu), b=beta,
+                       delta=delta, gamma=gamma, a=safe_div(nu, mu), b=beta,
                        rt=rt, st=st_, wt=wt, ut=ut)
             return _rotate(s_, new)
         x = s_["x"] + a1 * s_["p"]
@@ -514,7 +499,7 @@ def make_pipe_step(meurant: bool, recompute: bool):
         if recompute:
             wt = ctx.prec(w)
         new = dict(x=x, r=r, p=p, s=s, w=w, u=u, nu=nu, mu=mu, delta=delta,
-                   gamma=gamma, a=_safe_div(nu, mu), b=beta, rt=rt, st=st_,
+                   gamma=gamma, a=safe_div(nu, mu), b=beta, rt=rt, st=st_,
                    wt=wt, ut=ut)
         if extra:
             new["rho"] = out[-1]

@@ -18,9 +18,9 @@ captured step reads and the end of every captured chunk writes:
 
 * *Warm-up.*  The loop's first step runs eagerly, on the stream that then
   captures, so that what a step builds at first use (a kernel library,
-  cuBLAS' workspace of that stream, row 11's ticket counter, NCCL's
-  communicator at a group's first collective) exists outside the graphs'
-  memory pool and before any capture begins.  That step is the run's own
+  cuBLAS' workspace of that stream, the ticket counter of rows 2 and 11,
+  NCCL's communicator at a group's first collective) exists outside the
+  graphs' memory pool and before any capture begins.  That step is the run's own
   first step, not a throwaway one.
 * *Collectives.*  ``torch.distributed`` on NCCL captures a collective: its
   stream joins the capture through the events it waits on and records,
@@ -70,7 +70,7 @@ import weakref
 
 import torch
 
-from ..ops import df_spmv
+from ..ops import _kernels
 from ..ops.doublefloat import DF
 from ..utils.profiling import count, span
 
@@ -279,9 +279,10 @@ class Store:
 class CudaCapture:
     """Captures CUDA graphs on a stream of its own, into one memory pool.
 
-    Replays run on the caller's current stream, one after another.  Row 11's
-    launches in a graph take this object's own ticket counter
-    (:class:`..ops.df_spmv.CaptureTickets`), allocated zeroed before any
+    Replays run on the caller's current stream, one after another.  The
+    launches of rows 2 (with its scalar epilogue) and 11 in a graph take
+    this object's own ticket counter
+    (:class:`..ops._kernels.CaptureTickets`), allocated zeroed before any
     capture: no eager launch on any stream uses it, so none can run while a
     replay does.  ``capture_seconds`` / ``instantiate_seconds`` add up the
     host time of the captures' bodies and of ending them (which instantiates
@@ -324,7 +325,8 @@ class CudaCapture:
                     1, dtype=torch.int32, device=self.device))
         g = torch.cuda.CUDAGraph()
         reserved = _reserved(self.device)
-        with self.side(), df_spmv.CaptureTickets(self.stream, self.tickets):
+        with self.side(), _kernels.CaptureTickets(self.stream,
+                                                  self.tickets):
             t0 = time.perf_counter()
             g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
             try:

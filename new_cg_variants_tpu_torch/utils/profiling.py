@@ -56,6 +56,12 @@ The counters (cumulative over the process; seconds are host seconds):
                        generic body (``.generic``), counted when the
                        step's Python runs: each eager step and each
                        capture, never a replay of a captured graph
+``scalar_epilogues.*`` pipe steps whose scalars (beta, alpha) the half-band
+                       kernel formed (``.kernel``:
+                       ``Context.pipe_full_step`` on half-band storage) or
+                       torch (``.torch``: ``with_torch_scalars`` and the
+                       preconditioned steps), counted as
+                       ``vector_phases.*`` are
 =====================  ====================================================
 
 The spans: ``solve`` (``api.solve`` / ``api.run``), ``build``

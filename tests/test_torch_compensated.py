@@ -201,7 +201,7 @@ def test_compensated_context_declines_every_fused_phase(problems32):
     ctx = Context(top, None, compensated=True)
     v = torch.ones(top.n)
     s_ = dict.fromkeys(("x", "r", "w", "u", "p", "s"), v)
-    assert ctx.pipe_full_step(s_, 0.5, 0.5, True) is None
+    assert ctx.pipe_full_step(s_, False, True) is None
     assert ctx.pr_full_step(s_, 0.5, 0.5) is None
     assert ctx.hs_matvec_phase(v, v, 0.5) is None
     assert ctx.cgcg_matvec_phase(s_, 0.5) is None

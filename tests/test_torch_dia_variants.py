@@ -460,8 +460,9 @@ def test_context_choice_reads_the_operator_kind_only(sband, spd64):
         n = op.n
         s_ = {k: v[:n] for k, v in state.items()}
         ctx = Context(op, port.make_preconditioner("jacobi", op))
-        assert (Context(op).pipe_full_step(s_, one, one, True) is not None) \
-            == full
+        scalars = dict(s_, nu=one, delta=one, gamma=one, a=one)
+        assert (Context(op).pipe_full_step(scalars, False, True)
+                is not None) == full
         assert (ctx.pipe_vector_phase_prec(s_, one, one) is not None) \
             == vec_prec
         assert (ctx.pipe_full_step_prec(s_, one, one, True) is not None) \

@@ -267,7 +267,7 @@ def test_double_float_context_declines_every_fused_phase():
     v = tdf.df_split(np.ones(top.n), device="cpu")
     s_ = dict.fromkeys(("x", "r", "w", "u", "p", "s", "rt", "st", "wt", "ut"),
                        v)
-    for hook, args in (("pipe_full_step", (s_, v, v, True)),
+    for hook, args in (("pipe_full_step", (s_, False, True)),
                        ("pipe_full_step_prec", (s_, v, v, True)),
                        ("pr_full_step", (s_, v, v)),
                        ("pr_full_step_prec", (s_, v, v)),

@@ -30,8 +30,9 @@ from new_cg_variants_tpu_torch.convert import (
     state_from_numpy,
     state_to_numpy,
 )
+from new_cg_variants_tpu_torch.ops.scalars import safe_div
 from new_cg_variants_tpu_torch.solvers.context import Context
-from new_cg_variants_tpu_torch.solvers.families import FAMILIES, _safe_div
+from new_cg_variants_tpu_torch.solvers.families import FAMILIES
 
 N, K = 4096, 32
 ITERS = 25
@@ -183,11 +184,11 @@ def test_fixed_iteration_solve_runs_max_iter(kappa_100):
 def test_safe_div_freezes_on_zero_denominator():
     num = torch.tensor([1.0, 0.0, -2.0], dtype=torch.float64)
     den = torch.tensor([0.0, 0.0, 4.0], dtype=torch.float64)
-    out = _safe_div(num, den)
+    out = safe_div(num, den)
     assert torch.equal(out, torch.tensor([0.0, 0.0, -0.5], dtype=torch.float64))
     zero = torch.zeros((), dtype=torch.float32)
-    assert _safe_div(zero, zero).item() == 0.0
-    assert _safe_div(zero, zero).dtype == torch.float32
+    assert safe_div(zero, zero).item() == 0.0
+    assert safe_div(zero, zero).dtype == torch.float32
 
 
 @pytest.mark.parametrize("variant,kw,exc", [

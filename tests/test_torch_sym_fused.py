@@ -4,10 +4,13 @@ The port's ``fused_sym_pipe_full_step`` takes its plain PyTorch version on
 CPU tensors (the CUDA kernel is held against that same version on the card by
 ``chip_smoke.py``).  Here it is compared in float64 with the JAX Pallas kernel
 in interpret mode, from one random state, and with the port's own split
-formulation (vector phase + ``mv2``).  The mirror sums run in another order
+formulation (vector phase + ``mv2``, between torch's scalars, as the
+context's ``pipe_full_step`` is).  The mirror sums run in another order
 than the JAX kernel's roll-and-spill decomposition, so agreement is to
 rtol 1e-12 normwise, not bitwise.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,7 @@ from new_cg_variants_tpu_torch.ops import sym_fused as tsf
 from new_cg_variants_tpu_torch.solvers.context import (
     Context,
     split_pipe_full_step,
+    with_torch_scalars,
 )
 
 RTOL = 1e-12
@@ -99,10 +103,16 @@ def test_split_path_matches_fused_and_jax_generic(problem, recompute):
     ctx = Context(top)
     state = dict(zip(("x", "r", "w", "u", "p", "s"),
                      (torch.from_numpy(v) for v in vecs)))
-    a1 = torch.tensor(A1, dtype=torch.float64)
-    beta = torch.tensor(BETA, dtype=torch.float64)
-    split = split_pipe_full_step(ctx, state, a1, beta, recompute)
-    fused = ctx.pipe_full_step(state, a1, beta, recompute)
+    # the previous scalars predict beta = BETA (to rounding) for alpha A1
+    state.update({k: torch.tensor(v, dtype=torch.float64) for k, v in (
+        ("nu", 1.0), ("delta", (1.0 - BETA) / (2.0 * A1)), ("gamma", 0.0),
+        ("a", A1))})
+    split = with_torch_scalars(functools.partial(split_pipe_full_step, ctx),
+                               state, False, recompute)
+    fused = ctx.pipe_full_step(state, False, recompute)
+    assert torch.equal(fused[8], split[8])
+    np.testing.assert_allclose(float(fused[8]), BETA, rtol=1e-15)
+    np.testing.assert_allclose(float(fused[7]), float(split[7]), rtol=RTOL)
     jvec, jdots = _jax_generic_step(jop, vecs, recompute)
     r2, p2, s2 = (fused[i].numpy() for i in (1, 3, 4))
     pairs = ((p2, s2), (r2, s2), (s2, s2), (r2, r2))

@@ -304,6 +304,7 @@ def fused_calls(monkeypatch):
 
     for fn in sym_fused.FAMILY_WRAPPERS:
         count(sym_fused, fn.__name__)
+    count(sym_fused, "fused_sym_pipe_full_step_scalars")
     count(sym_dia, "sym_dia_spmv")
     count(sym_dia, "sym_dia_spmv2")
     return calls
@@ -322,13 +323,14 @@ INIT_SPMVS = {"hs": 2, "cg": 3, "gv": 3, "pr": 2, "m": 2}
 @pytest.mark.parametrize("name", NAMES)
 def test_one_fused_call_per_iteration(sband, fused_calls, name):
     """Unpreconditioned and Jacobi runs: the family's own entry once per
-    iteration, the SpMV wrapper in init only, nothing else."""
+    iteration (the unpreconditioned pipe names: with its scalar epilogue),
+    the SpMV wrapper in init only, nothing else."""
     _, top, b = sband
     port.solve(top, b, variant=name, preconditioner=_jacobi(name),
                max_iter=7, norm_type="none", device="cpu")
     base = name.rsplit("_", 1)[0]
     entry = FUSED_ENTRY.get(name, "pipe_full_step_prec" if name.endswith("pcg")
-                            else "pipe_full_step")
+                            else "pipe_full_step_scalars")
     assert fused_calls == {"fused_sym_" + entry: 7,
                            "sym_dia_spmv": INIT_SPMVS.get(base, 3)}
 

@@ -300,12 +300,17 @@ def _counts(case):
 def _split(case):
     """The context's overlapped pipe step against the split formulation
     (vector phase with its own all-reduce, then the products) on one state
-    past init: the largest difference of any output (vectors and dots)
-    relative to the largest value, or ``None`` where the context declines
-    the step."""
+    past init: the largest difference of any output (vectors, dots and, for
+    the unpreconditioned step, alpha and beta) relative to the largest
+    value, or ``None`` where the context declines the step."""
+    import functools
+
     from new_cg_variants_tpu_torch.ops.doublefloat import DF
     from new_cg_variants_tpu_torch.parallel import dist as pdist
-    from new_cg_variants_tpu_torch.solvers.context import split_pipe_full_step
+    from new_cg_variants_tpu_torch.solvers.context import (
+        split_pipe_full_step,
+        with_torch_scalars,
+    )
 
     mesh = pdist.make_mesh(device="cpu")
     local = _local_solve(case, mesh)
@@ -314,8 +319,9 @@ def _split(case):
     s_ = step_fn(ctx, local.init_fn(ctx, local.b, local.x0))
     a1, beta = s_["a"], s_["b"]
     if not pcg:
-        fused = ctx.pipe_full_step(s_, a1, beta, True)
-        split = split_pipe_full_step(ctx, s_, a1, beta, True)
+        fused = ctx.pipe_full_step(s_, False, True)
+        split = with_torch_scalars(
+            functools.partial(split_pipe_full_step, ctx), s_, False, True)
     else:
         fused = ctx.pipe_full_step_prec(s_, a1, beta, True)
         vec = ctx.pipe_vector_phase_prec(s_, a1, beta)
@@ -330,9 +336,8 @@ def _split(case):
         return [t.hi, t.lo] if isinstance(t, DF) else [t]
 
     def flat(out):
-        *vecs, dots = out
-        return torch.cat([w.reshape(-1) for t in (*vecs, *dots)
-                          for w in words(t)])
+        items = [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+        return torch.cat([w.reshape(-1) for t in items for w in words(t)])
 
     got, want = flat(fused), flat(split)
     return float((got - want).abs().max() / want.abs().max())
